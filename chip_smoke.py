@@ -9,13 +9,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card, the software versions, and the build of the CUDA kernels from
    ``src/repro_torch/csrc`` (into ``build/kernels/``);
 2. each kernel against its plain PyTorch version on the card, bit for bit
-   with every NaN made canonical, across the precision families, carried
-   splits (``k_floor``), pinned splits, evidence, and padded shapes;
-3. the paper's experiment on the fused plane: heat1d (nx=128, 4000 steps)
-   and swe2d (128x128, 400 steps) over the mode ladder, with the paper's
-   verdicts and the kernels' launch counts asserted, and swe2d at 60 steps
-   against the rows of ``artifacts/bench/BENCH_pde.json``;
-4. the fused plane against the reference plane at the paper's sizes;
+   with every NaN made canonical: K2 and K3 across the precision families,
+   carried splits (``k_floor``), pinned splits, evidence, and padded shapes;
+   K4 (both megakernels) over the mode ladder at full width, with evolving,
+   growing, pinned and bounded trackers, snapshots and evidence;
+3. the paper's experiment on the fused plane, then on the megakernel plane
+   and through ``execution="auto"``: heat1d (nx=128, 4000 steps) and swe2d
+   (128x128, 400 steps) over the mode ladder, with the paper's verdicts and
+   each plane's launch counts asserted (counts zeroed right before each
+   ladder), and swe2d at 60 steps against the rows of
+   ``artifacts/bench/BENCH_pde.json`` on both planes;
+4. the fused plane against the reference plane, and the megakernel plane
+   against the fused plane, at the paper's sizes;
 5. kernel times (CUDA events) beside their bounds and the plain versions.
 
 It prints the card's name and power limit, then one JSON line of kernel
@@ -40,6 +45,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 HEAT_CHUNK = 500  # substeps per fused chunk on the main path (4000 // 8)
+SWE_EVERY = 100  # the swe2d snapshot cadence on the main path (400 // 4)
 BENCH_JSON = os.path.join(ROOT, "artifacts", "bench", "BENCH_pde.json")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
@@ -89,6 +95,8 @@ def canon_bits(t):
 
 
 def same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
     return a.shape == b.shape and bool((canon_bits(a) == canon_bits(b)).all())
 
 
@@ -116,7 +124,9 @@ def measure(out, ref, judge):
     return dict(rel=rel, corr=corr, status=status)
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
+def cuda_time_ms(fn, reps: int, warmup: int = 1):
+    """Mean ms per call over ``reps`` calls after ``warmup`` calls, and the
+    last call's result."""
     import torch
 
     for _ in range(warmup):
@@ -125,10 +135,10 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def card_line() -> str:
@@ -231,21 +241,92 @@ def check_kernels(device, heat_steps):
     return errs, records
 
 
+def mega_cases(device):
+    """(kernel, label, input, kwargs) for kernel K4 at full width: heat1d's
+    (128,) rod at 120 substeps with every=50 and swe2d's (3, 128, 128)
+    state at 12 substeps with every=5 (each a remainder after the last
+    snapshot), over the ladder and with evolving, growing (k0=0), pinned
+    and bounded trackers."""
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
+    from repro_torch.precision import get_engine
+
+    L = ladder()
+    hcfg, scfg = heat_cfg.CONFIG, swe_cfg.CONFIG
+    u = initial_condition(hcfg, device=device)
+    U = initial_state(scfg, device=device)
+    sites = {"heat1d": ("heat.flux", "heat.update"), "swe2d": ("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div")}
+    base = {
+        "heat1d": dict(alpha=hcfg.alpha, dtodx2=hcfg.dtodx2, steps=120, every=50, sites=sites["heat1d"]),
+        "swe2d": dict(cfg=scfg, steps=12, every=5, sites=sites["swe2d"], site_ops=("mul", "mul", "mul", "div")),
+    }
+    state = {"heat1d": u, "swe2d": U}
+    tracked = L["rr_tracked"]
+    cases = []
+    for kern in ("heat1d", "swe2d"):
+        n = len(sites[kern])
+        pinned_k = 2 if kern == "heat1d" else 3  # swe2d's h*h needs k=3
+        extra = {
+            "rr_tracked k0=0": (tracked, 0),
+            f"rr_tracked pinned k={pinned_k}": (dataclasses.replace(tracked, pinned=True), pinned_k),
+            "rr_tracked k_bounds (1,2)": (dataclasses.replace(tracked, k_bounds=((1, 2),) * n), None),
+        }
+        for name, prec in L.items():
+            trk = tracker_init(n, prec.fmt, device=device) if get_engine(prec).tracks else None
+            cases.append((kern, name, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
+        for name, (prec, k0) in extra.items():
+            trk = tracker_init(n, prec.fmt, k0=k0, device=device)
+            cases.append((kern, name, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
+    return cases
+
+
+def check_mega(device):
+    """Every K4 case: state, snapshots, evidence and every tracker field
+    bit-equal to ``mega_sweep_plain`` on the same device."""
+    from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
+
+    entry = {"heat1d": heat1d_mega, "swe2d": swe2d_mega}
+    records = []
+    errs = {"heat1d_mega": 0.0, "swe2d_mega": 0.0}
+    for kern, label, x, kw in mega_cases(device):
+        got = entry[kern](x, **kw)
+        want = entry[kern](x, plain=True, **kw)
+        ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps)
+        ok = ok and same_bits(got.evidence, want.evidence)
+        if want.tracker is not None:
+            ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker))
+        err = max(max_abs_err(got.state, want.state), max_abs_err(got.snaps, want.snaps))
+        name = f"{kern}_mega"
+        errs[name] = max(errs[name], err)
+        trk = "" if got.tracker is None else f" k={got.tracker.k.tolist()} adj=+{int(got.tracker.overflow_steps.sum())}/-{int(got.tracker.shrink_steps.sum())}"
+        log(f"K4 {name} {label} steps={kw['steps']} every={kw['every']}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{trk}")
+        records.append(dict(kernel=name, case=label, ok=ok, max_abs_err=err))
+        require(ok, f"{name} disagrees with its plain version: {label}")
+    return errs, records
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the paper's ladder on the fused plane
+# phase 3: the paper's ladder on the fused and megakernel planes
 # ---------------------------------------------------------------------------
 
 
 def counters():
     from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+    from repro_torch.kernels.mega import HEAT1D_MEGA, SWE2D_MEGA
     from repro_torch.kernels.swe_flux import SWE_FLUX
 
-    return {"heat1d_sweep": HEAT1D_SWEEP, "swe_flux_fused": SWE_FLUX}
+    return {
+        "heat1d_sweep": HEAT1D_SWEEP, "swe_flux_fused": SWE_FLUX,
+        "heat1d_mega": HEAT1D_MEGA, "swe2d_mega": SWE2D_MEGA,
+    }
 
 
-def run_ladder(device, heat_steps, swe_steps, precs_by_case):
-    """The fused-plane ladder. Returns rows and the launch totals read right
-    after the loop (counters zeroed right before it)."""
+def run_ladder(device, heat_steps, swe_steps, precs_by_case, execution="fused"):
+    """The ladder on one plane. Returns rows and the launch totals read
+    right after the loop (counters zeroed right before it)."""
     import numpy as np
     import torch
 
@@ -272,11 +353,11 @@ def run_ladder(device, heat_steps, swe_steps, precs_by_case):
             before = {k: (c.launches, c.plain_calls) for k, c in ctr.items()}
             torch.cuda.synchronize() if device != "cpu" else None
             t0 = time.perf_counter()
-            res = sim.run(steps, execution="fused")
+            res = sim.run(steps, execution=execution)
             torch.cuda.synchronize() if device != "cpu" else None
             us = (time.perf_counter() - t0) * 1e6 / steps
             out = np.asarray(sim.stepper.observables(res.state, cfg).cpu()) - offset
-            row = dict(case=case, prec=prec_name, us_per_step=us, steps=steps, **measure(out, refs[case], judge))
+            row = dict(case=case, prec=prec_name, execution=execution, us_per_step=us, steps=steps, **measure(out, refs[case], judge))
             row["launches"] = {k: c.launches - before[k][0] for k, c in ctr.items()}
             row["plain_calls"] = {k: c.plain_calls - before[k][1] for k, c in ctr.items()}
             if res.tracker is not None:
@@ -287,16 +368,26 @@ def run_ladder(device, heat_steps, swe_steps, precs_by_case):
     return rows, totals
 
 
+def plane_kernel(case, execution) -> str:
+    """The counter that one run of ``case`` on a plane launches."""
+    if execution == "fused":
+        return "heat1d_sweep" if case == "heat1d" else "swe_flux_fused"
+    return f"{case}_mega"
+
+
 def format_row(r) -> str:
-    kern = "heat1d_sweep" if r["case"] == "heat1d" else "swe_flux_fused"
+    kern = plane_kernel(r["case"], r["execution"])
     derived = f"rel={r['rel']:.4f};corr={r['corr']:.4f};{r['status']};launches={r['launches'][kern]}"
     if "adj" in r:
         derived += f";adj=+{r['adj'][0]}/-{r['adj'][1]}"
-    return f"pde/{r['case']}/{r['prec']}/fused,{r['us_per_step']:.1f},{derived}"
+    return f"pde/{r['case']}/{r['prec']}/{r['execution']},{r['us_per_step']:.1f},{derived}"
 
 
 def check_ladder(rows, heat_steps, swe_steps):
-    """The paper's verdicts and the launch contract of the main path."""
+    """The paper's verdicts and the launch contract of one plane: the fused
+    plane launches K2 once per chunk and K3 once per step; the megakernel
+    plane (and ``auto``, which resolves to it) launches K4 once per run.
+    Every other kernel launches no time, and no plain version runs."""
     by = {(r["case"], r["prec"]): r for r in rows}
     require(by[("swe2d", "e5m10")]["status"] == "DESTROYED(NaN)", "swe2d e5m10 is not destroyed")
     require(by[("swe2d", "r2f2_16")]["status"] == "CORRECT", "swe2d r2f2_16 is not correct")
@@ -304,9 +395,14 @@ def check_ladder(rows, heat_steps, swe_steps):
     require(by[("heat1d", "r2f2_16")]["status"] == "CORRECT", "heat1d r2f2_16 is not correct")
     require(by[("heat1d", "r2f2_16")]["rel"] < 0.1, "heat1d r2f2_16 rel >= 0.1")
     for r in rows:
-        kern, want = ("heat1d_sweep", heat_steps // HEAT_CHUNK) if r["case"] == "heat1d" else ("swe_flux_fused", swe_steps)
-        require(r["launches"][kern] == want, f"{r['case']}/{r['prec']}: {r['launches'][kern]} {kern} launches, want {want}")
-        require(sum(r["plain_calls"].values()) == 0, f"{r['case']}/{r['prec']}: plain versions ran on the card")
+        kern = plane_kernel(r["case"], r["execution"])
+        want = 1
+        if r["execution"] == "fused":
+            want = heat_steps // HEAT_CHUNK if r["case"] == "heat1d" else swe_steps
+        others = {k: v for k, v in r["launches"].items() if k != kern}
+        require(r["launches"][kern] == want, f"{r['case']}/{r['prec']}/{r['execution']}: {r['launches'][kern]} {kern} launches, want {want}")
+        require(not any(others.values()), f"{r['case']}/{r['prec']}/{r['execution']}: other kernels launched: {others}")
+        require(sum(r["plain_calls"].values()) == 0, f"{r['case']}/{r['prec']}/{r['execution']}: plain versions ran on the card")
 
 
 def bench_rows():
@@ -332,7 +428,7 @@ def check_bench(rows):
         rel = "nan" if r["rel"] != r["rel"] else f"{r['rel']:.4f}"
         adj = None if "adj" not in r else f"+{r['adj'][0]}/-{r['adj'][1]}"
         ok = rel == w["rel"] and adj == w["adj"] and r["status"] == w["status"]
-        lines.append(f"swe2d 60 steps {r['prec']}: rel={rel} adj={adj} {r['status']} vs BENCH_pde.json rel={w['rel']} adj={w['adj']} {w['status']}: {'match' if ok else 'MISMATCH'}")
+        lines.append(f"swe2d 60 steps {r['execution']} {r['prec']}: rel={rel} adj={adj} {r['status']} vs BENCH_pde.json rel={w['rel']} adj={w['adj']} {w['status']}: {'match' if ok else 'MISMATCH'}")
         log(lines[-1])
         require(ok, f"swe2d {r['prec']} at 60 steps disagrees with BENCH_pde.json")
     require(len(lines) >= 4, "too few swe2d rows matched BENCH_pde.json")
@@ -370,9 +466,60 @@ def check_planes(device, heat_steps, swe_steps):
     return out
 
 
+def check_mega_planes(device, heat_steps, swe_steps):
+    """The megakernel plane against the fused plane at full horizons, six
+    modes: state, snapshots and every tracker field bit-identical."""
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.pde import Simulation
+
+    L = ladder()
+    out = []
+    for case, cfg, steps in (("heat1d", heat_cfg.CONFIG, heat_steps), ("swe2d", swe_cfg.CONFIG, swe_steps)):
+        for name in ("f32", "bf16", "e5m10", "r2f2_16", "deploy", "rr_tracked"):
+            sim = Simulation(case, cfg, L[name], device=device)
+            fus, meg = sim.run(steps, execution="fused"), sim.run(steps, execution="megakernel")
+            ok = same_bits(fus.state, meg.state) and same_bits(fus.snapshots, meg.snapshots)
+            what = "state, snapshots"
+            if fus.tracker is not None:
+                ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(fus.tracker.state, meg.tracker.state))
+                what += f", tracker (k {meg.tracker.state.k.tolist()})"
+            line = f"megakernel vs fused {case} {name} {steps} steps: {what} bit-identical: {'ok' if ok else 'MISMATCH'}"
+            log(line)
+            out.append(line)
+            require(ok, line)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
+
+
+def swe_flops_per_substep(nx, ny) -> int:
+    """f32 operations that one Lax-Wendroff step of ``pde/swe2d.py`` needs
+    (an fma counts two; the policy's integer rounding work is not counted),
+    each counted only where a later read or a block maximum uses it. The
+    interior update reads Fx on columns 1..ny-2 and Gy on rows 1..nx-2; the
+    block maxima read Ux's h and hu and both policy products everywhere.
+
+    - mom(hu, h) (5) everywhere, for Ux's hu;
+    - hu*hv/h (2), F's third and G's second component, everywhere but the
+      corners (Ux's hv on inner columns, Uy on inner rows);
+    - mom(hv, h) (5) on inner rows, for Uy's hv;
+    - Ux: h and hu (5 each) everywhere, hv (5) on inner columns;
+    - Uy: three half steps (5 each) on inner rows;
+    - Fx: q1*q1 and q3*q3 (1 each) everywhere, the divide, the fma and
+      hu*hv/h (5) on inner columns;
+    - Gy: hu*hv/h and mom(hv, h) (7) on inner rows;
+    - the interior update: two subtractions, two fmas per component (18).
+    """
+    n, nxm = nx * ny, (nx - 1) * ny
+    ux_in, uy_in, nint = (nx - 1) * (ny - 2), (nx - 2) * (ny - 1), (nx - 2) * (ny - 2)
+    fluxes = 5 * n + 2 * (n - 4) + 5 * (nx - 2) * ny
+    half_steps = 10 * nxm + 5 * ux_in + 15 * uy_in
+    midpoint_fluxes = 2 * nxm + 5 * ux_in + 7 * uy_in
+    return fluxes + half_steps + midpoint_fluxes + 18 * nint
 
 
 def time_kernels(device, main_launches, errs, card):
@@ -380,9 +527,12 @@ def time_kernels(device, main_launches, errs, card):
     import torch
 
     from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
     from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
     from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
     from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
 
     L = ladder()
     cfg = heat_cfg.CONFIG
@@ -399,30 +549,72 @@ def time_kernels(device, main_launches, errs, card):
     swe_bytes = 3 * q1.numel() * 4  # q1, q3 in, flux out
     swe_flops = q1.numel() * 5  # three products, one quotient, one add
 
+    # K4 at the main path's horizons: heat1d 4000 substeps with a snapshot
+    # every 500, swe2d 400 with one every 100
+    hsteps, ssteps = 4000, 400
+    mk = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=L["r2f2_16"], steps=hsteps, every=HEAT_CHUNK,
+              sites=("heat.flux", "heat.update"))
+    scfg = swe_cfg.CONFIG
+    U = initial_state(scfg, device=device)
+    mk_swe = dict(cfg=scfg, prec=L["r2f2_16"], steps=ssteps, every=SWE_EVERY,
+                  sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"), site_ops=("mul", "mul", "mul", "div"))
+    u1 = u[0]
+    heat_mega_bytes = (2 + hsteps // HEAT_CHUNK) * u1.numel() * 4  # rod in, rod out, snapshots
+    heat_mega_flops = hsteps * n_int * 6
+    swe_mega_bytes = (2 + ssteps // SWE_EVERY) * U.numel() * 4  # state in, state out, snapshots
+    swe_mega_flops = ssteps * swe_flops_per_substep(scfg.nx, scfg.ny)
+
     def bound(nbytes, flops):
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
+    def same_result(a, b):
+        """Kernel and plain outputs of one timed call, bit for bit."""
+        if isinstance(a, tuple) and not hasattr(a, "state"):
+            return all(same_bits(x, y) for x, y in zip(a, b))
+        ok = same_bits(a.state, b.state) and same_bits(a.snaps, b.snaps) and same_bits(a.evidence, b.evidence)
+        return ok and (a.tracker is None) == (b.tracker is None)
+
+    # (name, source, replaces, kernel, plain, bound, kernel reps, plain reps,
+    # plain warm-up calls, shape); the plain K4 runs once, cold, at the full
+    # horizon (tens of seconds), and its result is held against the kernel's
     recs = []
     specs = [
-        ("heat1d_sweep", "src/repro/kernels/heat_stencil.py:65",
-         lambda: heat1d_sweep(u, **hk), lambda: heat1d_sweep_plain(u, **hk), bound(heat_bytes, heat_flops), 20, 2,
+        ("heat1d_sweep", "fused_pde.cu", "src/repro/kernels/heat_stencil.py:65",
+         lambda: heat1d_sweep(u, **hk), lambda: heat1d_sweep_plain(u, **hk), bound(heat_bytes, heat_flops), 20, 2, 1,
          f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch"),
-        ("swe_flux_fused", "src/repro/kernels/swe_flux.py:51",
-         lambda: swe_flux_fused(q1, q3, **sk), lambda: swe_flux_fused_plain(q1, q3, **sk), bound(swe_bytes, swe_flops), 200, 5,
+        ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
+         lambda: swe_flux_fused(q1, q3, **sk), lambda: swe_flux_fused_plain(q1, q3, **sk), bound(swe_bytes, swe_flops), 200, 5, 1,
          "(127,128) r2f2_16, one tile"),
+        ("heat1d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:503",
+         lambda: heat1d_mega(u1, **mk), lambda: heat1d_mega(u1, plain=True, **mk), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
+         f"(128,) r2f2_16, one {hsteps}-substep horizon per launch"),
+        ("swe2d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:607",
+         lambda: swe2d_mega(U, **mk_swe), lambda: swe2d_mega(U, plain=True, **mk_swe), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
+         f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch"),
     ]
-    for name, replaces, kern, plain, (bound_ms, bound_by), reps, plain_reps, shape in specs:
-        ms = cuda_time_ms(kern, reps)
-        plain_ms = cuda_time_ms(plain, plain_reps)
-        line = (f"time {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-                f"({bound_by}), library call: none [{card}]")
+    for name, src, replaces, kern, plain, (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
+        ms, got = cuda_time_ms(kern, reps)
+        plain_ms, want = cuda_time_ms(plain, plain_reps, warmup=plain_warmup)
+        ok = same_result(got, want)
+        line = (f"time {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
+                f"bound {bound_ms:.6f} ms ({bound_by}), library call: none; kernel vs plain of the timed calls: "
+                f"{'bit-exact' if ok else 'MISMATCH'} [{card}]")
         log(line)
+        require(ok, f"{name} disagrees with its plain version at the timed shape")
         recs.append(dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/fused_pde.cu", replaces=replaces,
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
             launches=main_launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         ))
+    # the tracked horizons, for the record (the adjust unit ticks every substep)
+    for name, fn, x, kw, n_sites in (("heat1d_mega", heat1d_mega, u1, mk, 2), ("swe2d_mega", swe2d_mega, U, mk_swe, 4)):
+        from repro_torch.core.policy import tracker_init
+
+        kw = dict(kw, prec=L["rr_tracked"])
+        trk = tracker_init(n_sites, kw["prec"].fmt, device=device)
+        ms, _ = cuda_time_ms(lambda: fn(x, tracker=trk, **kw), 5)
+        log(f"time {name} rr_tracked, one horizon: kernel {ms:.4f} ms [{card}]")
     return recs
 
 
@@ -451,7 +643,7 @@ def main(argv) -> int:
     lib = _cuda.build()
     build_s = time.perf_counter() - t0
     _cuda.library()
-    log(f"build: {lib.name} in {build_s:.1f} s (nvcc {' '.join(_cuda.NVCC_FLAGS)})")
+    log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)})")
     log_path = lib.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
@@ -460,7 +652,9 @@ def main(argv) -> int:
     report["build_s"] = build_s
 
     errs, records = check_kernels(device, 100 if quick else HEAT_CHUNK)
-    report["kernel_checks"] = records
+    mega_errs, mega_records = check_mega(device)
+    errs.update(mega_errs)
+    report["kernel_checks"] = records + mega_records
     if quick:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -468,19 +662,29 @@ def main(argv) -> int:
 
     heat_steps, swe_steps = 4000, 400
     six = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked", "deploy")
-    rows, totals = run_ladder(device, heat_steps, swe_steps, {"heat1d": six, "swe2d": six + ("r2f2_16_384",)})
-    for r in rows:
-        log(format_row(r))
-    check_ladder(rows, heat_steps, swe_steps)
-    main_launches = {k: v[0] for k, v in totals.items()}
-    log(f"main path launches: {main_launches}; plain-version calls: { {k: v[1] for k, v in totals.items()} }")
-    require(all(v > 0 for v in main_launches.values()), "a kernel of the main path never launched")
-    require(all(v[1] == 0 for v in totals.values()), "plain versions ran on the main path")
-    report["ladder"] = rows
+    plan = {"heat1d": six, "swe2d": six + ("r2f2_16_384",)}
+    main_launches = {}
+    report["ladder"] = []
+    for execution, kernels in (("fused", ("heat1d_sweep", "swe_flux_fused")), ("megakernel", ("heat1d_mega", "swe2d_mega")),
+                               ("auto", ("heat1d_mega", "swe2d_mega"))):
+        rows, totals = run_ladder(device, heat_steps, swe_steps, plan, execution)
+        for r in rows:
+            log(format_row(r))
+        check_ladder(rows, heat_steps, swe_steps)
+        launches = {k: totals[k][0] for k in kernels}
+        log(f"{execution} path launches: { {k: v[0] for k, v in totals.items()} }; plain-version calls: { {k: v[1] for k, v in totals.items()} }")
+        require(all(v > 0 for v in launches.values()), f"a kernel of the {execution} path never launched")
+        require(all(v[1] == 0 for v in totals.values()), f"plain versions ran on the {execution} path")
+        if execution != "auto":
+            main_launches.update(launches)
+        report["ladder"] += rows
 
-    bench, _ = run_ladder(device, heat_steps, 60, {"heat1d": (), "swe2d": ("e5m10", "r2f2_16", "r2f2_16_384", "bf16", "rr_tracked")})
-    report["bench_compare"] = check_bench(bench)
-    report["planes"] = check_planes(device, 1000, swe_steps)
+    bench_precs = {"heat1d": (), "swe2d": ("e5m10", "r2f2_16", "r2f2_16_384", "bf16", "rr_tracked")}
+    report["bench_compare"] = []
+    for execution in ("fused", "megakernel"):
+        bench, _ = run_ladder(device, heat_steps, 60, bench_precs, execution)
+        report["bench_compare"] += check_bench(bench)
+    report["planes"] = check_planes(device, 1000, swe_steps) + check_mega_planes(device, heat_steps, swe_steps)
 
     recs = time_kernels(device, main_launches, errs, card)
     report["kernels"] = recs

@@ -6,6 +6,7 @@
 //   select_k, ...      core/r2f2.py (split widths in integer logic)
 //   block_max_u32      kernels/blockops.py::block_max_exp (as a CTA reduction)
 //   family_mul/div     kernels/fused.py::FusedOps.mul / .div
+//   adjust_tick        core/policy.py::adjust_step (one site's tick)
 //
 // Build with --fmad=false -prec-div=true -ftz=false, so that nvcc contracts
 // nothing on its own and keeps subnormals. The one fused multiply-add is
@@ -175,6 +176,72 @@ __device__ __forceinline__ float family_div(float a, float b, int k, const Polic
       return quantize_em(__fdiv_rn(quantize_em(a, e, m, -1), quantize_em(b, e, m, -1)), e, m, -1);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The adjust unit (core/policy.py::adjust_step), one site's tick in f32 and
+// integer logic, as the megakernels run it once per site per substep.
+
+enum AdjustOp : int { kOpMul = 0, kOpDiv = 1 };
+
+// One site's carried tracker row.
+struct SiteState {
+  int k;
+  float hi, lo;  // the EMAs of the exponent envelope
+  int ov, sh;    // grow and shrink events
+};
+
+// The tick's constants: ema and 1 - ema rounded once to f32 on the host.
+struct AdjustLaw {
+  float ema, one_minus;
+  int headroom;
+  int eb, fx;
+};
+
+// max/min that take the first argument on ties, as the reference's
+// maximum/minimum do (fmaxf/fminf promise nothing for +0 and -0).
+__device__ __forceinline__ float pick_max(float a, float b) { return a >= b ? a : b; }
+__device__ __forceinline__ float pick_min(float a, float b) { return a <= b ? a : b; }
+
+// core/r2f2.py::op_bounds in f32: the exponent envelope of one op on clusters
+// topped at (ae, be).
+__device__ __forceinline__ void op_bounds(int op, float ae, float be, float& hi, float& lo) {
+  if (op == kOpDiv) {
+    const float q = __fsub_rn(ae, be);
+    hi = pick_max(pick_max(ae, be), __fadd_rn(q, 1.0f));
+    lo = pick_min(pick_min(ae, be), __fsub_rn(q, 1.0f));
+  } else {
+    const float p = __fadd_rn(ae, be);
+    hi = pick_max(pick_max(ae, be), __fadd_rn(p, 1.0f));
+    lo = pick_min(pick_min(ae, be), p);
+  }
+}
+
+// core/policy.py::_k_for: the split covering [lo, hi] after the f32 bounds
+// are truncated toward zero, as .to(int32) does.
+__device__ __forceinline__ int k_for(float hi, float lo, const AdjustLaw& law) {
+  const int e_hi = needed_e_bits(__float2int_rz(hi), law.eb, law.fx);
+  const int e_lo = needed_e_bits_lo(__float2int_rz(lo), law.eb, law.fx);
+  return max(e_hi, e_lo) - law.eb;
+}
+
+// One tick: fold the evidence (ae, be) into the row, grow on demand, shrink
+// only toward the EMA's need, clamp to [k_lo, k_hi], count both events.
+__device__ __forceinline__ void adjust_tick(SiteState& st, float ae, float be, int op, int k_lo, int k_hi,
+                                            const AdjustLaw& law) {
+  float step_hi, step_lo;
+  op_bounds(op, ae, be, step_hi, step_lo);
+  // the compiled reference fuses the EMA's first product: fma(ema, old, (1-ema)*new)
+  st.hi = pick_max(__fmaf_rn(law.ema, st.hi, __fmul_rn(law.one_minus, step_hi)), step_hi);
+  st.lo = pick_min(__fmaf_rn(law.ema, st.lo, __fmul_rn(law.one_minus, step_lo)), step_lo);
+  const float h = static_cast<float>(law.headroom);
+  const int need_now = k_for(__fadd_rn(step_hi, h), __fsub_rn(step_lo, h), law);
+  const int need_ema = k_for(__fadd_rn(st.hi, h), __fsub_rn(st.lo, h), law);
+  int k_new = max(need_now, min(st.k, need_ema));
+  k_new = min(max(k_new, k_lo), k_hi);
+  st.ov += k_new > st.k;
+  st.sh += k_new < st.k;
+  st.k = k_new;
 }
 
 // Max of v over the CTA, returned to every thread. blockDim.x must be a

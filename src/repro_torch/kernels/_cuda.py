@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA sources (``src/repro_torch/csrc``).
 
 The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use and lands in
+interface, loaded with ``ctypes``: one ``nvcc -c`` per source, all started
+together, then one link. The build runs at first use and lands in
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads at once.
 """
@@ -18,18 +19,20 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KernelCounter", "build", "library", "policy_args", "check", "ptr", "stream_of", "NVCC_FLAGS"]
+__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_pde.cu",)
+SOURCES = ("fused_pde.cu", "mega_pde.cu")
 HEADERS = ("r2f2_device.cuh",)
+#: the one target, for the compile and the link
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: IEEE arithmetic as the reference runs it: no fma contraction, IEEE
 #: division, subnormals kept (never --use_fast_math)
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    *GENCODE, "-std=c++17", "-O3",
     "--fmad=false", "-prec-div=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
@@ -38,6 +41,12 @@ _SIGNATURES = {
     "r2f2_heat1d_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F] + [_I] * 8 + [_P],
     # q1, q3, out, ev, k_floor, rows, width, br, bw, c, policy(8), stream
     "r2f2_swe_flux": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F] + [_I] * 8 + [_P],
+    # u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, steps, every,
+    # alpha, dtodx2, ema, 1 - ema, headroom, policy(8), stream
+    "r2f2_heat1d_mega": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
+    # u_in, u_out, snaps, ev, work, maxes, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny,
+    # steps, every, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
+    "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,27 +76,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit's release and build)."""
+    res = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True)
+    return res.stdout.strip().splitlines()[-1] if res.returncode == 0 and res.stdout.strip() else "unknown"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libfused_pde_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile the sources unless a library for this exact source hash
-    exists; the compiler's register/shared-memory report lands beside it."""
+    exists: every source at once, then one link. The compiler's
+    register/shared-memory report lands beside the library."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+    failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = out.with_name(f"{tag}.tmp")
+    res = subprocess.run(
+        [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"linking the kernels failed with exit code {res.returncode}:\n{res.stderr}")
+    out.with_suffix(".log").write_text("\n".join(logs) + res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
 

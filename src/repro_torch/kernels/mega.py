@@ -1,0 +1,351 @@
+"""Kernel K4: the whole-horizon megakernel (``mega_sweep``).
+
+A megakernel runs an ENTIRE simulation horizon in one launch: ``steps``
+substeps of a stepper body, the state snapshots at every ``every``-th
+substep, and the paper's adjust unit ticking once per site per substep on
+the card. Where the fused plane re-enters its kernel per snapshot interval
+and folds the chunk's evidence on the host, here the carried tracker rows
+``(k, hi_ema, lo_ema, overflow_steps, shrink_steps)`` stay in the kernel
+and evolve through :func:`repro_torch.core.policy.adjust_step`'s law.
+
+The semantics are those of ``repro/kernels/mega.py`` for ``storage="f32"``
+without capture:
+
+* the body runs at one block per state leaf (the whole field, no padding);
+* a non-pinned policy with a tracker (``evolve``) ticks the tracker every
+  substep, but the datapath floor ``ka`` latches to the tracker's split
+  only at snapshot boundaries (``(s + 1) % every == 0``), the cadence at
+  which the fused plane folds. The two planes are therefore bit-identical;
+* a pinned policy with a tracker (``has_floor``) runs at the tracker's
+  fixed splits and leaves the tracker as it is;
+* the remainder substeps after the last boundary run in the same launch;
+* per-substep evidence ``(steps, n_sites, 2)`` comes back on request.
+
+:func:`mega_sweep` launches a stepper's CUDA kernel for CUDA tensors and
+runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
+tensors; a CUDA tensor takes the plain version only with ``plain=True``.
+:data:`HEAT1D_MEGA` and :data:`SWE2D_MEGA` count each kernel's launches and
+its plain runs. The two CUDA kernels live in ``csrc/mega_pde.cu``:
+``heat1d_mega_kernel`` (one CTA, the rod in shared memory) and ``swe2d_mega_kernel`` (a cooperative grid, the Lax-Wendroff
+intermediates in global memory, which the 50 MB L2 holds at this size).
+
+Replaces the TPU kernel ``repro/kernels/mega.py::mega_sweep``
+(``_mega_kernel``) running ``heat1d_mega`` and ``swe2d_mega``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch._device import f32_scalar
+from repro_torch.core.policy import RangeTracker, adjust_step
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
+from repro_torch.precision.fusion import fused_family
+
+__all__ = [
+    "MegaResult",
+    "HEAT1D_MEGA",
+    "SWE2D_MEGA",
+    "mega_sweep",
+    "mega_sweep_plain",
+    "heat1d_mega",
+    "swe2d_mega",
+]
+
+#: per stepper: launches of its CUDA kernel and runs of its plain version
+HEAT1D_MEGA = _cuda.KernelCounter("heat1d_mega")
+SWE2D_MEGA = _cuda.KernelCounter("swe2d_mega")
+#: the adjust unit's op codes in csrc/r2f2_device.cuh
+OP_CODES = {"mul": 0, "div": 1}
+#: shared memory heat1d_mega may take (the rod and a scratch row)
+SMEM_LIMIT = 200 * 1024
+
+
+class MegaResult(NamedTuple):
+    """Everything one whole-horizon launch produces."""
+
+    state: Tuple[torch.Tensor, ...]  # the advanced leaves
+    snaps: Tuple[torch.Tensor, ...]  # per leaf, (n_out, *leaf.shape) boundary snapshots
+    tracker: Optional[RangeTracker]  # the evolved tracker (the input one when pinned)
+    evidence: Optional[torch.Tensor]  # (steps, n_sites, 2) f32, when requested
+
+
+def _site_ops(sites, site_ops):
+    ops = ("mul",) * len(sites) if site_ops is None else tuple(site_ops)
+    if len(ops) != len(sites):
+        raise ValueError(f"site_ops covers {len(ops)} entries for {len(sites)} sites")
+    return ops
+
+
+def mega_sweep_plain(
+    body: Callable,
+    state: Sequence[torch.Tensor],
+    *,
+    prec,
+    sites: Tuple[str, ...],
+    site_ops: Optional[Tuple[str, ...]] = None,
+    steps: int,
+    every: int,
+    tracker: Optional[RangeTracker] = None,
+    collect_evidence: bool = False,
+) -> MegaResult:
+    """The plain PyTorch version of :func:`mega_sweep`, on any device:
+    ``body(leaves, ops)`` once per substep over the whole leaves, with
+    :class:`FusedOps` at the latched floor and :func:`adjust_step` per site."""
+    sites = tuple(sites)
+    ops_of = _site_ops(sites, site_ops)
+    st = tuple(x.to(torch.float32) for x in state)
+    evolve = tracker is not None and not prec.pinned
+    has_floor = tracker is not None and prec.pinned
+    collect = evolve or bool(collect_evidence)
+    n_out = steps // every
+    snaps = tuple(x.new_empty((n_out,) + tuple(x.shape)) for x in st)
+    trk = tuple(tracker) if evolve else None  # (hi_ema, lo_ema, k, overflow_steps, shrink_steps)
+    floor = tracker.k if has_floor else (tracker.k.clone() if evolve else None)
+    evs = []
+    for s in range(steps):
+        ops = FusedOps(prec, sites, k_floor=floor, collect=collect, site_ops=site_ops)
+        new = tuple(body(st, ops))
+        if len(new) != len(st):
+            raise ValueError(f"mega body returned {len(new)} leaves for {len(st)} state leaves")
+        if collect:
+            missing = [n for n in sites if n not in ops.evidence]
+            if missing:
+                raise ValueError(f"mega body never reached sites {missing}")
+            ev = torch.stack([torch.stack(ops.evidence[n]) for n in sites])
+            if collect_evidence:
+                evs.append(ev)
+        if evolve:
+            hi, lo, k, ov, sh = trk
+            rows = [
+                adjust_step(
+                    k[j], hi[j], lo[j], ov[j], sh[j], ev[j, 0], ev[j, 1], prec, ops_of[j],
+                    k_bounds=None if prec.k_bounds is None else prec.k_bounds[j],
+                )
+                for j in range(len(sites))
+            ]
+            k, hi, lo, ov, sh = (torch.stack(col) for col in zip(*rows))
+            trk = (hi, lo, k.to(torch.int32), ov.to(torch.int32), sh.to(torch.int32))
+        if (s + 1) % every == 0:
+            if evolve:
+                floor = trk[2]
+            for snap, v in zip(snaps, new):
+                snap[(s + 1) // every - 1] = v
+        st = new
+    out_tracker = RangeTracker(*trk) if evolve else tracker
+    evidence = None
+    if collect_evidence:
+        evidence = torch.stack(evs) if evs else st[0].new_empty((0, len(sites), 2))
+    return MegaResult(st, snaps, out_tracker, evidence)
+
+
+def mega_sweep(
+    body: Callable,
+    state: Sequence[torch.Tensor],
+    *,
+    prec,
+    sites: Tuple[str, ...],
+    site_ops: Optional[Tuple[str, ...]] = None,
+    steps: int,
+    every: int,
+    tracker: Optional[RangeTracker] = None,
+    collect_evidence: bool = False,
+    kernel: Optional[Callable] = None,
+    counter: Optional[_cuda.KernelCounter] = None,
+    plain: bool = False,
+    capture=None,
+    storage: str = "f32",
+) -> MegaResult:
+    """Run a whole horizon, ``steps`` substeps with a snapshot every
+    ``every``, in one launch.
+
+    ``kernel(leaves, steps=, every=, tracker=, evolve=, collect=)`` launches
+    the stepper's CUDA kernel and returns a :class:`MegaResult`; it runs for
+    CUDA tensors unless ``plain`` and counts its own launch. CPU tensors (or
+    ``plain``) take :func:`mega_sweep_plain`, counted on ``counter``.
+    Storage other than f32 and capture raise with their ROADMAP items.
+    """
+    if storage != "f32":
+        raise NotImplementedError(STORAGE_PENDING)
+    if capture is not None:
+        raise NotImplementedError(CAPTURE_PENDING)
+    if every < 1:
+        raise ValueError(f"snapshot cadence must be positive; got every={every}")
+    if fused_family(prec.mode) is None:
+        raise ValueError(f"mode {prec.mode!r} has no fused arithmetic family; run it on the reference plane")
+    _site_ops(sites, site_ops)
+    if tracker is not None and len(tracker.k) != len(sites):
+        raise ValueError(f"tracker has {len(tracker.k)} rows for {len(sites)} sites")
+    if prec.k_bounds is not None and len(prec.k_bounds) != len(sites):
+        raise ValueError(f"k_bounds covers {len(prec.k_bounds)} sites; the body has {len(sites)}")
+    leaves = [x.to(torch.float32) for x in state]
+    if leaves[0].is_cuda and not plain:
+        if kernel is None:
+            raise RuntimeError("this mega body has no CUDA kernel; pass CPU tensors to run its plain version")
+        return kernel(
+            leaves, steps=steps, every=every, tracker=tracker,
+            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence),
+        )
+    if counter is not None:
+        counter.plain_calls += 1
+    return mega_sweep_plain(
+        body, leaves, prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
+        tracker=tracker, collect_evidence=collect_evidence,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the two CUDA kernels' launches
+# ---------------------------------------------------------------------------
+
+
+def _adjust_args(prec, sites, site_ops, device):
+    """The adjust unit's per-site table ``(n_sites, 3)`` int32 (op code,
+    k_lo, k_hi) and its scalars: ema and 1 - ema rounded once to f32, and
+    the headroom."""
+    ops = _site_ops(sites, site_ops)
+    bounds = prec.k_bounds or ((-(2**30), 2**30),) * len(sites)
+    table = torch.tensor(
+        [[OP_CODES[op], lo, hi] for op, (lo, hi) in zip(ops, bounds)], dtype=torch.int32
+    ).to(device)
+    ema = float(f32_scalar(prec.ema, "cpu"))
+    one_minus = float(f32_scalar(1.0 - prec.ema, "cpu"))
+    return table, ema, one_minus, int(prec.headroom)
+
+
+def _tracker_buffers(tracker, evolve, device):
+    """Output copies of the tracker rows that the kernel updates in place
+    (evolve), or the pinned split row (has_floor), or nothing."""
+    if tracker is None:
+        return None, (None,) * 5
+    t = RangeTracker(
+        hi_ema=tracker.hi_ema.to(device, torch.float32).contiguous().clone(),
+        lo_ema=tracker.lo_ema.to(device, torch.float32).contiguous().clone(),
+        k=tracker.k.to(device, torch.int32).contiguous().clone(),
+        overflow_steps=tracker.overflow_steps.to(device, torch.int32).contiguous().clone(),
+        shrink_steps=tracker.shrink_steps.to(device, torch.int32).contiguous().clone(),
+    )
+    if not evolve:
+        return tracker, (t.k, None, None, None, None)
+    return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
+
+
+def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites):
+    (u,) = leaves
+    u = u.contiguous()
+    if u.dim() != 2 or u.shape[0] != 1:
+        raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
+    nx = u.shape[1]
+    if nx < 3 or 2 * nx * 4 > SMEM_LIMIT:
+        raise ValueError(f"heat1d_mega holds the rod in shared memory: 3 <= nx <= {SMEM_LIMIT // 8}; got {nx}")
+    if len(sites) != 2:
+        raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
+    dev = u.device
+    n_out = steps // every
+    out = torch.empty_like(u)
+    snaps = torch.empty((n_out, 1, nx), dtype=torch.float32, device=dev)
+    ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
+    tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.r2f2_heat1d_mega(
+            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev),
+            _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh), _cuda.ptr(table),
+            int(evolve), nx, steps, every, float(alpha), float(dtodx2), ema, one_minus, headroom,
+            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
+        )
+    _cuda.check(err, "heat1d_mega")
+    HEAT1D_MEGA.launches += 1
+    return MegaResult((out,), (snaps,), tracker_out, ev)
+
+
+def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops):
+    (U,) = leaves
+    U = U.contiguous()
+    if U.dim() != 3 or U.shape[0] != 3 or min(U.shape[1:]) < 3:
+        raise ValueError(f"swe2d_mega takes a (3, nx, ny) state with nx, ny >= 3; got {tuple(U.shape)}")
+    if len(sites) != 4 or _site_ops(sites, site_ops) != ("mul", "mul", "mul", "div"):
+        raise ValueError(f"swe2d_mega's sites are (q1q1, q3q3, gq3, div) as mul, mul, mul, div; got {site_ops}")
+    _, nx, ny = U.shape
+    dev = U.device
+    n_out = steps // every
+    out = torch.empty_like(U)
+    snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
+    ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
+    # the Lax-Wendroff intermediates, and per substep the four grid-wide
+    # magnitude maxima (zeroed here, so the kernel resets nothing)
+    work = torch.empty(17 * nx * ny, dtype=torch.float32, device=dev)
+    maxes = torch.zeros((max(steps, 1), 4), dtype=torch.int32, device=dev)
+    tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
+    ka = None if k is None else k.clone()  # the datapath floor, latched at boundaries
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev)
+    consts = [float(f32_scalar(v, "cpu")) for v in (
+        cfg.dt / (2 * cfg.dx), cfg.dt / (2 * cfg.dy), cfg.dt / cfg.dx, cfg.dt / cfg.dy, 0.5 * 9.81,
+    )]
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.r2f2_swe2d_mega(
+            _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work), _cuda.ptr(maxes),
+            _cuda.ptr(ka), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh),
+            _cuda.ptr(table), int(evolve), nx, ny, steps, every, *consts,
+            ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(U),
+        )
+    _cuda.check(err, "swe2d_mega")
+    SWE2D_MEGA.launches += 1
+    return MegaResult((out,), (snaps,), tracker_out, ev)
+
+
+# ---------------------------------------------------------------------------
+# per-stepper whole-horizon entries (the steppers' mega_step hooks)
+# ---------------------------------------------------------------------------
+
+
+def heat1d_mega(
+    u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
+    capture=None, storage="f32", plain=False,
+) -> MegaResult:
+    """Whole-horizon 1-D heat run of the ``(nx,)`` rod; snapshots come back
+    as ``(n_out, nx)``."""
+    from repro_torch.kernels.heat_stencil import _heat1d_body
+
+    nx = u0.shape[-1]
+    kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites))
+    res = mega_sweep(
+        _heat1d_body(float(alpha), float(dtodx2), sites), (u0.reshape(1, nx),), prec=prec, sites=sites,
+        steps=steps, every=every, tracker=tracker, collect_evidence=collect_evidence, kernel=kernel,
+        counter=HEAT1D_MEGA, plain=plain, capture=capture, storage=storage,
+    )
+    (out,), (snaps,) = res.state, res.snaps
+    return res._replace(state=out.reshape(nx), snaps=snaps.reshape(snaps.shape[0], nx))
+
+
+def _swe2d_body(cfg, sites):
+    """One whole Lax-Wendroff update: the substituted momentum flux on the
+    megakernel's FusedOps, every other sub-equation in f32."""
+    from repro_torch.pde.swe2d import _lw_step, _momentum_flux
+
+    def body(state, ops):
+        (U,) = state
+        return (_lw_step(U, cfg, lambda q1, q3: _momentum_flux(q1, q3, ops)),)
+
+    return body
+
+
+def swe2d_mega(
+    U0, *, cfg, prec, steps, every, sites, site_ops, tracker=None, collect_evidence=False,
+    capture=None, storage="f32", plain=False,
+) -> MegaResult:
+    """Whole-horizon shallow-water run of the stacked ``(3, nx, ny)`` state."""
+    kernel = functools.partial(_launch_swe2d, cfg=cfg, prec=prec, sites=tuple(sites), site_ops=tuple(site_ops))
+    res = mega_sweep(
+        _swe2d_body(cfg, sites), (U0,), prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
+        tracker=tracker, collect_evidence=collect_evidence, kernel=kernel, counter=SWE2D_MEGA, plain=plain,
+        capture=capture, storage=storage,
+    )
+    (out,), (snaps,) = res.state, res.snaps
+    return res._replace(state=out, snaps=snaps)

@@ -92,3 +92,12 @@ class Heat1DStepper(Stepper):
             sites=self.sites, k_floor=k_floor, collect_evidence=collect_evidence,
         )
         return out[0], ev
+
+    def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None):
+        """The whole horizon in one launch of kernel K4 (``heat1d_mega``)."""
+        from repro_torch.kernels.mega import heat1d_mega
+
+        return heat1d_mega(
+            u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
+            tracker=tracker,
+        )

@@ -4,11 +4,14 @@
   plus its named policy sites;
 * :class:`StepOps` is the per-step arithmetic context: ``mul/div/add/rsqrt``
   route through the precision engine and thread the tracker;
-* :class:`Simulation` drives the snapshot loop on two planes:
-  ``"reference"`` steps the ``StepOps`` path one update at a time, and
+* :class:`Simulation` drives the snapshot loop on three planes:
+  ``"reference"`` steps the ``StepOps`` path one update at a time;
   ``"fused"`` runs whole snapshot intervals through the stepper's
   ``fused_step`` hook (the CUDA kernels) and folds the kernels' per-site
-  evidence into the carried tracker between chunks.
+  evidence into the carried tracker between chunks; ``"megakernel"`` runs
+  the whole horizon, snapshots and adjust unit included, in one launch of
+  the stepper's ``mega_step`` hook. ``"auto"`` picks the megakernel where
+  it is eligible, else the fused plane, else the reference.
 
 The loops issue no host synchronisation per step: trackers stay on the
 state's device, and the fused plane copies one chunk's evidence to the host
@@ -25,15 +28,12 @@ from repro_torch._device import resolve_device
 from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING
 from repro_torch.pde.registry import get_stepper
-from repro_torch.precision import fold_evidence, fused_eligible, get_engine, site_tracker_init
+from repro_torch.precision import fold_evidence, fused_eligible, get_engine, mega_eligible, site_tracker_init
+from repro_torch.precision.sites import rewrap
 
 __all__ = ["Stepper", "StepOps", "Simulation", "SimResult", "EXECUTIONS"]
 
 EXECUTIONS = ("reference", "fused", "megakernel", "auto")
-MEGAKERNEL_PENDING = (
-    "the megakernel plane is not ported to repro_torch yet: ROADMAP.md queue 1 item 5 "
-    "(execution='auto' resolves to it in repro, so it is refused here too)"
-)
 ENSEMBLE_PENDING = "run_ensemble is not ported to repro_torch yet: ROADMAP.md queue 1 item 9"
 
 
@@ -83,7 +83,9 @@ class Stepper:
     """One PDE workload. Subclasses implement ``init_state`` and ``step``
     and declare their named sites; ``fused_step`` is the optional fused-plane
     hook ``fused_step(state, cfg, prec, steps, *, k_floor=None,
-    collect_evidence=False) -> (state, evidence)``."""
+    collect_evidence=False) -> (state, evidence)``, and ``mega_step`` the
+    optional megakernel hook ``mega_step(state, cfg, prec, steps, every, *,
+    tracker=None) -> repro_torch.kernels.mega.MegaResult``."""
 
     name: str = "?"
     sites: Tuple[str, ...] = ()
@@ -92,8 +94,12 @@ class Stepper:
     story: str = ""
     snapshots_default: int = 8
     fused_step = None
+    mega_step = None
 
     def fused_supported(self, cfg, prec: PrecisionConfig) -> bool:
+        return True
+
+    def mega_supported(self, cfg, prec: PrecisionConfig) -> bool:
         return True
 
     def default_config(self):
@@ -143,15 +149,23 @@ class Simulation:
     def fused_eligible(self) -> bool:
         return fused_eligible(self.prec, self.stepper, self.cfg)
 
+    def mega_eligible(self) -> bool:
+        return mega_eligible(self.prec, self.stepper, self.cfg)
+
     def _resolve_execution(self, execution: str) -> str:
         if execution not in EXECUTIONS:
             raise ValueError(f"unknown execution mode {execution!r}; expected one of {EXECUTIONS}")
-        if execution in ("megakernel", "auto"):
-            raise NotImplementedError(MEGAKERNEL_PENDING)
-        if execution == "fused" and not self.fused_eligible():
-            raise ValueError(
-                f"stepper {self.stepper.name!r} is not fused-eligible under mode {self.prec.mode!r}"
-            )
+        if execution == "auto":
+            if self.mega_eligible():
+                return "megakernel"
+            return "fused" if self.fused_eligible() else "reference"
+        for plane, eligible in (("fused", self.fused_eligible), ("megakernel", self.mega_eligible)):
+            if execution == plane and not eligible():
+                raise ValueError(
+                    f"stepper {self.stepper.name!r} is not {plane}-eligible under mode {self.prec.mode!r} "
+                    "(no hook, no fused arithmetic family, or an unsupported shape); "
+                    "use execution='auto' to fall back"
+                )
         return execution
 
     def run(
@@ -170,8 +184,9 @@ class Simulation:
         ``snapshot_every`` steps (default ``steps // snapshots_default``).
         A trailing remainder of steps runs after the last snapshot.
 
-        ``execution`` is ``"reference"`` or ``"fused"``. Pass ``tracker`` to
-        resume tracked modes from saved adjust-unit state.
+        ``execution`` is ``"reference"``, ``"fused"``, ``"megakernel"`` or
+        ``"auto"``. Pass ``tracker`` to resume tracked modes from saved
+        adjust-unit state.
         """
         execution = self._resolve_execution(execution)
         if storage != "f32":
@@ -188,6 +203,8 @@ class Simulation:
         else:
             tracker = tracker.to(self.device)
         every = snapshot_every or max(1, steps // stepper.snapshots_default)
+        if execution == "megakernel":
+            return self._run_mega(state, tracker, steps, every)
         n_out, rem = divmod(steps, every)
         advance = self._chunk_fused if execution == "fused" else self._chunk_reference
 
@@ -223,6 +240,21 @@ class Simulation:
         if tracker is not None:
             tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
         return state, tracker
+
+    def _run_mega(self, state, tracker, steps: int, every: int) -> SimResult:
+        """The whole horizon in one launch: tracker rows tick every substep
+        in the kernel, the datapath floor latches at the snapshot boundaries,
+        and the observables are taken from the kernel's state snapshots."""
+        stepper, cfg = self.stepper, self.cfg
+        res = stepper.mega_step(
+            state, cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
+        )
+        if res.snaps.shape[0]:
+            snapshots = torch.stack([stepper.observables(s, cfg) for s in res.snaps])
+        else:
+            obs = stepper.observables(res.state, cfg)
+            snapshots = obs.new_empty((0,) + tuple(obs.shape))
+        return SimResult(res.state, snapshots, rewrap(tracker, res.tracker))
 
     def run_ensemble(self, *args, **kwargs):
         raise NotImplementedError(ENSEMBLE_PENDING)

@@ -161,6 +161,21 @@ class SWE2DStepper(Stepper):
             U = _lw_step(U, cfg, mom)
         return U, (torch.cat(evs) if collect_evidence else None)
 
+    def mega_supported(self, cfg: SWEConfig, prec) -> bool:
+        """The megakernel takes the momentum-flux fields ``(nx-1, ny)`` as one
+        block, so it equals the fused plane only where K3's grid is one tile."""
+        return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]
+
+    def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None):
+        """The whole horizon, the entire Lax-Wendroff update included, in one
+        launch of kernel K4 (``swe2d_mega``)."""
+        from repro_torch.kernels.mega import swe2d_mega
+
+        return swe2d_mega(
+            U, cfg=cfg, prec=prec, steps=steps, every=every, sites=self.sites, site_ops=self.site_ops,
+            tracker=tracker,
+        )
+
     def observables(self, U, cfg: SWEConfig):
         return U[0]  # snapshot h only
 

@@ -17,7 +17,7 @@ from repro_torch.core.policy import PRESETS, PrecisionConfig, RangeTracker, adju
 
 from . import engines as _engines  # noqa: F401 (registers the six builtins)
 from .engine import PrecisionEngine
-from .fusion import FUSED_FAMILIES, fold_evidence, fused_eligible, fused_family
+from .fusion import FUSED_FAMILIES, fold_evidence, fused_eligible, fused_family, mega_eligible
 from .registry import get_engine, is_known_mode, known_modes, register_engine
 from .sites import SiteTracker, resolve_site, site_tracker_init
 
@@ -33,6 +33,7 @@ __all__ = [
     "FUSED_FAMILIES",
     "fused_family",
     "fused_eligible",
+    "mega_eligible",
     "fold_evidence",
     "prepare_operand",
     "multiply",

@@ -4,6 +4,7 @@
   fused kernel implements (``"rr"`` per-block runtime split, ``"bf16"``,
   ``"fixed"``, ``"f32"``). Engines registered later have no family and run
   on the reference plane only.
+* :func:`mega_eligible` is the megakernel plane's gate, built the same way;
 * :func:`fold_evidence` replays a fused chunk's per-substep site evidence
   (per-site operand max exponents, max-reduced across blocks) through the
   adjust law, so a carried tracker evolves exactly as the stepwise loop's
@@ -20,7 +21,7 @@ from repro_torch.core.policy import PrecisionConfig, adjust_sequence, evidence_b
 
 from .sites import SiteTracker, rewrap
 
-__all__ = ["FUSED_FAMILIES", "fused_family", "fused_eligible", "fold_evidence"]
+__all__ = ["FUSED_FAMILIES", "fused_family", "fused_eligible", "mega_eligible", "fold_evidence"]
 
 FUSED_FAMILIES = {
     "f32": "f32",
@@ -37,15 +38,27 @@ def fused_family(mode: str) -> Optional[str]:
     return FUSED_FAMILIES.get(mode)
 
 
+def _eligible(prec: PrecisionConfig, stepper, cfg, hook: str, gate: str) -> bool:
+    if fused_family(prec.mode) is None:
+        return False
+    if not callable(getattr(stepper, hook, None)):
+        return False
+    supported = getattr(stepper, gate, None)
+    return bool(supported(cfg, prec)) if callable(supported) else True
+
+
 def fused_eligible(prec: PrecisionConfig, stepper, cfg=None) -> bool:
     """True iff the mode has a fused family, the stepper has a ``fused_step``
     hook, and its ``fused_supported`` shape gate accepts the config."""
-    if fused_family(prec.mode) is None:
-        return False
-    if not callable(getattr(stepper, "fused_step", None)):
-        return False
-    supported = getattr(stepper, "fused_supported", None)
-    return bool(supported(cfg, prec)) if callable(supported) else True
+    return _eligible(prec, stepper, cfg, "fused_step", "fused_supported")
+
+
+def mega_eligible(prec: PrecisionConfig, stepper, cfg=None) -> bool:
+    """True iff the mode has a fused family, the stepper has a ``mega_step``
+    hook, and its ``mega_supported`` shape gate accepts the config. The
+    megakernel keeps one block per state leaf, so a stepper whose fused
+    kernels tile the field refuses configs larger than one tile."""
+    return _eligible(prec, stepper, cfg, "mega_step", "mega_supported")
 
 
 def fold_evidence(tracker, evidence, cfg: PrecisionConfig, ops=None):

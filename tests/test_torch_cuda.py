@@ -1,5 +1,5 @@
 """repro_torch on a CUDA card: the kernels against their plain versions,
-and the default device. These tests skip without a card; on the GPU
+the default device, and execution="auto" on the megakernel. These tests skip without a card; on the GPU
 machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -29,7 +29,9 @@ def test_cuda_kernels_match_plain_versions():
     import chip_smoke
 
     errs, records = chip_smoke.check_kernels("cuda", 50)
-    assert all(r["ok"] for r in records) and max(errs.values()) == 0.0
+    mega_errs, mega_records = chip_smoke.check_mega("cuda")
+    assert all(r["ok"] for r in records + mega_records)
+    assert max(errs.values()) == 0.0 and max(mega_errs.values()) == 0.0
 
 
 @pytest.mark.cuda
@@ -48,3 +50,38 @@ def test_default_device_runs_the_kernels():
     assert (HEAT1D_SWEEP.launches - launches, HEAT1D_SWEEP.plain_calls - plain) == (8, 0)
     ref = sim.run(400)
     assert torch.equal(res.state.view(torch.int32), ref.state.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d"])
+def test_auto_runs_one_megakernel_launch(name):
+    """execution="auto" on the card resolves to the megakernel: one K4
+    launch per run, no plain call, bit-equal to the fused plane (state,
+    snapshots and tracker, NaNs made canonical)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.mega import HEAT1D_MEGA, SWE2D_MEGA
+    from repro_torch.pde import HeatConfig, Simulation, SWEConfig
+
+    cfg = HeatConfig(nx=128) if name == "heat1d" else SWEConfig()
+    steps = 1000 if name == "heat1d" else 100
+    ctr = HEAT1D_MEGA if name == "heat1d" else SWE2D_MEGA
+    for prec in (PRESETS["r2f2_16"], dataclasses.replace(PRESETS["r2f2_16"], mode="rr_tracked")):
+        sim = Simulation(name, cfg, prec)
+        launches, plain = ctr.launches, ctr.plain_calls
+        res = sim.run(steps, execution="auto")
+        assert (ctr.launches - launches, ctr.plain_calls - plain) == (1, 0)
+        fus = sim.run(steps, execution="fused")
+
+        def bits(t):
+            b = t.float().contiguous().view(torch.int32).clone()
+            b[torch.isnan(t.float())] = 0x7FC00000
+            return b
+
+        assert torch.equal(bits(res.state), bits(fus.state))
+        assert torch.equal(bits(res.snapshots), bits(fus.snapshots))
+        if fus.tracker is not None:
+            for a, b in zip(res.tracker.state, fus.tracker.state):
+                assert torch.equal(bits(a), bits(b))

@@ -1,5 +1,6 @@
 """The slice end to end: repro_torch.pde.Simulation against repro.pde.Simulation
-for heat1d and swe2d, six modes, reference and fused planes.
+for heat1d and swe2d, six modes, reference and fused planes (the megakernel
+plane is held in test_torch_mega.py).
 
 Both packages start from repro's initial state (the libraries' linspace/
 sin/exp differ in the last ulp). States, snapshots and every tracker field
@@ -114,11 +115,12 @@ def test_simulation_bit_exact(name, mode, execution, state0s, reference_runs):
     assert_run_equal(jres, tres, nan_canonical=(name, mode) == ("swe2d", "e5m10"))
 
 
-@pytest.mark.parametrize("execution", ["reference", "fused"])
+@pytest.mark.parametrize("execution", ["reference", "fused", "megakernel"])
 def test_tracker_grows_from_narrow_start(execution, state0s):
     """heat1d rr_tracked from k0=0: the adjust unit must grow the carried
     split exactly as the reference does, counters included, and a resumed
-    tracker carries across runs."""
+    tracker carries across runs. On the megakernel the split grows in the
+    first substep but the datapath floor moves only at the first snapshot."""
     jc, tc = SMALL["heat1d"]
     s0 = state0s["heat1d"]
     jsim = JSim("heat1d", jc, preset(jpol.PRESETS, "rr_tracked"))
@@ -210,9 +212,10 @@ def test_snapshot_cadence_and_remainder():
 
 def test_out_of_slice_paths_raise_with_roadmap_items():
     sim = Simulation("heat1d", HeatConfig(nx=16), tpol.PRESETS["r2f2_16"], device="cpu")
-    for execution in ("megakernel", "auto"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            sim.run(2, execution=execution)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        sim.run(2, execution="megakernel", storage="packed")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        sim.run(2, execution="megakernel", capture=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         sim.run(2, storage="packed")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
@@ -241,7 +244,7 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_port_imports_without_jax_or_repro():
     code = (
         "import sys, repro_torch, repro_torch.pde, repro_torch.kernels.heat_stencil, "
-        "repro_torch.kernels.swe_flux, repro_torch.convert, repro_torch.configs.heat1d, repro_torch.configs.swe2d\n"
+        "repro_torch.kernels.swe_flux, repro_torch.kernels.mega, repro_torch.convert, repro_torch.configs.heat1d, repro_torch.configs.swe2d\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
     )
