@@ -12,15 +12,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with every NaN made canonical: K2 and K3 across the precision families,
    carried splits (``k_floor``), pinned splits, evidence, and padded shapes;
    K4 (both megakernels) over the mode ladder at full width, with evolving,
-   growing, pinned and bounded trackers, snapshots and evidence;
+   growing, pinned and bounded trackers, snapshots and evidence; K5 (the
+   fused sweeps and megakernels of heat2d, advection1d and burgers1d) the
+   same way at full width;
 3. the paper's experiment on the fused plane, then on the megakernel plane
-   and through ``execution="auto"``: heat1d (nx=128, 4000 steps) and swe2d
-   (128x128, 400 steps) over the mode ladder, with the paper's verdicts and
-   each plane's launch counts asserted (counts zeroed right before each
-   ladder), and swe2d at 60 steps against the rows of
+   and through ``execution="auto"``: heat1d (nx=128, 4000 steps), swe2d
+   (128x128, 400 steps), heat2d (64x64, 1500 steps), advection1d (nx=256,
+   256 steps) and burgers1d (nx=256, 1200 steps) over the mode ladder, with
+   the paper's verdicts and each plane's launch counts asserted (counts
+   zeroed right before each ladder), and swe2d, heat2d, advection1d and
+   burgers1d at 60 steps against the rows of
    ``artifacts/bench/BENCH_pde.json`` on both planes;
-4. the fused plane against the reference plane, and the megakernel plane
-   against the fused plane, at the paper's sizes;
+4. the fused plane against the reference plane (the reference plane at a
+   cut depth), and the megakernel plane against the fused plane at the
+   full horizons;
 5. kernel times (CUDA events) beside their bounds and the plain versions.
 
 It prints the card's name and power limit, then one JSON line of kernel
@@ -46,6 +51,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 HEAT_CHUNK = 500  # substeps per fused chunk on the main path (4000 // 8)
 SWE_EVERY = 100  # the swe2d snapshot cadence on the main path (400 // 4)
+#: the workloads of kernel K5 and the split each pins at without starving a
+#: product (heat2d's flux fits k=2; a 1e5 pulse and u*u ~ 1.2e5 need k=3)
+K5_CASES = ("heat2d", "advection1d", "burgers1d")
+K5_PINNED_K = {"heat2d": 2, "advection1d": 3, "burgers1d": 3}
+#: every workload's horizon on the main path (its BENCH_STEPS)
+MAIN_STEPS = {"heat1d": 4000, "swe2d": 400, "heat2d": 1500, "advection1d": 256, "burgers1d": 1200}
 BENCH_JSON = os.path.join(ROOT, "artifacts", "bench", "BENCH_pde.json")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
@@ -308,46 +319,156 @@ def check_mega(device):
     return errs, records
 
 
+def k5_workload(case, device):
+    """One K5 workload at full width: its config, initial state, the
+    physical arguments its kernels take, its sites and its entry points."""
+    from repro_torch.configs import advection1d, burgers1d, heat2d
+    from repro_torch.kernels import mega, pde_steps
+    from repro_torch.pde import get_stepper
+
+    cfg = {"heat2d": heat2d, "advection1d": advection1d, "burgers1d": burgers1d}[case].CONFIG
+    args = {
+        "heat2d": lambda: dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2),
+        "advection1d": lambda: dict(speed=cfg.speed, dtodx=cfg.dtodx),
+        "burgers1d": lambda: dict(dt=cfg.dt, dx=cfg.dx),
+    }[case]()
+    stepper = get_stepper(case)
+    return dict(
+        cfg=cfg, state=stepper.init_state(cfg, device=device), args=args, sites=stepper.sites,
+        sweep=getattr(pde_steps, f"{case}_sweep"), plain=getattr(pde_steps, f"{case}_sweep_plain"),
+        mega=getattr(mega, f"{case}_mega"),
+    )
+
+
+#: phase 2's K5 depths: fused substeps, and megakernel (substeps, every) with
+#: a remainder after the last snapshot (the plain versions take ~13 ms a
+#: substep on the card)
+K5_CHECK_STEPS = {"heat2d": (40, (45, 20)), "advection1d": (64, (70, 30)), "burgers1d": (80, (90, 40))}
+
+
+def k5_cases(device):
+    """(kernel, label, input, entry kwargs) for K5a-f at full width: the
+    fused sweeps across the families with evidence, carried floors (k0=0
+    too), pinned and deploy splits; the megakernels over the ladder with
+    evolving, growing (k0=0), pinned and bounded trackers."""
+    import torch
+
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.precision import get_engine
+
+    L = ladder()
+    tracked = L["rr_tracked"]
+    pinned = dataclasses.replace(tracked, pinned=True)
+    cases = []
+    for case in K5_CASES:
+        w = k5_workload(case, device)
+        sweep_steps, (mega_steps, every) = K5_CHECK_STEPS[case]
+        base = dict(w["args"], steps=sweep_steps, sites=w["sites"])
+        u, pk = w["state"], K5_PINNED_K[case]
+
+        def floor(*ks):
+            return torch.tensor(ks, dtype=torch.int32, device=device)
+
+        for name in ("f32", "bf16", "e5m10", "r2f2_16", "r2f2_16_384"):
+            cases.append((f"{case}_sweep", f"{name} ev", u, dict(base, prec=L[name], collect_evidence=True)))
+        cases.append((f"{case}_sweep", "rr_tracked k_floor=2,1 ev", u, dict(base, prec=tracked, k_floor=floor(2, 1), collect_evidence=True)))
+        cases.append((f"{case}_sweep", "rr_tracked k_floor=0,0 ev", u, dict(base, prec=tracked, k_floor=floor(0, 0), collect_evidence=True)))
+        cases.append((f"{case}_sweep", f"rr_tracked pinned k={pk}", u, dict(base, prec=pinned, k_floor=floor(pk, pk))))
+        cases.append((f"{case}_sweep", "deploy k_floor=2,1 ev", u, dict(base, prec=L["deploy"], k_floor=floor(2, 1), collect_evidence=True)))
+
+        mbase = dict(w["args"], steps=mega_steps, every=every, sites=w["sites"], collect_evidence=True)
+        for name, prec in L.items():
+            trk = tracker_init(2, prec.fmt, device=device) if get_engine(prec).tracks else None
+            cases.append((f"{case}_mega", name, u, dict(mbase, prec=prec, tracker=trk)))
+        extra = {
+            "rr_tracked k0=0": (tracked, 0),
+            f"rr_tracked pinned k={pk}": (pinned, pk),
+            "rr_tracked k_bounds (1,2)": (dataclasses.replace(tracked, k_bounds=((1, 2),) * 2), None),
+        }
+        for name, (prec, k0) in extra.items():
+            cases.append((f"{case}_mega", name, u, dict(mbase, prec=prec, tracker=tracker_init(2, prec.fmt, k0=k0, device=device))))
+    return cases
+
+
+def check_k5(device):
+    """Every K5 case: state, evidence and (megakernels) snapshots and every
+    tracker field bit-equal to the plain version on the same device."""
+    workloads = {case: k5_workload(case, device) for case in K5_CASES}
+    records = []
+    errs = {f"{case}_{kind}": 0.0 for case in K5_CASES for kind in ("sweep", "mega")}
+    for kern, label, x, kw in k5_cases(device):
+        case, kind = kern.rsplit("_", 1)
+        w = workloads[case]
+        if kind == "sweep":
+            got, ev = w["sweep"](x, **kw)
+            want, ev_want = w["plain"](x, **kw)
+            ok = same_bits(got, want) and same_bits(ev, ev_want)
+            err, trk = max_abs_err(got, want), ""
+        else:
+            got, want = w["mega"](x, **kw), w["mega"](x, plain=True, **kw)
+            ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps) and same_bits(got.evidence, want.evidence)
+            if want.tracker is not None:
+                ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker))
+            err = max(max_abs_err(got.state, want.state), max_abs_err(got.snaps, want.snaps))
+            trk = "" if got.tracker is None else f" k={got.tracker.k.tolist()} adj=+{int(got.tracker.overflow_steps.sum())}/-{int(got.tracker.shrink_steps.sum())}"
+        errs[kern] = max(errs[kern], err)
+        every = f" every={kw['every']}" if "every" in kw else ""
+        log(f"K5 {kern} {label} steps={kw['steps']}{every}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{trk}")
+        records.append(dict(kernel=kern, case=label, ok=ok, max_abs_err=err))
+        require(ok, f"{kern} disagrees with its plain version: {label}")
+    return errs, records
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the paper's ladder on the fused and megakernel planes
 # ---------------------------------------------------------------------------
 
 
 def counters():
+    from repro_torch.kernels import mega, pde_steps
     from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
-    from repro_torch.kernels.mega import HEAT1D_MEGA, SWE2D_MEGA
     from repro_torch.kernels.swe_flux import SWE_FLUX
 
     return {
         "heat1d_sweep": HEAT1D_SWEEP, "swe_flux_fused": SWE_FLUX,
-        "heat1d_mega": HEAT1D_MEGA, "swe2d_mega": SWE2D_MEGA,
+        "heat1d_mega": mega.HEAT1D_MEGA, "swe2d_mega": mega.SWE2D_MEGA,
+        "heat2d_sweep": pde_steps.HEAT2D_SWEEP, "advection1d_sweep": pde_steps.ADVECTION1D_SWEEP,
+        "burgers1d_sweep": pde_steps.BURGERS1D_SWEEP, "heat2d_mega": mega.HEAT2D_MEGA,
+        "advection1d_mega": mega.ADVECTION1D_MEGA, "burgers1d_mega": mega.BURGERS1D_MEGA,
     }
 
 
-def run_ladder(device, heat_steps, swe_steps, precs_by_case, execution="fused"):
-    """The ladder on one plane. Returns rows and the launch totals read
-    right after the loop (counters zeroed right before it)."""
+def workload_config(case):
+    """A workload's paper configuration (configs/), its verdict and the
+    background its observable carries."""
+    import importlib
+
+    cfg = importlib.import_module(f"repro_torch.configs.{case}").CONFIG
+    if case == "swe2d":
+        return cfg, "corr", cfg.depth
+    return cfg, "rel", 0.0
+
+
+def run_ladder(device, steps_by_case, precs_by_case, execution="fused"):
+    """The ladder on one plane, ``steps_by_case[case]`` steps per run.
+    Returns rows and the launch totals read right after the loop (counters
+    zeroed right before it)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import heat1d as heat_cfg
-    from repro_torch.configs import swe2d as swe_cfg
     from repro_torch.pde import Simulation
 
     L = ladder()
-    plan = {
-        "heat1d": (heat_cfg.CONFIG, heat_steps, "rel", 0.0),
-        "swe2d": (swe_cfg.CONFIG, swe_steps, "corr", swe_cfg.CONFIG.depth),
-    }
+    plan = {case: (*workload_config(case), steps_by_case[case]) for case in precs_by_case}
     refs = {}
-    for case, (cfg, steps, _, offset) in plan.items():
+    for case, (cfg, _, offset, steps) in plan.items():
         sim = Simulation(case, cfg, L["f32"], device=device)
         refs[case] = np.asarray(sim.stepper.observables(sim.run(steps).state, cfg).cpu()) - offset
     rows = []
     ctr = counters()
     for c in ctr.values():
         c.reset()
-    for case, (cfg, steps, judge, offset) in plan.items():
+    for case, (cfg, judge, offset, steps) in plan.items():
         for prec_name in precs_by_case[case]:
             sim = Simulation(case, cfg, L[prec_name], device=device)
             before = {k: (c.launches, c.plain_calls) for k, c in ctr.items()}
@@ -371,8 +492,25 @@ def run_ladder(device, heat_steps, swe_steps, precs_by_case, execution="fused"):
 def plane_kernel(case, execution) -> str:
     """The counter that one run of ``case`` on a plane launches."""
     if execution == "fused":
-        return "heat1d_sweep" if case == "heat1d" else "swe_flux_fused"
+        return "swe_flux_fused" if case == "swe2d" else f"{case}_sweep"
     return f"{case}_mega"
+
+
+def snapshot_every(case, steps) -> int:
+    """The snapshot interval a run of ``steps`` takes by default, as
+    ``Simulation.run`` computes it from the stepper."""
+    from repro_torch.pde import get_stepper
+
+    return max(1, steps // get_stepper(case).snapshots_default)
+
+
+def fused_launches(case, steps) -> int:
+    """Fused-plane launches of one run: K3 once per swe2d step, every other
+    sweep once per snapshot interval plus once for a remainder."""
+    if case == "swe2d":
+        return steps
+    every = snapshot_every(case, steps)
+    return steps // every + int(steps % every > 0)
 
 
 def format_row(r) -> str:
@@ -383,22 +521,27 @@ def format_row(r) -> str:
     return f"pde/{r['case']}/{r['prec']}/{r['execution']},{r['us_per_step']:.1f},{derived}"
 
 
-def check_ladder(rows, heat_steps, swe_steps):
-    """The paper's verdicts and the launch contract of one plane: the fused
-    plane launches K2 once per chunk and K3 once per step; the megakernel
-    plane (and ``auto``, which resolves to it) launches K4 once per run.
-    Every other kernel launches no time, and no plain version runs."""
+def check_ladder(rows):
+    """The paper's verdicts (the thresholds of ``tests/test_pde.py`` and
+    ``tests/test_pde_workloads.py``) and the launch contract of one plane:
+    the fused plane launches its sweep once per chunk (K3 once per swe2d
+    step); the megakernel plane (and ``auto``, which resolves to it)
+    launches the workload's megakernel once per run. Every other kernel
+    launches no time, and no plain version runs."""
     by = {(r["case"], r["prec"]): r for r in rows}
     require(by[("swe2d", "e5m10")]["status"] == "DESTROYED(NaN)", "swe2d e5m10 is not destroyed")
     require(by[("swe2d", "r2f2_16")]["status"] == "CORRECT", "swe2d r2f2_16 is not correct")
     require(by[("swe2d", "r2f2_16")]["corr"] > 0.98, "swe2d r2f2_16 corr <= 0.98")
     require(by[("heat1d", "r2f2_16")]["status"] == "CORRECT", "heat1d r2f2_16 is not correct")
     require(by[("heat1d", "r2f2_16")]["rel"] < 0.1, "heat1d r2f2_16 rel >= 0.1")
+    require(by[("heat2d", "e5m10")]["rel"] > 1.0, "heat2d e5m10 rel <= 1: E5M10 did not freeze the decay")
+    require(by[("heat2d", "r2f2_16")]["rel"] < 0.05, "heat2d r2f2_16 rel >= 0.05")
+    for case in ("advection1d", "burgers1d"):
+        require(by[(case, "e5m10")]["status"] == "DESTROYED(NaN)", f"{case} e5m10 is not destroyed")
+        require(by[(case, "r2f2_16")]["rel"] < 0.05, f"{case} r2f2_16 is not finite with rel < 0.05")
     for r in rows:
         kern = plane_kernel(r["case"], r["execution"])
-        want = 1
-        if r["execution"] == "fused":
-            want = heat_steps // HEAT_CHUNK if r["case"] == "heat1d" else swe_steps
+        want = fused_launches(r["case"], r["steps"]) if r["execution"] == "fused" else 1
         others = {k: v for k, v in r["launches"].items() if k != kern}
         require(r["launches"][kern] == want, f"{r['case']}/{r['prec']}/{r['execution']}: {r['launches'][kern]} {kern} launches, want {want}")
         require(not any(others.values()), f"{r['case']}/{r['prec']}/{r['execution']}: other kernels launched: {others}")
@@ -406,49 +549,67 @@ def check_ladder(rows, heat_steps, swe_steps):
 
 
 def bench_rows():
-    """swe2d fused rows of the committed CPU smoke run (60 steps)."""
+    """The 60-step rows of the committed CPU smoke run, by (case, prec, plane)."""
     with open(BENCH_JSON) as f:
         data = json.load(f)
     out = {}
     for row in data["rows"]:
-        parts = row["name"].split("/")
-        if parts[1] == "swe2d" and parts[3] == "fused":
-            fields = dict(kv.split("=", 1) for kv in row["derived"].split(";") if "=" in kv)
-            out[parts[2]] = dict(rel=fields["rel"], adj=fields.get("adj"), status=row["derived"].split(";")[2])
+        _, case, prec, plane = row["name"].split("/")
+        fields = dict(kv.split("=", 1) for kv in row["derived"].split(";") if "=" in kv)
+        out[case, prec, plane] = dict(rel=fields["rel"], adj=fields.get("adj"), status=row["derived"].split(";")[2])
     return out
 
 
+#: 60-step rows whose rel-L2 sits at a rounding edge of the 4th decimal: the
+#: port starts from its own initial state, which differs from repro's in the
+#: last ulps (ROADMAP queue 3), and heat2d rr_tracked gives rel 4.988e-05 from
+#: the port's state, 5.037e-05 from repro's (on the CPU, both planes), printed
+#: 0.0000 against BENCH_pde.json's 0.0001
+REL_EDGE_ROWS = {("heat2d", "rr_tracked")}
+
+
 def check_bench(rows):
+    """Each 60-step row against its BENCH_pde.json row: the verdict, the
+    tracker's adjust counts and the rel-L2 as printed (4 decimals), all
+    exactly, except on the rows of :data:`REL_EDGE_ROWS`."""
     want = bench_rows()
     lines = []
     for r in rows:
-        w = want.get(r["prec"])
+        w = want.get((r["case"], r["prec"], r["execution"]))
         if w is None:
             continue
         rel = "nan" if r["rel"] != r["rel"] else f"{r['rel']:.4f}"
         adj = None if "adj" not in r else f"+{r['adj'][0]}/-{r['adj'][1]}"
-        ok = rel == w["rel"] and adj == w["adj"] and r["status"] == w["status"]
-        lines.append(f"swe2d 60 steps {r['execution']} {r['prec']}: rel={rel} adj={adj} {r['status']} vs BENCH_pde.json rel={w['rel']} adj={w['adj']} {w['status']}: {'match' if ok else 'MISMATCH'}")
+        if (r["case"], r["prec"]) in REL_EDGE_ROWS and "nan" not in (rel, w["rel"]):
+            rel_ok = abs(float(rel) - float(w["rel"])) <= 1e-4 + 1e-9  # one unit of the 4th decimal
+        else:
+            rel_ok = rel == w["rel"]
+        ok = rel_ok and adj == w["adj"] and r["status"] == w["status"]
+        lines.append(f"{r['case']} 60 steps {r['execution']} {r['prec']}: rel={rel} adj={adj} {r['status']} vs BENCH_pde.json rel={w['rel']} adj={w['adj']} {w['status']}: {'match' if ok else 'MISMATCH'}")
         log(lines[-1])
-        require(ok, f"swe2d {r['prec']} at 60 steps disagrees with BENCH_pde.json")
-    require(len(lines) >= 4, "too few swe2d rows matched BENCH_pde.json")
+        require(ok, f"{r['case']} {r['prec']} {r['execution']} at 60 steps disagrees with BENCH_pde.json")
+    require(len(lines) >= len(rows), "a 60-step row has no BENCH_pde.json counterpart")
     return lines
 
 
 # ---------------------------------------------------------------------------
-# phase 4: fused against reference
+# phase 4: fused against reference, megakernel against fused
 # ---------------------------------------------------------------------------
 
+SIX = ("f32", "bf16", "e5m10", "r2f2_16", "deploy", "rr_tracked")
 
-def check_planes(device, heat_steps, swe_steps):
-    from repro_torch.configs import heat1d as heat_cfg
-    from repro_torch.configs import swe2d as swe_cfg
+
+def check_planes(device, steps_by_case):
+    """The fused plane against the reference plane, six modes: state,
+    snapshots and tracker bit-identical (rr_tracked, whose fused plane
+    latches its floor per chunk: the same final k)."""
     from repro_torch.pde import Simulation
 
     L = ladder()
     out = []
-    for case, cfg, steps in (("heat1d", heat_cfg.CONFIG, heat_steps), ("swe2d", swe_cfg.CONFIG, swe_steps)):
-        for name in ("f32", "bf16", "e5m10", "r2f2_16", "deploy", "rr_tracked"):
+    for case, steps in steps_by_case.items():
+        cfg = workload_config(case)[0]
+        for name in SIX:
             ref = Simulation(case, cfg, L[name], device=device).run(steps)
             fus = Simulation(case, cfg, L[name], device=device).run(steps, execution="fused")
             if name == "rr_tracked":
@@ -466,17 +627,16 @@ def check_planes(device, heat_steps, swe_steps):
     return out
 
 
-def check_mega_planes(device, heat_steps, swe_steps):
+def check_mega_planes(device, steps_by_case):
     """The megakernel plane against the fused plane at full horizons, six
     modes: state, snapshots and every tracker field bit-identical."""
-    from repro_torch.configs import heat1d as heat_cfg
-    from repro_torch.configs import swe2d as swe_cfg
     from repro_torch.pde import Simulation
 
     L = ladder()
     out = []
-    for case, cfg, steps in (("heat1d", heat_cfg.CONFIG, heat_steps), ("swe2d", swe_cfg.CONFIG, swe_steps)):
-        for name in ("f32", "bf16", "e5m10", "r2f2_16", "deploy", "rr_tracked"):
+    for case, steps in steps_by_case.items():
+        cfg = workload_config(case)[0]
+        for name in SIX:
             sim = Simulation(case, cfg, L[name], device=device)
             fus, meg = sim.run(steps, execution="fused"), sim.run(steps, execution="megakernel")
             ok = same_bits(fus.state, meg.state) and same_bits(fus.snapshots, meg.snapshots)
@@ -520,6 +680,31 @@ def swe_flops_per_substep(nx, ny) -> int:
     half_steps = 10 * nxm + 5 * ux_in + 15 * uy_in
     midpoint_fluxes = 2 * nxm + 5 * ux_in + 7 * uy_in
     return fluxes + half_steps + midpoint_fluxes + 18 * nint
+
+
+#: the TPU kernel each K5 kernel replaces: the fused sweep's entry in
+#: repro/kernels/pde_steps.py (through fused.py:366), the megakernel's in mega.py
+K5_REPLACES = {
+    "heat2d_sweep": "src/repro/kernels/pde_steps.py:67", "advection1d_sweep": "src/repro/kernels/pde_steps.py:136",
+    "burgers1d_sweep": "src/repro/kernels/pde_steps.py:204", "heat2d_mega": "src/repro/kernels/mega.py:526",
+    "advection1d_mega": "src/repro/kernels/mega.py:548", "burgers1d_mega": "src/repro/kernels/mega.py:570",
+}
+
+
+def k5_flops_per_substep(case, shape) -> int:
+    """f32 operations of one K5 substep, counted from its body (an fma counts
+    two; the policy's integer rounding work is not counted):
+
+    - heat2d, per interior cell: the three adds of the four neighbours,
+      ``4*u`` and the subtraction, the two products and the update add (8);
+    - advection1d, per cell: the flux product, the difference, the update
+      product and the subtraction (4);
+    - burgers1d, per cell: ``u*u``, ``0.5*uu``, the average's add and
+      multiply, the flux difference, its product and the subtraction (7).
+    """
+    if case == "heat2d":
+        return 8 * (shape[0] - 2) * (shape[1] - 2)
+    return {"advection1d": 4, "burgers1d": 7}[case] * shape[-1]
 
 
 def time_kernels(device, main_launches, errs, card):
@@ -593,6 +778,27 @@ def time_kernels(device, main_launches, errs, card):
          lambda: swe2d_mega(U, **mk_swe), lambda: swe2d_mega(U, plain=True, **mk_swe), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
          f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch"),
     ]
+    # K5 at the main path's shapes: a fused chunk of one snapshot interval,
+    # and the whole horizon with a snapshot at every interval
+    tracked = []
+    for case in K5_CASES:
+        w = k5_workload(case, device)
+        x, steps = w["state"], MAIN_STEPS[case]
+        every, n = snapshot_every(case, steps), w["state"].numel()
+        flops = k5_flops_per_substep(case, tuple(x.shape))
+        kw = dict(w["args"], prec=L["r2f2_16"], sites=w["sites"])
+        fk, mk5 = dict(kw, steps=every), dict(kw, steps=steps, every=every)
+        shape = "x".join(map(str, x.shape))
+        specs += [
+            (f"{case}_sweep", "pde_steps.cu", K5_REPLACES[f"{case}_sweep"],
+             lambda w=w, x=x, fk=fk: w["sweep"](x, **fk), lambda w=w, x=x, fk=fk: w["plain"](x, **fk),
+             bound(2 * n * 4, every * flops), 20, 2, 1, f"({shape}) r2f2_16, {every} substeps per launch"),
+            (f"{case}_mega", "pde_steps.cu", K5_REPLACES[f"{case}_mega"],
+             lambda w=w, x=x, mk5=mk5: w["mega"](x, **mk5), lambda w=w, x=x, mk5=mk5: w["mega"](x, plain=True, **mk5),
+             bound((2 + steps // every) * n * 4, steps * flops), 5, 1, 0,
+             f"({shape}) r2f2_16, one {steps}-substep horizon per launch"),
+        ]
+        tracked.append((f"{case}_mega", w["mega"], x, mk5, 2))
     for name, src, replaces, kern, plain, (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
         ms, got = cuda_time_ms(kern, reps)
         plain_ms, want = cuda_time_ms(plain, plain_reps, warmup=plain_warmup)
@@ -608,7 +814,7 @@ def time_kernels(device, main_launches, errs, card):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         ))
     # the tracked horizons, for the record (the adjust unit ticks every substep)
-    for name, fn, x, kw, n_sites in (("heat1d_mega", heat1d_mega, u1, mk, 2), ("swe2d_mega", swe2d_mega, U, mk_swe, 4)):
+    for name, fn, x, kw, n_sites in [("heat1d_mega", heat1d_mega, u1, mk, 2), ("swe2d_mega", swe2d_mega, U, mk_swe, 4)] + tracked:
         from repro_torch.core.policy import tracker_init
 
         kw = dict(kw, prec=L["rr_tracked"])
@@ -647,30 +853,32 @@ def main(argv) -> int:
     log_path = lib.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
 
     errs, records = check_kernels(device, 100 if quick else HEAT_CHUNK)
     mega_errs, mega_records = check_mega(device)
+    k5_errs, k5_records = check_k5(device)
     errs.update(mega_errs)
-    report["kernel_checks"] = records + mega_records
+    errs.update(k5_errs)
+    report["kernel_checks"] = records + mega_records + k5_records
     if quick:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
 
-    heat_steps, swe_steps = 4000, 400
     six = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked", "deploy")
-    plan = {"heat1d": six, "swe2d": six + ("r2f2_16_384",)}
+    plan = {case: six for case in MAIN_STEPS}
+    plan["swe2d"] = six + ("r2f2_16_384",)
     main_launches = {}
     report["ladder"] = []
-    for execution, kernels in (("fused", ("heat1d_sweep", "swe_flux_fused")), ("megakernel", ("heat1d_mega", "swe2d_mega")),
-                               ("auto", ("heat1d_mega", "swe2d_mega"))):
-        rows, totals = run_ladder(device, heat_steps, swe_steps, plan, execution)
+    for execution in ("fused", "megakernel", "auto"):
+        kernels = [plane_kernel(case, execution) for case in MAIN_STEPS]
+        rows, totals = run_ladder(device, MAIN_STEPS, plan, execution)
         for r in rows:
             log(format_row(r))
-        check_ladder(rows, heat_steps, swe_steps)
+        check_ladder(rows)
         launches = {k: totals[k][0] for k in kernels}
         log(f"{execution} path launches: { {k: v[0] for k, v in totals.items()} }; plain-version calls: { {k: v[1] for k, v in totals.items()} }")
         require(all(v > 0 for v in launches.values()), f"a kernel of the {execution} path never launched")
@@ -679,12 +887,16 @@ def main(argv) -> int:
             main_launches.update(launches)
         report["ladder"] += rows
 
-    bench_precs = {"heat1d": (), "swe2d": ("e5m10", "r2f2_16", "r2f2_16_384", "bf16", "rr_tracked")}
+    four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")
+    bench_precs = {"swe2d": four + ("r2f2_16_384",), **{case: four for case in K5_CASES}}
     report["bench_compare"] = []
     for execution in ("fused", "megakernel"):
-        bench, _ = run_ladder(device, heat_steps, 60, bench_precs, execution)
+        bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
         report["bench_compare"] += check_bench(bench)
-    report["planes"] = check_planes(device, 1000, swe_steps) + check_mega_planes(device, heat_steps, swe_steps)
+    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
+    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
+    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
+    report["planes"] = check_planes(device, cut) + check_mega_planes(device, MAIN_STEPS)
 
     recs = time_kernels(device, main_launches, errs, card)
     report["kernels"] = recs

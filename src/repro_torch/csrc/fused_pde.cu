@@ -24,7 +24,9 @@ constexpr int kSweThreads = 512;
 // K2: `steps` explicit-FD substeps of one (br, nx) row block, held in shared
 // memory for the whole chunk. Per substep: the interior laplacian and its
 // block max; flux = alpha*lap at the block's split (site 0) and its block max;
-// upd = flux*dtodx2 (site 1); u += upd on the interior, ends pinned.
+// upd = flux*dtodx2 (site 1); u += upd on the interior, ends pinned. In the
+// f32 family the update is fma(lap, alpha*dtodx2, u), as the compiled
+// reference folds the two constant products and fuses the add.
 __global__ void __launch_bounds__(kHeatThreads)
 heat1d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ ev,
                     const int* __restrict__ k_floor, int nx, int br, int steps, float alpha, float dtodx2,
@@ -40,6 +42,8 @@ heat1d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, f
 
   const int e_alpha = r2f2::mag_exponent(r2f2::finite_mag_bits(alpha));
   const int e_dtodx2 = r2f2::mag_exponent(r2f2::finite_mag_bits(dtodx2));
+  const bool fold = p.family == r2f2::kF32;  // t keeps lap for fma(lap, alpha*dtodx2, u)
+  const float folded = __fmul_rn(alpha, dtodx2);
   const int ni = nx - 2;
   const int n_int = br * ni;
   for (int s = 0; s < steps; ++s) {
@@ -56,14 +60,14 @@ heat1d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, f
     for (int i = threadIdx.x; i < n_int; i += blockDim.x) {
       const int at = (i / ni) * nx + i % ni + 1;
       const float flux = r2f2::family_mul(alpha, t[at], k_flux, p);
-      t[at] = flux;
+      if (!fold) t[at] = flux;
       mx = max(mx, r2f2::finite_mag_bits(flux));
     }
     const int e_flux = r2f2::block_max_exp(mx, scratch);
     const int k_upd = r2f2::site_k(r2f2::select_k_mul(e_flux, e_dtodx2, p), k_floor, 1, p);
     for (int i = threadIdx.x; i < n_int; i += blockDim.x) {
       const int at = (i / ni) * nx + i % ni + 1;
-      u[at] = __fadd_rn(u[at], r2f2::family_mul(t[at], dtodx2, k_upd, p));
+      u[at] = fold ? __fmaf_rn(t[at], folded, u[at]) : __fadd_rn(u[at], r2f2::family_mul(t[at], dtodx2, k_upd, p));
     }
     if (ev != nullptr && threadIdx.x == 0) {
       float* e = ev + (static_cast<size_t>(blockIdx.x) * steps + s) * 4;

@@ -67,9 +67,10 @@ __device__ __forceinline__ void store_rows(const SiteState* st, int n, int* k, f
 }
 
 // ---------------------------------------------------------------------------
-// heat1d: K2's substep (fused_pde.cu) on one (1, nx) rod, plus the tracker,
-// the latch and the snapshots. trk_k is the tracker's k row (the floor's
-// start, or the fixed splits when pinned), null when untracked.
+// heat1d: K2's substep (fused_pde.cu, the f32 family's folded update too) on
+// one (1, nx) rod, plus the tracker, the latch and the snapshots. trk_k is the
+// tracker's k row (the floor's start, or the fixed splits when pinned), null
+// when untracked.
 __global__ void __launch_bounds__(kHeatThreads)
 heat1d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ snaps,
                    float* __restrict__ ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
@@ -92,6 +93,8 @@ heat1d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
 
   const int e_alpha = r2f2::mag_exponent(r2f2::finite_mag_bits(alpha));
   const int e_dtodx2 = r2f2::mag_exponent(r2f2::finite_mag_bits(dtodx2));
+  const bool fold = p.family == r2f2::kF32;  // t keeps lap for fma(lap, alpha*dtodx2, u)
+  const float folded = __fmul_rn(alpha, dtodx2);
   for (int s = 0; s < steps; ++s) {
     uint32_t mx = 0u;
     for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
@@ -104,13 +107,13 @@ heat1d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
     mx = 0u;
     for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
       const float flux = r2f2::family_mul(alpha, t[i], k_flux, p);
-      t[i] = flux;
+      if (!fold) t[i] = flux;
       mx = max(mx, r2f2::finite_mag_bits(flux));
     }
     const int e_flux = r2f2::block_max_exp(mx, scratch);
     const int k_upd = r2f2::site_k(r2f2::select_k_mul(e_flux, e_dtodx2, p), floor, 1, p);
     for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
-      u[i] = __fadd_rn(u[i], r2f2::family_mul(t[i], dtodx2, k_upd, p));
+      u[i] = fold ? __fmaf_rn(t[i], folded, u[i]) : __fadd_rn(u[i], r2f2::family_mul(t[i], dtodx2, k_upd, p));
     }
     __syncthreads();  // u is this substep's result; every thread has read ka
     const bool boundary = (s + 1) % every == 0;

@@ -19,11 +19,11 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "NVCC_FLAGS"]
+__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "NVCC_FLAGS", "SMEM_LIMIT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_pde.cu", "mega_pde.cu")
+SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu")
 HEADERS = ("r2f2_device.cuh",)
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -34,6 +34,9 @@ NVCC_FLAGS = (
     "--fmad=false", "-prec-div=true", "-ftz=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: shared memory a one-CTA kernel may take for its field and scratch rows
+SMEM_LIMIT = 200 * 1024
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
@@ -48,6 +51,13 @@ _SIGNATURES = {
     # steps, every, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
     "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
 }
+# K5 (csrc/pde_steps.cu), one signature per template for its three bodies:
+# sweep: u_in, u_out, ev, k_floor, nx, ny, steps, c0, c1, policy(8), stream
+# mega: u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps,
+# every, c0, c1, ema, 1 - ema, headroom, policy(8), stream
+for _body in ("heat2d", "advection1d", "burgers1d"):
+    _SIGNATURES[f"r2f2_{_body}_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 8 + [_P]
+    _SIGNATURES[f"r2f2_{_body}_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 4 + [_I] + [_I] * 8 + [_P]
 
 _lib: Optional[ctypes.CDLL] = None
 

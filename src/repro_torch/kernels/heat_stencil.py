@@ -3,7 +3,9 @@
 One explicit-FD substep is ``u' = u + (alpha * lap) * dtodx2`` on the
 interior with the ends pinned: the laplacian adds in f32 and the two
 multiplies run on the policy's multiplier at one split per ``(br, nx)``
-block. ``steps`` substeps run in one launch.
+block (in the f32 mode ``fma(lap, alpha * dtodx2, u)``, as the compiled
+reference folds it: ``kernels/updates.py::heat1d_update``). ``steps`` substeps
+run in one launch.
 
 Replaces the TPU kernel ``repro/kernels/fused.py::fused_sweep``
 (``_sweep_kernel``) running ``repro/kernels/heat_stencil.py::_heat1d_body``
@@ -24,10 +26,10 @@ import functools
 
 import torch
 
-from repro_torch._device import f32_scalar
 from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import fused_sweep
+from repro_torch.kernels.updates import heat1d_update
 from repro_torch.precision.fusion import fused_family
 
 __all__ = ["HEAT1D_SITES", "HEAT1D_SWEEP", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas"]
@@ -35,21 +37,15 @@ __all__ = ["HEAT1D_SITES", "HEAT1D_SWEEP", "heat1d_sweep", "heat1d_sweep_plain",
 HEAT1D_SITES = ("heat.flux", "heat.update")
 #: launches of the CUDA kernel and runs of the plain version
 HEAT1D_SWEEP = _cuda.KernelCounter("heat1d_sweep")
-#: shared memory the kernel may take per row block (u and a scratch row)
-SMEM_LIMIT = 200 * 1024
 
 
 def _heat1d_body(alpha, dtodx2, sites):
-    """One explicit-FD substep on a ``(br, nx)`` block (the plain version)."""
-    flux_site, update_site = sites
+    """One explicit-FD substep on a ``(br, nx)`` block (the plain version):
+    the stepper's own update."""
 
     def body(state, ops):
         (u,) = state
-        lap = u[:, :-2] - 2.0 * u[:, 1:-1] + u[:, 2:]
-        flux = ops.mul(f32_scalar(alpha, u.device), lap, flux_site)
-        upd = ops.mul(flux, f32_scalar(dtodx2, u.device), update_site)
-        interior = u[:, 1:-1] + upd
-        return (torch.cat([u[:, :1], interior, u[:, -1:]], dim=1),)
+        return (heat1d_update(u, alpha, dtodx2, ops, sites),)
 
     return body
 
@@ -63,8 +59,8 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, st
     if nx < 3:
         raise ValueError(f"heat1d_sweep needs nx >= 3; got {nx}")
     smem = 2 * br * nx * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a ({br}, {nx}) row block needs {smem} B of shared memory; the kernel takes at most {SMEM_LIMIT} B")
+    if smem > _cuda.SMEM_LIMIT:
+        raise ValueError(f"a ({br}, {nx}) row block needs {smem} B of shared memory; the kernel takes at most {_cuda.SMEM_LIMIT} B")
     out = torch.empty_like(u)
     ev = torch.empty((gi, gj, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     lib = _cuda.library()

@@ -24,13 +24,20 @@ without capture:
 :func:`mega_sweep` launches a stepper's CUDA kernel for CUDA tensors and
 runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
 tensors; a CUDA tensor takes the plain version only with ``plain=True``.
-:data:`HEAT1D_MEGA` and :data:`SWE2D_MEGA` count each kernel's launches and
-its plain runs. The two CUDA kernels live in ``csrc/mega_pde.cu``:
-``heat1d_mega_kernel`` (one CTA, the rod in shared memory) and ``swe2d_mega_kernel`` (a cooperative grid, the Lax-Wendroff
-intermediates in global memory, which the 50 MB L2 holds at this size).
+:data:`HEAT1D_MEGA`, :data:`SWE2D_MEGA`, :data:`HEAT2D_MEGA`,
+:data:`ADVECTION1D_MEGA` and :data:`BURGERS1D_MEGA` count each kernel's
+launches and its plain runs. Kernel K4 lives in ``csrc/mega_pde.cu``:
+``heat1d_mega_kernel`` (one CTA, the rod in shared memory) and
+``swe2d_mega_kernel`` (a cooperative grid, the Lax-Wendroff intermediates
+in global memory, which the 50 MB L2 holds at this size). Kernel K5d-f is
+``csrc/pde_steps.cu::mega_sweep_kernel``, one template over the fused
+sweeps' device bodies (``kernels/pde_steps.py``, whose ``BODIES`` table holds
+the K5 counters): one CTA holds the field in shared memory for the whole
+horizon.
 
 Replaces the TPU kernel ``repro/kernels/mega.py::mega_sweep``
-(``_mega_kernel``) running ``heat1d_mega`` and ``swe2d_mega``.
+(``_mega_kernel``) running ``heat1d_mega`` and ``swe2d_mega`` (K4), and
+``heat2d_mega``, ``advection1d_mega`` and ``burgers1d_mega`` (K5d-f).
 """
 
 from __future__ import annotations
@@ -44,6 +51,10 @@ from repro_torch._device import f32_scalar
 from repro_torch.core.policy import RangeTracker, adjust_step
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
+from repro_torch.kernels.pde_steps import (
+    ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
+    check_field,
+)
 from repro_torch.precision.fusion import fused_family
 
 __all__ = [
@@ -54,6 +65,12 @@ __all__ = [
     "mega_sweep_plain",
     "heat1d_mega",
     "swe2d_mega",
+    "HEAT2D_MEGA",
+    "ADVECTION1D_MEGA",
+    "BURGERS1D_MEGA",
+    "heat2d_mega",
+    "advection1d_mega",
+    "burgers1d_mega",
 ]
 
 #: per stepper: launches of its CUDA kernel and runs of its plain version
@@ -61,8 +78,6 @@ HEAT1D_MEGA = _cuda.KernelCounter("heat1d_mega")
 SWE2D_MEGA = _cuda.KernelCounter("swe2d_mega")
 #: the adjust unit's op codes in csrc/r2f2_device.cuh
 OP_CODES = {"mul": 0, "div": 1}
-#: shared memory heat1d_mega may take (the rod and a scratch row)
-SMEM_LIMIT = 200 * 1024
 
 
 class MegaResult(NamedTuple):
@@ -240,8 +255,8 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     if u.dim() != 2 or u.shape[0] != 1:
         raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
     nx = u.shape[1]
-    if nx < 3 or 2 * nx * 4 > SMEM_LIMIT:
-        raise ValueError(f"heat1d_mega holds the rod in shared memory: 3 <= nx <= {SMEM_LIMIT // 8}; got {nx}")
+    if nx < 3 or 2 * nx * 4 > _cuda.SMEM_LIMIT:
+        raise ValueError(f"heat1d_mega holds the rod in shared memory: 3 <= nx <= {_cuda.SMEM_LIMIT // 8}; got {nx}")
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
     dev = u.device
@@ -300,6 +315,32 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
+def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites):
+    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf, one CTA."""
+    (u,) = leaves
+    u = u.contiguous()
+    if u.shape != (1, nx * ny) or len(sites) != 2:
+        raise ValueError(f"{body}_mega takes one (1, {nx * ny}) leaf and two sites; got {tuple(u.shape)}, {len(sites)} sites")
+    check_field(body, nx, ny)
+    dev = u.device
+    out = torch.empty_like(u)
+    snaps = torch.empty((steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
+    ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
+    tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"r2f2_{body}_mega")(
+            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev),
+            _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh), _cuda.ptr(table),
+            int(evolve), nx, ny, steps, every, *consts, ema, one_minus, headroom,
+            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
+        )
+    _cuda.check(err, f"{body}_mega")
+    BODIES[body].mega.launches += 1
+    return MegaResult((out,), (snaps,), tracker_out, ev)
+
+
 # ---------------------------------------------------------------------------
 # per-stepper whole-horizon entries (the steppers' mega_step hooks)
 # ---------------------------------------------------------------------------
@@ -349,3 +390,55 @@ def swe2d_mega(
     )
     (out,), (snaps,) = res.state, res.snaps
     return res._replace(state=out, snaps=snaps)
+
+
+def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker, collect_evidence, capture, storage, plain):
+    kernel = functools.partial(_launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites))
+    res = mega_sweep(
+        fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
+        collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].mega, plain=plain,
+        capture=capture, storage=storage,
+    )
+    (out,), (snaps,) = res.state, res.snaps
+    return res._replace(state=out.reshape(u0.shape), snaps=snaps.reshape((snaps.shape[0],) + tuple(u0.shape)))
+
+
+def heat2d_mega(
+    u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
+    capture=None, storage="f32", plain=False,
+) -> MegaResult:
+    """Whole-horizon 2-D heat run of the ``(nx, ny)`` field; snapshots come
+    back as ``(n_out, nx, ny)``."""
+    nx, ny = u0.shape
+    alpha, dtodx2 = float(alpha), float(dtodx2)
+    return _k5_mega(
+        "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
+        every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence, capture=capture,
+        storage=storage, plain=plain,
+    )
+
+
+def advection1d_mega(
+    u0, *, speed, dtodx, prec, steps, every, sites, tracker=None, collect_evidence=False,
+    capture=None, storage="f32", plain=False,
+) -> MegaResult:
+    """Whole-horizon upwind advection run of the ``(nx,)`` profile."""
+    speed, dtodx = float(speed), float(dtodx)
+    return _k5_mega(
+        "advection1d", _advection1d_body(speed, dtodx, sites), u0, 1, u0.shape[-1], (speed, dtodx), prec=prec,
+        steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
+        capture=capture, storage=storage, plain=plain,
+    )
+
+
+def burgers1d_mega(
+    u0, *, dt, dx, prec, steps, every, sites, tracker=None, collect_evidence=False,
+    capture=None, storage="f32", plain=False,
+) -> MegaResult:
+    """Whole-horizon Lax-Friedrichs Burgers run of the ``(nx,)`` wave."""
+    dt, dx = float(dt), float(dx)
+    return _k5_mega(
+        "burgers1d", _burgers1d_body(dt, dx, sites), u0, 1, u0.shape[-1], (dt / (2.0 * dx), 0.5), prec=prec,
+        steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
+        capture=capture, storage=storage, plain=plain,
+    )

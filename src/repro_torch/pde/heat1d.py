@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch._device import f32_scalar as _f32
+from repro_torch.kernels.updates import heat1d_update
 
 from .registry import register_stepper
 from .solver import StepOps, Stepper
@@ -78,10 +79,7 @@ class Heat1DStepper(Stepper):
         return initial_condition(cfg, device=device)
 
     def step(self, u, cfg: HeatConfig, ops: StepOps):
-        lap = u[:-2] - 2.0 * u[1:-1] + u[2:]
-        flux = ops.mul(_f32(cfg.alpha, u.device), lap, "heat.flux")
-        upd = ops.mul(flux, _f32(cfg.dtodx2, u.device), "heat.update")
-        return torch.cat([u[:1], u[1:-1] + upd, u[-1:]])
+        return heat1d_update(u[None, :], cfg.alpha, cfg.dtodx2, ops, self.sites)[0]
 
     def fused_step(self, u, cfg: HeatConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
         """``steps`` substeps in one launch of kernel K2 (one row, one block)."""

@@ -1,20 +1,14 @@
-"""String-keyed stepper registry (mirrors ``repro.pde.registry``).
-
-heat1d and swe2d are ported; the other builtin steppers of the reference
-raise until their slice lands.
-"""
+"""String-keyed stepper registry (mirrors ``repro.pde.registry``): the five
+builtin steppers register on first lookup."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-__all__ = ["register_stepper", "get_stepper", "known_steppers", "PENDING_STEPPERS"]
+__all__ = ["register_stepper", "get_stepper", "known_steppers"]
 
 _STEPPERS: Dict[str, object] = {}
 _builtins_loaded = False
-
-#: the reference's other steppers, not ported yet
-PENDING_STEPPERS = ("heat2d", "advection1d", "burgers1d")
 
 
 def register_stepper(name: str, stepper=None):
@@ -31,7 +25,7 @@ def register_stepper(name: str, stepper=None):
 def _load_builtins() -> None:
     global _builtins_loaded
     if not _builtins_loaded:
-        from repro_torch.pde import heat1d, swe2d  # noqa: F401 (register on import)
+        from repro_torch.pde import advection1d, burgers1d, heat1d, heat2d, swe2d  # noqa: F401 (register on import)
 
         _builtins_loaded = True
 
@@ -41,10 +35,6 @@ def get_stepper(name: str):
     _load_builtins()
     if name in _STEPPERS:
         return _STEPPERS[name]
-    if name in PENDING_STEPPERS:
-        raise NotImplementedError(
-            f"stepper {name!r} is not ported to repro_torch yet: ROADMAP.md queue 1 item 8"
-        )
     raise KeyError(f"no PDE stepper registered for {name!r}; known: {known_steppers()}")
 
 

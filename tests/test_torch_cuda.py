@@ -1,6 +1,7 @@
 """repro_torch on a CUDA card: the kernels against their plain versions,
-the default device, and execution="auto" on the megakernel. These tests skip without a card; on the GPU
-machine, which has no JAX, run them with
+the default device, and execution="auto" on the megakernel (K4 for heat1d
+and swe2d, K5 for heat2d, advection1d and burgers1d). These tests skip
+without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -30,8 +31,9 @@ def test_cuda_kernels_match_plain_versions():
 
     errs, records = chip_smoke.check_kernels("cuda", 50)
     mega_errs, mega_records = chip_smoke.check_mega("cuda")
-    assert all(r["ok"] for r in records + mega_records)
-    assert max(errs.values()) == 0.0 and max(mega_errs.values()) == 0.0
+    k5_errs, k5_records = chip_smoke.check_k5("cuda")
+    assert all(r["ok"] for r in records + mega_records + k5_records)
+    assert max(errs.values()) == 0.0 and max(mega_errs.values()) == 0.0 and max(k5_errs.values()) == 0.0
 
 
 @pytest.mark.cuda
@@ -74,6 +76,44 @@ def test_auto_runs_one_megakernel_launch(name):
         res = sim.run(steps, execution="auto")
         assert (ctr.launches - launches, ctr.plain_calls - plain) == (1, 0)
         fus = sim.run(steps, execution="fused")
+
+        def bits(t):
+            b = t.float().contiguous().view(torch.int32).clone()
+            b[torch.isnan(t.float())] = 0x7FC00000
+            return b
+
+        assert torch.equal(bits(res.state), bits(fus.state))
+        assert torch.equal(bits(res.snapshots), bits(fus.snapshots))
+        if fus.tracker is not None:
+            for a, b in zip(res.tracker.state, fus.tracker.state):
+                assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat2d", "advection1d", "burgers1d"])
+def test_k5_planes_launch_their_kernels(name):
+    """heat2d, advection1d and burgers1d on the card: the fused plane
+    launches its K5 sweep once per snapshot interval (and once for the
+    remainder), execution="auto" one K5 megakernel per run, no plain call
+    runs, and the two planes agree bit for bit (NaNs made canonical)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels import mega, pde_steps
+    from repro_torch.pde import Simulation
+
+    sweep = getattr(pde_steps, f"{name.upper()}_SWEEP")
+    meg = getattr(mega, f"{name.upper()}_MEGA")
+    steps, every = 100, 30  # three chunks and a remainder
+    for prec in (PRESETS["e5m10"], dataclasses.replace(PRESETS["r2f2_16"], mode="rr_tracked")):
+        sim = Simulation(name, None, prec)
+        before = (sweep.launches, sweep.plain_calls, meg.launches, meg.plain_calls)
+        fus = sim.run(steps, snapshot_every=every, execution="fused")
+        res = sim.run(steps, snapshot_every=every, execution="auto")
+        after = (sweep.launches, sweep.plain_calls, meg.launches, meg.plain_calls)
+        assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 1, 0)
+        assert res.state.is_cuda
 
         def bits(t):
             b = t.float().contiguous().view(torch.int32).clone()

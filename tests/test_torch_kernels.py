@@ -125,14 +125,7 @@ def test_heat1d_sweep_plain_matches_interpret(case):
     before = theat.HEAT1D_SWEEP.plain_calls
     tout, tev = theat.heat1d_sweep(t(u), prec=tp, k_floor=tk, **kw)
     assert theat.HEAT1D_SWEEP.plain_calls == before + 1  # CPU tensors take the plain version
-    if name == "f32":
-        # compiled on its own, the reference kernel fuses the f32 update
-        # product into its add; inside the solver's program it does not, and
-        # the port follows the solver (bit-exact in test_torch_pde.py)
-        diff = np.abs(bits(jout).astype(np.int64) - bits(tout.numpy()).astype(np.int64))
-        assert diff.max() <= 16
-    else:
-        assert_same(jout, tout)
+    assert_same(jout, tout)
     assert (jev is None) == (tev is None)
     if ev:
         assert tuple(tev.shape) == (6, 2, 2)

@@ -187,11 +187,19 @@ def test_port_initial_states_within_ulps():
     """The port's own initial conditions against repro's, within 16 ulps of
     each field's largest value: linspace, sin and exp differ in the last
     ulps between the libraries (31 ulps of a small value near a zero of the
-    sin profile, and exp tails that XLA flushes to zero)."""
-    from repro.configs import heat1d as jh, swe2d as js
-    from repro_torch.configs import heat1d as th, swe2d as ts
+    sin profile, and exp tails that XLA flushes to zero). Covers all five
+    steppers' configs, and heat2d's exp profile."""
+    from repro.configs import advection1d as ja, burgers1d as jb, heat1d as jh, heat2d as j2, swe2d as js
+    from repro.pde.heat2d import Heat2DConfig as JHeat2D
+    from repro_torch.configs import advection1d as ta, burgers1d as tb, heat1d as th, heat2d as t2, swe2d as ts
+    from repro_torch.pde import Heat2DConfig
 
-    for jcfg, tcfg, stepper in ((jh.CONFIG, th.CONFIG, "heat1d"), (jh.CONFIG_EXP, th.CONFIG_EXP, "heat1d"), (js.CONFIG, ts.CONFIG, "swe2d")):
+    cases = (
+        (jh.CONFIG, th.CONFIG, "heat1d"), (jh.CONFIG_EXP, th.CONFIG_EXP, "heat1d"), (js.CONFIG, ts.CONFIG, "swe2d"),
+        (j2.CONFIG, t2.CONFIG, "heat2d"), (JHeat2D(init="exp"), Heat2DConfig(init="exp"), "heat2d"),
+        (ja.CONFIG, ta.CONFIG, "advection1d"), (jb.CONFIG, tb.CONFIG, "burgers1d"),
+    )
+    for jcfg, tcfg, stepper in cases:
         want = np.asarray(JSim(stepper, jcfg, jpol.PRESETS["f32"]).stepper.init_state(jcfg), np.float32)
         got = get_stepper(stepper).init_state(tcfg, device="cpu").numpy()
         bound = 16 * np.spacing(np.abs(want).max())
@@ -225,8 +233,13 @@ def test_out_of_slice_paths_raise_with_roadmap_items():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         sim.run_ensemble(None, 2)
     for name in ("heat2d", "advection1d", "burgers1d"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            get_stepper(name)
+        assert get_stepper(name).name == name  # ported: queue 1 item 8 landed
+        small = Simulation(name, None, tpol.PRESETS["r2f2_16"], device="cpu")
+        for execution in ("reference", "fused", "megakernel"):
+            with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+                small.run(2, execution=execution, storage="packed")
+            with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+                small.run(2, execution=execution, capture=True)
     with pytest.raises(KeyError):
         get_stepper("wave1d")
     with pytest.raises(ValueError):
@@ -244,7 +257,9 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_port_imports_without_jax_or_repro():
     code = (
         "import sys, repro_torch, repro_torch.pde, repro_torch.kernels.heat_stencil, "
-        "repro_torch.kernels.swe_flux, repro_torch.kernels.mega, repro_torch.convert, repro_torch.configs.heat1d, repro_torch.configs.swe2d\n"
+        "repro_torch.kernels.swe_flux, repro_torch.kernels.mega, repro_torch.kernels.pde_steps, repro_torch.convert, "
+        "repro_torch.configs.heat1d, repro_torch.configs.swe2d, repro_torch.configs.heat2d, "
+        "repro_torch.configs.advection1d, repro_torch.configs.burgers1d\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
     )
