@@ -26,7 +26,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons;
-5. kernel times (CUDA events) beside their bounds and the plain versions.
+5. kernel times (CUDA events) beside their bounds and the plain versions;
+6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
+   shapes) and llama4-scout-17b-a16e served at its published widths, cut
+   to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
+   tokens, under r2f2_16 with K7 in the router and the shared expert
+   (exactly 128 launches), the same with K7's plain version (the same
+   tokens, bit-identical prefill logits) and f32 (the logits' rel-L2), each
+   then timed warm (a prefill and decode steps one by one), then K6 and K7
+   timed at the path's shapes beside their bounds, plain versions and
+   cuBLAS SGEMM.
+
+Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
+bit and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
+(:func:`k7_order_bound`), bit for bit on dyadic operands, also on dyadic
+operands that need rounding (the result must equal the unrounded ones').
 
 It prints the card's name and power limit, then one JSON line of kernel
 records, then ``{"ok": true, "device": {...}}`` as its last line. Details go
@@ -35,6 +49,7 @@ to ``chiprun_out/chip_smoke.json``. It imports nothing of JAX or ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -419,6 +434,194 @@ def check_k5(device):
     return errs, records
 
 
+#: the flexible formats of tests/test_kernels.py, as (eb, mb, fx)
+K6_FMTS = ((3, 9, 3), (3, 8, 4), (3, 7, 3), (5, 10, 0))
+#: llama4-scout at its published widths: d_model, the expert and shared-expert
+#: hidden width, the experts; prefill is 4 prompts of 64 tokens, decode 4 rows
+LM_D, LM_FF, LM_E, LM_PREFILL_ROWS, LM_DECODE_ROWS = 5120, 8192, 16, 256, 4
+
+
+def spread_data(shape, g, device, exps=(-3, 4)):
+    """Normal values times 10**U{exps}: tiles of different ranges."""
+    import torch
+
+    x = torch.randn(shape, generator=g) * 10.0 ** torch.randint(exps[0], exps[1], shape, generator=g).float()
+    return x.to(device)
+
+
+def dyadic(shape, g, device):
+    """Multiples of 1/8 in [-1, 1]: every partial sum of their products is
+    exact in f32, so any summation order gives the same bits."""
+    import torch
+
+    return (torch.randint(-8, 9, shape, generator=g).float() / 8.0).to(device)
+
+
+def rounded_dyadic(shape, g, device):
+    """Multiples of 1/8 in [-1, 1], and the same values moved by 2**-16 to
+    2**-15 of themselves: every format rounds the moved values back, so K7
+    on them must give the bits of the exact ones, and the unrounded product
+    differs from both."""
+    import torch
+
+    exact = dyadic(shape, g, "cpu")
+    sign = torch.randint(0, 2, shape, generator=g).float() * 2 - 1
+    moved = exact * (1 + sign * (1 + torch.rand(shape, generator=g)) * 2.0**-16)
+    return exact.to(device), moved.to(device)
+
+
+def special_tiles(device):
+    """(256, 1024): a zero tile, an f32-subnormal tile, a random tile with
+    +-inf and NaN, and a tile of 1e6 (k must grow to 3)."""
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.zeros(256, 1024)
+    x[:, 256:512] = 1e-40 * torch.randint(-9, 10, (256, 256), generator=g).float()
+    x[:, 512:768] = spread_data((256, 256), g, "cpu", (-2, 2))
+    x[7, 600], x[9, 700], x[11, 514] = float("inf"), float("-inf"), float("nan")
+    x[:, 768:] = 1e6
+    return x.to(device)
+
+
+#: K7's random cases: |kernel - plain| <= K7_ORDER_C * sqrt(K) * 2**-24 *
+#: ||a_i. * b_.j||_2 per output (see k7_order_bound). Measured on an H100:
+#: at most 0.95 (round_products at K = 192), 0.28 at full width
+K7_ORDER_C = 8.0
+
+
+def k7_order_unit(a, b):
+    """sqrt(K) * 2**-24 * sqrt(sum_k a_ik**2 b_kj**2), in f64: the spread of
+    a random walk of K f32 roundings of partial sums the size of the
+    products' L2 norm. Quantization moves a and b by 2**-10 or less, which
+    the unit does not feel."""
+    return a.shape[1] ** 0.5 * 2.0**-24 * ((a.double() ** 2) @ (b.double() ** 2)).sqrt()
+
+
+def k7_order_bound(a, b):
+    """How far K7 and its plain version may part on random operands: both
+    sum each 128-term block pair in its own order and the block pairs in K
+    order. K7_ORDER_C units (:func:`k7_order_unit`), set from the largest
+    ratio measured on the card with room to spare; leaving the quantization
+    out would move the sums by 2**-13 * ||a_i. * b_.j||_2, about
+    2**11 / sqrt(K) units (28 at K = 5120), and more at the largest output."""
+    return K7_ORDER_C * k7_order_unit(a, b)
+
+
+def order_ratio(got, want, a, b) -> float:
+    """max |got - want| over the finite outputs, in :func:`k7_order_unit`s."""
+    import torch
+
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    if not bool(fin.any()):
+        return 0.0
+    return float(((got.double() - want.double()).abs() / k7_order_unit(a, b))[fin].nan_to_num(0.0).max())
+
+
+def within_bound(got, want, bound) -> bool:
+    """Non-finite entries equal (NaN canonical); finite ones within bound."""
+    import torch
+
+    fin = torch.isfinite(want)
+    if not same_bits(torch.where(fin, 0.0, got), torch.where(fin, 0.0, want)):
+        return False
+    return bool(((got.double() - want.double()).abs()[fin] <= bound[fin]).all())
+
+
+def check_contract_kernels(device):
+    """K6 against its plain version bit for bit (y and k), over the four
+    formats, three blocks, special tiles and the shared-expert gate's
+    (5120, 8192); K7 against its plain version, dyadic cases bit for bit
+    (rounded-dyadic ones also equal to the exact operands' result) and
+    random ones within :func:`k7_order_bound`, over round_products and
+    tail_approx both ways, a non-divisible shape, (64, 64, 64) blocks, the
+    router's and the shared expert's shapes at full width (prefill and
+    decode) and the special tiles. At full width the unquantized product
+    must fall outside the bound: the check sees a quantization left out."""
+    import torch
+
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.kernels.r2f2_matmul import r2f2_matmul, r2f2_matmul_plain
+    from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
+
+    g = torch.Generator().manual_seed(5)
+    fmt = FlexFormat(3, 9, 3)
+    records = []
+    errs = {"r2f2_quantize": 0.0, "r2f2_matmul": 0.0}
+
+    def record(kernel, label, ok, err, how):
+        errs[kernel] = max(errs[kernel], err)
+        log(f"{'K6' if kernel == 'r2f2_quantize' else 'K7'} {kernel} {label}: {how if ok else 'MISMATCH'} max_abs_err={err}")
+        records.append(dict(kernel=kernel, case=label, ok=ok, max_abs_err=err))
+        require(ok, f"{kernel} disagrees with its plain version: {label}")
+
+    x = spread_data((1024, 1024), g, device)
+    k6 = [(f"fmt <{e},{m},{f}> (1024,1024) block (256,256)", x, FlexFormat(e, m, f), (256, 256)) for e, m, f in K6_FMTS]
+    k6 += [(f"(1024,1024) block {blk}", x, fmt, blk) for blk in ((128, 256), (256, 128))]
+    k6 += [("special tiles (256,1024): zero, subnormal, inf/NaN, 1e6", special_tiles(device), fmt, (256, 256))]
+    k6 += [(f"shared-expert gate ({LM_D},{LM_FF})", spread_data((LM_D, LM_FF), g, device, (-3, 0)), fmt, (256, 256))]
+    for label, xin, f, blk in k6:
+        y, k = r2f2_quantize(xin, fmt=f, block=blk)
+        y_want, k_want = r2f2_quantize_plain(xin, fmt=f, block=blk)
+        ok = same_bits(y, y_want) and torch.equal(k, k_want) and k.dtype == torch.int32
+        if label.startswith("special"):
+            ok = ok and k[0, 0].item() == 3 and k[0, 1].item() == 3 and k[0, 3].item() == 3
+        record("r2f2_quantize", label, ok, max_abs_err(y, y_want), "bit-exact (y and k)")
+
+    sp = special_tiles(device)[:128, :768:2].contiguous()  # K blocks: zero, subnormal, inf/NaN
+    # (label, a, b, kwargs, kind): "dyadic" and "rounded" held bit for bit
+    # ("rounded" also to the exact operands' result), "random" within
+    # k7_order_bound, "full" the same at the path's full-width shapes
+    k7 = [
+        ("dyadic (256,384)@(384,128)", dyadic((256, 384), g, device), dyadic((384, 128), g, device), {}, "dyadic"),
+        ("dyadic (192,192)@(192,192) padded", dyadic((192, 192), g, device), dyadic((192, 192), g, device), {}, "dyadic"),
+        ("dyadic (128,320)@(320,96) blocks (64,64,64)", dyadic((128, 320), g, device), dyadic((320, 96), g, device),
+         dict(blocks=(64, 64, 64)), "dyadic"),
+        (f"dyadic router prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_E})", dyadic((LM_PREFILL_ROWS, LM_D), g, device),
+         dyadic((LM_D, LM_E), g, device), {}, "dyadic"),
+    ]
+    exact_of = {}
+    for m, kd, n, kw in ((LM_PREFILL_ROWS, LM_D, LM_E, {}), (LM_DECODE_ROWS, LM_D, LM_FF, {}),
+                         (192, 192, 192, dict(blocks=(64, 64, 64), round_products=True))):
+        (a0, a1), (b0, b1) = rounded_dyadic((m, kd), g, device), rounded_dyadic((kd, n), g, device)
+        label = f"rounded dyadic ({m},{kd})@({kd},{n}){' blocks (64,64,64) round_products' if kw else ''}"
+        exact_of[label] = (a0, b0)
+        k7.append((label, a1, b1, kw, "rounded"))
+    a192, b192 = spread_data((192, 192), g, device, (-2, 2)), spread_data((192, 192), g, device, (-2, 2))
+    for rp in (False, True):
+        for tail in (True, False):
+            k7.append((f"(192,192) round_products={rp} tail_approx={tail} blocks (64,64,64)", a192, b192,
+                       dict(blocks=(64, 64, 64), round_products=rp, tail_approx=tail), "random"))
+    k7.append(("(192,192) default blocks, padded", a192, b192, {}, "random"))
+    k7.append(("special K blocks (128,384)@(384,128)", sp, spread_data((384, 128), g, device, (-2, 2)), {}, "random"))
+    w_router = torch.randn(LM_D, LM_E, generator=g).to(device) * LM_D**-0.5
+    w_gate = torch.randn(LM_D, LM_FF, generator=g).to(device) * LM_D**-0.5
+    for rows, phase in ((LM_PREFILL_ROWS, "prefill"), (LM_DECODE_ROWS, "decode")):
+        xa = torch.randn(rows, LM_D, generator=g).to(device)
+        k7.append((f"router {phase} ({rows},{LM_D})@({LM_D},{LM_E})", xa, w_router, {}, "full"))
+        k7.append((f"shared-expert gate {phase} ({rows},{LM_D})@({LM_D},{LM_FF})", xa, w_gate, {}, "full"))
+    for label, a, b, kw, kind in k7:
+        got = r2f2_matmul(a, b, fmt=fmt, **kw)
+        want = r2f2_matmul_plain(a, b, fmt=fmt, **kw)
+        if kind == "dyadic":
+            ok, how = same_bits(got, want), "bit-exact"
+        elif kind == "rounded":
+            exact = r2f2_matmul_plain(*exact_of[label], fmt=fmt, **kw)
+            unrounded = (a.double() @ b.double()).float()
+            ok = same_bits(got, want) and same_bits(got, exact) and not torch.equal(got, unrounded)
+            how = "bit-exact, equal to the exact operands' result"
+        else:
+            ratio = order_ratio(got, want, a, b)
+            ok = within_bound(got, want, k7_order_bound(a, b))
+            how = f"within {K7_ORDER_C:g} units, at {ratio:.3f} sqrt(K) 2**-24 ||ab||_2"
+            if kind == "full":  # the bound must see a quantization left out
+                skip = order_ratio((a.double() @ b.double()).float(), want, a, b)
+                ok = ok and skip > K7_ORDER_C
+                how += f"; unquantized at {skip:.1f}"
+        record("r2f2_matmul", label, ok, max_abs_err(got, want), how)
+    return errs, records
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the paper's ladder on the fused and megakernel planes
 # ---------------------------------------------------------------------------
@@ -427,9 +630,12 @@ def check_k5(device):
 def counters():
     from repro_torch.kernels import mega, pde_steps
     from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+    from repro_torch.kernels.r2f2_matmul import R2F2_MATMUL
+    from repro_torch.kernels.r2f2_quantize import R2F2_QUANTIZE
     from repro_torch.kernels.swe_flux import SWE_FLUX
 
     return {
+        "r2f2_quantize": R2F2_QUANTIZE, "r2f2_matmul": R2F2_MATMUL,
         "heat1d_sweep": HEAT1D_SWEEP, "swe_flux_fused": SWE_FLUX,
         "heat1d_mega": mega.HEAT1D_MEGA, "swe2d_mega": mega.SWE2D_MEGA,
         "heat2d_sweep": pde_steps.HEAT2D_SWEEP, "advection1d_sweep": pde_steps.ADVECTION1D_SWEEP,
@@ -825,6 +1031,230 @@ def time_kernels(device, main_launches, errs, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the contraction path: the kernel API, and llama4-scout served at
+# full width with K7 in the router and the shared expert
+
+LM_ARCH, LM_LAYERS = "llama4-scout-17b-a16e", 2  # depth cut from 48 layers
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 16
+#: K7 launches per generate: 2 layers x (router + 3 shared-expert sites) x 16 forwards
+LM_K7_LAUNCHES = LM_LAYERS * 4 * LM_NEW
+
+
+#: decode steps timed one by one after the generate (which warmed every path)
+LM_TIMED_STEPS = 5
+
+
+def run_api_path(device):
+    """The kernel API as ``benchmarks/bench_kernels.py`` drives it, at its
+    shapes (K6 at 1024x1024, K7 at 512^3) and K6 at the shared-expert gate's
+    (5120, 8192), counts zeroed right before. Returns the launch counts."""
+    import torch
+
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(21)
+    fmt = FlexFormat(3, 9, 3)
+    x1, x2 = torch.randn(1024, 1024, generator=g).to(device), torch.randn(LM_D, LM_FF, generator=g).to(device)
+    a, b = torch.randn(512, 512, generator=g).to(device), torch.randn(512, 512, generator=g).to(device)
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    outs = [ops.r2f2_quantize(x1, fmt), ops.r2f2_quantize(x2, fmt), ops.r2f2_matmul(a, b, fmt)]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in ctr.items()}
+    log(f"kernel API path launches: { {k: v for k, v in launches.items() if v} }; plain-version calls: "
+        f"{sum(c.plain_calls for c in ctr.values())}")
+    require(launches["r2f2_quantize"] == 2 and launches["r2f2_matmul"] == 1, "the kernel API did not launch K6 twice and K7 once")
+    require(sum(c.plain_calls for c in ctr.values()) == 0, "plain versions ran on the kernel API path")
+    require(all(bool(torch.isfinite(o[0] if isinstance(o, tuple) else o).all()) for o in outs), "the kernel API gave non-finite values")
+    return launches
+
+
+def time_serving(params, cfg, prec, prompts):
+    """One prefill and LM_TIMED_STEPS greedy decode steps through the serve
+    step ``generate`` runs, each timed alone on the host's clock with the
+    card synchronised on both sides. Returns the prefill's ms and logits,
+    each step's ms and the tokens the steps chose."""
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.train.step import make_serve_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    with torch.inference_mode():
+        prefill_ms, (logits, caches) = timed(lambda: prefill(params, cfg, prec, tokens=prompts, max_len=LM_PROMPT + LM_NEW))
+        step = make_serve_step(cfg, prec)
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        step_ms, tokens = [], [tok]
+        for i in range(LM_TIMED_STEPS):
+            ms, (tok, caches) = timed(lambda: step(params, caches, tokens[-1], LM_PROMPT + i))
+            step_ms.append(ms)
+            tokens.append(tok)
+    return prefill_ms, logits, step_ms, torch.cat(tokens, dim=1)
+
+
+def run_lm(device, card):
+    """llama4-scout-17b-a16e at its published widths, 2 layers, random
+    weights from seed 0: 4 prompts of 64 tokens, 16 greedy new tokens each,
+    under r2f2_16 with use_kernels (K7 in the router and the shared
+    expert), the same with K7's plain version (``ops.plain_matmul``), and
+    f32. Each mode's generate, with the counts zeroed right before, is the
+    main path; :func:`time_serving` then times its prefill and decode steps
+    warm."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init
+    from repro_torch.serve import generate
+
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on: the f32 contractions would round")
+    require(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=device).manual_seed(0), cfg, device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"lm {LM_ARCH}: d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv x {cfg.hd}, "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k} d_ff {cfg.moe_ff} + shared, vocab {cfg.vocab}, "
+        f"{cfg.n_layers} of 48 layers: {n_params / 1e9:.3f} G params ({n_params * 4 / 1e9:.1f} GB f32), "
+        f"init {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=torch.Generator().manual_seed(1)).to(device)
+    kern = dataclasses.replace(PRESETS["r2f2_16"], use_kernels=True)
+    ctr = counters()
+    res = {}
+    for name, prec, plain in (("r2f2_16+K7", kern, False), ("r2f2_16+plain K7", kern, True), ("f32", PRESETS["f32"], False)):
+        with ops.plain_matmul() if plain else contextlib.nullcontext():
+            for c in ctr.values():
+                c.reset()
+            t = time.perf_counter()
+            tokens = generate(params, cfg, prec, prompts, max_new_tokens=LM_NEW, device=device)
+            torch.cuda.synchronize()
+            gen_ms = (time.perf_counter() - t) * 1e3
+            launches = {k: c.launches for k, c in ctr.items()}
+            plain_calls = {k: c.plain_calls for k, c in ctr.items()}
+            prefill_ms, logits, step_ms, timed_tokens = time_serving(params, cfg, prec, prompts)
+        require(tuple(tokens.shape) == (LM_BATCH, LM_NEW) and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+                f"lm {name}: tokens of the wrong shape or range")
+        require(bool(torch.isfinite(logits).all()), f"lm {name}: non-finite prefill logits")
+        require(torch.equal(timed_tokens, tokens[:, : LM_TIMED_STEPS + 1]), f"lm {name}: the timed steps chose other tokens than generate")
+        decode_ms = statistics.median(step_ms)
+        res[name] = dict(tokens=tokens, logits=logits, launches=launches, plain_calls=plain_calls, generate_ms=gen_ms,
+                         prefill_ms=prefill_ms, decode_step_ms=step_ms, decode_ms_per_token=decode_ms)
+        log(f"lm {name}: generate {gen_ms:.1f} ms; warm: prefill {prefill_ms:.1f} ms, decode "
+            f"{decode_ms:.1f} ms/token (median of {LM_TIMED_STEPS} steps timed one by one: "
+            f"{', '.join(f'{v:.1f}' for v in step_ms)}); K7 launches in generate {launches['r2f2_matmul']}, "
+            f"K7 plain calls {plain_calls['r2f2_matmul']} [{card}]")
+    k, p, f = res["r2f2_16+K7"], res["r2f2_16+plain K7"], res["f32"]
+    require(k["launches"]["r2f2_matmul"] == LM_K7_LAUNCHES, f"K7 launched {k['launches']['r2f2_matmul']} times per generate, want {LM_K7_LAUNCHES}")
+    others = {n: v for n, v in k["launches"].items() if n != "r2f2_matmul" and v}
+    require(not others, f"other kernels launched on the LM path: {others}")
+    require(not any(k["plain_calls"].values()) and not any(f["plain_calls"].values()), "a wrapper ran a plain version on the card")
+    require(p["plain_calls"]["r2f2_matmul"] == LM_K7_LAUNCHES and sum(p["plain_calls"].values()) == LM_K7_LAUNCHES
+            and not any(p["launches"].values()), "the plain-K7 run did not take K7's plain version at every site")
+    require(not any(f["launches"].values()), "the f32 run launched a kernel")
+    same = torch.equal(k["tokens"], p["tokens"])
+    log(f"lm greedy tokens, K7 vs plain K7: {'equal' if same else 'DIFFER'} ({LM_BATCH}x{LM_NEW})")
+    require(same, "greedy tokens of the K7 run differ from the plain-K7 run")
+    # K7 and its plain version sum each block pair in another order; on these
+    # logits the difference has not reached a bit (measured on the H100)
+    bit_identical = same_bits(k["logits"], p["logits"])
+    log(f"lm prefill logits, K7 vs plain K7: {'bit-identical' if bit_identical else 'DIFFER'}")
+    require(bit_identical, "the K7 run's prefill logits differ from the plain-K7 run's")
+    rel = float((k["logits"].double() - f["logits"].double()).norm() / f["logits"].double().norm())
+    agree = float((k["tokens"] == f["tokens"]).float().mean())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"lm prefill logits rel-L2 r2f2_16 vs f32 {rel:.4e}; greedy tokens equal to f32's: {agree:.3f}")
+    log(f"lm peak device memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) [{card}]")
+    require(rel < 0.05, f"r2f2_16 logits drift from f32's: rel-L2 {rel}")
+    out = {name: {key: v for key, v in r.items() if key not in ("tokens", "logits")} for name, r in res.items()}
+    out.update(rel_l2_vs_f32=rel, logits_k7_bit_identical_to_plain=bit_identical, tokens_equal_k7_plain=same,
+               token_agreement_f32=agree, peak_bytes=peak, n_params=n_params)
+    del params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def time_contract_kernels(device, launches, errs, card):
+    """K6 and K7 (CUDA events after warm-up) at the main path's shapes,
+    beside their bounds, their plain versions and, for K7, cuBLAS SGEMM on
+    the same shapes (a yardstick only: not the same function)."""
+    import torch
+
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.kernels.r2f2_matmul import r2f2_matmul, r2f2_matmul_plain
+    from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
+
+    fmt = FlexFormat(3, 9, 3)
+    g = torch.Generator().manual_seed(31)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    rows, recs = [], []
+    for m, n in ((1024, 1024), (LM_D, LM_FF)):
+        x = torch.randn(m, n, generator=g).to(device) * LM_D**-0.5
+        ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 20)
+        plain_ms, (yp, kp) = cuda_time_ms(lambda: r2f2_quantize_plain(x, fmt=fmt), 3)
+        require(same_bits(y, yp) and torch.equal(k, kp), f"r2f2_quantize disagrees with its plain version at ({m},{n})")
+        b_ms, b_by = bound(8 * m * n + 4 * k.numel(), 0)
+        rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, sgemm_ms=None))
+    k7_shapes = [
+        ("router prefill", LM_PREFILL_ROWS, LM_D, LM_E), ("router decode", LM_DECODE_ROWS, LM_D, LM_E),
+        ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
+        ("shared-expert down prefill", LM_PREFILL_ROWS, LM_FF, LM_D), ("shared-expert down decode", LM_DECODE_ROWS, LM_FF, LM_D),
+        ("bench_kernels", 512, 512, 512),
+    ]
+    for label, m, kd, n in k7_shapes:
+        a = torch.randn(m, kd, generator=g).to(device)
+        b = torch.randn(kd, n, generator=g).to(device) * kd**-0.5
+        reps = 10 if m * n * kd > 1e9 else 50
+        ms, got = cuda_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt), reps)
+        plain_ms, want = cuda_time_ms(lambda: r2f2_matmul_plain(a, b, fmt=fmt), 3)
+        sgemm_ms, _ = cuda_time_ms(lambda: a @ b, reps)
+        require(within_bound(got, want, k7_order_bound(a, b)), f"r2f2_matmul disagrees with its plain version at {label}")
+        b_ms, b_by = bound(4 * (m * kd + kd * n + m * n), 2 * m * n * kd)
+        rows.append(dict(name="r2f2_matmul", shape=f"{label} ({m},{kd})@({kd},{n})", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, sgemm_ms=sgemm_ms))
+    for r in rows:
+        sg = "" if r["sgemm_ms"] is None else f", cuBLAS SGEMM {r['sgemm_ms']:.4f} ms (not the same function)"
+        log(f"time {r['name']} {r['shape']} r2f2_16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){sg}; library call: none [{card}]")
+    main_rows = {"r2f2_quantize": f"({LM_D},{LM_FF}) block (256,256)",
+                 "r2f2_matmul": f"shared-expert gate prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_FF})"}
+    replaces = {"r2f2_quantize": "src/repro/kernels/r2f2_quantize.py:45", "r2f2_matmul": "src/repro/kernels/r2f2_matmul.py:73"}
+    for name, shape in main_rows.items():
+        r = next(r for r in rows if r["name"] == name and r["shape"] == shape)
+        recs.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu", replaces=replaces[name],
+            launches=launches[name], max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        ))
+    return recs, rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv) -> int:
@@ -860,9 +1290,11 @@ def main(argv) -> int:
     errs, records = check_kernels(device, 100 if quick else HEAT_CHUNK)
     mega_errs, mega_records = check_mega(device)
     k5_errs, k5_records = check_k5(device)
+    c_errs, c_records = check_contract_kernels(device)
     errs.update(mega_errs)
     errs.update(k5_errs)
-    report["kernel_checks"] = records + mega_records + k5_records
+    errs.update(c_errs)
+    report["kernel_checks"] = records + mega_records + k5_records + c_records
     if quick:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -898,7 +1330,16 @@ def main(argv) -> int:
     cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
     report["planes"] = check_planes(device, cut) + check_mega_planes(device, MAIN_STEPS)
 
+    t_lm = time.perf_counter()
+    api = run_api_path(device)
+    report["lm"] = run_lm(device, card)
+    main_launches["r2f2_quantize"] = api["r2f2_quantize"]
+    main_launches["r2f2_matmul"] = report["lm"]["r2f2_16+K7"]["launches"]["r2f2_matmul"]
+    log(f"contraction path phase: {time.perf_counter() - t_lm:.1f} s")
+
     recs = time_kernels(device, main_launches, errs, card)
+    contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
+    recs += contract_recs
     report["kernels"] = recs
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start

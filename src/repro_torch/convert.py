@@ -6,6 +6,7 @@ imports neither JAX nor ``repro``):
     state_from_numpy(np.asarray(jax_state), device="cpu")
     tracker_from_numpy(names, k, hi_ema, lo_ema, overflow_steps, shrink_steps)
     precision_from_dict(dataclasses.asdict(jax_prec))
+    params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), device="cpu")
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.core.flexformat import FlexFormat
 from repro_torch.core.policy import PrecisionConfig, RangeTracker
 from repro_torch.precision.sites import SiteTracker
 
-__all__ = ["state_from_numpy", "tracker_from_numpy", "precision_from_dict"]
+__all__ = ["state_from_numpy", "tracker_from_numpy", "precision_from_dict", "params_from_numpy"]
 
 
 def state_from_numpy(x, *, device="cpu") -> torch.Tensor:
@@ -62,3 +63,14 @@ def precision_from_dict(d: Mapping) -> PrecisionConfig:
         if d.get(key) is not None:
             d[key] = _tuple(d[key])
     return PrecisionConfig(**d)
+
+
+def params_from_numpy(tree, *, device="cpu"):
+    """A parameter tree (nested dicts, tuples and lists of arrays, as
+    ``repro``'s ``model_init`` returns) as tensors on ``device``, with the
+    same layout, dtypes and bits."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device=device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(params_from_numpy(v, device=device) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)

@@ -23,7 +23,7 @@ __all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu")
+SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu")
 HEADERS = ("r2f2_device.cuh",)
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -50,6 +50,10 @@ _SIGNATURES = {
     # u_in, u_out, snaps, ev, work, maxes, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny,
     # steps, every, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
     "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
+    # x, y, k_tiles, m, n, bm, bn, eb, mb, fx, stream
+    "r2f2_quantize": [_P] * 3 + [_I] * 7 + [_P],
+    # a, b, c, m, n, kdim, bm, bn, bk, eb, mb, fx, round_products, tail_approx, stream
+    "r2f2_matmul": [_P] * 3 + [_I] * 11 + [_P],
 }
 # K5 (csrc/pde_steps.cu), one signature per template for its three bodies:
 # sweep: u_in, u_out, ev, k_floor, nx, ny, steps, c0, c1, policy(8), stream

@@ -1,0 +1,109 @@
+"""Kernel K7: blocked matmul through R2F2 multipliers (``r2f2_matmul``).
+
+``C = A @ B`` for a ``(M, K)`` and a ``(K, N)`` f32 matrix, in ``(bm, bn,
+bk)`` blocks (default ``(128, 128, 128)``, each cut to its dim):
+
+* each ``(bm, bk) x (bk, bn)`` block pair shares one split ``k``, the
+  minimal one covering both tiles' max exponents and their product bound
+  (``select_k``);
+* both tiles are quantized to ``E(EB+k) M(MB+FX-k)`` by RNE;
+* each output block sums its block pairs in K order in f32: per pair the
+  ``bk``-term products (``round_products=True``: each product first rounded
+  to the runtime format with the FX-tail truncation), then ``acc += partial``.
+
+Non-divisible shapes are zero-padded to block multiples and the output is
+cropped: padded zeros add nothing and never raise a tile max.
+
+Replaces the TPU kernel ``repro/kernels/r2f2_matmul.py::r2f2_matmul_pallas``
+(``_matmul_kernel``). The CUDA kernel (``csrc/r2f2_matmul.cu``) gives one
+CTA each output block and walks the K blocks in order, staging each pair of
+tiles through shared memory, quantizing them there and summing with f32
+FMAs (no tensor cores: TF32 would round the operands); the zero padding is
+a masked load. At the shared expert's prefill shape (256 x 5120 @ 5120 x
+8192) it is bound by operations, at decode (4 rows) by the bytes of B.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.flexformat import FlexFormat, quantize_em
+from repro_torch.core.r2f2 import _finite_max_exp, product_guard_bits, select_k
+from repro_torch.kernels import _cuda
+
+__all__ = ["DEFAULT_BLOCKS", "MAX_BLOCK", "R2F2_MATMUL", "r2f2_matmul", "r2f2_matmul_plain"]
+
+DEFAULT_BLOCKS = (128, 128, 128)
+#: the CUDA kernel's largest output block edge (16 threads x 8 outputs)
+MAX_BLOCK = 128
+#: launches of the CUDA kernel and runs of the plain version
+R2F2_MATMUL = _cuda.KernelCounter("r2f2_matmul")
+
+
+def _shapes(a, b, blocks):
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"r2f2_matmul takes 2-D matrices; got {tuple(a.shape)} @ {tuple(b.shape)}")
+    (m, kdim), (k2, n) = a.shape, b.shape
+    if kdim != k2:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
+    return m, n, kdim, min(blocks[0], m), min(blocks[1], n), min(blocks[2], kdim)
+
+
+def r2f2_matmul_plain(a, b, *, fmt: FlexFormat, blocks=DEFAULT_BLOCKS, round_products=False, tail_approx=True):
+    """The plain PyTorch version of :func:`r2f2_matmul`, on any device.
+
+    Every block pair's products are formed at once for each split value the
+    pairs use, and the pairs are summed in K order. With ``round_products``
+    the ``(bm, bk, bn)`` products of every block pair are materialized: keep
+    that to small shapes."""
+    m, n, kdim, bm, bn, bk = _shapes(a, b, blocks)
+    a = F.pad(a.to(torch.float32), (0, -kdim % bk, 0, -m % bm))
+    b = F.pad(b.to(torch.float32), (0, -n % bn, 0, -kdim % bk))
+    gm, gn, gk = a.shape[0] // bm, b.shape[1] // bn, a.shape[1] // bk
+    at = a.reshape(gm, bm, gk, bk).permute(2, 0, 1, 3).contiguous()  # (gk, gm, bm, bk)
+    bt = b.reshape(gk, bk, gn, bn).permute(0, 2, 1, 3).contiguous()  # (gk, gn, bk, bn)
+    k = select_k(_finite_max_exp(at, dim=(2, 3))[:, :, None], _finite_max_exp(bt, dim=(2, 3))[:, None, :], fmt)
+    partial = torch.zeros((gk, gm, gn, bm, bn), dtype=torch.float32, device=a.device)
+    for v in torch.unique(k).tolist():
+        e_bits, m_bits = fmt.eb + v, fmt.mb + fmt.fx - v
+        aq, bq = quantize_em(at, e_bits, m_bits), quantize_em(bt, e_bits, m_bits)
+        if round_products:
+            prods = aq[:, :, None, :, :, None] * bq[:, None, :, None, :, :]  # (gk, gm, gn, bm, bk, bn)
+            guard = product_guard_bits(fmt, v) if tail_approx else None
+            p = quantize_em(prods, e_bits, m_bits, tail_trunc_bits=guard).sum(dim=4)
+        else:
+            p = torch.einsum("kibx,kjxc->kijbc", aq, bq)
+        partial = torch.where((k == v)[..., None, None], p, partial)
+    acc = torch.zeros((gm, gn, bm, bn), dtype=torch.float32, device=a.device)
+    for kk in range(gk):
+        acc = acc + partial[kk]
+    return acc.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)[:m, :n]
+
+
+def r2f2_matmul(a, b, *, fmt: FlexFormat, blocks=DEFAULT_BLOCKS, round_products=False, tail_approx=True):
+    """``A @ B`` through block-granular R2F2 multipliers, f32 sums. CUDA
+    tensors launch K7; CPU tensors run the plain version."""
+    m, n, kdim, bm, bn, bk = _shapes(a, b, blocks)
+    if not a.is_cuda:
+        R2F2_MATMUL.plain_calls += 1
+        return r2f2_matmul_plain(a, b, fmt=fmt, blocks=blocks, round_products=round_products, tail_approx=tail_approx)
+    if b.device != a.device:
+        raise ValueError(f"r2f2_matmul operands on {a.device} and {b.device}")
+    if bm > MAX_BLOCK or bn > MAX_BLOCK:
+        raise ValueError(f"the CUDA r2f2_matmul takes output blocks up to {MAX_BLOCK}; got ({bm}, {bn})")
+    smem = (bm * (bk + 1) + bk * bn) * 4
+    if smem > _cuda.SMEM_LIMIT:
+        raise ValueError(f"blocks ({bm}, {bn}, {bk}) need {smem} B of shared memory; the kernel takes at most {_cuda.SMEM_LIMIT} B")
+    a = a.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _cuda.library()
+    with torch.cuda.device(a.device):
+        err = lib.r2f2_matmul(
+            _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(out), m, n, kdim, bm, bn, bk,
+            fmt.eb, fmt.mb, fmt.fx, int(round_products), int(tail_approx), _cuda.stream_of(a),
+        )
+    _cuda.check(err, "r2f2_matmul")
+    R2F2_MATMUL.launches += 1
+    return out

@@ -1,9 +1,14 @@
 """repro_torch.precision: the single integration point for precision math.
 
-    from repro_torch.precision import PRESETS, multiply, divide
+    from repro_torch.precision import PRESETS, contract, dot, multiply
 
     prec = PRESETS["r2f2_16"]
     p = multiply(alpha, lap, prec, site="heat.flux")
+    y = dot(x, w, prec, site="mlp.up")              # dense-layer contraction
+    out = contract("bshd,bthd->bhst", q, k, prec, site="attn.qk")
+
+``dataclasses.replace(prec, use_kernels=True)`` sends an rr_tile 2-D matmul
+to kernel K7 (``kernels/r2f2_matmul.py``).
 
 Tracked modes thread a :class:`SiteTracker` through the same calls and get
 ``(out, tracker)`` back; with ``tracker=None`` the functions return the
@@ -42,6 +47,8 @@ __all__ = [
     "rsqrt",
     "store",
     "contract",
+    "dot",
+    "operand_dtype",
     "FlexFormat",
     "PrecisionConfig",
     "PRESETS",
@@ -56,7 +63,7 @@ def _ret(out, tracker_out, tracker):
 
 
 def prepare_operand(x, cfg, *, k=None):
-    """Policy-round one operand (LM path; raises until it is ported)."""
+    """Policy-round one operand. Returns ``(x_q, k)``."""
     return get_engine(cfg).prepare_operand(x, cfg, k=k)
 
 
@@ -86,5 +93,17 @@ def store(x, cfg):
 
 
 def contract(spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
-    """Einsum with policy operands (LM path; raises until it is ported)."""
-    return get_engine(cfg).contract(spec, a, b, cfg, tracker=tracker, site=site, shared_k=shared_k)
+    """Einsum with policy-treated operands and f32 sums."""
+    return _ret(*get_engine(cfg).contract(spec, a, b, cfg, tracker=tracker, site=site, shared_k=shared_k), tracker)
+
+
+def dot(x, w, cfg, **kw):
+    """Dense-layer contraction: last dim of ``x`` against first of ``w``."""
+    lhs = "".join(chr(ord("a") + i) for i in range(x.ndim - 1)) + "z"
+    rhs_extra = "".join(chr(ord("m") + i) for i in range(w.ndim - 1))
+    return contract(f"{lhs},z{rhs_extra}->{lhs[:-1]}{rhs_extra}", x, w, cfg, **kw)
+
+
+def operand_dtype(cfg):
+    """The dtype prepared operands travel in (what a dispatch moves)."""
+    return get_engine(cfg).operand_dtype(cfg)

@@ -6,25 +6,61 @@
     divide(a, b, cfg, *, tracker, site)     elementwise quotient
     rsqrt(x, cfg, *, tracker, site)         elementwise 1/sqrt
     store(x, cfg)                           state write-back rounding
-    prepare_operand / contract              the LM contraction path
+    prepare_operand(x, cfg, *, k=None)      one operand, policy-rounded -> (x_q, k)
+    contract(spec, a, b, cfg, *, ...)       einsum with policy operands, f32 sums
 
-Every elementwise op returns ``(out, tracker)``; engines that do not track
-pass the tracker through. The base class implements the elementwise ops on
-the f32 substrate. ``prepare_operand`` and ``contract`` belong to the LM
-stack, which this package does not carry yet.
+Every elementwise op and ``contract`` return ``(out, tracker)``; engines
+that do not track pass the tracker through. The base class implements every
+op on the f32 substrate and ``contract`` on top of ``prepare_operand``.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-__all__ = ["PrecisionEngine", "LM_PATH_PENDING"]
+__all__ = ["PrecisionEngine", "bf16_round", "bf16_pair", "tile_shape_for", "ste"]
 
-#: the message every LM-path entry point raises with
-LM_PATH_PENDING = (
-    "the LM contraction path (prepare_operand/contract) is not ported to "
-    "repro_torch yet: ROADMAP.md queue 1 item 13"
-)
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to the nearest bf16 value (RNE), returned as f32."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_pair(a, b):
+    """Both operands rounded to bf16 and cast back to f32, as the reference
+    runs a bf16 contraction off the TPU (its ``native_bf16()`` is False
+    there): the products and sums stay f32."""
+    return bf16_round(a), bf16_round(b)
+
+
+def tile_shape_for(x, tile: int) -> Optional[Tuple[int, ...]]:
+    """Tiles of ``tile`` on the last two dims (1 elsewhere) where ``tile``
+    divides the dim, else the whole dim; None for a scalar."""
+    if x.ndim == 0:
+        return None
+    shape = [1] * x.ndim
+    for ax in range(max(0, x.ndim - 2), x.ndim):
+        shape[ax] = tile if x.shape[ax] % tile == 0 else x.shape[ax]
+    return tuple(shape)
+
+
+class _STE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, xq):
+        return x + (xq - x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def ste(x, xq):
+    """Straight-through estimator: forward ``x + (xq - x)``, computed as
+    written (not ``xq``: ``ste(inf, inf)`` is NaN and a negative value that
+    quantizes to -0 gives +0, as in the reference), identity backward."""
+    return _STE.apply(x, xq)
 
 
 class PrecisionEngine:
@@ -40,10 +76,19 @@ class PrecisionEngine:
     tracks: bool = False
 
     def prepare_operand(self, x, cfg, *, k=None):
-        raise NotImplementedError(LM_PATH_PENDING)
+        """Quantize one operand per the policy: ``(x_q, k)``, where ``k`` is
+        the chosen flexible split (None for non-flexible engines)."""
+        return x.to(torch.float32), None
+
+    def operand_dtype(self, cfg):
+        """The dtype prepared operands travel in (the MoE dispatch payload)."""
+        return torch.float32
 
     def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
-        raise NotImplementedError(LM_PATH_PENDING)
+        """Einsum of the policy-treated operands with f32 sums."""
+        aq, _ = self.prepare_operand(a, cfg)
+        bq, _ = self.prepare_operand(b, cfg)
+        return torch.einsum(spec, aq, bq), tracker
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         return a.to(torch.float32) * b.to(torch.float32), tracker

@@ -3,7 +3,9 @@
   f32         reference arithmetic (pass-through)
   bf16        plain mixed-precision baseline
   fixed       fixed E(e)M(m) emulation (the paper's failing E5M10 baseline)
-  rr_tile     R2F2 emulation, per-tensor runtime k selection
+  rr_tile     R2F2 emulation, per-tile (contractions) or per-tensor
+              (elementwise) runtime k selection, with the K7 fast path when
+              ``cfg.use_kernels`` and the contraction is eligible
   rr_tracked  R2F2 emulation, k carried by a SiteTracker
   deploy      bf16 arithmetic + tracker-driven k bookkeeping
 
@@ -16,9 +18,18 @@ bf16. The port follows the reference as it runs.
 Where the compiled reference contracts a policy product into a following
 add (the f32 and bf16 families, whose product is a plain f32 multiply),
 ``multiply_add`` rounds once (:func:`repro_torch.core.fma.fma`).
+
+Kernel dispatch: a contraction reaches K7 (``kernels/r2f2_matmul.py``) iff
+``cfg.use_kernels`` is set, both operands are 2-D and the spec is a plain
+row-by-column matmul (``"ab,bc->ac"`` up to letter renaming). The kernel
+picks its own split per block pair. A CUDA tensor launches the kernel; a
+CPU tensor runs its plain version. The path applies no STE, as in the
+reference.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -28,25 +39,72 @@ from repro_torch.core.flexformat import quantize_em
 from repro_torch.core.policy import tracker_k, tracker_update
 from repro_torch.core.r2f2 import _tile_max_exp, r2f2_multiply, select_k, select_k_op, select_k_operand
 
-from .engine import PrecisionEngine
+from .engine import PrecisionEngine, bf16_pair, bf16_round, ste, tile_shape_for
 from .registry import register_engine
 from .sites import resolve_site, rewrap
 
-__all__ = ["F32Engine", "BF16Engine", "FixedEngine", "RRTileEngine", "RRTrackedEngine", "DeployEngine", "bf16_round"]
+__all__ = [
+    "F32Engine",
+    "BF16Engine",
+    "FixedEngine",
+    "RRTileEngine",
+    "RRTrackedEngine",
+    "DeployEngine",
+    "bf16_round",
+    "kernel_eligible",
+]
 
+# "ab,bc->ac" with any distinct letters: the one contraction K7 implements
+_MATMUL_SPEC = re.compile(r"^([a-zA-Z])([a-zA-Z]),([a-zA-Z])([a-zA-Z])->([a-zA-Z])([a-zA-Z])$")
 
-def bf16_round(x: torch.Tensor) -> torch.Tensor:
-    """Round f32 to the nearest bf16 value (RNE), returned as f32."""
-    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+#: operands above this many elements are quantized in slices of whole tile
+#: rows (bit-identical: no tile crosses a slice), so that the int64 work of
+#: ``quantize_em`` stays a few GB on llama4's (5120, 202048) head
+_SLICE_ELEMS = 1 << 26
 
 
 def _f32(x) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def kernel_eligible(spec: str, a, b, cfg) -> bool:
+    """Can this contraction run on K7 (``r2f2_matmul``)? Any 2-D matmul
+    shape is: the kernel pads and crops non-divisible dims."""
+    if not getattr(cfg, "use_kernels", False):
+        return False
+    if getattr(a, "ndim", 0) != 2 or getattr(b, "ndim", 0) != 2:
+        return False
+    m = _MATMUL_SPEC.match(spec.replace(" ", ""))
+    if m is None:
+        return False
+    i, j, j2, l, oi, ol = m.groups()
+    if len({i, j, l}) != 3 or j2 != j or (oi, ol) != (i, l):
+        return False
+    return a.shape[1] == b.shape[0]
+
+
+def _kernel_contract(a, b, cfg):
+    from repro_torch.kernels import ops as kernel_ops  # lazy: kernels.fused imports this module
+
+    return kernel_ops.r2f2_matmul(_f32(a), _f32(b), cfg.fmt, blocks=cfg.kernel_blocks, tail_approx=cfg.tail_approx)
+
+
+def _row_slices(x, tile_rows: int):
+    """Slices of ``x`` along dim 0 at multiples of ``tile_rows``, each under
+    :data:`_SLICE_ELEMS` elements where one tile row allows it."""
+    if x.ndim < 2 or x.numel() <= _SLICE_ELEMS:
+        return [x]
+    row = x.numel() // x.shape[0] * tile_rows
+    step = max(1, _SLICE_ELEMS // row) * tile_rows
+    return list(torch.split(x, step, dim=0))
+
+
 @register_engine("f32")
 class F32Engine(PrecisionEngine):
     """Reference arithmetic: everything stays f32."""
+
+    def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
+        return torch.einsum(spec, _f32(a), _f32(b)), tracker
 
     def multiply_add(self, a, b, c, cfg, *, tracker=None, site=None):
         return fma(_f32(a), _f32(b), _f32(c)), tracker
@@ -55,6 +113,16 @@ class F32Engine(PrecisionEngine):
 @register_engine("bf16")
 class BF16Engine(PrecisionEngine):
     """Plain mixed precision: bf16 operands and results."""
+
+    def prepare_operand(self, x, cfg, *, k=None):
+        return bf16_round(x), None
+
+    def operand_dtype(self, cfg):
+        return torch.bfloat16
+
+    def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
+        aq, bq = bf16_pair(a, b)
+        return torch.einsum(spec, aq, bq), tracker
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         return bf16_round(a) * bf16_round(b), tracker
@@ -85,6 +153,12 @@ class FixedEngine(PrecisionEngine):
         e, m = cfg.fixed_em
         return quantize_em(_f32(x), e, m)
 
+    def prepare_operand(self, x, cfg, *, k=None):
+        x = _f32(x)
+        e, m = cfg.fixed_em
+        parts = [ste(p, quantize_em(p, e, m)) for p in _row_slices(x, 1)]
+        return (parts[0] if len(parts) == 1 else torch.cat(parts)), None
+
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         return self._q(self._q(a, cfg) * self._q(b, cfg), cfg), tracker
 
@@ -113,9 +187,51 @@ def _shared_k_op(a, b, cfg, op):
 
 @register_engine("rr_tile")
 class RRTileEngine(PrecisionEngine):
-    """R2F2 emulation with a per-tensor runtime split (stateless)."""
+    """R2F2 emulation with a runtime split: per tile for operands of a
+    contraction, per tensor for elementwise ops (stateless)."""
 
     emulated = True
+
+    def _quantize(self, x, cfg, k):
+        """``(x_q, k_tiles)``: the per-tile split picked from the data
+        (``k`` None), or the given split (a scalar, or one per tile). A
+        per-tile split broadcasts over a tiled view of ``x`` (one split per
+        tile, never one per element: the same bits, a fraction of the work)."""
+        fmt = cfg.fmt
+        tile = tile_shape_for(x, cfg.tile)
+        if k is None:
+            k = select_k_operand(_tile_max_exp(x, tile)[0], fmt).to(torch.int32)
+        if k.ndim == 0:
+            kk = k.to(torch.int64)
+            return ste(x, quantize_em(x, fmt.eb + kk, fmt.mb + fmt.fx - kk)), k
+        split, grid = [], []
+        for d, t in zip(x.shape, tile):
+            split += [d // t, t]
+            grid += [d // t, 1]
+        kv = k.to(torch.int64).reshape(grid)
+        xq = quantize_em(x.reshape(split), fmt.eb + kv, fmt.mb + fmt.fx - kv).reshape(x.shape)
+        return ste(x, xq), k
+
+    def prepare_operand(self, x, cfg, *, k=None):
+        x = _f32(x)
+        if k is not None:
+            k = torch.as_tensor(k, device=x.device).to(torch.int32)
+            if k.ndim:
+                return self._quantize(x, cfg, k)
+        tile = tile_shape_for(x, cfg.tile)
+        parts = [self._quantize(p, cfg, k) for p in _row_slices(x, 1 if tile is None else tile[0])]
+        if len(parts) == 1:
+            return parts[0]
+        xq = torch.cat([p[0] for p in parts])
+        return xq, (k if k is not None else torch.cat([p[1] for p in parts]))
+
+    def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
+        if kernel_eligible(spec, a, b, cfg):
+            return _kernel_contract(a, b, cfg), tracker
+        k = _shared_k(_f32(a), _f32(b), cfg) if shared_k else None
+        aq, _ = self.prepare_operand(a, cfg, k=k)
+        bq, _ = self.prepare_operand(b, cfg, k=k)
+        return torch.einsum(spec, aq, bq), tracker
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         out, _ = r2f2_multiply(_f32(a), _f32(b), cfg.fmt, tile_shape=None, tail_approx=cfg.tail_approx)
@@ -144,6 +260,19 @@ class RRTrackedEngine(RRTileEngine):
 
     emulated = True
     tracks = True
+
+    def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
+        state, idx = resolve_site(tracker, site)
+        if state is None or idx is None:
+            raise ValueError("rr_tracked needs tracker+site")
+        a, b = _f32(a), _f32(b)
+        k = tracker_k(state, idx)
+        if not cfg.pinned:
+            k = torch.maximum(k, _shared_k(a, b, cfg))
+            state = tracker_update(state, idx, a, b, cfg)
+        aq, _ = self.prepare_operand(a, cfg, k=k)
+        bq, _ = self.prepare_operand(b, cfg, k=k)
+        return torch.einsum(spec, aq, bq), rewrap(tracker, state)
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         a, b = _f32(a), _f32(b)
@@ -194,6 +323,10 @@ class DeployEngine(BF16Engine):
         if state is not None and idx is not None:
             tracker = rewrap(tracker, tracker_update(state, idx, _f32(a), _f32(b), cfg, op))
         return tracker
+
+    def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
+        out, _ = super().contract(spec, a, b, cfg)
+        return out, self._track(tracker, site, a, b, cfg)
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         out, _ = super().multiply(a, b, cfg)

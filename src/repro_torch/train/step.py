@@ -1,0 +1,27 @@
+"""Step builders. This slice ports ``make_serve_step``; the train step, its
+optimizer and its sharding rules are still to come (ROADMAP.md queue 1
+item 13)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import decode_step
+from repro_torch.models.config import ModelConfig
+from repro_torch.precision import PrecisionConfig
+
+__all__ = ["make_serve_step"]
+
+
+def make_serve_step(cfg: ModelConfig, prec: PrecisionConfig, window: Optional[int] = None):
+    """Returns serve_step(params, caches, tokens, pos) -> (next_tokens, caches):
+    one greedy decode step against a filled KV cache."""
+
+    def serve_step(params, caches, tokens, pos):
+        logits, caches = decode_step(params, caches, tokens, pos, cfg, prec, window=window)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        return nxt, caches
+
+    return serve_step

@@ -1,6 +1,7 @@
 """repro_torch on a CUDA card: the kernels against their plain versions,
-the default device, and execution="auto" on the megakernel (K4 for heat1d
-and swe2d, K5 for heat2d, advection1d and burgers1d). These tests skip
+the default device, execution="auto" on the megakernel (K4 for heat1d and
+swe2d, K5 for heat2d, advection1d and burgers1d), and the contraction path
+through K6 and K7. These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -125,3 +126,69 @@ def test_k5_planes_launch_their_kernels(name):
         if fus.tracker is not None:
             for a, b in zip(res.tracker.state, fus.tracker.state):
                 assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.cuda
+def test_cuda_k6_k7_match_plain_versions():
+    """K6 bit for bit, K7 within the spread of two f32 summation orders
+    (dyadic and rounded-dyadic cases bit for bit), over chip_smoke.py's case
+    list."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    _, records = chip_smoke.check_contract_kernels("cuda")
+    assert records and all(r["ok"] for r in records)
+
+
+@pytest.mark.cuda
+def test_contract_on_cuda_launches_k7():
+    """rr_tile with use_kernels sends a 2-D matmul on CUDA tensors to K7 (one
+    launch, no plain call); other specs and modes do not reach it."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.r2f2_matmul import R2F2_MATMUL, r2f2_matmul_plain
+    from repro_torch.precision import contract, dot
+
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(200, 136, generator=g).cuda(), torch.randn(136, 72, generator=g).cuda()
+    cfg = dataclasses.replace(PRESETS["r2f2_16"], use_kernels=True)
+    before = (R2F2_MATMUL.launches, R2F2_MATMUL.plain_calls)
+    out = contract("ij,jk->ik", a, b, cfg)
+    dot(a[None], b, cfg)
+    contract("ij,jk->ik", a, b, PRESETS["r2f2_16"])
+    assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (1, 0)
+    want = r2f2_matmul_plain(a, b, fmt=cfg.fmt)
+    bound = 136 * 2.0**-23 * r2f2_matmul_plain(a.abs(), b.abs(), fmt=cfg.fmt).double() * 1.01
+    assert bool(((out.double() - want.double()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_generate_on_cuda_runs_k7():
+    """reduced llama4-scout (2 layers) served on the card under r2f2_16 with
+    use_kernels: K7 at the router and the shared expert's three sites of each
+    layer per forward, the same tokens as with K7's plain version."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.r2f2_matmul import R2F2_MATMUL
+    from repro_torch.models import model_init
+    from repro_torch.serve import generate
+
+    cfg = dataclasses.replace(reduced(get_config("llama4-scout-17b-a16e")), n_layers=2)
+    params = model_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (4, 8), generator=torch.Generator().manual_seed(1))
+    prec = dataclasses.replace(PRESETS["r2f2_16"], use_kernels=True)
+    before = (R2F2_MATMUL.launches, R2F2_MATMUL.plain_calls)
+    tokens = generate(params, cfg, prec, prompts, max_new_tokens=6)
+    assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (2 * 4 * 6, 0)
+    before = (R2F2_MATMUL.launches, R2F2_MATMUL.plain_calls)
+    with ops.plain_matmul():
+        plain = generate(params, cfg, prec, prompts, max_new_tokens=6)
+    assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (0, 2 * 4 * 6)
+    assert tokens.is_cuda and torch.equal(tokens, plain)

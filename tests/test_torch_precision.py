@@ -138,11 +138,26 @@ def test_rsqrt_engines_close():
 
 
 def test_lm_path_raises_with_roadmap_item():
-    te = t_engine("rr_tile")
+    """The parts of the LM path still to port raise, naming their ROADMAP
+    item: the other architectures, mixers and frontends, chunked attention
+    and the einsum MoE dispatch (the contraction path itself runs, in
+    tests/test_torch_contract.py)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention, model_init, moe
+
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        te.contract("ab,bc->ac", t(np.ones((2, 2))), t(np.ones((2, 2))), tprec("rr_tile"))
+        get_config("xlstm-1.3b")
+    cfg = reduced(get_config("llama4-scout-17b-a16e"))
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        te.prepare_operand(t(np.ones(3)), tprec("rr_tile"))
+        model_init(torch.Generator(), dataclasses.replace(cfg, pattern=("mamba+moe",)), "cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        model_init(torch.Generator(), dataclasses.replace(cfg, frontend="audio"), "cpu")
+    q = torch.zeros(1, attention.FLASH_THRESHOLD + 1, 1, 4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        attention._chunked_attention(q, q, q, True, None, tprec("rr_tile"))
+    assert moe.DISPATCH_MODE == "scatter"
 
 
 def test_registry_and_known_modes():
