@@ -10,7 +10,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``src/repro_torch/csrc`` (into ``build/kernels/``);
 2. each kernel against its plain PyTorch version on the card, bit for bit
    with every NaN made canonical: K2 and K3 across the precision families,
-   carried splits (``k_floor``), pinned splits, evidence, and padded shapes;
+   carried splits (``k_floor``), pinned splits, evidence, and padded shapes
+   (K3 also on a field of eight tiles and an unaligned tile, each tile one
+   thread-block cluster);
    K4 (both megakernels) over the mode ladder at full width, with evolving,
    growing, pinned and bounded trackers, snapshots and evidence; K5 (the
    fused sweeps and megakernels of heat2d, advection1d and burgers1d) the
@@ -26,7 +28,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons;
-5. kernel times (CUDA events) beside their bounds and the plain versions;
+5. kernel times (CUDA events; for K3, whose kernel takes microseconds, a
+   replayed CUDA graph of its calls) beside their bounds and the plain
+   versions;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -35,12 +39,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tokens, bit-identical prefill logits) and f32 (the logits' rel-L2), each
    then timed warm (a prefill and decode steps one by one), then K6 and K7
    timed at the path's shapes beside their bounds, plain versions and
-   cuBLAS SGEMM.
+   cuBLAS SGEMM (K7 by replayed CUDA graphs, split and unsplit, with its
+   launch shape: the K blocks split S over CTAs, the CTA count).
 
 Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
 bit and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
 (:func:`k7_order_bound`), bit for bit on dyadic operands, also on dyadic
-operands that need rounding (the result must equal the unrounded ones').
+operands that need rounding (the result must equal the unrounded ones'),
+and K7's split launches bit for bit against unsplit ones
+(:data:`K7_SPLIT_CASES`).
 
 It prints the card's name and power limit, then one JSON line of kernel
 records, then ``{"ok": true, "device": {...}}`` as its last line. Details go
@@ -167,6 +174,37 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
+def graph_time_ms(fn, reps: int, replays: int = 5, base=None):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events. A graph launches
+    its kernels back to back without the host, so a kernel of a few
+    microseconds is timed without its Python wrapper's host time, which
+    :func:`cuda_time_ms` would measure instead. ``base`` (a graph of the
+    same work minus the call timed) is subtracted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    return ms - (graph_time_ms(base, reps, replays) if base is not None else 0.0)
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -214,7 +252,8 @@ def heat_cases(device, steps):
 
 def swe_cases(device):
     """(label, q1, q3, kwargs) for kernel K3: the main path's (127, 128)
-    x-midpoint fields in one tile, then padded tilings."""
+    x-midpoint fields in one tile, then padded tilings, a field of eight
+    tiles and an unaligned tile (each tile one thread-block cluster)."""
     import torch
 
     L = ladder()
@@ -235,7 +274,26 @@ def swe_cases(device):
     cases.append(("r2f2_16 (127,128) blocks (64,128) ev", q1, q3, dict(prec=blocks, **ev4)))
     cases.append(("e5m10 (100,96) block (64,64) ev", q1[:100, :96], q3[:100, :96], dict(prec=L["e5m10"], block=(64, 64), **ev4)))
     cases.append(("r2f2_16 (100,96) block (64,64) ev", q1[:100, :96], q3[:100, :96], dict(prec=L["r2f2_16"], block=(64, 64), **ev4)))
+    # a multi-tile field of 8 clusters, and an unaligned tile (scalar loads)
+    # whose 61 rows do not divide into its cluster's bands
+    q3w = (500.0 + 100.0 * torch.rand(255, 256, generator=g)).to(device)
+    q1w = (40.0 * torch.randn(255, 256, generator=g)).to(device)
+    for name in ("r2f2_16", "e5m10"):
+        cases.append((f"{name} (255,256) block (64,128) ev", q1w, q3w, dict(prec=L[name], block=(64, 128), **ev4)))
+    cases.append(("rr_tracked (255,256) block (64,128) k_floor ev", q1w, q3w, dict(prec=L["rr_tracked"], block=(64, 128), k_floor=floor, **ev4)))
+    cases.append(("r2f2_16 (61,30) unaligned ev", q1[:61, :30], q3[:61, :30], dict(prec=L["r2f2_16"], **ev4)))
     return cases
+
+
+def k3_launch_shape(q1, kw) -> str:
+    """The clusters K3 runs for a field and its swe_flux_fused kwargs."""
+    from repro_torch.kernels.swe_flux import cluster_plan
+
+    block = kw.get("block") or kw["prec"].kernel_blocks[:2]
+    br, bw = min(block[0], q1.shape[0]), min(block[1], q1.shape[1])
+    tiles = -(-q1.shape[0] // br) * -(-q1.shape[1] // bw)
+    c, band = cluster_plan(br, bw)
+    return f"[{tiles} tile(s) of ({br},{bw}), cluster C={c} of {band}-row bands, {tiles * c} CTAs]"
 
 
 def check_kernels(device, heat_steps):
@@ -261,7 +319,7 @@ def check_kernels(device, heat_steps):
         ok = same_bits(got, want) and (ev is None) == (ev_want is None) and (ev is None or same_bits(ev, ev_want))
         err = max_abs_err(got, want)
         errs["swe_flux_fused"] = max(errs["swe_flux_fused"], err)
-        log(f"K3 swe_flux_fused {label}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}")
+        log(f"K3 swe_flux_fused {label} {k3_launch_shape(q1, kw)}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}")
         records.append(dict(kernel="swe_flux_fused", case=label, ok=ok, max_abs_err=err))
         require(ok, f"swe_flux_fused disagrees with its plain version: {label}")
     return errs, records
@@ -528,6 +586,23 @@ def within_bound(got, want, bound) -> bool:
     return bool(((got.double() - want.double()).abs()[fin] <= bound[fin]).all())
 
 
+#: K7's split launches held bit for bit against unsplit ones: (label, m, kdim,
+#: n, kwargs) at the LM's split shapes, the kernel API's 512^3 (the tiled
+#: layout split), ragged and unaligned shapes (masked copies, 4-byte copies),
+#: and round_products
+K7_SPLIT_CASES = (
+    (f"router prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_E})", LM_PREFILL_ROWS, LM_D, LM_E, {}),
+    (f"router decode ({LM_DECODE_ROWS},{LM_D})@({LM_D},{LM_E})", LM_DECODE_ROWS, LM_D, LM_E, {}),
+    (f"shared-expert gate decode ({LM_DECODE_ROWS},{LM_D})@({LM_D},{LM_FF})", LM_DECODE_ROWS, LM_D, LM_FF, {}),
+    (f"shared-expert down decode ({LM_DECODE_ROWS},{LM_FF})@({LM_FF},{LM_D})", LM_DECODE_ROWS, LM_FF, LM_D, {}),
+    ("bench_kernels (512,512)@(512,512)", 512, 512, 512, {}),
+    ("ragged (5,1000)@(1000,24)", 5, 1000, 24, {}),
+    ("unaligned (5,999)@(999,23)", 5, 999, 23, {}),
+    ("unaligned (130,301)@(301,130)", 130, 301, 130, {}),
+    ("round_products (8,640)@(640,40) blocks (64,64,64)", 8, 640, 40, dict(blocks=(64, 64, 64), round_products=True)),
+)
+
+
 def check_contract_kernels(device):
     """K6 against its plain version bit for bit (y and k), over the four
     formats, three blocks, special tiles and the shared-expert gate's
@@ -537,11 +612,14 @@ def check_contract_kernels(device):
     tail_approx both ways, a non-divisible shape, (64, 64, 64) blocks, the
     router's and the shared expert's shapes at full width (prefill and
     decode) and the special tiles. At full width the unquantized product
-    must fall outside the bound: the check sees a quantization left out."""
+    must fall outside the bound: the check sees a quantization left out.
+    Then every split launch of K7_SPLIT_CASES (and the special tiles)
+    bit for bit against the unsplit launch of the same operands."""
     import torch
 
     from repro_torch.core.flexformat import FlexFormat
-    from repro_torch.kernels.r2f2_matmul import r2f2_matmul, r2f2_matmul_plain
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.r2f2_matmul import DEFAULT_BLOCKS, launch_plan, r2f2_matmul, r2f2_matmul_plain
     from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
 
     g = torch.Generator().manual_seed(5)
@@ -619,6 +697,22 @@ def check_contract_kernels(device):
                 ok = ok and skip > K7_ORDER_C
                 how += f"; unquantized at {skip:.1f}"
         record("r2f2_matmul", label, ok, max_abs_err(got, want), how)
+
+    # the split launch (one CTA per K block, the partials folded in K order)
+    # against one CTA per output block: the same bits
+    n_sms = _cuda.sm_count(torch.device(device))
+    split_cases = [(label, torch.randn(m, kd, generator=g).to(device), (torch.randn(kd, n, generator=g) * kd**-0.5).to(device), kw)
+                   for label, m, kd, n, kw in K7_SPLIT_CASES]
+    split_cases.append(("special K blocks (128,384)@(384,128)", sp, spread_data((384, 128), g, device, (-2, 2)), {}))
+    for label, a, b, kw in split_cases:
+        (m, kd), n = a.shape, b.shape[1]
+        plan = launch_plan(m, n, kd, kw.get("blocks", DEFAULT_BLOCKS), n_sms)
+        got = r2f2_matmul(a, b, fmt=fmt, **kw)
+        one = r2f2_matmul(a, b, fmt=fmt, _split=False, **kw)
+        want = r2f2_matmul_plain(a, b, fmt=fmt, **kw)
+        ok = plan.splits > 1 and same_bits(got, one) and within_bound(got, want, k7_order_bound(a, b))
+        record("r2f2_matmul", f"split S={plan.splits} ({plan.ctas} CTAs) vs unsplit ({plan.gm * plan.gn} CTAs): {label}", ok,
+               max_abs_err(got, want), f"bit-identical, within {K7_ORDER_C:g} units of the plain version")
     return errs, records
 
 
@@ -921,7 +1015,7 @@ def time_kernels(device, main_launches, errs, card):
     from repro_torch.configs import swe2d as swe_cfg
     from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
     from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
-    from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
+    from repro_torch.kernels.swe_flux import cluster_plan, swe_flux_fused, swe_flux_fused_plain
     from repro_torch.pde.heat1d import initial_condition
     from repro_torch.pde.swe2d import initial_state
 
@@ -933,6 +1027,7 @@ def time_kernels(device, main_launches, errs, card):
     q3 = (500.0 + 100.0 * torch.rand(127, 128, generator=g)).to(device)
     q1 = (40.0 * torch.randn(127, 128, generator=g)).to(device)
     sk = dict(prec=L["r2f2_16"])
+    require(cluster_plan(127, 128)[0] > 1, "K3 runs the (127,128) tile on one CTA")
 
     n_int = u.shape[1] - 2
     heat_bytes = 2 * u.numel() * 4  # the row in, the row out
@@ -976,7 +1071,7 @@ def time_kernels(device, main_launches, errs, card):
          f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch"),
         ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
          lambda: swe_flux_fused(q1, q3, **sk), lambda: swe_flux_fused_plain(q1, q3, **sk), bound(swe_bytes, swe_flops), 200, 5, 1,
-         "(127,128) r2f2_16, one tile"),
+         f"(127,128) r2f2_16, one tile {k3_launch_shape(q1, sk)}"),
         ("heat1d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:503",
          lambda: heat1d_mega(u1, **mk), lambda: heat1d_mega(u1, plain=True, **mk), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
          f"(128,) r2f2_16, one {hsteps}-substep horizon per launch"),
@@ -1009,7 +1104,11 @@ def time_kernels(device, main_launches, errs, card):
         ms, got = cuda_time_ms(kern, reps)
         plain_ms, want = cuda_time_ms(plain, plain_reps, warmup=plain_warmup)
         ok = same_result(got, want)
-        line = (f"time {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
+        call = ""
+        if name == "swe_flux_fused":  # a few microseconds: the kernel's device time, not the wrapper's call
+            call = f" (device time, CUDA graph; {ms:.4f} ms per call with the host's wrapper)"
+            ms = graph_time_ms(kern, reps)
+        line = (f"time {name} {shape}: kernel {ms:.4f} ms{call}, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
                 f"bound {bound_ms:.6f} ms ({bound_by}), library call: none; kernel vs plain of the timed calls: "
                 f"{'bit-exact' if ok else 'MISMATCH'} [{card}]")
         log(line)
@@ -1201,11 +1300,13 @@ def time_contract_kernels(device, launches, errs, card):
     import torch
 
     from repro_torch.core.flexformat import FlexFormat
-    from repro_torch.kernels.r2f2_matmul import r2f2_matmul, r2f2_matmul_plain
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.r2f2_matmul import launch_plan, r2f2_matmul, r2f2_matmul_plain
     from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
 
     fmt = FlexFormat(3, 9, 3)
     g = torch.Generator().manual_seed(31)
+    n_sms = _cuda.sm_count(torch.device(device))
 
     def bound(nbytes, flops):
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -1230,22 +1331,59 @@ def time_contract_kernels(device, launches, errs, card):
         a = torch.randn(m, kd, generator=g).to(device)
         b = torch.randn(kd, n, generator=g).to(device) * kd**-0.5
         reps = 10 if m * n * kd > 1e9 else 50
-        ms, got = cuda_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt), reps)
+        plan, one = launch_plan(m, n, kd, n_sms=n_sms), launch_plan(m, n, kd, n_sms=n_sms, split=False)
+        if "decode" in label and "router" not in label:
+            require(plan.ctas >= n_sms, f"K7 runs {plan.ctas} CTAs at {label}, fewer than the {n_sms} SMs")
+        if "router" in label:
+            require(plan.ctas > 2, f"K7 runs {plan.ctas} CTAs at {label}")
+        call_ms, got = cuda_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt), reps)
+        _, got_one = cuda_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt, _split=False), 1)
+        require(same_bits(got, got_one), f"r2f2_matmul's split and unsplit launches differ at {label}")
         plain_ms, want = cuda_time_ms(lambda: r2f2_matmul_plain(a, b, fmt=fmt), 3)
         sgemm_ms, _ = cuda_time_ms(lambda: a @ b, reps)
         require(within_bound(got, want, k7_order_bound(a, b)), f"r2f2_matmul disagrees with its plain version at {label}")
+        # the kernels' device time (a few microseconds at the router: the
+        # wrapper's host time would hide it), split and unsplit; the router's
+        # B (327 KB) stays in L2 across back-to-back calls, while in the LM
+        # other work evicts it in between: time it with L2 flushed too
+        ms = graph_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt), reps)
+        unsplit_ms = graph_time_ms(lambda: r2f2_matmul(a, b, fmt=fmt, _split=False), reps)
+        cold_ms = None
+        if "router" in label:
+            flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+            cold_ms = graph_time_ms(lambda: (flush.zero_(), r2f2_matmul(a, b, fmt=fmt))[1], reps, base=flush.zero_)
         b_ms, b_by = bound(4 * (m * kd + kd * n + m * n), 2 * m * n * kd)
+        launch = (f"split S={plan.splits}, {plan.ctas} CTAs, ring {plan.slots} slots ({plan.smem} B); "
+                  f"unsplit {one.ctas} CTAs {unsplit_ms:.4f} ms")
         rows.append(dict(name="r2f2_matmul", shape=f"{label} ({m},{kd})@({kd},{n})", ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, sgemm_ms=sgemm_ms))
+                         bound_ms=b_ms, bound_by=b_by, sgemm_ms=sgemm_ms, launch=launch, unsplit_ms=unsplit_ms,
+                         splits=plan.splits, ctas=plan.ctas, cold_ms=cold_ms, call_ms=call_ms))
     for r in rows:
         sg = "" if r["sgemm_ms"] is None else f", cuBLAS SGEMM {r['sgemm_ms']:.4f} ms (not the same function)"
-        log(f"time {r['name']} {r['shape']} r2f2_16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){sg}; library call: none [{card}]")
+        dev = "" if r.get("call_ms") is None else f" (device time, CUDA graph; {r['call_ms']:.4f} ms per call with the host's wrapper)"
+        cold = "" if r.get("cold_ms") is None else f", L2 flushed before each call {r['cold_ms']:.4f} ms"
+        launch = f" [{r['launch']}]" if "launch" in r else ""
+        log(f"time {r['name']} {r['shape']} r2f2_16: kernel {r['ms']:.4f} ms{dev}{cold}, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){sg}; library call: none{launch} [{card}]")
+    # K7 calls per generate by shape: each layer runs the router and the
+    # shared expert's gate, up and down projections once per forward, in one
+    # prefill and LM_NEW - 1 decode forwards (up has the gate's shape)
+    calls = {}
+    for phase, forwards in (("prefill", 1), ("decode", LM_NEW - 1)):
+        for site, per_layer in (("router", 1), ("shared-expert gate", 2), ("shared-expert down", 1)):
+            calls[f"{site} {phase}"] = LM_LAYERS * per_layer * forwards
+    require(sum(calls.values()) == LM_K7_LAUNCHES, "K7 calls per generate do not add up to its launches")
+    k7 = {r["shape"].split(" (")[0]: r for r in rows if r["name"] == "r2f2_matmul"}
+    per_generate = sum(k7[label]["ms"] * n for label, n in calls.items())
+    gap = sum((k7[label]["ms"] - k7[label]["bound_ms"]) * n for label, n in calls.items())
+    log(f"K7 per generate (launches x device time at the path's shapes): {per_generate:.3f} ms; "
+        f"launches x (time - bound) {gap:.3f} ms [{card}]")
+    rows.append(dict(name="r2f2_matmul per generate", ms=per_generate, gap_ms=gap))
     main_rows = {"r2f2_quantize": f"({LM_D},{LM_FF}) block (256,256)",
                  "r2f2_matmul": f"shared-expert gate prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_FF})"}
     replaces = {"r2f2_quantize": "src/repro/kernels/r2f2_quantize.py:45", "r2f2_matmul": "src/repro/kernels/r2f2_matmul.py:73"}
     for name, shape in main_rows.items():
-        r = next(r for r in rows if r["name"] == name and r["shape"] == shape)
+        r = next(r for r in rows if r["name"] == name and r.get("shape") == shape)
         recs.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu", replaces=replaces[name],
             launches=launches[name], max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],

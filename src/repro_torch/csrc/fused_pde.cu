@@ -6,10 +6,14 @@
 //                           repro/kernels/swe_flux.py::_swe_flux_body
 //
 // The host driver (kernels/fused.py::fused_sweep) pads the field and fixes the
-// split blocks; each kernel gives one split block to one CTA, so every block
-// max spans exactly the reference's block, pad lanes included. Evidence is
+// split blocks; K2 gives one split block to one CTA, K3 one split tile to one
+// thread-block cluster, so every block max spans exactly the reference's
+// block, pad lanes included. Evidence is
 // written per block as (gi, gj, steps, n_sites, 2) floats and max-reduced
 // across blocks on the host. Each C entry point returns cudaGetLastError().
+#include <cstdint>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "r2f2_device.cuh"
@@ -19,7 +23,9 @@ using r2f2::Policy;
 namespace {
 
 constexpr int kHeatThreads = 128;
-constexpr int kSweThreads = 512;
+constexpr int kSweThreads = 256;
+constexpr int kSweWarps = kSweThreads / 32;
+constexpr int kMaxCluster = 16;  // the non-portable cluster size limit
 
 // K2: `steps` explicit-FD substeps of one (br, nx) row block, held in shared
 // memory for the whole chunk. Per substep: the interior laplacian and its
@@ -81,52 +87,171 @@ heat1d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, f
   for (int i = threadIdx.x; i < n; i += blockDim.x) u_out[base + i] = u[i];
 }
 
-// K3: the momentum flux q1*q1/q3 + c*(q3*q3) over one (br, bw) split tile.
-// Sites: 0 q1*q1, 1 q3*q3, 2 c*t3, 3 t1/q3. Three passes over the tile, each
-// ending in block maxes; the products are recomputed in the last pass.
+// G consecutive floats, one 16-byte access for G = 4.
+template <int G>
+__device__ __forceinline__ void load(const float* src, float (&v)[G]) {
+  if constexpr (G == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i) v[i] = src[i];
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void store(float* dst, const float (&v)[G]) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i) dst[i] = v[i];
+  }
+}
+
+// K3: the momentum flux q1*q1/q3 + c*(q3*q3) over one (br, bw) split tile,
+// run by one thread-block cluster of C CTAs (kernels/swe_flux.py::cluster_plan).
+// Sites: 0 q1*q1, 1 q3*q3, 2 c*t3, 3 t1/q3. CTA `rank` owns rows
+// [rank * band, (rank + 1) * band) of the tile. It loads its q1 and q3 once
+// (float4 where the rows are 16-byte aligned) into shared memory; each split
+// needs a tile-wide max, which the cluster takes in two rounds: every CTA
+// publishes its maxima in its shared memory, and after cluster.sync() every
+// warp reads all C of them through distributed shared memory, so all CTAs
+// derive the same splits. The products t1 and t3 stay in shared
+// memory between the rounds; each CTA writes its out band once, and rank 0
+// writes the tile's evidence. Elements are walked by row and column, with no
+// per-element division.
+template <int G>
 __global__ void __launch_bounds__(kSweThreads)
 swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, float* __restrict__ out,
-                float* __restrict__ ev, const int* __restrict__ k_floor, int width, int br, int bw, float c,
+                float* __restrict__ ev, const int* __restrict__ k_floor, int width, int br, int bw, int band, float c,
                 Policy p) {
-  __shared__ uint32_t scratch[32];
-  const int n = br * bw;
-  const size_t row0 = static_cast<size_t>(blockIdx.y) * br;
-  const int col0 = blockIdx.x * bw;
-  auto at = [&](int i) { return (row0 + i / bw) * width + col0 + i % bw; };
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float band_smem[];
+  __shared__ uint32_t red[kSweWarps][2];  // per-warp maxima
+  __shared__ uint32_t pub[2][2];          // the CTA's maxima of the two rounds, read by the cluster
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ctas = static_cast<int>(cluster.num_blocks());
+  const int tile_j = blockIdx.x / n_ctas;
+  const int r_lo = rank * band;
+  const int rows = max(min(br, r_lo + band) - r_lo, 0);
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * br + r_lo;
+  const int col0 = tile_j * bw;
+  float* hs = band_smem;          // q3
+  float* t1s = hs + band * bw;    // q1, then t1
+  float* t3s = t1s + band * bw;   // t3
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // this thread's items: G floats at (r, col) for r, col walked without division
+  const int per_row = bw / G, items = rows * per_row;
+  const int dr = kSweThreads / per_row, dc = kSweThreads % per_row;
+  auto for_items = [&](auto fn) {
+    int r = threadIdx.x / per_row, col = threadIdx.x % per_row;
+    for (int i = threadIdx.x; i < items; i += kSweThreads) {
+      fn(r * bw + col * G, (row0 + r) * width + col0 + col * G);
+      r += dr;
+      col += dc;
+      if (col >= per_row) {
+        col -= per_row;
+        ++r;
+      }
+    }
+  };
+  // the tile-wide max of (x, y) over the cluster, in round `round`: the CTA's
+  // max is published in its shared memory, and after the cluster barrier lane
+  // r of every warp reads CTA r's
+  auto cluster_max = [&](uint32_t x, uint32_t y, int round) {
+    for (int o = 16; o > 0; o >>= 1) {
+      x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+      y = max(y, __shfl_xor_sync(0xffffffffu, y, o));
+    }
+    if (lane == 0) {
+      red[warp][0] = x;
+      red[warp][1] = y;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < kSweWarps; ++w) {
+        x = max(x, red[w][0]);
+        y = max(y, red[w][1]);
+      }
+      pub[round][0] = x;
+      pub[round][1] = y;
+    }
+    cluster.sync();
+    x = y = 0u;
+    if (lane < n_ctas) {
+      const uint32_t* remote = cluster.map_shared_rank(&pub[round][0], lane);
+      x = remote[0];
+      y = remote[1];
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+      y = max(y, __shfl_xor_sync(0xffffffffu, y, o));
+    }
+    return make_int2(r2f2::mag_exponent(x), r2f2::mag_exponent(y));
+  };
 
   uint32_t m1 = 0u, m3 = 0u;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t g = at(i);
-    m1 = max(m1, r2f2::finite_mag_bits(q1[g]));
-    m3 = max(m3, r2f2::finite_mag_bits(q3[g]));
-  }
-  const int e1 = r2f2::block_max_exp(m1, scratch);
-  const int e3 = r2f2::block_max_exp(m3, scratch);
+  for_items([&](int at, size_t gi) {
+    float a[G], h[G];
+    load<G>(q1 + gi, a);
+    load<G>(q3 + gi, h);
+    store<G>(t1s + at, a);
+    store<G>(hs + at, h);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      m1 = max(m1, r2f2::finite_mag_bits(a[i]));
+      m3 = max(m3, r2f2::finite_mag_bits(h[i]));
+    }
+  });
+  const int2 e13 = cluster_max(m1, m3, 0);
+  const int e1 = e13.x, e3 = e13.y;
   const int k11 = r2f2::site_k(r2f2::select_k_mul(e1, e1, p), k_floor, 0, p);
   const int k33 = r2f2::site_k(r2f2::select_k_mul(e3, e3, p), k_floor, 1, p);
+  // the rr family's splits as precomputed formats (the same bits as family_mul)
+  const bool rr = p.family == r2f2::kRR;
+  const r2f2::SplitQuant f11 = r2f2::split_quant(k11, p), f33 = r2f2::split_quant(k33, p);
 
   uint32_t mt1 = 0u, mt3 = 0u;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t g = at(i);
-    const float a = q1[g], h = q3[g];
-    mt1 = max(mt1, r2f2::finite_mag_bits(r2f2::family_mul(a, a, k11, p)));
-    mt3 = max(mt3, r2f2::finite_mag_bits(r2f2::family_mul(h, h, k33, p)));
-  }
-  const int et1 = r2f2::block_max_exp(mt1, scratch);
-  const int et3 = r2f2::block_max_exp(mt3, scratch);
+  for_items([&](int at, size_t) {
+    float a[G], h[G], t1[G], t3[G];
+    load<G>(t1s + at, a);
+    load<G>(hs + at, h);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      t1[i] = rr ? r2f2::rr_mul(a[i], a[i], f11) : r2f2::family_mul(a[i], a[i], k11, p);
+      t3[i] = rr ? r2f2::rr_mul(h[i], h[i], f33) : r2f2::family_mul(h[i], h[i], k33, p);
+      mt1 = max(mt1, r2f2::finite_mag_bits(t1[i]));
+      mt3 = max(mt3, r2f2::finite_mag_bits(t3[i]));
+    }
+    store<G>(t1s + at, t1);
+    store<G>(t3s + at, t3);
+  });
+  const int2 et13 = cluster_max(mt1, mt3, 1);
+  // this CTA has read the cluster's maxima: arrive at the exit barrier now,
+  // wait for the others only before leaving
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  const int et1 = et13.x, et3 = et13.y;
   const int ec = r2f2::mag_exponent(r2f2::finite_mag_bits(c));
   const int k_gq3 = r2f2::site_k(r2f2::select_k_mul(ec, et3, p), k_floor, 2, p);
   const int k_div = r2f2::site_k(r2f2::select_k_div(et1, e3, p), k_floor, 3, p);
+  const r2f2::SplitQuant fgq3 = r2f2::split_quant(k_gq3, p), fdiv = r2f2::split_quant(k_div, p);
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t g = at(i);
-    const float a = q1[g], h = q3[g];
-    const float t1 = r2f2::family_mul(a, a, k11, p);
-    const float t3 = r2f2::family_mul(h, h, k33, p);
-    out[g] = r2f2::family_mul_add(c, t3, r2f2::family_div(t1, h, k_div, p), k_gq3, p);
-  }
-  if (ev != nullptr && threadIdx.x == 0) {
-    float* e = ev + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 8;
+  for_items([&](int at, size_t gi) {
+    float t1[G], t3[G], h[G], f[G];
+    load<G>(t1s + at, t1);
+    load<G>(t3s + at, t3);
+    load<G>(hs + at, h);
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      f[i] = rr ? __fadd_rn(r2f2::rr_mul(c, t3[i], fgq3), r2f2::rr_div(t1[i], h[i], fdiv))
+                : r2f2::family_mul_add(c, t3[i], r2f2::family_div(t1[i], h[i], k_div, p), k_gq3, p);
+    store<G>(out + gi, f);
+  });
+  if (ev != nullptr && rank == 0 && threadIdx.x == 0) {
+    float* e = ev + (static_cast<size_t>(blockIdx.y) * (gridDim.x / n_ctas) + tile_j) * 8;
     e[0] = static_cast<float>(e1);
     e[1] = static_cast<float>(e1);
     e[2] = static_cast<float>(e3);
@@ -136,6 +261,7 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
     e[6] = static_cast<float>(et1);
     e[7] = static_cast<float>(e3);
   }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");  // no CTA leaves while another may read it
 }
 
 Policy make_policy(int family, int eb, int mb, int fx, int fe, int fm, int tail_approx, int pinned) {
@@ -159,11 +285,36 @@ extern "C" int r2f2_heat1d_sweep(const float* u_in, float* u_out, float* ev, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// One cluster of `cluster` CTAs per (br, bw) tile, each owning `band` rows
+// (cluster * band >= br > (cluster - 1) * band).
 extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float* ev, const int* k_floor, int rows,
-                             int width, int br, int bw, float c, int family, int eb, int mb, int fx, int fe, int fm,
-                             int tail_approx, int pinned, void* stream) {
-  const dim3 grid(width / bw, rows / br);
-  swe_flux_kernel<<<grid, kSweThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q1, q3, out, ev, k_floor, width, br, bw, c, make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned));
+                             int width, int br, int bw, int cluster, int band, float c, int family, int eb, int mb,
+                             int fx, int fe, int fm, int tail_approx, int pinned, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || band < 1 || cluster * band < br || (cluster - 1) * band >= br)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  const bool vec = bw % 4 == 0 && width % 4 == 0 && aligned(q1) && aligned(q3) && aligned(out);
+  const auto kernel = vec ? &swe_flux_kernel<4> : &swe_flux_kernel<1>;
+  const size_t smem = 3 * static_cast<size_t>(band) * bw * sizeof(float);
+  static size_t smem_allowed[2][r2f2::kMaxDevices] = {};  // per kernel: scalar, vector
+  static bool clusters_allowed[2][r2f2::kMaxDevices] = {};
+  cudaError_t err = r2f2::allow_dynamic_smem(kernel, smem, smem_allowed[vec]);
+  if (err == cudaSuccess && cluster > 8) err = r2f2::allow_large_clusters(kernel, clusters_allowed[vec]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((width / bw) * cluster, rows / br);
+  cfg.blockDim = dim3(kSweThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, q1, q3, out, ev, k_floor, width, br, bw, band, c,
+                           make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

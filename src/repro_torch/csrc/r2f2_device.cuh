@@ -20,6 +20,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace r2f2 {
 
@@ -95,6 +96,68 @@ __device__ __forceinline__ float quantize_em(float x, int e, int m, int tail) {
   return from_bits(sign | r);
 }
 
+// quantize_em at one format for a whole tile, with the format's constants
+// derived once. Its result is quantize_em's, bit for bit. Both roundings are
+// computed and one is selected, so a warp whose entries mix them does not
+// diverge: a normal result is an integer RNE on the bit pattern; a result
+// subnormal in E(e)M(m) (most of a weight matrix near 2**-7 at E4) is
+// rint(|x| * 2**s) * 2**-s with s = m - emin, both multiplies exact, as
+// quantize_em's scale_pow2 computes it when 2**s and 2**-s are normal
+// floats (an f32 subnormal input then rounds to zero there, as quantize_em
+// gives it). A format outside that range (or with m >= 23) takes quantize_em.
+struct TileQuant {
+  int e, m, tail;
+  bool fast;           // 0 < 23 - m and 0 <= s <= 125
+  uint32_t min_field;  // smallest f32 exponent field of a normal result
+  uint32_t ovf;        // rounded magnitudes at or above this overflow to inf
+  uint32_t trunc;      // the tail truncation's mask (all ones without one)
+  int shift;           // 23 - m: the mantissa bits RNE drops
+  uint32_t half_m1, keep;
+  float up, down;      // 2**s, 2**-s
+};
+
+__device__ __forceinline__ TileQuant tile_quant(int e, int m, int tail) {
+  TileQuant q;
+  q.e = e, q.m = m, q.tail = tail;
+  const int half_range = 1 << (e - 1);
+  const int emin = 2 - half_range;
+  const int s = m - emin;
+  q.fast = m < 23 && s >= 0 && s <= 125;
+  q.min_field = static_cast<uint32_t>(max(emin + 127, 1));
+  q.ovf = half_range + 127 <= 255 ? static_cast<uint32_t>(half_range + 127) << 23 : 0xFFFFFFFFu;
+  q.trunc = tail >= 0 ? ~((1u << (23 - min(max(m + tail, 1), 23))) - 1u) : 0xFFFFFFFFu;
+  q.shift = min(max(23 - m, 1), 23);
+  q.half_m1 = (1u << (q.shift - 1)) - 1u;
+  q.keep = ~((1u << q.shift) - 1u);
+  q.up = q.fast ? pow2(s) : 1.0f;
+  q.down = q.fast ? pow2(-s) : 1.0f;
+  return q;
+}
+
+// quantize_tile for a format with q.fast set.
+__device__ __forceinline__ float quantize_tile_fast(float x, const TileQuant& q) {
+  const uint32_t u = bits(x);
+  const uint32_t sign = u & 0x80000000u;
+  const uint32_t field = (u >> 23) & 0xFFu;
+  const uint32_t ua = u & 0x7FFFFFFFu & q.trunc;
+  const uint32_t r = (ua + q.half_m1 + ((ua >> q.shift) & 1u)) & q.keep;
+  const uint32_t normal = r >= q.ovf ? 0x7F800000u : r;
+  const uint32_t sub = bits(__fmul_rn(rintf(__fmul_rn(from_bits(ua), q.up)), q.down));
+  const uint32_t mag = field >= q.min_field ? normal : sub;
+  return field == 255u ? x : from_bits(sign | mag);  // inf and NaN pass through
+}
+
+__device__ __forceinline__ float quantize_tile(float x, const TileQuant& q) {
+  return q.fast ? quantize_tile_fast(x, q) : quantize_em(x, q.e, q.m, q.tail);
+}
+
+// The rr family's product and quotient (family_mul / family_div at split k)
+// with the split's formats precomputed: `op` quantizes operands, `prod`
+// products (with the tail truncation when the policy asks for it).
+struct SplitQuant {
+  TileQuant op, prod;
+};
+
 // ceil(log2(n)) for n >= 1, in integers.
 __device__ __forceinline__ int ceil_log2(int n) { return n <= 1 ? 0 : 32 - __clz(n - 1); }
 
@@ -160,6 +223,19 @@ __device__ __forceinline__ float family_mul_add(float a, float b, float c, int k
     default:
       return __fadd_rn(family_mul(a, b, k, p), c);
   }
+}
+
+__device__ __forceinline__ SplitQuant split_quant(int k, const Policy& p) {
+  const int e = p.eb + k, m = p.mb + p.fx - k;
+  return SplitQuant{tile_quant(e, m, -1), tile_quant(e, m, p.tail_approx ? p.mb + 1 + k : -1)};
+}
+
+__device__ __forceinline__ float rr_mul(float a, float b, const SplitQuant& f) {
+  return quantize_tile(__fmul_rn(quantize_tile(a, f.op), quantize_tile(b, f.op)), f.prod);
+}
+
+__device__ __forceinline__ float rr_div(float a, float b, const SplitQuant& f) {
+  return quantize_tile(__fdiv_rn(quantize_tile(a, f.op), quantize_tile(b, f.op)), f.op);
 }
 
 // One policy quotient (FusedOps.div) at split k: no tail truncation.
@@ -264,6 +340,31 @@ __device__ __forceinline__ uint32_t block_max_u32(uint32_t v, uint32_t* scratch)
 // Exponent of a block max: block_max_exp over the CTA's elements.
 __device__ __forceinline__ int block_max_exp(uint32_t local_mag_bits, uint32_t* scratch) {
   return mag_exponent(block_max_u32(local_mag_bits, scratch));
+}
+
+// Host side: the launch attributes a kernel needs beyond the defaults, set
+// once per kernel and device (at its first launch, so never inside a CUDA
+// graph's capture). `allowed` is the kernel's own record, one entry per device.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes, size_t* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024 || (dev < kMaxDevices && bytes <= allowed[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
+template <typename Kernel>
+inline cudaError_t allow_large_clusters(Kernel kernel, bool* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && allowed[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
 }
 
 }  // namespace r2f2

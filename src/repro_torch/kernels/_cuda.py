@@ -10,6 +10,7 @@ and flags, so an edited source rebuilds and an unchanged one loads at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "NVCC_FLAGS", "SMEM_LIMIT"]
+__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count", "NVCC_FLAGS", "SMEM_LIMIT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,8 +43,8 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
     # u_in, u_out, ev, k_floor, rows, nx, br, steps, alpha, dtodx2, policy(8), stream
     "r2f2_heat1d_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F] + [_I] * 8 + [_P],
-    # q1, q3, out, ev, k_floor, rows, width, br, bw, c, policy(8), stream
-    "r2f2_swe_flux": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F] + [_I] * 8 + [_P],
+    # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
+    "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
     # u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, steps, every,
     # alpha, dtodx2, ema, 1 - ema, headroom, policy(8), stream
     "r2f2_heat1d_mega": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
@@ -52,8 +53,9 @@ _SIGNATURES = {
     "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
     # x, y, k_tiles, m, n, bm, bn, eb, mb, fx, stream
     "r2f2_quantize": [_P] * 3 + [_I] * 7 + [_P],
-    # a, b, c, m, n, kdim, bm, bn, bk, eb, mb, fx, round_products, tail_approx, stream
-    "r2f2_matmul": [_P] * 3 + [_I] * 11 + [_P],
+    # a, b, c, scratch, m, n, kdim, bm, bn, bk, splits, slots, eb, mb, fx, round_products,
+    # tail_approx, stream
+    "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
 # K5 (csrc/pde_steps.cu), one signature per template for its three bodies:
 # sweep: u_in, u_out, ev, k_floor, nx, ny, steps, c0, c1, policy(8), stream
@@ -170,3 +172,9 @@ def ptr(t: Optional[torch.Tensor]):
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count

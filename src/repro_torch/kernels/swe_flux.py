@@ -8,17 +8,17 @@ padded divisor stays finite.
 
 Replaces the TPU kernel ``repro/kernels/fused.py::fused_sweep``
 (``_sweep_kernel``) running ``repro/kernels/swe_flux.py::_swe_flux_body``
-through ``swe_flux_fused``. The CUDA kernel
-(``csrc/fused_pde.cu::swe_flux_kernel``) gives each split tile one CTA that
-loops over the tile's elements in three phases: the block maxes of q1 and
-q3, the products and their block maxes, then the quotient, the scaled
-square and the sum, recomputing the products rather than staging them. At
-the paper's size the tile is the whole ``(127, 128)`` field: 130 KB read
-and 65 KB written, about 0.06 us of HBM time, while one CTA on one of 132
-SMs does ~16k elements of integer rounding work serially behind four
-block-wide reductions. It is bound by operations and latency on one SM;
-spreading a tile over several CTAs (a cross-CTA max before each phase) is
-the change that would address it.
+through ``swe_flux_fused``. At the paper's size the split tile is the whole
+``(127, 128)`` field: 130 KB read and 65 KB written, about 0.06 us of HBM
+time, against ~16k elements of integer rounding work behind four tile-wide
+maxima, so one CTA on one of 132 SMs is bound by operations and latency.
+The CUDA kernel (``csrc/fused_pde.cu::swe_flux_kernel``) therefore runs each
+split tile as one thread-block cluster of up to 16 CTAs
+(:func:`cluster_plan`), each owning a band of the tile's rows: it loads its
+band once into shared memory, the cluster takes each pair of tile maxima
+through distributed shared memory after a cluster barrier, and each CTA
+writes its band of the flux once. Its floor is the launch and three cluster
+barriers.
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import fused_sweep
 from repro_torch.precision.fusion import fused_family
 
-__all__ = ["G_GRAV", "SWE_SITES", "SWE_OPS", "SWE_FLUX", "swe_flux_fused", "swe_flux_fused_plain", "swe_flux_pallas"]
+__all__ = [
+    "G_GRAV", "SWE_SITES", "SWE_OPS", "SWE_FLUX", "cluster_plan", "swe_flux_fused", "swe_flux_fused_plain", "swe_flux_pallas",
+]
 
 G_GRAV = 9.81
 DEFAULT_BLOCK = (64, 128)
@@ -40,6 +42,18 @@ SWE_SITES = ("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div")
 SWE_OPS = ("mul", "mul", "mul", "div")
 #: launches of the CUDA kernel and runs of the plain version
 SWE_FLUX = _cuda.KernelCounter("swe_flux_fused")
+#: the CUDA kernel's threads per CTA and its largest cluster (non-portable)
+CTA_THREADS = 256
+MAX_CLUSTER = 16
+
+
+def cluster_plan(br, bw):
+    """``(C, band)``: the CTAs of the thread-block cluster that runs one
+    ``(br, bw)`` split tile, and the rows each owns (the last CTA the rest).
+    Bands of at least one row and of at least one element per thread, at
+    most MAX_CLUSTER CTAs; every CTA owns at least one row."""
+    band = max(-(-br // MAX_CLUSTER), -(-CTA_THREADS // bw), 1)
+    return -(-br // band), band
 
 
 def _swe_flux_body(sites):
@@ -61,13 +75,17 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites):
     rows, width = q1.shape
     if n_sites != 4:
         raise ValueError(f"swe_flux_fused has four sites (q1q1, q3q3, gq3, div); got {n_sites}")
+    cluster, band = cluster_plan(br, bw)
+    if 3 * band * bw * 4 > _cuda.SMEM_LIMIT:
+        raise ValueError(f"a ({br}, {bw}) tile needs {3 * band * bw * 4} B of shared memory per CTA; "
+                         f"the kernel takes at most {_cuda.SMEM_LIMIT} B")
     out = torch.empty_like(q1)
     ev = torch.empty((gi, gj, 1, n_sites, 2), dtype=torch.float32, device=q1.device) if collect else None
     lib = _cuda.library()
     with torch.cuda.device(q1.device):
         err = lib.r2f2_swe_flux(
             _cuda.ptr(q1), _cuda.ptr(q3), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor),
-            rows, width, br, bw, 0.5 * G_GRAV,
+            rows, width, br, bw, cluster, band, 0.5 * G_GRAV,
             *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(q1),
         )
     _cuda.check(err, "swe_flux_fused")

@@ -1,7 +1,8 @@
 """repro_torch on a CUDA card: the kernels against their plain versions,
 the default device, execution="auto" on the megakernel (K4 for heat1d and
-swe2d, K5 for heat2d, advection1d and burgers1d), and the contraction path
-through K6 and K7. These tests skip
+swe2d, K5 for heat2d, advection1d and burgers1d), the contraction path
+through K6 and K7, K7's split launches against unsplit ones and K3's
+thread-block clusters against the plain version. These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -192,3 +193,57 @@ def test_generate_on_cuda_runs_k7():
         plain = generate(params, cfg, prec, prompts, max_new_tokens=6)
     assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (0, 2 * 4 * 6)
     assert tokens.is_cuda and torch.equal(tokens, plain)
+
+
+@pytest.mark.cuda
+def test_k7_split_is_bit_identical_to_unsplit():
+    """K7's split launches (one CTA per K block, the partials folded in K
+    order) against one CTA per output block, bit for bit, and within the
+    bound of the plain version: the router at prefill and decode, the shared
+    expert's gate and down projections at decode, 512^3, ragged and
+    unaligned shapes and round_products (chip_smoke.K7_SPLIT_CASES)."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    _, records = chip_smoke.check_contract_kernels("cuda")
+    split = [r for r in records if r["case"].startswith("split ")]
+    assert len(split) == len(chip_smoke.K7_SPLIT_CASES) + 1
+    assert all(r["ok"] for r in split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,block",
+    [((127, 128), None), ((255, 256), (64, 128)), ((61, 30), None)],
+    ids=["paper-tile", "multi-tile", "unaligned-ragged-bands"],
+)
+def test_k3_cluster_matches_plain(shape, block):
+    """K3 as one thread-block cluster per split tile, against its plain
+    version bit for bit, evidence too, over the families: the paper's
+    (127, 128) tile (16 CTAs, the last band 7 rows), a (255, 256) field of
+    eight (64, 128) tiles, and an unaligned (61, 30) tile (scalar loads,
+    bands of 9 rows and a last one of 7)."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.swe_flux import SWE_FLUX, cluster_plan, swe_flux_fused, swe_flux_fused_plain
+
+    br, bw = (min(b, s) for b, s in zip(block or (128, 128), shape))
+    c, band = cluster_plan(br, bw)
+    assert c > 1
+    g = torch.Generator().manual_seed(3)
+    q3 = (500.0 + 100.0 * torch.rand(*shape, generator=g)).cuda()
+    q1 = (40.0 * torch.randn(*shape, generator=g)).cuda()
+
+    def bits(t):
+        b = t.float().contiguous().view(torch.int32).clone()
+        b[torch.isnan(t.float())] = 0x7FC00000
+        return b
+
+    for name in ("f32", "bf16", "e5m10", "r2f2_16", "deploy"):
+        before = SWE_FLUX.launches
+        got, ev = swe_flux_fused(q1, q3, prec=PRESETS[name], block=block, collect_evidence=True)
+        want, ev_want = swe_flux_fused_plain(q1, q3, prec=PRESETS[name], block=block, collect_evidence=True)
+        assert SWE_FLUX.launches - before == 1
+        assert torch.equal(bits(got), bits(want)), name
+        assert torch.equal(bits(ev), bits(ev_want)), name

@@ -1,0 +1,171 @@
+"""Launch plans of kernels K3 and K7 (repro_torch): the pure functions that
+decide how a CUDA launch spreads its work, checked on the CPU.
+
+* K7 (``kernels/r2f2_matmul.py``): ``split_plan`` gives every K block its
+  own CTA where the output grid leaves SMs idle and the partials' scratch
+  fits its cap; ``k_ranges`` is the K-block range each CTA along K takes;
+  ``ring_plan`` sizes the shared-memory ring; ``launch_plan`` puts them
+  together.
+* K3 (``kernels/swe_flux.py``): ``cluster_plan`` cuts one split tile into
+  the row bands of a thread-block cluster.
+
+The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
+
+import pytest
+import torch
+
+from repro_torch.core.flexformat import FlexFormat
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.r2f2_matmul import (
+    MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
+)
+from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
+
+H100_SMS = 132
+D, FF, E = 5120, 8192, 16  # llama4-scout: d_model, (shared-)expert hidden width, experts
+
+# (label, m, kdim, n, splits): the LM's K7 shapes at prefill (4 x 64 tokens)
+# and decode (4 rows)
+LM_SHAPES = [
+    ("gate/up decode", 4, D, FF, 40),
+    ("down decode", 4, FF, D, 64),
+    ("router decode", 4, D, E, 40),
+    ("router prefill", 256, D, E, 40),
+    ("gate/up prefill", 256, D, FF, 1),  # 128 output blocks, and 335 MB of scratch
+    ("down prefill", 256, FF, D, 1),  # 80 output blocks, but 335 MB of scratch
+]
+
+
+@pytest.mark.parametrize("label,m,kdim,n,splits", LM_SHAPES, ids=[s[0] for s in LM_SHAPES])
+def test_split_plan_at_the_lm_shapes(label, m, kdim, n, splits):
+    assert split_plan(m, n, kdim, n_sms=H100_SMS) == splits
+    plan = launch_plan(m, n, kdim, n_sms=H100_SMS)
+    assert plan.splits == splits and plan.ctas == plan.gm * plan.gn * splits
+    if splits > 1:
+        assert plan.gm * plan.gn < H100_SMS and plan.gk * m * n * 4 <= SCRATCH_CAP
+    else:
+        assert plan.gm * plan.gn >= H100_SMS or plan.gk * m * n * 4 > SCRATCH_CAP
+    assert launch_plan(m, n, kdim, n_sms=H100_SMS, split=False).splits == 1
+
+
+def test_launch_plan_fills_the_card_at_decode():
+    """Decode's gate/up/down run at least one CTA per SM, the router more
+    than the two output blocks it has."""
+    for label, m, kdim, n, _ in LM_SHAPES:
+        ctas = launch_plan(m, n, kdim, n_sms=H100_SMS).ctas
+        if "decode" in label and "router" not in label:
+            assert ctas >= H100_SMS, label
+        if "router" in label:
+            assert ctas > 2, label
+
+
+@pytest.mark.parametrize(
+    "m,kdim,n,n_sms,cap,want",
+    [
+        (4, 5120, 8192, 64, SCRATCH_CAP, 1),  # the grid already fills 64 SMs
+        (4, 5120, 8192, 65, SCRATCH_CAP, 40),
+        (4, 5120, 8192, 132, 40 * 4 * 8192 * 4 - 1, 1),  # scratch one byte over the cap
+        (4, 5120, 8192, 132, 40 * 4 * 8192 * 4, 40),
+        (4, 100, 8192, 132, SCRATCH_CAP, 1),  # one K block: nothing to split
+        (5, 1000, 24, 132, SCRATCH_CAP, 8),  # ragged: the last K block is partial
+        (1, 129, 1, 132, SCRATCH_CAP, 2),
+        (2048, 5120, 2048, 132, SCRATCH_CAP, 1),  # 256 output blocks
+    ],
+)
+def test_split_plan_edges(m, kdim, n, n_sms, cap, want):
+    assert split_plan(m, n, kdim, n_sms=n_sms, scratch_cap=cap) == want
+
+
+def test_split_plan_follows_the_blocks():
+    """Smaller blocks make more output blocks and more K blocks."""
+    assert split_plan(64, 64, 640, blocks=(64, 64, 64), n_sms=H100_SMS) == 10
+    assert split_plan(64, 64, 640, blocks=(32, 32, 64), n_sms=4) == 1
+
+
+@pytest.mark.parametrize("gk", [1, 2, 3, 7, 40, 64, 65])
+def test_k_ranges_cover_each_k_block_once(gk):
+    for splits in sorted(s for s in {1, 2, 3, gk // 2, gk - 1, gk} if 1 <= s <= gk):
+        ranges = k_ranges(gk, splits)
+        assert len(ranges) == splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == gk
+        assert all(j0 < j1 for j0, j1 in ranges)  # every CTA has a K block
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # contiguous, in K order
+        covered = [j for j0, j1 in ranges for j in range(j0, j1)]
+        assert covered == list(range(gk))
+        lengths = [j1 - j0 for j0, j1 in ranges]
+        assert max(lengths) - min(lengths) <= 1
+
+
+@pytest.mark.parametrize(
+    "bm,bn,bk,tiles,slots",
+    [
+        (128, 128, 128, 40, 6),  # prefill: two K blocks of 32 KB slots exceed the limit, six slots fit
+        (4, 128, 128, 1, 4),  # a split decode CTA: one K block
+        (4, 128, 128, 40, 8),  # unsplit decode: two K blocks in flight
+        (128, 16, 128, 40, 8),
+        (5, 24, 128, 1, 4),
+        (64, 64, 64, 3, 4),
+        (128, 128, 100, 2, 6),  # a partial last chunk
+    ],
+)
+def test_ring_plan(bm, bn, bk, tiles, slots):
+    got, smem = ring_plan(bm, bn, bk, tiles)
+    chunks = -(-bk // 32)
+    assert got == slots and got >= chunks
+    assert smem == slots * 4 * 32 * (bm + -(-bn // 4) * 4) <= _cuda.SMEM_LIMIT
+
+
+def test_ring_plan_raises_when_one_k_block_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ring_plan(128, 128, 1024, 2)
+
+
+def test_launch_plan_rejects_blocks_over_the_kernel_limit():
+    with pytest.raises(ValueError, match="output blocks up to"):
+        launch_plan(256, 256, 256, blocks=(MAX_BLOCK * 2, 128, 128))
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_split_or_not():
+    """On CPU tensors the private split switch changes nothing: both calls
+    run the plain version and count as plain calls."""
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(5, 300, generator=g), torch.randn(300, 24, generator=g)
+    fmt = FlexFormat(3, 9, 3)
+    before = (R2F2_MATMUL.launches, R2F2_MATMUL.plain_calls)
+    x, y = r2f2_matmul(a, b, fmt=fmt), r2f2_matmul(a, b, fmt=fmt, _split=False)
+    assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (0, 2)
+    assert torch.equal(x, y) and torch.equal(x, r2f2_matmul_plain(a, b, fmt=fmt))
+
+
+@pytest.mark.parametrize(
+    "shape,want",
+    [
+        ((127, 128), (16, 8)),  # the paper's field in one tile: 15 bands of 8 rows and one of 7
+        ((64, 128), (16, 4)),
+        ((128, 128), (16, 8)),
+        ((61, 30), (7, 9)),  # an unaligned tile (scalar loads): 6 bands of 9 rows and one of 7
+        ((50, 64), (13, 4)),
+        ((5, 64), (2, 4)),
+        ((1, 128), (1, 2)),
+        ((3, 8), (1, 32)),
+    ],
+)
+def test_cluster_plan(shape, want):
+    br, bw = shape
+    c, band = cluster_plan(br, bw)
+    assert (c, band) == want
+    bands = [(r * band, min(br, (r + 1) * band)) for r in range(c)]
+    assert all(lo < hi for lo, hi in bands)  # no CTA without a row
+    assert [row for lo, hi in bands for row in range(lo, hi)] == list(range(br))
+
+
+def test_cluster_plan_bands_cover_every_tile():
+    """Every tile up to 300 rows: at most MAX_CLUSTER CTAs, each with at
+    least one row and at least one element per thread, the bands covering
+    the rows once (the kernel's own check: C * band >= br > (C - 1) * band)."""
+    for bw in (1, 30, 64, 128, 512):
+        for br in range(1, 301):
+            c, band = cluster_plan(br, bw)
+            assert 1 <= c <= MAX_CLUSTER, (br, bw)
+            assert c * band >= br > (c - 1) * band, (br, bw)
+            assert band * bw >= 256 and band == max(-(-br // MAX_CLUSTER), -(-256 // bw)), (br, bw)
