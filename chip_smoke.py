@@ -8,15 +8,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card, the software versions, and the build of the CUDA kernels from
    ``src/repro_torch/csrc`` (into ``build/kernels/``);
-2. each kernel against its plain PyTorch version on the card, bit for bit
-   with every NaN made canonical: K2 and K3 across the precision families,
+2. each kernel against its plain PyTorch version, bit for bit with every
+   NaN made canonical (the PDE kernels K2-K5, which flush f32 subnormals as
+   the reference does, against the plain version on the CPU under
+   ``torch.set_flush_denormal``; K6 and K7 on the card): K2 and K3 across the
+   precision families,
    carried splits (``k_floor``), pinned splits, evidence, and padded shapes
    (K3 also on a field of eight tiles and an unaligned tile, each tile one
    thread-block cluster);
    K4 (both megakernels) over the mode ladder at full width, with evolving,
    growing, pinned and bounded trackers, snapshots and evidence; K5 (the
    fused sweeps and megakernels of heat2d, advection1d and burgers1d) the
-   same way at full width;
+   same way at full width, and heat2d's thread-block clusters
+   (:data:`HEAT2D_CLUSTER_SHAPES`: 64x64 at every cluster size, 200x200,
+   an unaligned field and 3x3) over the six modes;
 3. the paper's experiment on the fused plane, then on the megakernel plane
    and through ``execution="auto"``: heat1d (nx=128, 4000 steps), swe2d
    (128x128, 400 steps), heat2d (64x64, 1500 steps), advection1d (nx=256,
@@ -27,10 +32,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``artifacts/bench/BENCH_pde.json`` on both planes;
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
-   full horizons;
+   full horizons; then the card against ``repro``: every builtin stepper on
+   every plane in the six modes at a small size (:func:`link_configs`),
+   bit for bit against the port's plain run on the CPU under flush, which
+   the CPU tests hold equal to ``repro``;
 5. kernel times (CUDA events; for K3, whose kernel takes microseconds, a
    replayed CUDA graph of its calls) beside their bounds and the plain
-   versions;
+   versions; heat2d's K5a and K5d at 64x64 for every cluster size by
+   replayed CUDA graphs, with their launch shapes, and both along the
+   main path's horizon chunk by chunk;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -214,6 +224,47 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def cpu_flushed():
+    """The CPU as XLA runs the reference: f32 subnormals flushed. The flags
+    are the calling thread's, so PyTorch runs on one thread meanwhile."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    torch.set_flush_denormal(True)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(threads)
+
+
+def to_device(x, device):
+    """Tensors, and those inside tuples, named tuples, lists and dicts, on
+    ``device``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    return x
+
+
+def plain_on_cpu(fn, *args, **kw):
+    """A plain version run on CPU copies of its tensor arguments under
+    :func:`cpu_flushed` (the CPU tests hold it there to ``repro``), its
+    result moved back to the first argument's device."""
+    with cpu_flushed():
+        out = fn(*to_device(args, "cpu"), **to_device(kw, "cpu"))
+    return to_device(out, args[0].device)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -298,7 +349,7 @@ def k3_launch_shape(q1, kw) -> str:
 
 def check_kernels(device, heat_steps):
     """Every K2/K3 case: kernel output and evidence bit-equal to the plain
-    version on the same device. Returns per-kernel max abs error."""
+    version on the CPU under flush. Returns per-kernel max abs error."""
     from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
     from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
 
@@ -306,7 +357,7 @@ def check_kernels(device, heat_steps):
     errs = {"heat1d_sweep": 0.0, "swe_flux_fused": 0.0}
     for label, u, kw in heat_cases(device, heat_steps):
         got, ev = heat1d_sweep(u, **kw)
-        want, ev_want = heat1d_sweep_plain(u, **kw)
+        want, ev_want = plain_on_cpu(heat1d_sweep_plain, u, **kw)
         ok = same_bits(got, want) and (ev is None) == (ev_want is None) and (ev is None or same_bits(ev, ev_want))
         err = max_abs_err(got, want)
         errs["heat1d_sweep"] = max(errs["heat1d_sweep"], err)
@@ -315,7 +366,7 @@ def check_kernels(device, heat_steps):
         require(ok, f"heat1d_sweep disagrees with its plain version: {label}")
     for label, q1, q3, kw in swe_cases(device):
         got, ev = swe_flux_fused(q1, q3, **kw)
-        want, ev_want = swe_flux_fused_plain(q1, q3, **kw)
+        want, ev_want = plain_on_cpu(swe_flux_fused_plain, q1, q3, **kw)
         ok = same_bits(got, want) and (ev is None) == (ev_want is None) and (ev is None or same_bits(ev, ev_want))
         err = max_abs_err(got, want)
         errs["swe_flux_fused"] = max(errs["swe_flux_fused"], err)
@@ -369,7 +420,7 @@ def mega_cases(device):
 
 def check_mega(device):
     """Every K4 case: state, snapshots, evidence and every tracker field
-    bit-equal to ``mega_sweep_plain`` on the same device."""
+    bit-equal to ``mega_sweep_plain`` on the CPU under flush."""
     from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
 
     entry = {"heat1d": heat1d_mega, "swe2d": swe2d_mega}
@@ -377,7 +428,7 @@ def check_mega(device):
     errs = {"heat1d_mega": 0.0, "swe2d_mega": 0.0}
     for kern, label, x, kw in mega_cases(device):
         got = entry[kern](x, **kw)
-        want = entry[kern](x, plain=True, **kw)
+        want = plain_on_cpu(entry[kern], x, plain=True, **kw)
         ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps)
         ok = ok and same_bits(got.evidence, want.evidence)
         if want.tracker is not None:
@@ -463,22 +514,86 @@ def k5_cases(device):
     return cases
 
 
-def check_k5(device):
-    """Every K5 case: state, evidence and (megakernels) snapshots and every
-    tracker field bit-equal to the plain version on the same device."""
+#: heat2d fields phase 2 holds K5a and K5d at as thread-block clusters:
+#: (shape, cluster size asked for, None for the plan's): the main path's
+#: 64x64 at every size of HEAT2D_CLUSTERS, 200x200 (over one CTA's shared
+#: memory), an unaligned 61x45 (15 bands of 4 rows, the last of 3; 43
+#: columns) and the smallest field, 3x3 (one CTA, one interior cell)
+HEAT2D_CLUSTER_SHAPES = (
+    *(((64, 64), c) for c in (1, 2, 4, 8, 16)), ((200, 200), None), ((61, 45), None), ((3, 3), None),
+)
+#: their depths: fused substeps, and megakernel (substeps, every) with a remainder
+HEAT2D_CLUSTER_STEPS = (30, (35, 15))
+
+
+def heat2d_cluster_cases(device, shapes=HEAT2D_CLUSTER_SHAPES):
+    """(kernel, label, input, kwargs) for K5a and K5d as clusters, in the six
+    modes: the sweep with evidence (the tracked modes at a carried floor),
+    the megakernel with snapshots, evidence and, for rr_tracked and deploy,
+    an evolving tracker."""
+    import torch
+
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.pde import Heat2DConfig, get_stepper
+    from repro_torch.precision import get_engine
+
+    L = ladder()
+    stepper = get_stepper("heat2d")
+    sweep_steps, (mega_steps, every) = HEAT2D_CLUSTER_STEPS
+    floor = torch.tensor([2, 1], dtype=torch.int32, device=device)
+    cases = []
+    for (nx, ny), cluster in shapes:
+        cfg = Heat2DConfig(nx=nx, ny=ny)
+        u = stepper.init_state(cfg, device=device)
+        base = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, sites=stepper.sites, _cluster=cluster)
+        where = f"({nx},{ny}) {k5_launch_shape(nx, ny, cluster)}"
+        for name in SIX:
+            prec = L[name]
+            tracks = get_engine(prec).tracks
+            sweep_kw = dict(base, prec=prec, steps=sweep_steps, collect_evidence=True)
+            if tracks:
+                sweep_kw["k_floor"] = floor
+            cases.append(("heat2d_sweep", f"{name} {where} ev", u, sweep_kw))
+            trk = tracker_init(2, prec.fmt, device=device) if tracks else None
+            mega_kw = dict(base, prec=prec, steps=mega_steps, every=every, tracker=trk, collect_evidence=True)
+            cases.append(("heat2d_mega", f"{name} {where}", u, mega_kw))
+    return cases
+
+
+def k5_launch_shape(nx, ny, cluster=None) -> str:
+    """The cluster heat2d's kernels run for an (nx, ny) field: C CTAs of
+    band rows, and each CTA's threads and cells per thread (the launcher's
+    heat2d_shape in csrc/pde_steps.cu)."""
+    from repro_torch.kernels.pde_steps import heat2d_cluster_plan
+
+    c, band = heat2d_cluster_plan(nx, ny, cluster)
+    cells = band * (ny - 2)
+    per_thread = 1
+    while per_thread * 512 < cells:
+        per_thread *= 2
+    threads = (-(-cells // per_thread) + 31) // 32 * 32
+    return f"[cluster C={c} of {band}-row bands, {threads} threads x {per_thread} cells]"
+
+
+def check_k5(device, cases=None):
+    """Every K5 case (:func:`k5_cases` and :func:`heat2d_cluster_cases`
+    unless ``cases`` are given): state, evidence and (megakernels)
+    snapshots and every tracker field bit-equal to the plain version on the
+    CPU under flush."""
     workloads = {case: k5_workload(case, device) for case in K5_CASES}
     records = []
     errs = {f"{case}_{kind}": 0.0 for case in K5_CASES for kind in ("sweep", "mega")}
-    for kern, label, x, kw in k5_cases(device):
+    for kern, label, x, kw in cases if cases is not None else k5_cases(device) + heat2d_cluster_cases(device):
         case, kind = kern.rsplit("_", 1)
         w = workloads[case]
+        plain_kw = {k: v for k, v in kw.items() if k != "_cluster"}
         if kind == "sweep":
             got, ev = w["sweep"](x, **kw)
-            want, ev_want = w["plain"](x, **kw)
+            want, ev_want = plain_on_cpu(w["plain"], x, **plain_kw)
             ok = same_bits(got, want) and same_bits(ev, ev_want)
             err, trk = max_abs_err(got, want), ""
         else:
-            got, want = w["mega"](x, **kw), w["mega"](x, plain=True, **kw)
+            got, want = w["mega"](x, **kw), plain_on_cpu(w["mega"], x, plain=True, **plain_kw)
             ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps) and same_bits(got.evidence, want.evidence)
             if want.tracker is not None:
                 ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker))
@@ -951,6 +1066,59 @@ def check_mega_planes(device, steps_by_case):
     return out
 
 
+#: phase 4's link from the card to repro: LINK_STEPS steps with a snapshot
+#: every LINK_EVERY (a remainder chunk after the last)
+LINK_STEPS, LINK_EVERY = 56, 16
+
+
+def link_configs():
+    """Each builtin stepper at a small size; swe2d at 64x64 reaches f32
+    subnormals in its momentum within 48 steps in bf16, r2f2_16 and deploy."""
+    from repro_torch.pde import AdvectionConfig, BurgersConfig, Heat2DConfig, HeatConfig, SWEConfig
+
+    return {
+        "heat1d": HeatConfig(nx=64), "swe2d": SWEConfig(nx=64, ny=64), "heat2d": Heat2DConfig(nx=24, ny=24),
+        "advection1d": AdvectionConfig(nx=128), "burgers1d": BurgersConfig(nx=128),
+    }
+
+
+def check_card_vs_cpu(device, cases=None):
+    """The card against repro: each stepper of ``cases`` (default: those of
+    :func:`link_configs`) on the reference, fused and megakernel planes in
+    the six modes, state, snapshots and every tracker field bit for bit
+    (NaNs canonical) against the same run of the port on the CPU under
+    flush (the plain versions, which the CPU tests hold equal to repro),
+    from the same initial state. The same CPU run keeping subnormals is
+    counted too: where it differs, the flush is what the check saw."""
+    from repro_torch.pde import Simulation
+
+    L, cfgs = ladder(), link_configs()
+    out, kept_differs = [], 0
+    for case in cases or cfgs:
+        cfg = cfgs[case]
+        state0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+        for name in SIX:
+            for execution in ("reference", "fused", "megakernel"):
+                kw = dict(snapshot_every=LINK_EVERY, state0=state0, execution=execution)
+                card = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, **kw)
+                with cpu_flushed():
+                    cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
+                kept = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
+                ok = same_bits(card.state.cpu(), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
+                if cpu.tracker is not None:
+                    pairs = zip(card.tracker.state, cpu.tracker.state)
+                    ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in pairs)
+                differs = not same_bits(kept.state, cpu.state)
+                kept_differs += differs
+                line = (f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps: state, snapshots"
+                        f"{', tracker' if cpu.tracker is not None else ''} bit-identical: {'ok' if ok else 'MISMATCH'}"
+                        f"{' (the CPU keeping subnormals differs)' if differs else ''}")
+                log(line)
+                out.append(line)
+                require(ok, line)
+    return out, kept_differs
+
+
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
@@ -1061,22 +1229,24 @@ def time_kernels(device, main_launches, errs, card):
         ok = same_bits(a.state, b.state) and same_bits(a.snaps, b.snaps) and same_bits(a.evidence, b.evidence)
         return ok and (a.tracker is None) == (b.tracker is None)
 
-    # (name, source, replaces, kernel, plain, bound, kernel reps, plain reps,
-    # plain warm-up calls, shape); the plain K4 runs once, cold, at the full
-    # horizon (tens of seconds), and its result is held against the kernel's
+    # (name, source, replaces, kernel, (plain, args, kwargs), bound, kernel
+    # reps, plain reps, plain warm-up calls, shape): the plain version is
+    # timed on the card (the plain K4 once, cold, at the full horizon: tens
+    # of seconds), and the kernel's result held against it on the CPU under
+    # flush
     recs = []
     specs = [
         ("heat1d_sweep", "fused_pde.cu", "src/repro/kernels/heat_stencil.py:65",
-         lambda: heat1d_sweep(u, **hk), lambda: heat1d_sweep_plain(u, **hk), bound(heat_bytes, heat_flops), 20, 2, 1,
+         lambda: heat1d_sweep(u, **hk), (heat1d_sweep_plain, (u,), hk), bound(heat_bytes, heat_flops), 20, 2, 1,
          f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch"),
         ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
-         lambda: swe_flux_fused(q1, q3, **sk), lambda: swe_flux_fused_plain(q1, q3, **sk), bound(swe_bytes, swe_flops), 200, 5, 1,
+         lambda: swe_flux_fused(q1, q3, **sk), (swe_flux_fused_plain, (q1, q3), sk), bound(swe_bytes, swe_flops), 200, 5, 1,
          f"(127,128) r2f2_16, one tile {k3_launch_shape(q1, sk)}"),
         ("heat1d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:503",
-         lambda: heat1d_mega(u1, **mk), lambda: heat1d_mega(u1, plain=True, **mk), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
+         lambda: heat1d_mega(u1, **mk), (heat1d_mega, (u1,), dict(mk, plain=True)), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
          f"(128,) r2f2_16, one {hsteps}-substep horizon per launch"),
         ("swe2d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:607",
-         lambda: swe2d_mega(U, **mk_swe), lambda: swe2d_mega(U, plain=True, **mk_swe), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
+         lambda: swe2d_mega(U, **mk_swe), (swe2d_mega, (U,), dict(mk_swe, plain=True)), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
          f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch"),
     ]
     # K5 at the main path's shapes: a fused chunk of one snapshot interval,
@@ -1092,24 +1262,24 @@ def time_kernels(device, main_launches, errs, card):
         shape = "x".join(map(str, x.shape))
         specs += [
             (f"{case}_sweep", "pde_steps.cu", K5_REPLACES[f"{case}_sweep"],
-             lambda w=w, x=x, fk=fk: w["sweep"](x, **fk), lambda w=w, x=x, fk=fk: w["plain"](x, **fk),
+             lambda w=w, x=x, fk=fk: w["sweep"](x, **fk), (w["plain"], (x,), fk),
              bound(2 * n * 4, every * flops), 20, 2, 1, f"({shape}) r2f2_16, {every} substeps per launch"),
             (f"{case}_mega", "pde_steps.cu", K5_REPLACES[f"{case}_mega"],
-             lambda w=w, x=x, mk5=mk5: w["mega"](x, **mk5), lambda w=w, x=x, mk5=mk5: w["mega"](x, plain=True, **mk5),
+             lambda w=w, x=x, mk5=mk5: w["mega"](x, **mk5), (w["mega"], (x,), dict(mk5, plain=True)),
              bound((2 + steps // every) * n * 4, steps * flops), 5, 1, 0,
              f"({shape}) r2f2_16, one {steps}-substep horizon per launch"),
         ]
         tracked.append((f"{case}_mega", w["mega"], x, mk5, 2))
-    for name, src, replaces, kern, plain, (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
+    for name, src, replaces, kern, (plain, args, kw), (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
         ms, got = cuda_time_ms(kern, reps)
-        plain_ms, want = cuda_time_ms(plain, plain_reps, warmup=plain_warmup)
-        ok = same_result(got, want)
+        plain_ms, _ = cuda_time_ms(lambda: plain(*args, **kw), plain_reps, warmup=plain_warmup)
+        ok = same_result(got, plain_on_cpu(plain, *args, **kw))
         call = ""
         if name == "swe_flux_fused":  # a few microseconds: the kernel's device time, not the wrapper's call
             call = f" (device time, CUDA graph; {ms:.4f} ms per call with the host's wrapper)"
             ms = graph_time_ms(kern, reps)
         line = (f"time {name} {shape}: kernel {ms:.4f} ms{call}, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
-                f"bound {bound_ms:.6f} ms ({bound_by}), library call: none; kernel vs plain of the timed calls: "
+                f"bound {bound_ms:.6f} ms ({bound_by}), library call: none; kernel vs plain on the CPU under flush: "
                 f"{'bit-exact' if ok else 'MISMATCH'} [{card}]")
         log(line)
         require(ok, f"{name} disagrees with its plain version at the timed shape")
@@ -1127,6 +1297,51 @@ def time_kernels(device, main_launches, errs, card):
         ms, _ = cuda_time_ms(lambda: fn(x, tracker=trk, **kw), 5)
         log(f"time {name} rr_tracked, one horizon: kernel {ms:.4f} ms [{card}]")
     return recs
+
+
+def time_heat2d(device, card, sizes=(1, 2, 4, 8, 16)):
+    """K5a and K5d at the main path's 64x64 in r2f2_16: for each cluster
+    size of ``sizes`` (None: the plan's), the device time of K5a's
+    187-substep chunk and K5d's 1500-substep horizon by replayed CUDA
+    graphs, with the launch shape; then, at the plan's size, both along the
+    horizon chunk by chunk, each timed from the chunk's start state as the
+    fused plane reaches it (the megakernel over the chunk alone), per
+    substep. The latency floor of a size is K5d's horizon on a field of one
+    interior cell per CTA. Returns the rows."""
+    import torch
+
+    L = ladder()
+    w = k5_workload("heat2d", device)
+    x, steps = w["state"], MAIN_STEPS["heat2d"]
+    every = snapshot_every("heat2d", steps)
+    kw = dict(w["args"], prec=L["r2f2_16"], sites=w["sites"])
+    rows = []
+    for c in sizes:
+        ck = {} if c is None else dict(_cluster=c)
+        shape = "" if c is None else " " + k5_launch_shape(64, 64, c)
+        sweep_ms = graph_time_ms(lambda: w["sweep"](x, steps=every, **kw, **ck), 10)
+        mega_ms = graph_time_ms(lambda: w["mega"](x, steps=steps, every=every, **kw, **ck), 2, replays=3)
+        # the latency floor: the same launch on one interior cell per CTA
+        tiny = torch.zeros((c or 1) + 2, 3, device=device)
+        floor_ms = graph_time_ms(lambda: w["mega"](tiny, steps=steps, every=every, **kw, **ck), 2, replays=3)
+        rows.append(dict(cluster=c, sweep_ms=sweep_ms, mega_ms=mega_ms, floor_ms=floor_ms,
+                         sweep_us_per_substep=sweep_ms * 1e3 / every, mega_us_per_substep=mega_ms * 1e3 / steps))
+        log(f"time heat2d C={c}{shape}: K5a {sweep_ms:.4f} ms per {every} substeps ({sweep_ms * 1e3 / every:.3f} us each), "
+            f"K5d {mega_ms:.4f} ms per {steps} ({mega_ms * 1e3 / steps:.3f} us each); latency floor (K5d on "
+            f"{tuple(tiny.shape)}, one cell a CTA) {floor_ms:.4f} ms ({floor_ms * 1e3 / steps:.3f} us a substep) [{card}]")
+    u, chunks, at = x, [], 0
+    while at < steps:
+        n = min(every, steps - at)
+        sweep_ms, nxt = cuda_time_ms(lambda: w["sweep"](u, steps=n, **kw), 5)
+        mega_ms, _ = cuda_time_ms(lambda: w["mega"](u, steps=n, every=n, **kw), 5)
+        chunks.append(dict(start=at, substeps=n, sweep_us=sweep_ms * 1e3 / n, mega_us=mega_ms * 1e3 / n))
+        u, at = nxt[0], at + n
+    whole_ms, _ = cuda_time_ms(lambda: w["mega"](x, steps=steps, every=every, **kw), 3)
+    fused_total = sum(ch["sweep_us"] * ch["substeps"] for ch in chunks) / 1e3
+    log("heat2d along the horizon, us per substep (chunk start: fused K5a / K5d over the chunk): " +
+        "; ".join(f"{ch['start']}: {ch['sweep_us']:.3f} / {ch['mega_us']:.3f}" for ch in chunks) +
+        f"; whole horizon: K5d one launch {whole_ms:.4f} ms, the fused plane's {len(chunks)} launches {fused_total:.4f} ms [{card}]")
+    return dict(sizes=rows, chunks=chunks, whole_mega_ms=whole_ms, fused_chunks_ms=fused_total)
 
 
 # ---------------------------------------------------------------------------
@@ -1417,13 +1632,21 @@ def main(argv) -> int:
     lib = _cuda.build()
     build_s = time.perf_counter() - t0
     _cuda.library()
-    log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)})")
+    log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)}; "
+        f"-ftz=true for {', '.join(_cuda.FTZ_SOURCES)}, -ftz=false for the rest)")
     log_path = lib.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
+
+    t_phase = time.perf_counter()
+
+    def phase_done(n):
+        nonlocal t_phase
+        log(f"phase {n} took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
 
     errs, records = check_kernels(device, 100 if quick else HEAT_CHUNK)
     mega_errs, mega_records = check_mega(device)
@@ -1433,6 +1656,7 @@ def main(argv) -> int:
     errs.update(k5_errs)
     errs.update(c_errs)
     report["kernel_checks"] = records + mega_records + k5_records + c_records
+    phase_done(2)
     if quick:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -1456,6 +1680,7 @@ def main(argv) -> int:
         if execution != "auto":
             main_launches.update(launches)
         report["ladder"] += rows
+    phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")
     bench_precs = {"swe2d": four + ("r2f2_16_384",), **{case: four for case in K5_CASES}}
@@ -1463,10 +1688,18 @@ def main(argv) -> int:
     for execution in ("fused", "megakernel"):
         bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
         report["bench_compare"] += check_bench(bench)
-    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
-    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
-    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
+    # the reference plane at a cut depth (heat1d 250 of 4000 steps, swe2d 100
+    # of 400, heat2d 150 of 1500, advection1d 128 of 256, burgers1d 200 of
+    # 1200: on the card its PyTorch ops run under the subnormal flush, a few
+    # times their host time), the megakernel at the full horizons
+    cut = {"heat1d": 250, "swe2d": 100, "heat2d": 150, "advection1d": 128, "burgers1d": 200}
     report["planes"] = check_planes(device, cut) + check_mega_planes(device, MAIN_STEPS)
+    link, kept_differs = check_card_vs_cpu(device)
+    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "
+        "on the CPU keeping subnormals")
+    require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
+    report["planes"] += link
+    phase_done("3 (60-step rows) and 4")
 
     t_lm = time.perf_counter()
     api = run_api_path(device)
@@ -1474,8 +1707,11 @@ def main(argv) -> int:
     main_launches["r2f2_quantize"] = api["r2f2_quantize"]
     main_launches["r2f2_matmul"] = report["lm"]["r2f2_16+K7"]["launches"]["r2f2_matmul"]
     log(f"contraction path phase: {time.perf_counter() - t_lm:.1f} s")
+    phase_done("6 (the path)")
 
     recs = time_kernels(device, main_launches, errs, card)
+    report["heat2d_times"] = time_heat2d(device, card)
+    phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs
     report["kernels"] = recs

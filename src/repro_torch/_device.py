@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "f32_scalar", "linspace_from_zero"]
+__all__ = ["resolve_device", "on_card", "f32_scalar", "linspace_from_zero"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,6 +19,12 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` (a name, a torch.device, or None for none given)
+    is a CUDA device."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def f32_scalar(v: float, device) -> torch.Tensor:

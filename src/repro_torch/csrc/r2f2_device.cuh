@@ -8,8 +8,11 @@
 //   family_mul/div     kernels/fused.py::FusedOps.mul / .div
 //   adjust_tick        core/policy.py::adjust_step (one site's tick)
 //
-// Build with --fmad=false -prec-div=true -ftz=false, so that nvcc contracts
-// nothing on its own and keeps subnormals. The one fused multiply-add is
+// Build with --fmad=false -prec-div=true, so that nvcc contracts nothing on
+// its own. The PDE kernels (fused_pde.cu, mega_pde.cu, pde_steps.cu) build
+// with -ftz=true: f32 subnormal inputs and results flush to a zero of their
+// sign, as XLA runs the reference on the CPU and the TPU; K6 and K7
+// (-ftz=false) keep subnormals. The one fused multiply-add is
 // explicit (family_mul_add): the compiled reference (XLA:CPU) fuses a plain f32
 // product into the add that follows it, and rounds that sum once.
 //

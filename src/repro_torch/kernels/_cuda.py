@@ -20,7 +20,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count", "NVCC_FLAGS", "SMEM_LIMIT"]
+__all__ = [
+    "KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
+    "NVCC_FLAGS", "FTZ_SOURCES", "source_flags", "SMEM_LIMIT",
+]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,12 +32,23 @@ HEADERS = ("r2f2_device.cuh",)
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: IEEE arithmetic as the reference runs it: no fma contraction, IEEE
-#: division, subnormals kept (never --use_fast_math)
+#: division (never --use_fast_math); the subnormal flush is per source
 NVCC_FLAGS = (
     *GENCODE, "-std=c++17", "-O3",
-    "--fmad=false", "-prec-div=true", "-ftz=false",
+    "--fmad=false", "-prec-div=true",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: the PDE kernels flush f32 subnormal inputs and results, as XLA does on the
+#: CPU and the TPU (the reference's quantize_em zeroes subnormal inputs for
+#: that reason); K6 and K7 keep them, held to the reference by a toleranced
+#: sum (ROADMAP.md queue 3)
+FTZ_SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu")
+
+
+def source_flags(src: str):
+    """The nvcc flags of one source: NVCC_FLAGS and its subnormal mode."""
+    return (*NVCC_FLAGS, f"-ftz={'true' if src in FTZ_SOURCES else 'false'}")
+
 
 #: shared memory a one-CTA kernel may take for its field and scratch rows
 SMEM_LIMIT = 200 * 1024
@@ -57,13 +71,16 @@ _SIGNATURES = {
     # tail_approx, stream
     "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
-# K5 (csrc/pde_steps.cu), one signature per template for its three bodies:
+# K5 (csrc/pde_steps.cu), one signature per template for the 1-D bodies:
 # sweep: u_in, u_out, ev, k_floor, nx, ny, steps, c0, c1, policy(8), stream
 # mega: u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps,
 # every, c0, c1, ema, 1 - ema, headroom, policy(8), stream
-for _body in ("heat2d", "advection1d", "burgers1d"):
+for _body in ("advection1d", "burgers1d"):
     _SIGNATURES[f"r2f2_{_body}_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 8 + [_P]
     _SIGNATURES[f"r2f2_{_body}_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 4 + [_I] + [_I] * 8 + [_P]
+# heat2d's cluster kernels take the cluster's CTAs and band rows after c0, c1
+_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + [_P]
+_SIGNATURES["r2f2_heat2d_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + [_P]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -99,7 +116,7 @@ def nvcc_version() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + FTZ_SOURCES).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -118,7 +135,7 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            [nvcc, *source_flags(src), "-c", "-o", str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(SOURCES, objs)

@@ -32,7 +32,7 @@ from repro_torch.kernels.fused import fused_sweep
 from repro_torch.kernels.updates import heat1d_update
 from repro_torch.precision.fusion import fused_family
 
-__all__ = ["HEAT1D_SITES", "HEAT1D_SWEEP", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas"]
+__all__ = ["HEAT1D_SITES", "HEAT1D_SWEEP", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas", "row_block_fits"]
 
 HEAT1D_SITES = ("heat.flux", "heat.update")
 #: launches of the CUDA kernel and runs of the plain version
@@ -50,6 +50,12 @@ def _heat1d_body(alpha, dtodx2, sites):
     return body
 
 
+def row_block_fits(br: int, nx: int) -> bool:
+    """Whether the CUDA kernel takes ``(br, nx)`` row blocks: one CTA holds
+    a block and a scratch row per row in shared memory."""
+    return 2 * br * nx * 4 <= _cuda.SMEM_LIMIT
+
+
 def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, steps, n_sites):
     (u,) = leaves
     u = u.contiguous()
@@ -58,9 +64,8 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, st
         raise ValueError(f"heat1d_sweep has two sites (flux, update); got {n_sites}")
     if nx < 3:
         raise ValueError(f"heat1d_sweep needs nx >= 3; got {nx}")
-    smem = 2 * br * nx * 4
-    if smem > _cuda.SMEM_LIMIT:
-        raise ValueError(f"a ({br}, {nx}) row block needs {smem} B of shared memory; the kernel takes at most {_cuda.SMEM_LIMIT} B")
+    if not row_block_fits(br, nx):
+        raise ValueError(f"a ({br}, {nx}) row block needs {2 * br * nx * 4} B of shared memory; the kernel takes at most {_cuda.SMEM_LIMIT} B")
     out = torch.empty_like(u)
     ev = torch.empty((gi, gj, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     lib = _cuda.library()

@@ -29,11 +29,13 @@ tensors; a CUDA tensor takes the plain version only with ``plain=True``.
 launches and its plain runs. Kernel K4 lives in ``csrc/mega_pde.cu``:
 ``heat1d_mega_kernel`` (one CTA, the rod in shared memory) and
 ``swe2d_mega_kernel`` (a cooperative grid, the Lax-Wendroff intermediates
-in global memory, which the 50 MB L2 holds at this size). Kernel K5d-f is
-``csrc/pde_steps.cu::mega_sweep_kernel``, one template over the fused
-sweeps' device bodies (``kernels/pde_steps.py``, whose ``BODIES`` table holds
-the K5 counters): one CTA holds the field in shared memory for the whole
-horizon.
+in global memory, which the 50 MB L2 holds at this size). Kernels K5e-f
+are ``csrc/pde_steps.cu::mega_sweep_kernel``, one template over the fused
+sweeps' 1-D device bodies (``kernels/pde_steps.py``, whose ``BODIES`` table
+holds the K5 counters): one CTA holds the rod in shared memory for the
+whole horizon. K5d is ``heat2d_mega_kernel``, the fused sweep's
+thread-block cluster (``pde_steps.heat2d_cluster_plan``) with the adjust
+unit ticked in every CTA on the cluster-wide evidence.
 
 Replaces the TPU kernel ``repro/kernels/mega.py::mega_sweep``
 (``_mega_kernel``) running ``heat1d_mega`` and ``swe2d_mega`` (K4), and
@@ -53,7 +55,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
 from repro_torch.kernels.pde_steps import (
     ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
-    check_field,
+    check_field, heat2d_cluster_plan,
 )
 from repro_torch.precision.fusion import fused_family
 
@@ -64,6 +66,7 @@ __all__ = [
     "mega_sweep",
     "mega_sweep_plain",
     "heat1d_mega",
+    "heat1d_mega_fits",
     "swe2d_mega",
     "HEAT2D_MEGA",
     "ADVECTION1D_MEGA",
@@ -220,11 +223,12 @@ def mega_sweep(
 
 def _adjust_args(prec, sites, site_ops, device):
     """The adjust unit's per-site table ``(n_sites, 3)`` int32 (op code,
-    k_lo, k_hi) and its scalars: ema and 1 - ema rounded once to f32, and
-    the headroom."""
+    k_lo, k_hi) on ``device`` (None: no table, which the kernels read only
+    with an evolving tracker) and its scalars: ema and 1 - ema rounded once
+    to f32, and the headroom."""
     ops = _site_ops(sites, site_ops)
     bounds = prec.k_bounds or ((-(2**30), 2**30),) * len(sites)
-    table = torch.tensor(
+    table = None if device is None else torch.tensor(
         [[OP_CODES[op], lo, hi] for op, (lo, hi) in zip(ops, bounds)], dtype=torch.int32
     ).to(device)
     ema = float(f32_scalar(prec.ema, "cpu"))
@@ -249,13 +253,19 @@ def _tracker_buffers(tracker, evolve, device):
     return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
 
 
+def heat1d_mega_fits(nx: int) -> bool:
+    """Whether ``heat1d_mega_kernel`` takes an ``nx``-cell rod: one CTA holds
+    it and a scratch row in shared memory."""
+    return nx >= 3 and 2 * nx * 4 <= _cuda.SMEM_LIMIT
+
+
 def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites):
     (u,) = leaves
     u = u.contiguous()
     if u.dim() != 2 or u.shape[0] != 1:
         raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
     nx = u.shape[1]
-    if nx < 3 or 2 * nx * 4 > _cuda.SMEM_LIMIT:
+    if not heat1d_mega_fits(nx):
         raise ValueError(f"heat1d_mega holds the rod in shared memory: 3 <= nx <= {_cuda.SMEM_LIMIT // 8}; got {nx}")
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
@@ -315,25 +325,31 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites):
-    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf, one CTA."""
+def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None):
+    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf: heat2d's
+    cluster, a rod's one CTA."""
     (u,) = leaves
     u = u.contiguous()
     if u.shape != (1, nx * ny) or len(sites) != 2:
         raise ValueError(f"{body}_mega takes one (1, {nx * ny}) leaf and two sites; got {tuple(u.shape)}, {len(sites)} sites")
-    check_field(body, nx, ny)
+    plan = ()
+    if body == "heat2d":
+        plan = heat2d_cluster_plan(nx, ny, cluster)
+    else:
+        check_field(body, nx, ny)
     dev = u.device
     out = torch.empty_like(u)
     snaps = torch.empty((steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
-    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev)
+    # untracked, no host-to-device copy: a CUDA graph captures the launch
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         err = getattr(lib, f"r2f2_{body}_mega")(
             _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev),
             _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh), _cuda.ptr(table),
-            int(evolve), nx, ny, steps, every, *consts, ema, one_minus, headroom,
+            int(evolve), nx, ny, steps, every, *consts, *plan, ema, one_minus, headroom,
             *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
         )
     _cuda.check(err, f"{body}_mega")
@@ -392,8 +408,11 @@ def swe2d_mega(
     return res._replace(state=out, snaps=snaps)
 
 
-def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker, collect_evidence, capture, storage, plain):
-    kernel = functools.partial(_launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites))
+def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker, collect_evidence, capture, storage, plain,
+             cluster=None):
+    kernel = functools.partial(
+        _launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites), cluster=cluster,
+    )
     res = mega_sweep(
         fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
         collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].mega, plain=plain,
@@ -405,16 +424,17 @@ def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker
 
 def heat2d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False,
+    capture=None, storage="f32", plain=False, _cluster=None,
 ) -> MegaResult:
     """Whole-horizon 2-D heat run of the ``(nx, ny)`` field; snapshots come
-    back as ``(n_out, nx, ny)``."""
+    back as ``(n_out, nx, ny)``. ``_cluster`` asks the kernel for a cluster
+    size other than the plan's (the chip checks and timings)."""
     nx, ny = u0.shape
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _k5_mega(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain,
+        storage=storage, plain=plain, cluster=_cluster,
     )
 
 

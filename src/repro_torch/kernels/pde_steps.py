@@ -11,23 +11,29 @@ wherever one split block covers the field, which it always does here: the
 
 Replaces the TPU kernel ``repro/kernels/fused.py::fused_sweep``
 (``_sweep_kernel``) running ``repro/kernels/pde_steps.py::_heat2d_body``,
-``_advection1d_body`` and ``_burgers1d_body``. The CUDA kernel is one
-template, ``csrc/pde_steps.cu::fused_sweep_kernel``, instantiated for three
-device bodies: one CTA holds the whole field in shared memory for the
-chunk, with the stencil's neighbours (and the periodic wrap) read from
-shared memory behind a barrier. At the main path's sizes (64x64 and 256
-cells) a substep moves no bytes from device memory and does a few thousand
-f32 operations: the kernels are bound by the latency of the serial substep
-chain and its two or three block reductions, not by bytes or operations.
-The field in shared memory for the whole chunk is what the design does
-about it; a field larger than one CTA's shared memory is refused
-(:data:`SMEM_LIMIT`), where ``repro`` on the TPU has no such limit.
+``_advection1d_body`` and ``_burgers1d_body``. At the main path's sizes
+(64x64 and 256 cells) a substep moves no bytes from device memory and does
+a few thousand f32 operations: the kernels are bound by the latency of the
+serial substep chain and its field-wide maxima, not by bytes or operations.
+
+heat2d (``csrc/pde_steps.cu::heat2d_sweep_kernel``, and the megakernel
+K5d) runs as one thread-block cluster of up to 16 CTAs in row bands
+(:func:`heat2d_cluster_plan`): each CTA holds its band and two halo rows in
+shared memory and each thread its cells in registers; the substep's two
+maxima and the halo exchange go through distributed shared memory, three
+cluster barriers a substep. 16 CTAs of 512 threads hold up to 16 interior
+cells a thread: at most :data:`HEAT2D_MAX_CTA_CELLS` interior cells a CTA,
+131,072 a field, so 358x358 is the largest square field. The 1-D bodies
+(``fused_sweep_kernel``) keep one CTA holding the rod in shared memory; a
+rod beyond one CTA's shared memory (:data:`SMEM_LIMIT`) is refused, where
+``repro`` on the TPU has no such limit. :func:`field_fits` says what the
+card takes; the steppers' shape gates ask it, so ``auto`` falls back.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +55,11 @@ __all__ = [
     "BURGERS1D_MEGA",
     "BODIES",
     "SMEM_LIMIT",
+    "HEAT2D_CLUSTERS",
+    "HEAT2D_CTA_CELLS",
+    "HEAT2D_MAX_CTA_CELLS",
+    "heat2d_cluster_plan",
+    "field_fits",
     "check_field",
     "heat2d_sweep",
     "heat2d_sweep_plain",
@@ -73,33 +84,77 @@ BURGERS1D_MEGA = _cuda.KernelCounter("burgers1d_mega")
 class Body(NamedTuple):
     """What the launchers know of one device body of csrc/pde_steps.cu."""
 
-    smem_rows: int  # f32 rows of the field in shared memory (Body::kRows)
+    smem_rows: Optional[int]  # f32 rows of a one-CTA rod in shared memory (Body::kRows); heat2d: bands
     sweep: _cuda.KernelCounter  # its fused sweep, C entry r2f2_<body>_sweep
     mega: _cuda.KernelCounter  # its megakernel (kernels/mega.py), C entry r2f2_<body>_mega
 
 
-#: per body: the state and a scratch row, and for Lax-Friedrichs a second
+#: per 1-D body: the state and a scratch row, and for Lax-Friedrichs a second
 #: state row (its update reads both neighbours of the old state)
 BODIES = {
-    "heat2d": Body(2, HEAT2D_SWEEP, HEAT2D_MEGA),
+    "heat2d": Body(None, HEAT2D_SWEEP, HEAT2D_MEGA),
     "advection1d": Body(2, ADVECTION1D_SWEEP, ADVECTION1D_MEGA),
     "burgers1d": Body(3, BURGERS1D_SWEEP, BURGERS1D_MEGA),
 }
 
+#: the cluster sizes heat2d's kernels are measured at (chip_smoke.py phase 5)
+HEAT2D_CLUSTERS = (1, 2, 4, 8, 16)
+#: interior cells one CTA of heat2d's cluster holds: 512 threads, 16 cells
+#: each in registers (csrc/pde_steps.cu::kHeat2DMaxThreads, kHeat2DMaxPerThread)
+HEAT2D_MAX_CTA_CELLS = 512 * 16
+#: the plan's target of interior cells per CTA. At the main path's 64x64 it
+#: picks C = 16 (248 cells a CTA, one a thread), the fastest of
+#: HEAT2D_CLUSTERS there in chip_smoke.py phase 5 (PERF.md section 6, "Cluster size")
+HEAT2D_CTA_CELLS = 256
+
+
+def heat2d_cluster_plan(nx: int, ny: int, cluster: Optional[int] = None) -> Tuple[int, int]:
+    """``(C, band)``: the thread-block cluster that runs an ``(nx, ny)``
+    heat2d field, C CTAs each owning ``band`` of its ``nx - 2`` interior
+    rows (the last CTA the rest, every CTA at least one). By default C is
+    the smallest of :data:`HEAT2D_CLUSTERS` whose CTAs hold at most
+    :data:`HEAT2D_CTA_CELLS` interior cells, else 16; ``cluster`` asks for
+    a size instead (fewer CTAs where the rows run out). Raises ValueError
+    where the CTAs cannot hold the field (:data:`HEAT2D_MAX_CTA_CELLS`
+    interior cells a CTA; their shared memory, the band and two halo rows,
+    stays under 100 KB then)."""
+    if min(nx, ny) < 3:
+        raise ValueError(f"heat2d needs nx, ny >= 3; got ({nx}, {ny})")
+    ni, mi = nx - 2, ny - 2
+    if cluster is None:
+        cluster = next((c for c in HEAT2D_CLUSTERS if -(-ni // c) * mi <= HEAT2D_CTA_CELLS), HEAT2D_CLUSTERS[-1])
+    if not 1 <= cluster <= HEAT2D_CLUSTERS[-1]:
+        raise ValueError(f"a heat2d cluster has 1 to {HEAT2D_CLUSTERS[-1]} CTAs; got {cluster}")
+    band = -(-ni // min(cluster, ni))
+    if band * mi > HEAT2D_MAX_CTA_CELLS:
+        raise ValueError(
+            f"heat2d's cluster of {cluster} CTAs cannot hold a ({nx}, {ny}) field: {band} x {mi} interior cells a CTA, "
+            f"the kernel takes at most {HEAT2D_MAX_CTA_CELLS}"
+        )
+    return -(-ni // band), band
+
 
 def check_field(body: str, nx: int, ny: int) -> None:
-    """Refuse a field a K5 kernel does not take: a 2-D field needs an
-    interior (nx, ny >= 3), and the field and its scratch rows must fit one
-    CTA's shared memory, :data:`SMEM_LIMIT` (there is no multi-CTA path)."""
-    if body == "heat2d" and min(nx, ny) < 3:
-        raise ValueError(f"heat2d needs nx, ny >= 3; got ({nx}, {ny})")
-    n = nx * ny
-    smem = BODIES[body].smem_rows * n * 4
-    if smem > SMEM_LIMIT:
+    """Refuse a field a K5 kernel does not take (a rod has nx = 1): heat2d
+    beyond its largest cluster (:func:`heat2d_cluster_plan`), a rod beyond
+    one CTA's shared memory (:data:`SMEM_LIMIT`)."""
+    if body == "heat2d":
+        heat2d_cluster_plan(nx, ny, HEAT2D_CLUSTERS[-1])
+    elif BODIES[body].smem_rows * nx * ny * 4 > SMEM_LIMIT:
         raise ValueError(
-            f"{body} holds its {n}-cell field in one CTA's shared memory: {smem} B needed, "
-            f"the kernel takes at most SMEM_LIMIT = {SMEM_LIMIT} B"
+            f"{body} holds its {nx * ny}-cell rod in one CTA's shared memory: "
+            f"{BODIES[body].smem_rows * nx * ny * 4} B needed, the kernel takes at most SMEM_LIMIT = {SMEM_LIMIT} B"
         )
+
+
+def field_fits(body: str, nx: int, ny: int) -> bool:
+    """Whether the body's CUDA kernels take an ``(nx, ny)`` field
+    (:func:`check_field`): the card's shape gate."""
+    try:
+        check_field(body, nx, ny)
+    except ValueError:
+        return False
+    return True
 
 
 def _heat2d_body(nx, ny, alpha, dtodx2, sites):
@@ -132,19 +187,24 @@ def _burgers1d_body(dt, dx, sites):
     return body
 
 
-def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites):
-    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf, one CTA."""
+def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster):
+    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf: heat2d's
+    cluster (:func:`heat2d_cluster_plan`), a rod's one CTA."""
     (u,) = leaves
     u = u.contiguous()
     if n_sites != 2 or (gi, gj) != (1, 1) or u.shape != (1, nx * ny):
         raise ValueError(f"{body}_sweep takes one (1, {nx * ny}) block and two sites; got {tuple(u.shape)}, {n_sites} sites")
-    check_field(body, nx, ny)
+    plan = ()
+    if body == "heat2d":
+        plan = heat2d_cluster_plan(nx, ny, cluster)
+    else:
+        check_field(body, nx, ny)
     out = torch.empty_like(u)
     ev = torch.empty((1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     lib = _cuda.library()
     with torch.cuda.device(u.device):
         err = getattr(lib, f"r2f2_{body}_sweep")(
-            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor), nx, ny, steps, *consts,
+            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor), nx, ny, steps, *consts, *plan,
             *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
         )
     _cuda.check(err, f"{body}_sweep")
@@ -152,8 +212,11 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, p
     return [out], ev
 
 
-def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain):
-    kernel = functools.partial(_launch, body=body, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, n_sites=len(sites))
+def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
+           cluster=None):
+    kernel = functools.partial(
+        _launch, body=body, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, n_sites=len(sites), cluster=cluster,
+    )
     (out,), ev = fused_sweep(
         fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, block=(1, nx * ny),
         k_floor=k_floor, collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].sweep,
@@ -162,24 +225,27 @@ def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect
     return out.reshape(u0.shape), ev
 
 
-def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain):
+def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None):
     nx, ny = u0.shape
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _sweep(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, storage=storage, plain=plain,
+        cluster=cluster,
     )
 
 
 def heat2d_sweep(
     u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32",
+    capture=None, storage="f32", _cluster=None,
 ):
     """Advance an ``(nx, ny)`` field ``steps`` 5-point substeps in one
-    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None."""
+    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
+    ``_cluster`` asks the kernel for a cluster size other than the plan's
+    (the chip checks and timings go through each size)."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, cluster=_cluster,
     )
 
 

@@ -60,6 +60,13 @@ class Burgers1DStepper(Stepper):
     failure_mode = "nonlinear-drift"
     story = "u*u squares the range, overflows E5M10, then decays ~1/t post-shock"
     snapshots_default = 8
+    kernel_planes = ("fused", "megakernel")
+
+    def kernels_hold(self, cfg: BurgersConfig) -> bool:
+        """Kernels K5c and K5f hold the rod in one CTA's shared memory."""
+        from repro_torch.kernels.pde_steps import field_fits
+
+        return field_fits("burgers1d", 1, cfg.nx)
 
     def default_config(self) -> BurgersConfig:
         return BurgersConfig()

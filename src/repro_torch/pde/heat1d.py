@@ -71,6 +71,14 @@ class Heat1DStepper(Stepper):
     failure_mode = "underflow"
     story = "alpha*lap falls below E5M10's subnormal floor late in the run"
     snapshots_default = 8
+    kernel_planes = ("fused", "megakernel")
+
+    def kernels_hold(self, cfg: HeatConfig) -> bool:
+        """Kernels K2 and K4 hold the rod in one CTA's shared memory."""
+        from repro_torch.kernels.heat_stencil import row_block_fits
+        from repro_torch.kernels.mega import heat1d_mega_fits
+
+        return row_block_fits(1, cfg.nx) and heat1d_mega_fits(cfg.nx)
 
     def default_config(self) -> HeatConfig:
         return HeatConfig(nx=128)

@@ -15,16 +15,19 @@
 
 The loops issue no host synchronisation per step: trackers stay on the
 state's device, and the fused plane copies one chunk's evidence to the host
-to fold it.
+to fold it. On a CUDA device a run flushes f32 subnormals, as the reference
+does (``core/ftz.py``; the kernels build with ``-ftz=true``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import on_card, resolve_device
+from repro_torch.core.ftz import flush_subnormals
 from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING
 from repro_torch.pde.registry import get_stepper
@@ -85,7 +88,15 @@ class Stepper:
     hook ``fused_step(state, cfg, prec, steps, *, k_floor=None,
     collect_evidence=False) -> (state, evidence)``, and ``mega_step`` the
     optional megakernel hook ``mega_step(state, cfg, prec, steps, every, *,
-    tracker=None) -> repro_torch.kernels.mega.MegaResult``."""
+    tracker=None) -> repro_torch.kernels.mega.MegaResult``.
+
+    ``kernel_planes`` names the planes whose hook launches a CUDA kernel on
+    a CUDA device; on the card ``auto`` resolves only to those. A stepper
+    declares none by default: its fused body has no kernel, and on the card
+    it runs the reference plane (ROADMAP.md queue 2). The shape gates
+    ``fused_supported``/``mega_supported`` are asked with the device; on the
+    card they close both kernel planes where ``kernels_hold`` says the
+    kernels cannot hold the config's field."""
 
     name: str = "?"
     sites: Tuple[str, ...] = ()
@@ -95,11 +106,16 @@ class Stepper:
     snapshots_default: int = 8
     fused_step = None
     mega_step = None
+    kernel_planes: Tuple[str, ...] = ()
 
-    def fused_supported(self, cfg, prec: PrecisionConfig) -> bool:
-        return True
+    def fused_supported(self, cfg, prec: PrecisionConfig, device=None) -> bool:
+        return not on_card(device) or self.kernels_hold(cfg)
 
-    def mega_supported(self, cfg, prec: PrecisionConfig) -> bool:
+    def mega_supported(self, cfg, prec: PrecisionConfig, device=None) -> bool:
+        return not on_card(device) or self.kernels_hold(cfg)
+
+    def kernels_hold(self, cfg) -> bool:
+        """Whether the stepper's CUDA kernels hold the config's field."""
         return True
 
     def default_config(self):
@@ -147,10 +163,10 @@ class Simulation:
         return site_tracker_init(self.stepper.sites, self.prec.fmt, k0=k0, device=self.device)
 
     def fused_eligible(self) -> bool:
-        return fused_eligible(self.prec, self.stepper, self.cfg)
+        return fused_eligible(self.prec, self.stepper, self.cfg, self.device)
 
     def mega_eligible(self) -> bool:
-        return mega_eligible(self.prec, self.stepper, self.cfg)
+        return mega_eligible(self.prec, self.stepper, self.cfg, self.device)
 
     def _resolve_execution(self, execution: str) -> str:
         if execution not in EXECUTIONS:
@@ -163,7 +179,7 @@ class Simulation:
             if execution == plane and not eligible():
                 raise ValueError(
                     f"stepper {self.stepper.name!r} is not {plane}-eligible under mode {self.prec.mode!r} "
-                    "(no hook, no fused arithmetic family, or an unsupported shape); "
+                    "(no hook, no fused arithmetic family, no kernel on this device, or an unsupported shape); "
                     "use execution='auto' to fall back"
                 )
         return execution
@@ -194,10 +210,11 @@ class Simulation:
         if capture is not None or policy is not None:
             raise NotImplementedError(CAPTURE_PENDING)
         stepper, cfg = self.stepper, self.cfg
-        if state0 is None:
-            state = stepper.init_state(cfg, device=self.device)
-        else:
-            state = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
+        with self._flushing():
+            if state0 is None:
+                state = stepper.init_state(cfg, device=self.device)
+            else:
+                state = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
         if tracker is None:
             tracker = self.init_tracker()
         else:
@@ -211,32 +228,44 @@ class Simulation:
         snaps = []
         for _ in range(n_out):
             state, tracker = advance(state, tracker, every)
-            snaps.append(stepper.observables(state, cfg))
+            snaps.append(self._observe(state))
         if rem:
             state, tracker = advance(state, tracker, rem)
         if snaps:
             snapshots = torch.stack(snaps)
         else:
-            obs = stepper.observables(state, cfg)
+            obs = self._observe(state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(state, snapshots, tracker)
 
+    def _flushing(self):
+        """The block the stepper's hooks run in: on a CUDA device their
+        PyTorch ops flush f32 subnormals (``core/ftz.py``). The solver's own
+        bookkeeping (the evidence fold, on the host) stays outside."""
+        return flush_subnormals(self.device) if on_card(self.device) else contextlib.nullcontext()
+
+    def _observe(self, state):
+        with self._flushing():
+            return self.stepper.observables(state, self.cfg)
+
     def _chunk_reference(self, state, tracker, n: int):
-        for _ in range(n):
-            ops = StepOps(self.prec, tracker)
-            state = self.stepper.step(state, self.cfg, ops)
-            tracker = ops.tracker
+        with self._flushing():
+            for _ in range(n):
+                ops = StepOps(self.prec, tracker)
+                state = self.stepper.step(state, self.cfg, ops)
+                tracker = ops.tracker
         return state, tracker
 
     def _chunk_fused(self, state, tracker, n: int):
         """One fused chunk: the carried splits enter as the rr family's
         floor, and the chunk's evidence replays through the adjust law."""
         prec = self.prec
-        state, ev = self.stepper.fused_step(
-            state, self.cfg, prec, n,
-            k_floor=None if tracker is None else tracker.state.k,
-            collect_evidence=tracker is not None and not prec.pinned,
-        )
+        with self._flushing():
+            state, ev = self.stepper.fused_step(
+                state, self.cfg, prec, n,
+                k_floor=None if tracker is None else tracker.state.k,
+                collect_evidence=tracker is not None and not prec.pinned,
+            )
         if tracker is not None:
             tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
         return state, tracker
@@ -245,14 +274,14 @@ class Simulation:
         """The whole horizon in one launch: tracker rows tick every substep
         in the kernel, the datapath floor latches at the snapshot boundaries,
         and the observables are taken from the kernel's state snapshots."""
-        stepper, cfg = self.stepper, self.cfg
-        res = stepper.mega_step(
-            state, cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
-        )
+        with self._flushing():
+            res = self.stepper.mega_step(
+                state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
+            )
         if res.snaps.shape[0]:
-            snapshots = torch.stack([stepper.observables(s, cfg) for s in res.snaps])
+            snapshots = torch.stack([self._observe(s) for s in res.snaps])
         else:
-            obs = stepper.observables(res.state, cfg)
+            obs = self._observe(res.state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(res.state, snapshots, rewrap(tracker, res.tracker))
 

@@ -131,6 +131,7 @@ class SWE2DStepper(Stepper):
     failure_mode = "overflow"
     story = "h*h = 2.5e5 at a realistic basin depth overflows E5M10's 65504"
     snapshots_default = 4
+    kernel_planes = ("fused", "megakernel")
 
     def default_config(self) -> SWEConfig:
         return SWEConfig()
@@ -161,7 +162,7 @@ class SWE2DStepper(Stepper):
             U = _lw_step(U, cfg, mom)
         return U, (torch.cat(evs) if collect_evidence else None)
 
-    def mega_supported(self, cfg: SWEConfig, prec) -> bool:
+    def mega_supported(self, cfg: SWEConfig, prec, device=None) -> bool:
         """The megakernel takes the momentum-flux fields ``(nx-1, ny)`` as one
         block, so it equals the fused plane only where K3's grid is one tile."""
         return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]

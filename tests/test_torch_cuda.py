@@ -1,8 +1,10 @@
 """repro_torch on a CUDA card: the kernels against their plain versions,
 the default device, execution="auto" on the megakernel (K4 for heat1d and
 swe2d, K5 for heat2d, advection1d and burgers1d), the contraction path
-through K6 and K7, K7's split launches against unsplit ones and K3's
-thread-block clusters against the plain version. These tests skip
+through K6 and K7, K7's split launches against unsplit ones, K3's and
+heat2d's (K5a, K5d) thread-block clusters against the plain version, the
+card against repro through the port's CPU run under flush, and auto where
+a kernel cannot hold the field or a stepper has none. These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -25,7 +27,7 @@ def _need_card():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
-    """Each CUDA kernel against its plain version on the same CUDA tensors,
+    """Each PDE kernel against its plain version on the CPU under flush,
     bit for bit with NaNs made canonical, over chip_smoke.py's case list."""
     _need_card()
     sys.path.insert(0, ROOT)
@@ -33,7 +35,7 @@ def test_cuda_kernels_match_plain_versions():
 
     errs, records = chip_smoke.check_kernels("cuda", 50)
     mega_errs, mega_records = chip_smoke.check_mega("cuda")
-    k5_errs, k5_records = chip_smoke.check_k5("cuda")
+    k5_errs, k5_records = chip_smoke.check_k5("cuda", chip_smoke.k5_cases("cuda"))
     assert all(r["ok"] for r in records + mega_records + k5_records)
     assert max(errs.values()) == 0.0 and max(mega_errs.values()) == 0.0 and max(k5_errs.values()) == 0.0
 
@@ -247,3 +249,155 @@ def test_k3_cluster_matches_plain(shape, block):
         assert SWE_FLUX.launches - before == 1
         assert torch.equal(bits(got), bits(want)), name
         assert torch.equal(bits(ev), bits(ev_want)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_card_equals_the_cpu_under_flush(name):
+    """Each builtin stepper on the card, on the reference, fused and
+    megakernel planes in the six modes, equals the port's run on the CPU
+    under flush bit for bit (state, snapshots, tracker; NaNs canonical),
+    which the CPU tests hold equal to repro: the card flushes f32
+    subnormals as the reference does. swe2d reaches them within the 56
+    steps, so its CPU run that keeps them differs."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    lines, kept_differs = chip_smoke.check_card_vs_cpu("cuda", (name,))
+    assert len(lines) == 18
+    if name == "swe2d":
+        assert kept_differs > 0
+
+
+def _bits(t):
+    b = t.float().contiguous().view(torch.int32).clone()
+    b[torch.isnan(t.float())] = 0x7FC00000
+    return b
+
+
+def _on_cpu_flushed(fn):
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    torch.set_flush_denormal(True)
+    try:
+        return fn()
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(prev)
+
+
+def _assert_runs_equal(got, want):
+    assert torch.equal(_bits(got.state.cpu()), _bits(want.state))
+    assert torch.equal(_bits(got.snapshots.cpu()), _bits(want.snapshots))
+    if want.tracker is not None:
+        for a, b in zip(got.tracker.state, want.tracker.state):
+            assert torch.equal(_bits(a.float().cpu()), _bits(b.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size,plane,counter", [
+    ("heat2d", (200, 200), "megakernel", "heat2d_mega"),
+    ("burgers1d", 20_000, "reference", None),
+    ("heat1d", 30_000, "reference", None),
+], ids=["heat2d-200x200", "burgers1d-20000", "heat1d-30000"])
+def test_auto_runs_where_repro_does(name, size, plane, counter):
+    """auto on the card at fields beyond one CTA's shared memory: heat2d at
+    200x200 runs its cluster megakernel (one launch), burgers1d and heat1d
+    fall back to the reference plane (no kernel, no plain version); each
+    equals the port's CPU run under flush from the same initial state (the
+    card's sin and linspace differ from the CPU's in the last ulp)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels import mega, pde_steps
+    from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+    from repro_torch.kernels.swe_flux import SWE_FLUX
+    from repro_torch.pde import BurgersConfig, Heat2DConfig, HeatConfig, Simulation
+
+    cfg = {"heat2d": lambda: Heat2DConfig(nx=size[0], ny=size[1]), "burgers1d": lambda: BurgersConfig(nx=size),
+           "heat1d": lambda: HeatConfig(nx=size)}[name]()
+    counters = [HEAT1D_SWEEP, SWE_FLUX, mega.HEAT1D_MEGA, mega.SWE2D_MEGA] + [
+        c for body in pde_steps.BODIES.values() for c in (body.sweep, body.mega)]
+    state0 = Simulation(name, cfg, PRESETS["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    kw = dict(snapshot_every=10, execution="auto", state0=state0)
+    for prec in (PRESETS["r2f2_16"], dataclasses.replace(PRESETS["r2f2_16"], mode="rr_tracked")):
+        sim = Simulation(name, cfg, prec, device="cuda")
+        assert sim._resolve_execution("auto") == plane
+        before = {c.name: (c.launches, c.plain_calls) for c in counters}
+        got = sim.run(24, **kw)
+        after = {c.name: (c.launches, c.plain_calls) for c in counters}
+        moved = {k: (after[k][0] - v[0], after[k][1] - v[1]) for k, v in before.items() if after[k] != v}
+        assert moved == ({counter: (1, 0)} if counter else {})
+        want = _on_cpu_flushed(lambda: Simulation(name, cfg, prec, device="cpu").run(24, **kw))
+        _assert_runs_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_registered_body_without_kernel_runs_on_the_card():
+    """A stepper added with register_stepper, whose fused and megakernel
+    hooks run a body with no CUDA kernel, declares none: on the card auto
+    gives it the reference plane, and the run equals the CPU's auto run
+    (its megakernel plane's plain version) under flush from the same
+    initial state."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.fused import fused_sweep
+    from repro_torch.kernels.heat_stencil import _heat1d_body
+    from repro_torch.kernels.mega import mega_sweep
+    from repro_torch.pde import HeatConfig, Simulation, register_stepper
+    from repro_torch.pde.heat1d import Heat1DStepper
+    from repro_torch.pde.registry import _STEPPERS
+
+    class GenericHeat(Heat1DStepper):
+        kernel_planes = ()
+
+        def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False):
+            (out,), ev = fused_sweep(
+                _heat1d_body(cfg.alpha, cfg.dtodx2, self.sites), (u[None, :],), prec=prec, sites=self.sites,
+                steps=steps, block=(1, cfg.nx), k_floor=k_floor, collect_evidence=collect_evidence,
+            )
+            return out[0], ev
+
+        def mega_step(self, u, cfg, prec, steps, every, *, tracker=None):
+            res = mega_sweep(
+                _heat1d_body(cfg.alpha, cfg.dtodx2, self.sites), (u[None, :],), prec=prec, sites=self.sites,
+                steps=steps, every=every, tracker=tracker,
+            )
+            return res._replace(state=res.state[0][0], snaps=res.snaps[0][:, 0])
+
+    register_stepper("generic_heat_card", GenericHeat)
+    cfg = HeatConfig(nx=64)
+    kw = dict(snapshot_every=16, execution="auto", state0=GenericHeat().init_state(cfg, device="cpu"))
+    try:
+        for mode in ("r2f2_16", "e5m10"):
+            got = Simulation("generic_heat_card", cfg, PRESETS[mode]).run(40, **kw)
+            assert got.state.is_cuda
+            want = _on_cpu_flushed(lambda: Simulation("generic_heat_card", cfg, PRESETS[mode], device="cpu").run(40, **kw))
+            _assert_runs_equal(got, want)
+    finally:
+        _STEPPERS.pop("generic_heat_card", None)
+
+
+#: chip_smoke.HEAT2D_CLUSTER_SHAPES: 64x64 at every cluster size, 200x200,
+#: an unaligned 61x45 and the smallest 3x3, each at the plan's size
+HEAT2D_CLUSTER_SHAPES = [((64, 64), c) for c in (1, 2, 4, 8, 16)] + [((200, 200), None), ((61, 45), None), ((3, 3), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cluster", HEAT2D_CLUSTER_SHAPES,
+                         ids=[f"{nx}x{ny}-C{c or 'plan'}" for (nx, ny), c in HEAT2D_CLUSTER_SHAPES])
+def test_heat2d_cluster_matches_plain(shape, cluster):
+    """K5a and K5d as one thread-block cluster against the plain version on
+    the CPU under flush, bit for bit, in the six modes: the sweep with
+    evidence (tracked modes at a carried floor), the megakernel with
+    snapshots, evidence and evolving rr_tracked and deploy trackers."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    cases = chip_smoke.heat2d_cluster_cases("cuda", ((shape, cluster),))
+    errs, records = chip_smoke.check_k5("cuda", cases)
+    assert len(records) == 12 and all(r["ok"] for r in records)
+    assert errs["heat2d_sweep"] == 0.0 and errs["heat2d_mega"] == 0.0

@@ -8,6 +8,8 @@ decide how a CUDA launch spreads its work, checked on the CPU.
   together.
 * K3 (``kernels/swe_flux.py``): ``cluster_plan`` cuts one split tile into
   the row bands of a thread-block cluster.
+* K5a and K5d (``kernels/pde_steps.py``): ``heat2d_cluster_plan`` cuts a
+  heat2d field's interior rows into the bands of a thread-block cluster.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -18,6 +20,9 @@ from repro_torch.core.flexformat import FlexFormat
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.r2f2_matmul import (
     MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
+)
+from repro_torch.kernels.pde_steps import (
+    HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, field_fits, heat2d_cluster_plan,
 )
 from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
 
@@ -169,3 +174,76 @@ def test_cluster_plan_bands_cover_every_tile():
             assert 1 <= c <= MAX_CLUSTER, (br, bw)
             assert c * band >= br > (c - 1) * band, (br, bw)
             assert band * bw >= 256 and band == max(-(-br // MAX_CLUSTER), -(-256 // bw)), (br, bw)
+
+
+@pytest.mark.parametrize(
+    "shape,want",
+    [
+        ((64, 64), (16, 4)),  # the main path: 62 interior rows, 15 bands of 4 and one of 2
+        ((3, 3), (1, 1)),  # the smallest field: one interior cell
+        ((4, 64), (1, 2)),
+        ((10, 10), (1, 8)),
+        ((20, 20), (2, 9)),
+        ((24, 24), (2, 11)),
+        ((61, 45), (15, 4)),  # unaligned: 59 rows in 14 bands of 4 and one of 3
+        ((200, 200), (16, 13)),  # over one CTA's shared memory before the cluster
+        ((358, 358), (16, 23)),  # the largest square field
+    ],
+)
+def test_heat2d_cluster_plan(shape, want):
+    nx, ny = shape
+    c, band = heat2d_cluster_plan(nx, ny)
+    assert (c, band) == want
+    bands = [(1 + r * band, 1 + min(nx - 2, (r + 1) * band)) for r in range(c)]
+    assert all(lo < hi for lo, hi in bands)  # every CTA owns an interior row
+    assert [row for lo, hi in bands for row in range(lo, hi)] == list(range(1, nx - 1))
+
+
+def test_heat2d_cluster_plan_covers_every_field():
+    """Every field up to 120 x 120: at most 16 CTAs, the bands covering the
+    interior rows once (the kernel's own check: C * band >= nx - 2 > (C - 1)
+    * band), one CTA for tiny fields, the default within HEAT2D_CTA_CELLS a
+    CTA where 16 CTAs allow it, and each asked-for size honoured where the
+    rows allow it."""
+    for nx in range(3, 121):
+        for ny in (3, 4, 17, 64, 120):
+            ni, mi = nx - 2, ny - 2
+            c, band = heat2d_cluster_plan(nx, ny)
+            assert 1 <= c <= 16 and c * band >= ni > (c - 1) * band, (nx, ny)
+            assert band * mi <= HEAT2D_CTA_CELLS or c == -(-ni // -(-ni // 16)), (nx, ny)
+            if ni * mi <= HEAT2D_CTA_CELLS:
+                assert c == 1, (nx, ny)
+            for ask in HEAT2D_CLUSTERS:
+                if -(-ni // min(ask, ni)) * mi > HEAT2D_MAX_CTA_CELLS:
+                    with pytest.raises(ValueError, match="cannot hold"):
+                        heat2d_cluster_plan(nx, ny, ask)
+                    continue
+                c, band = heat2d_cluster_plan(nx, ny, ask)
+                assert c <= ask and c * band >= ni > (c - 1) * band
+                assert c == ask or ni < ask or -(-ni // band) < ask  # fewer only where the rows run out
+
+
+def test_heat2d_cluster_plan_at_the_main_path_sizes():
+    """64 x 64 at every size the chip measures: (C, band) with C CTAs."""
+    assert [heat2d_cluster_plan(64, 64, c) for c in HEAT2D_CLUSTERS] == [(1, 62), (2, 31), (4, 16), (8, 8), (16, 4)]
+
+
+@pytest.mark.parametrize("shape", [(359, 359), (258, 515), (3, 8195), (131_075, 3)])
+def test_heat2d_cluster_plan_refuses_beyond_capacity(shape):
+    """16 CTAs hold at most HEAT2D_MAX_CTA_CELLS interior cells each; a field
+    beyond that is refused, and field_fits (the card's shape gate) says so."""
+    with pytest.raises(ValueError, match="cannot hold"):
+        heat2d_cluster_plan(*shape)
+    assert not field_fits("heat2d", *shape)
+    nx, ny = shape
+    assert field_fits("heat2d", nx - 1, ny) or field_fits("heat2d", nx, ny - 1)
+
+
+def test_heat2d_cluster_plan_refuses_bad_asks():
+    with pytest.raises(ValueError, match="nx, ny >= 3"):
+        heat2d_cluster_plan(2, 64)
+    with pytest.raises(ValueError, match="1 to 16"):
+        heat2d_cluster_plan(64, 64, 17)
+    with pytest.raises(ValueError, match="cannot hold"):
+        heat2d_cluster_plan(200, 200, 1)  # 39,204 cells in one CTA
+    assert HEAT2D_MAX_CTA_CELLS == 512 * 16

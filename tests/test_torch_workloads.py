@@ -269,12 +269,15 @@ def test_mega_plain_matches_interpret(name, variant, state0s):
 
 
 def test_field_beyond_one_cta_is_refused():
-    """A K5 kernel holds its field in one CTA's shared memory: a larger field
-    raises, naming the limit, and never falls back to the plain version."""
+    """A K5 kernel holds its field on the card, a rod in one CTA's shared
+    memory and heat2d in one thread-block cluster of up to 16 CTAs: a larger
+    field raises, naming the limit, and never falls back to the plain
+    version."""
     tsteps.check_field("heat2d", 64, 64)
+    tsteps.check_field("heat2d", 256, 256)
     tsteps.check_field("burgers1d", 1, 4096)
-    with pytest.raises(ValueError, match="SMEM_LIMIT"):
-        tsteps.check_field("heat2d", 256, 256)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tsteps.check_field("heat2d", 359, 359)
     with pytest.raises(ValueError, match="SMEM_LIMIT"):
         tsteps.check_field("burgers1d", 1, 1 << 16)
     with pytest.raises(ValueError, match="nx, ny >= 3"):
