@@ -1688,11 +1688,9 @@ def main(argv) -> int:
     for execution in ("fused", "megakernel"):
         bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
         report["bench_compare"] += check_bench(bench)
-    # the reference plane at a cut depth (heat1d 250 of 4000 steps, swe2d 100
-    # of 400, heat2d 150 of 1500, advection1d 128 of 256, burgers1d 200 of
-    # 1200: on the card its PyTorch ops run under the subnormal flush, a few
-    # times their host time), the megakernel at the full horizons
-    cut = {"heat1d": 250, "swe2d": 100, "heat2d": 150, "advection1d": 128, "burgers1d": 200}
+    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
+    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
+    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
     report["planes"] = check_planes(device, cut) + check_mega_planes(device, MAIN_STEPS)
     link, kept_differs = check_card_vs_cpu(device)
     log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "

@@ -7,15 +7,28 @@ port's CUDA kernels of the PDE path build with ``-ftz=true``
 (``kernels/_cuda.py::FTZ_SOURCES``); PyTorch's own CUDA ops keep subnormals
 and have no such switch. Under :func:`flush_subnormals` every subnormal f32
 result of a PyTorch op on a CUDA tensor becomes a zero of its sign, as an
-FTZ result does; no op is then handed a subnormal that such an op made, so
-the inputs' flush (DAZ) follows. ``Simulation.run`` runs under it on a CUDA
-device. On the CPU ``torch.set_flush_denormal(True)`` flushes instead (the
-parity tests set it); a mode for the CPU emulates it there, which is how
-the tests hold the mode itself to the hardware's flush.
+FTZ result does, ``out=`` targets and in-place results included.
+``Simulation.run`` enters it through :func:`card_flush` where PyTorch does
+the policy arithmetic on the card: the initial state, the reference plane's
+steps, the observables and swe2d's Lax-Wendroff step around K3. The kernel
+hooks run outside it. On the CPU ``torch.set_flush_denormal(True)`` flushes
+instead (the parity tests set it); a mode for the CPU emulates it there,
+which is how the tests hold the mode itself to the hardware's flush.
 
-Left as they are: bit reinterpretations (``Tensor.view``), whose f32
-patterns the port builds on purpose, and ops that only move values or make
-fresh ones.
+Left as they are, as the hardware's flush leaves them: bit reinterpretations
+(``Tensor.view``), whose f32 patterns the port builds on purpose, ops that
+only move or select values (``torch.where``, ``neg``, ``abs``) and ops that
+make fresh tensors.
+
+Limits: the mode flushes results, not inputs. A subnormal that reaches an
+op from outside the mode's results (a bit view, a Python float operand, a
+tensor made before the block) is not zeroed first, as DAZ would zero it, so
+an op whose normal result depends on such an input (``normal + subnormal``
+rounding differently, ``subnormal * 2**30``) can differ from the hardware's.
+The port's policy arithmetic feeds no such input: its quantizers zero
+subnormal inputs themselves, as ``repro``'s do. The tests
+``tests/test_torch_card.py`` and the card's link to the CPU under flush
+(``chip_smoke.py`` phase 4) are what hold the parity.
 """
 
 from __future__ import annotations
@@ -25,7 +38,9 @@ import contextlib
 import torch
 from torch.overrides import TorchFunctionMode
 
-__all__ = ["flush", "flush_subnormals"]
+from repro_torch._device import on_card
+
+__all__ = ["flush", "flush_subnormals", "card_flush"]
 
 TINY = 2.0**-126  # the smallest normal f32
 
@@ -35,6 +50,7 @@ _KEEP = frozenset({
     _T.view, _T.__getitem__, _T.__setitem__, _T.reshape, torch.reshape, _T.contiguous, _T.clone, _T.flatten,
     _T.unsqueeze, _T.squeeze, _T.expand, _T.permute, _T.transpose, _T.split, torch.split, _T.unbind, torch.unbind,
     torch.cat, torch.stack, torch.roll, torch.broadcast_tensors, torch.meshgrid,
+    torch.where, _T.where, torch.neg, _T.neg, _T.__neg__, torch.abs, _T.abs,
     torch.empty, torch.empty_like, torch.zeros, torch.zeros_like, torch.ones, torch.ones_like,
 })
 
@@ -63,12 +79,15 @@ class _FlushMode(TorchFunctionMode):
         return out
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         if func in _KEEP:
             return out
         name = getattr(func, "__name__", "")
         inplace = (name.endswith("_") and not name.endswith("__")) or name in _INPLACE_DUNDERS
-        if not inplace and any(out is a for a in args):  # a no-op such as .to() to its own dtype
+        if kwargs.get("out") is not None:  # the result lives in the caller's tensor
+            inplace = True
+        elif not inplace and any(out is a for a in args):  # a no-op such as .to() to its own dtype
             return out
         return self._flushed(out, inplace)
 
@@ -77,3 +96,9 @@ def flush_subnormals(device) -> contextlib.AbstractContextManager:
     """A block in which every subnormal f32 result of a PyTorch op on a
     tensor of ``device``'s type becomes a zero of its sign."""
     return _FlushMode(torch.device(device).type)
+
+
+def card_flush(device) -> contextlib.AbstractContextManager:
+    """:func:`flush_subnormals` on a CUDA device; elsewhere a block that
+    changes nothing (the CPU runs flush through its own flags)."""
+    return flush_subnormals(device) if on_card(device) else contextlib.nullcontext()

@@ -63,7 +63,6 @@ class Advection1DStepper(Stepper):
     failure_mode = "overflow"
     story = "flux operand is the 1e5-peak field itself; E5M10 infs the flux"
     snapshots_default = 8
-    kernel_planes = ("fused", "megakernel")
 
     def kernels_hold(self, cfg: AdvectionConfig) -> bool:
         """Kernels K5b and K5e hold the rod in one CTA's shared memory."""

@@ -60,7 +60,6 @@ class Burgers1DStepper(Stepper):
     failure_mode = "nonlinear-drift"
     story = "u*u squares the range, overflows E5M10, then decays ~1/t post-shock"
     snapshots_default = 8
-    kernel_planes = ("fused", "megakernel")
 
     def kernels_hold(self, cfg: BurgersConfig) -> bool:
         """Kernels K5c and K5f hold the rod in one CTA's shared memory."""

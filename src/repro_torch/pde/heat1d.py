@@ -71,7 +71,6 @@ class Heat1DStepper(Stepper):
     failure_mode = "underflow"
     story = "alpha*lap falls below E5M10's subnormal floor late in the run"
     snapshots_default = 8
-    kernel_planes = ("fused", "megakernel")
 
     def kernels_hold(self, cfg: HeatConfig) -> bool:
         """Kernels K2 and K4 hold the rod in one CTA's shared memory."""

@@ -101,7 +101,6 @@ class Heat2DStepper(Stepper):
     failure_mode = "underflow"
     story = "2D decay drives alpha*lap below E5M10's floor; 2D locality tiles"
     snapshots_default = 8
-    kernel_planes = ("fused", "megakernel")
 
     def kernels_hold(self, cfg: Heat2DConfig) -> bool:
         """Kernels K5a and K5d hold the field in heat2d's cluster."""

@@ -16,18 +16,19 @@
 The loops issue no host synchronisation per step: trackers stay on the
 state's device, and the fused plane copies one chunk's evidence to the host
 to fold it. On a CUDA device a run flushes f32 subnormals, as the reference
-does (``core/ftz.py``; the kernels build with ``-ftz=true``).
+does: the kernels build with ``-ftz=true``, and the PyTorch arithmetic of
+the initial state, the reference plane and the observables runs under
+``core/ftz.py::card_flush``.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._device import on_card, resolve_device
-from repro_torch.core.ftz import flush_subnormals
+from repro_torch._device import resolve_device
+from repro_torch.core.ftz import card_flush
 from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING
 from repro_torch.pde.registry import get_stepper
@@ -90,13 +91,14 @@ class Stepper:
     optional megakernel hook ``mega_step(state, cfg, prec, steps, every, *,
     tracker=None) -> repro_torch.kernels.mega.MegaResult``.
 
-    ``kernel_planes`` names the planes whose hook launches a CUDA kernel on
-    a CUDA device; on the card ``auto`` resolves only to those. A stepper
-    declares none by default: its fused body has no kernel, and on the card
-    it runs the reference plane (ROADMAP.md queue 2). The shape gates
-    ``fused_supported``/``mega_supported`` are asked with the device; on the
-    card they close both kernel planes where ``kernels_hold`` says the
-    kernels cannot hold the config's field."""
+    ``kernels_hold(cfg)`` says whether the hooks' CUDA kernels hold the
+    config's field; on a CUDA device ``auto`` takes a kernel plane only
+    where it does. A stepper has no kernel by default: its fused body runs
+    the plain version, and on the card it runs the reference plane
+    (ROADMAP.md queue 2). The shape gates ``fused_supported`` and
+    ``mega_supported`` are the planes' own limits, on every device. A hook
+    that does PyTorch arithmetic of the policy on the card enters
+    ``core/ftz.py::card_flush`` itself (swe2d's fused step)."""
 
     name: str = "?"
     sites: Tuple[str, ...] = ()
@@ -106,17 +108,16 @@ class Stepper:
     snapshots_default: int = 8
     fused_step = None
     mega_step = None
-    kernel_planes: Tuple[str, ...] = ()
 
-    def fused_supported(self, cfg, prec: PrecisionConfig, device=None) -> bool:
-        return not on_card(device) or self.kernels_hold(cfg)
+    def fused_supported(self, cfg, prec: PrecisionConfig) -> bool:
+        return True
 
-    def mega_supported(self, cfg, prec: PrecisionConfig, device=None) -> bool:
-        return not on_card(device) or self.kernels_hold(cfg)
+    def mega_supported(self, cfg, prec: PrecisionConfig) -> bool:
+        return True
 
     def kernels_hold(self, cfg) -> bool:
-        """Whether the stepper's CUDA kernels hold the config's field."""
-        return True
+        """Whether the hooks launch CUDA kernels that hold the config's field."""
+        return False
 
     def default_config(self):
         raise NotImplementedError
@@ -210,7 +211,7 @@ class Simulation:
         if capture is not None or policy is not None:
             raise NotImplementedError(CAPTURE_PENDING)
         stepper, cfg = self.stepper, self.cfg
-        with self._flushing():
+        with card_flush(self.device):
             if state0 is None:
                 state = stepper.init_state(cfg, device=self.device)
             else:
@@ -238,18 +239,12 @@ class Simulation:
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(state, snapshots, tracker)
 
-    def _flushing(self):
-        """The block the stepper's hooks run in: on a CUDA device their
-        PyTorch ops flush f32 subnormals (``core/ftz.py``). The solver's own
-        bookkeeping (the evidence fold, on the host) stays outside."""
-        return flush_subnormals(self.device) if on_card(self.device) else contextlib.nullcontext()
-
     def _observe(self, state):
-        with self._flushing():
+        with card_flush(self.device):
             return self.stepper.observables(state, self.cfg)
 
     def _chunk_reference(self, state, tracker, n: int):
-        with self._flushing():
+        with card_flush(self.device):
             for _ in range(n):
                 ops = StepOps(self.prec, tracker)
                 state = self.stepper.step(state, self.cfg, ops)
@@ -260,12 +255,11 @@ class Simulation:
         """One fused chunk: the carried splits enter as the rr family's
         floor, and the chunk's evidence replays through the adjust law."""
         prec = self.prec
-        with self._flushing():
-            state, ev = self.stepper.fused_step(
-                state, self.cfg, prec, n,
-                k_floor=None if tracker is None else tracker.state.k,
-                collect_evidence=tracker is not None and not prec.pinned,
-            )
+        state, ev = self.stepper.fused_step(
+            state, self.cfg, prec, n,
+            k_floor=None if tracker is None else tracker.state.k,
+            collect_evidence=tracker is not None and not prec.pinned,
+        )
         if tracker is not None:
             tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
         return state, tracker
@@ -274,10 +268,9 @@ class Simulation:
         """The whole horizon in one launch: tracker rows tick every substep
         in the kernel, the datapath floor latches at the snapshot boundaries,
         and the observables are taken from the kernel's state snapshots."""
-        with self._flushing():
-            res = self.stepper.mega_step(
-                state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
-            )
+        res = self.stepper.mega_step(
+            state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
+        )
         if res.snaps.shape[0]:
             snapshots = torch.stack([self._observe(s) for s in res.snaps])
         else:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch._device import f32_scalar as _f32
 from repro_torch.core.fma import fma
+from repro_torch.core.ftz import card_flush
 from repro_torch.precision import PrecisionConfig
 
 from .registry import register_stepper
@@ -131,7 +132,10 @@ class SWE2DStepper(Stepper):
     failure_mode = "overflow"
     story = "h*h = 2.5e5 at a realistic basin depth overflows E5M10's 65504"
     snapshots_default = 4
-    kernel_planes = ("fused", "megakernel")
+
+    def kernels_hold(self, cfg: SWEConfig) -> bool:
+        """K3 tiles any field; the megakernel's own limit is ``mega_supported``."""
+        return True
 
     def default_config(self) -> SWEConfig:
         return SWEConfig()
@@ -158,11 +162,12 @@ class SWE2DStepper(Stepper):
             evs.append(ev)
             return flux
 
-        for _ in range(steps):
-            U = _lw_step(U, cfg, mom)
+        with card_flush(U.device):  # the LW step's PyTorch arithmetic on the card
+            for _ in range(steps):
+                U = _lw_step(U, cfg, mom)
         return U, (torch.cat(evs) if collect_evidence else None)
 
-    def mega_supported(self, cfg: SWEConfig, prec, device=None) -> bool:
+    def mega_supported(self, cfg: SWEConfig, prec) -> bool:
         """The megakernel takes the momentum-flux fields ``(nx-1, ny)`` as one
         block, so it equals the fused plane only where K3's grid is one tile."""
         return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]

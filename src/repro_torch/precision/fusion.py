@@ -5,10 +5,10 @@
   ``"fixed"``, ``"f32"``). Engines registered later have no family and run
   on the reference plane only.
 * :func:`mega_eligible` is the megakernel plane's gate, built the same way.
-  Given a CUDA device, both also ask whether the stepper has a CUDA kernel
-  for the plane (``Stepper.kernel_planes``) and whether the kernel holds the
-  config (the shape gates take the device): on the card ``auto`` then falls
-  back where the port has no kernel, as ``repro`` runs every plane;
+  Given a CUDA device, both also ask whether the stepper's CUDA kernels
+  hold the config (``Stepper.kernels_hold``, False for a stepper without
+  kernels): on the card ``auto`` then falls back where the port has no
+  kernel for the field, as ``repro`` runs every plane;
 * :func:`fold_evidence` replays a fused chunk's per-substep site evidence
   (per-site operand max exponents, max-reduced across blocks) through the
   adjust law, so a carried tracker evolves exactly as the stepwise loop's
@@ -43,31 +43,31 @@ def fused_family(mode: str) -> Optional[str]:
     return FUSED_FAMILIES.get(mode)
 
 
-def _eligible(prec: PrecisionConfig, stepper, cfg, hook: str, gate: str, plane: str, device) -> bool:
+def _eligible(prec: PrecisionConfig, stepper, cfg, hook: str, gate: str, device) -> bool:
     if fused_family(prec.mode) is None:
         return False
     if not callable(getattr(stepper, hook, None)):
         return False
-    if on_card(device) and plane not in getattr(stepper, "kernel_planes", ()):
+    if on_card(device) and not stepper.kernels_hold(cfg):
         return False
     supported = getattr(stepper, gate, None)
-    return bool(supported(cfg, prec, device)) if callable(supported) else True
+    return bool(supported(cfg, prec)) if callable(supported) else True
 
 
 def fused_eligible(prec: PrecisionConfig, stepper, cfg=None, device=None) -> bool:
     """True iff the mode has a fused family, the stepper has a ``fused_step``
     hook, and its ``fused_supported`` shape gate accepts the config; on a
-    CUDA ``device`` the stepper must also declare a fused kernel."""
-    return _eligible(prec, stepper, cfg, "fused_step", "fused_supported", "fused", device)
+    CUDA ``device`` its kernels must also hold the config."""
+    return _eligible(prec, stepper, cfg, "fused_step", "fused_supported", device)
 
 
 def mega_eligible(prec: PrecisionConfig, stepper, cfg=None, device=None) -> bool:
     """True iff the mode has a fused family, the stepper has a ``mega_step``
     hook, and its ``mega_supported`` shape gate accepts the config (on a
-    CUDA ``device``, with a declared megakernel). The megakernel keeps one
+    CUDA ``device``, with kernels that hold it). The megakernel keeps one
     block per state leaf, so a stepper whose fused kernels tile the field
     refuses configs larger than one tile."""
-    return _eligible(prec, stepper, cfg, "mega_step", "mega_supported", "megakernel", device)
+    return _eligible(prec, stepper, cfg, "mega_step", "mega_supported", device)
 
 
 def fold_evidence(tracker, evidence, cfg: PrecisionConfig, ops=None):

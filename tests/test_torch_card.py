@@ -9,13 +9,15 @@ The file imports neither JAX nor repro."""
 import pytest
 import torch
 
+from repro_torch.core import ftz
 from repro_torch.core.ftz import flush, flush_subnormals
 from repro_torch.core.policy import PRESETS
 from repro_torch.kernels.fused import fused_sweep
 from repro_torch.kernels.heat_stencil import _heat1d_body
 from repro_torch.kernels.mega import mega_sweep
 from repro_torch.pde import (
-    AdvectionConfig, BurgersConfig, Heat2DConfig, HeatConfig, Simulation, SWEConfig, get_stepper, register_stepper,
+    AdvectionConfig, BurgersConfig, Heat2DConfig, HeatConfig, Simulation, Stepper, SWEConfig, get_stepper,
+    register_stepper,
 )
 from repro_torch.pde.heat1d import Heat1DStepper
 from repro_torch.pde.registry import _STEPPERS
@@ -71,7 +73,8 @@ def test_explicit_plane_over_the_limit_raises(execution):
 
 def test_builtin_steppers_declare_their_kernels():
     for name in ("heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"):
-        assert set(get_stepper(name).kernel_planes) == {"fused", "megakernel"}, name
+        st = get_stepper(name)
+        assert st.kernels_hold(st.default_config()), name
 
 
 class _GenericHeat(Heat1DStepper):
@@ -79,7 +82,8 @@ class _GenericHeat(Heat1DStepper):
     a stepper added with register_stepper writes them: the body has no CUDA
     kernel and the stepper declares none."""
 
-    kernel_planes = ()
+    def kernels_hold(self, cfg):
+        return False
 
     def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False):
         (out,), ev = fused_sweep(
@@ -109,7 +113,7 @@ def test_registered_body_without_kernel(generic_heat):
     closed (auto gives the reference plane), its CPU gates open, and on the
     CPU its planes equal heat1d's bit for bit."""
     st, cfg = get_stepper(generic_heat), HeatConfig(nx=64)
-    assert st.kernel_planes == ()
+    assert not st.kernels_hold(cfg) and Stepper().kernels_hold(cfg) is False
     for mode in ("r2f2_16", "e5m10"):
         prec = PRESETS[mode]
         assert not fused_eligible(prec, st, cfg, "cuda") and not mega_eligible(prec, st, cfg, "cuda")
@@ -192,3 +196,76 @@ def test_flush_mode_leaves_bit_views_and_other_devices():
     with flush_subnormals("cuda"):
         half = torch.full((2,), 2.0**-126) * 0.5
     assert bool((half > 0).all())
+
+
+@pytest.mark.parametrize("execution", ["reference", "fused"])
+@pytest.mark.parametrize("mode", ["bf16", "r2f2_16", "deploy"])
+def test_card_flush_covers_the_pytorch_arithmetic(mode, execution, one_thread, monkeypatch):
+    """On the card Simulation.run flushes only where PyTorch does the
+    arithmetic (``card_flush``: the initial state, the reference steps, the
+    observables, swe2d's Lax-Wendroff step around K3); the kernels flush
+    themselves. With that scope taken on the CPU's tensors, swe2d's
+    reference and fused planes equal the runs under the CPU's own flags."""
+    cfg, prec = SWEConfig(nx=64, ny=64), PRESETS[mode]
+
+    def run():
+        return Simulation("swe2d", cfg, prec, device="cpu").run(48, snapshot_every=16, execution=execution)
+
+    torch.set_flush_denormal(True)
+    want = run()
+    torch.set_flush_denormal(False)
+    monkeypatch.setattr(ftz, "on_card", lambda device: True)
+    got = run()
+    for a, b in ((got.state, want.state), (got.snapshots, want.snapshots)):
+        assert torch.equal(_bits(a), _bits(b))
+    if want.tracker is not None:
+        for a, b in zip(got.tracker.state, want.tracker.state):
+            assert torch.equal(_bits(a.float()), _bits(b.float()))
+
+
+_SUB = torch.tensor([5, -2**31 | 7, 0x3F800000, -2**31 | 0x007FFFFF], dtype=torch.int32)  # subnormals and 1.0
+
+
+@pytest.mark.parametrize("op", [
+    lambda x: torch.where(torch.tensor([True, True, False, True]), x, torch.zeros(4)),
+    lambda x: x.where(torch.tensor([True, False, True, True]), 2.0),
+    lambda x: -x,
+    lambda x: torch.neg(x),
+    lambda x: x.abs(),
+    lambda x: x * 1.0,
+    lambda x: torch.add(torch.ones(4), x, out=torch.empty(4)) - 1.0,
+], ids=["where", "Tensor.where", "__neg__", "neg", "abs", "mul", "out"])
+def test_flush_mode_moves_and_flushes_as_the_hardware(op, one_thread):
+    """Ops that only select or move values (``where``, ``neg``, ``abs``)
+    keep a subnormal under the CPU's flush flags and under the mode; an
+    arithmetic result, ``out=`` targets included, is flushed by both (a
+    subnormal input that only the flags would zero, as in ``x * 1.0``,
+    gives the same zero here)."""
+    torch.set_flush_denormal(True)
+    want = op(_SUB.view(torch.float32))
+    torch.set_flush_denormal(False)
+    with flush_subnormals("cpu"):
+        got = op(_SUB.view(torch.float32))
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_flush_mode_does_not_zero_inputs(one_thread):
+    """The documented limit (``core/ftz.py``): the mode flushes results, not
+    inputs. A negative subnormal made from bits plus 0.0 is +0 under the
+    flags (the input read as -0) and -0 under the mode (the result -s
+    flushed to a zero of its sign)."""
+    torch.set_flush_denormal(True)
+    want = _SUB.view(torch.float32) + 0.0
+    torch.set_flush_denormal(False)
+    with flush_subnormals("cpu"):
+        got = _SUB.view(torch.float32) + 0.0
+    assert _bits(want)[1] == 0 and _bits(got)[1] == -2**31
+    assert torch.equal(got.abs(), want.abs())
+
+
+def test_flush_mode_flushes_out_targets(one_thread):
+    torch.set_flush_denormal(False)
+    dst = torch.empty(2)
+    with flush_subnormals("cpu"):
+        torch.mul(torch.full((2,), 2.0**-126), torch.tensor([0.5, -0.25]), out=dst)
+    assert torch.equal(_bits(dst), torch.tensor([0, -2**31], dtype=torch.int32))

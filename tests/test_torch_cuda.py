@@ -351,7 +351,8 @@ def test_registered_body_without_kernel_runs_on_the_card():
     from repro_torch.pde.registry import _STEPPERS
 
     class GenericHeat(Heat1DStepper):
-        kernel_planes = ()
+        def kernels_hold(self, cfg):
+            return False
 
         def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False):
             (out,), ev = fused_sweep(
