@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full run
-    python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+    python3 chip_smoke.py                  # the full run
+    python3 chip_smoke.py --quick          # build + kernel-vs-plain checks only
+    python3 chip_smoke.py --heat1d-sizes   # build + heat1d's K2/K4 times by rod size and its ladder rows
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -17,7 +18,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (K3 also on a field of eight tiles and an unaligned tile, each tile one
    thread-block cluster);
    K4 (both megakernels) over the mode ladder at full width, with evolving,
-   growing, pinned and bounded trackers, snapshots and evidence; K5 (the
+   growing, pinned and bounded trackers, snapshots and evidence; K2 and K4
+   heat1d also on every launch shape of ``heat_stencil.heat1d_plan`` (the
+   3-cell rod, eight rows of 128, the warp shape's 2048-cell edge, the grid
+   one cell past it, on several blocks, in batches, at 30,000 and 10**6
+   cells); K6 and K7 on operands with f32-subnormal products or inputs
+   against their plain versions on the CPU under flush; K5 (the
    fused sweeps and megakernels of heat2d, advection1d and burgers1d) the
    same way at full width, and heat2d's thread-block clusters
    (:data:`HEAT2D_CLUSTER_SHAPES`: 64x64 at every cluster size, 200x200,
@@ -36,9 +42,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    every plane in the six modes at a small size (:func:`link_configs`),
    bit for bit against the port's plain run on the CPU under flush, which
    the CPU tests hold equal to ``repro``;
-5. kernel times (CUDA events; for K3, whose kernel takes microseconds, a
-   replayed CUDA graph of its calls) beside their bounds and the plain
-   versions; heat2d's K5a and K5d at 64x64 for every cluster size by
+5. kernel times (CUDA events; for K2 and K3, whose launches take
+   microseconds, a replayed CUDA graph of their calls) beside their bounds
+   and the plain versions; K2 and K4 heat1d by rod size
+   (:data:`HEAT1D_TIMED_NX`: the 3-cell latency floor, the main path's 128,
+   the warp shape's edge, the grid shape up to 10**6 cells) with their
+   launch shapes; heat2d's K5a and K5d at 64x64 for every cluster size by
    replayed CUDA graphs, with their launch shapes, and both along the
    main path's horizon chunk by chunk;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
@@ -51,6 +60,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    timed at the path's shapes beside their bounds, plain versions and
    cuBLAS SGEMM (K7 by replayed CUDA graphs, split and unsplit, with its
    launch shape: the K blocks split S over CTAs, the CTA count).
+
+``--heat1d-sizes`` runs from another checkout's root times that tree's
+kernels the same way, so two trees compare on one card.
 
 Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
 bit and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
@@ -298,7 +310,75 @@ def heat_cases(device, steps):
     pad = dict(base, block_rows=2, steps=min(steps, 100))
     for name in ("r2f2_16", "e5m10", "bf16"):
         cases.append((f"{name} (5,64) block_rows=2 ev", rows5, dict(pad, prec=L[name], collect_evidence=True)))
+    # eight rows of 128 (1024 cells on eight warps), the 3-cell rod, the
+    # warp shape's edge (2048 cells), and the grid shape: one cell past it,
+    # several grid blocks, the main path's row on a forced grid, and rods of
+    # 30,000 and 10**6 cells
+    rows8 = (torch.randn(8, 128, generator=g) * 300.0).to(device)
+    rows8[:, 0] = rows8[:, -1] = 0.0
+    short = dict(base, steps=min(steps, 100))
+    for name in ("r2f2_16", "e5m10", "f32"):
+        cases.append((f"{name} (8,128) block_rows=8 ev", rows8, dict(short, block_rows=8, prec=L[name], collect_evidence=True)))
+    cases.append(("rr_tracked (8,128) block_rows=8 k_floor ev", rows8, dict(short, block_rows=8, prec=L["rr_tracked"], k_floor=floor, collect_evidence=True)))
+    for name in ("r2f2_16", "bf16"):
+        cases.append((f"{name} (1,3) ev", rod(3, device), dict(heat_args(3), steps=steps, block_rows=1, prec=L[name], collect_evidence=True)))
+    cases.append(("r2f2_16 (1,2048) ev", rod(2048, device), dict(heat_args(2048), steps=min(steps, 200), block_rows=1, prec=L["r2f2_16"], collect_evidence=True)))
+    for name in ("r2f2_16", "deploy"):
+        kw = dict(heat_args(2049), steps=min(steps, 200), block_rows=1, prec=L[name], collect_evidence=True)
+        if name == "deploy":
+            kw["k_floor"] = floor
+        cases.append((f"{name} (1,2049) ev", rod(2049, device), kw))
+    rows6 = (torch.randn(6, 700, generator=g) * 300.0).to(device)
+    rows6[:, 0] = rows6[:, -1] = 0.0
+    cases.append(("r2f2_16 (6,700) block_rows=2, three grid blocks, ev", rows6, dict(short, block_rows=2, prec=L["r2f2_16"], collect_evidence=True)))
+    grid128 = grid_on_one_cta(1, cfg.nx)
+    for name in ("r2f2_16", "f32"):
+        cases.append((f"{name} (1,128) on a forced grid ev", u, dict(base, steps=min(steps, 200), prec=L[name], collect_evidence=True, _plan=grid128)))
+    cases.append(("r2f2_16 (1,30000) ev", rod(30_000, device), dict(heat_args(30_000), steps=300, block_rows=1, prec=L["r2f2_16"], collect_evidence=True)))
+    cases.append(("rr_tracked (1,30000) k_floor ev", rod(30_000, device), dict(heat_args(30_000), steps=300, block_rows=1, prec=L["rr_tracked"], k_floor=floor, collect_evidence=True)))
+    cases.append(("r2f2_16 (1,1000000) ev", rod(10**6, device), dict(heat_args(10**6), steps=4, block_rows=1, prec=L["r2f2_16"], collect_evidence=True)))
+    batched = grid_on_one_cta(1, 30_000, cells=8)  # 15 batches of 2048 cells
+    cases.append(("deploy (1,30000) k_floor on a forced grid in batches ev", rod(30_000, device),
+                  dict(heat_args(30_000), steps=100, block_rows=1, prec=L["deploy"], k_floor=floor, collect_evidence=True, _plan=batched)))
     return cases
+
+
+def heat_args(nx):
+    """heat1d's physical constants at ``nx`` cells (the paper's config
+    otherwise)."""
+    from repro_torch.configs import heat1d as heat_cfg
+
+    cfg = dataclasses.replace(heat_cfg.CONFIG, nx=nx)
+    return dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2)
+
+
+def rod(nx, device):
+    """heat1d's initial ``(1, nx)`` rod, made on the CPU (the card's sin and
+    linspace differ in the last ulp)."""
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.pde.heat1d import initial_condition
+
+    return initial_condition(dataclasses.replace(heat_cfg.CONFIG, nx=nx), device="cpu")[None, :].to(device)
+
+
+def grid_on_one_cta(br, nx, cells=None):
+    """The grid shape on one CTA for a (br, nx) block, whatever heat1d_plan
+    gives it: the grid's body on a small rod, or (``cells`` a thread fewer
+    than the block needs) its batches."""
+    from repro_torch.kernels.heat_stencil import CELLS, GRID_THREADS, Heat1DPlan
+
+    share = -(-br * nx // GRID_THREADS)
+    return Heat1DPlan("grid", GRID_THREADS, cells or next((g for g in CELLS if g >= share), CELLS[-1]), 1)
+
+
+def heat1d_launch_shape(br, nx, plan=None) -> str:
+    """The launch of one (br, nx) block: heat1d_plan's (or the forced ``plan``)."""
+    from repro_torch.kernels.heat_stencil import heat1d_plan
+
+    p = plan or heat1d_plan(br, nx)
+    if p.shape == "warp":
+        return f"[warp shape: {p.threads // 32} warp(s) of one CTA, {p.cells} cells a lane]"
+    return f"[grid shape: {p.ctas} CTAs x {p.threads // p.ctas} threads, up to {p.cells} cells a thread]"
 
 
 def swe_cases(device):
@@ -357,11 +437,12 @@ def check_kernels(device, heat_steps):
     errs = {"heat1d_sweep": 0.0, "swe_flux_fused": 0.0}
     for label, u, kw in heat_cases(device, heat_steps):
         got, ev = heat1d_sweep(u, **kw)
-        want, ev_want = plain_on_cpu(heat1d_sweep_plain, u, **kw)
+        want, ev_want = plain_on_cpu(heat1d_sweep_plain, u, **{k: v for k, v in kw.items() if k != "_plan"})
         ok = same_bits(got, want) and (ev is None) == (ev_want is None) and (ev is None or same_bits(ev, ev_want))
         err = max_abs_err(got, want)
         errs["heat1d_sweep"] = max(errs["heat1d_sweep"], err)
-        log(f"K2 heat1d_sweep {label} steps={kw['steps']}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}")
+        shape = heat1d_launch_shape(min(kw["block_rows"], u.shape[0]), u.shape[1], kw.get("_plan"))
+        log(f"K2 heat1d_sweep {label} steps={kw['steps']} {shape}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}")
         records.append(dict(kernel="heat1d_sweep", case=label, ok=ok, max_abs_err=err))
         require(ok, f"heat1d_sweep disagrees with its plain version: {label}")
     for label, q1, q3, kw in swe_cases(device):
@@ -409,12 +490,34 @@ def mega_cases(device):
             f"rr_tracked pinned k={pinned_k}": (dataclasses.replace(tracked, pinned=True), pinned_k),
             "rr_tracked k_bounds (1,2)": (dataclasses.replace(tracked, k_bounds=((1, 2),) * n), None),
         }
+        where = " (128,)" if kern == "heat1d" else ""
         for name, prec in L.items():
             trk = tracker_init(n, prec.fmt, device=device) if get_engine(prec).tracks else None
-            cases.append((kern, name, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
+            cases.append((kern, name + where, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
         for name, (prec, k0) in extra.items():
             trk = tracker_init(n, prec.fmt, k0=k0, device=device)
-            cases.append((kern, name, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
+            cases.append((kern, name + where, state[kern], dict(base[kern], prec=prec, tracker=trk, collect_evidence=True)))
+    # heat1d's launch shapes: the 3-cell rod (one warp), the warp shape's
+    # edge (2048 cells, eight warps), the grid one cell past it, at 30,000
+    # and at 10**6 cells, and the main path's rod on a forced one-CTA grid
+    sizes = ((3, 120, 50, ("r2f2_16", "rr_tracked")), (2048, 120, 50, ("r2f2_16", "rr_tracked")),
+             (2049, 120, 50, ("rr_tracked", "deploy")), (30_000, 300, 100, ("r2f2_16", "rr_tracked")),
+             (10**6, 4, 2, ("r2f2_16",)))
+    for nx, steps, every, names in sizes:
+        for name in names:
+            prec = L[name]
+            trk = tracker_init(2, prec.fmt, device=device) if get_engine(prec).tracks else None
+            kw = dict(base["heat1d"], **heat_args(nx), steps=steps, every=every, prec=prec, tracker=trk, collect_evidence=True)
+            cases.append(("heat1d", f"{name} ({nx},)", rod(nx, device)[0], kw))
+    for name in ("rr_tracked", "deploy", "f32"):
+        prec = L[name]
+        trk = tracker_init(2, prec.fmt, device=device) if get_engine(prec).tracks else None
+        kw = dict(base["heat1d"], prec=prec, tracker=trk, collect_evidence=True, _plan=grid_on_one_cta(1, hcfg.nx))
+        cases.append(("heat1d", f"{name} (128,) on a forced grid", u, kw))
+    trk = tracker_init(2, L["rr_tracked"].fmt, device=device)
+    kw = dict(base["heat1d"], **heat_args(30_000), steps=100, every=40, prec=L["rr_tracked"], tracker=trk, collect_evidence=True,
+              _plan=grid_on_one_cta(1, 30_000, cells=8))
+    cases.append(("heat1d", "rr_tracked (30000,) on a forced grid in batches", rod(30_000, device)[0], kw))
     return cases
 
 
@@ -428,7 +531,7 @@ def check_mega(device):
     errs = {"heat1d_mega": 0.0, "swe2d_mega": 0.0}
     for kern, label, x, kw in mega_cases(device):
         got = entry[kern](x, **kw)
-        want = plain_on_cpu(entry[kern], x, plain=True, **kw)
+        want = plain_on_cpu(entry[kern], x, plain=True, **{k: v for k, v in kw.items() if k != "_plan"})
         ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps)
         ok = ok and same_bits(got.evidence, want.evidence)
         if want.tracker is not None:
@@ -437,7 +540,8 @@ def check_mega(device):
         name = f"{kern}_mega"
         errs[name] = max(errs[name], err)
         trk = "" if got.tracker is None else f" k={got.tracker.k.tolist()} adj=+{int(got.tracker.overflow_steps.sum())}/-{int(got.tracker.shrink_steps.sum())}"
-        log(f"K4 {name} {label} steps={kw['steps']} every={kw['every']}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{trk}")
+        shape = f" {heat1d_launch_shape(1, x.shape[-1], kw.get('_plan'))}" if kern == "heat1d" else ""
+        log(f"K4 {name} {label} steps={kw['steps']} every={kw['every']}{shape}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{trk}")
         records.append(dict(kernel=name, case=label, ok=ok, max_abs_err=err))
         require(ok, f"{name} disagrees with its plain version: {label}")
     return errs, records
@@ -718,6 +822,93 @@ K7_SPLIT_CASES = (
 )
 
 
+#: the r2f2_16_384 preset's format: its widest split, E7M8, reaches 2**-70,
+#: so a product of two operands can fall below f32's 2**-126 (at r2f2_16's
+#: (3, 9, 3) no quantized operand is below 2**-39)
+FMT_384 = (3, 8, 4)
+
+
+def tiny_dyadic(shape, g, lo=1):
+    """Multiples of 1/8 in [lo/8, 1] times 2**-64, on the CPU: values of
+    E7M8 (its subnormals reach 2**-70); any product of two is below 2**-126,
+    so a sum of them is 0 where f32 subnormals flush, in any order (all
+    positive: no zero of the other sign), and exact where they are kept."""
+    import torch
+
+    return torch.randint(lo, 9, shape, generator=g).float() / 8.0 * 2.0**-64
+
+
+def flush_contract_cases(device):
+    """K6 and K7 cases whose f32 results or operands are subnormal, as
+    (kernel, label, args, kwargs): K7 on (256, 384) @ (384, 128) dyadic
+    operands whose last 128 rows of A and all of B are :func:`tiny_dyadic`
+    (those rows' products all subnormal; the first rows' products normal,
+    their sums exact), split (S = 3) and unsplit, with and without
+    round_products, at (3, 8, 4) and at r2f2_16's (3, 9, 3); K6 on tiles of
+    f32-subnormal inputs and of E7M8's smallest values (2**-70, ties at
+    2**-71 and 3 * 2**-71)."""
+    import torch
+
+    from repro_torch.core.flexformat import FlexFormat
+
+    g = torch.Generator().manual_seed(41)
+    a = torch.randint(-8, 9, (256, 384), generator=g).float() / 8.0
+    a[128:] = tiny_dyadic((128, 384), g)
+    b = tiny_dyadic((384, 128), g)
+    a, b = a.to(device), b.to(device)
+    cases = []
+    for fmt in (FMT_384, (3, 9, 3)):
+        f = FlexFormat(*fmt)
+        for rp in ((False, True) if fmt == FMT_384 else (False,)):
+            for split in (True, False):
+                label = f"fmt <{','.join(map(str, fmt))}> subnormal dyadic (256,384)@(384,128) round_products={rp} {'split' if split else 'unsplit'}"
+                cases.append(("r2f2_matmul", label, (a, b), dict(fmt=f, round_products=rp, _split=split)))
+    x = torch.zeros(256, 768)
+    x[:, :256] = 1e-40 * torch.randint(-9, 10, (256, 256), generator=g).float()  # f32 subnormals
+    smallest = torch.tensor([2.0**-70, 2.0**-71, 3 * 2.0**-71, 5 * 2.0**-71, 2.0**-69, 2.0**-65, 1e-40, 0.0])
+    pick = smallest[torch.randint(0, len(smallest), (256, 256), generator=g)]
+    sign = torch.randint(0, 2, (256, 256), generator=g).float() * 2 - 1
+    x[:, 256:512] = pick * sign  # E7M8's smallest subnormals and their ties, beside f32 subnormals
+    x[:, 512:] = tiny_dyadic((256, 256), g, lo=-8)
+    for fmt in (FMT_384, (3, 9, 3)):
+        label = f"fmt <{','.join(map(str, fmt))}> (256,768): f32 subnormals, E7M8's smallest values, tiny dyadics"
+        cases.append(("r2f2_quantize", label, (x.to(device),), dict(fmt=FlexFormat(*fmt), block=(256, 256))))
+    return cases
+
+
+def check_flush_contract(device):
+    """Each :func:`flush_contract_cases` case on the card against the plain
+    version on the CPU under flush (:func:`plain_on_cpu`), raw bits with
+    NaNs canonical (K6: k too). K7's (3, 8, 4) cases without
+    round_products must also differ from the CPU run that keeps subnormals:
+    the check sees the flush. Returns the records (``ok`` False on a
+    mismatch)."""
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.kernels.r2f2_matmul import r2f2_matmul, r2f2_matmul_plain
+    from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
+
+    records = []
+    for kernel, label, args, kw in flush_contract_cases(device):
+        plain_kw = {k: v for k, v in kw.items() if k != "_split"}
+        if kernel == "r2f2_matmul":
+            got = r2f2_matmul(*args, **kw)
+            want = plain_on_cpu(r2f2_matmul_plain, *args, **plain_kw)
+            ok, how = same_bits(got, want), "bit-exact"
+            if kw["fmt"] == FlexFormat(*FMT_384) and not kw["round_products"]:
+                kept = r2f2_matmul_plain(*to_device(args, "cpu"), **plain_kw)
+                sees = not same_bits(kept, want.cpu())
+                ok, how = ok and sees, how + f"; the CPU keeping subnormals {'differs' if sees else 'DOES NOT differ'}"
+            err = max_abs_err(got, want)
+        else:
+            (y, k), (y_want, k_want) = r2f2_quantize(*args, **kw), plain_on_cpu(r2f2_quantize_plain, *args, **kw)
+            ok, how = same_bits(y, y_want) and bool((k == k_want).all()), "bit-exact (y and k)"
+            err = max_abs_err(y, y_want)
+        tag = "K6" if kernel == "r2f2_quantize" else "K7"
+        log(f"{tag} {kernel} vs the CPU under flush {label}: {how if ok else 'MISMATCH (' + how + ')'} max_abs_err={err}")
+        records.append(dict(kernel=kernel, case=f"flush: {label}", ok=ok, max_abs_err=err))
+    return records
+
+
 def check_contract_kernels(device):
     """K6 against its plain version bit for bit (y and k), over the four
     formats, three blocks, special tiles and the shared-expert gate's
@@ -753,9 +944,14 @@ def check_contract_kernels(device):
     k6 += [(f"(1024,1024) block {blk}", x, fmt, blk) for blk in ((128, 256), (256, 128))]
     k6 += [("special tiles (256,1024): zero, subnormal, inf/NaN, 1e6", special_tiles(device), fmt, (256, 256))]
     k6 += [(f"shared-expert gate ({LM_D},{LM_FF})", spread_data((LM_D, LM_FF), g, device, (-3, 0)), fmt, (256, 256))]
+    def plain(fn, *args, label, **kw):
+        """The plain version on the card, or on the CPU under flush where
+        the operands hold f32 subnormals (the special tiles)."""
+        return plain_on_cpu(fn, *args, **kw) if label.startswith("special") else fn(*args, **kw)
+
     for label, xin, f, blk in k6:
         y, k = r2f2_quantize(xin, fmt=f, block=blk)
-        y_want, k_want = r2f2_quantize_plain(xin, fmt=f, block=blk)
+        y_want, k_want = plain(r2f2_quantize_plain, xin, fmt=f, block=blk, label=label)
         ok = same_bits(y, y_want) and torch.equal(k, k_want) and k.dtype == torch.int32
         if label.startswith("special"):
             ok = ok and k[0, 0].item() == 3 and k[0, 1].item() == 3 and k[0, 3].item() == 3
@@ -795,7 +991,7 @@ def check_contract_kernels(device):
         k7.append((f"shared-expert gate {phase} ({rows},{LM_D})@({LM_D},{LM_FF})", xa, w_gate, {}, "full"))
     for label, a, b, kw, kind in k7:
         got = r2f2_matmul(a, b, fmt=fmt, **kw)
-        want = r2f2_matmul_plain(a, b, fmt=fmt, **kw)
+        want = plain(r2f2_matmul_plain, a, b, fmt=fmt, label=label, **kw)
         if kind == "dyadic":
             ok, how = same_bits(got, want), "bit-exact"
         elif kind == "rounded":
@@ -824,7 +1020,7 @@ def check_contract_kernels(device):
         plan = launch_plan(m, n, kd, kw.get("blocks", DEFAULT_BLOCKS), n_sms)
         got = r2f2_matmul(a, b, fmt=fmt, **kw)
         one = r2f2_matmul(a, b, fmt=fmt, _split=False, **kw)
-        want = r2f2_matmul_plain(a, b, fmt=fmt, **kw)
+        want = plain(r2f2_matmul_plain, a, b, fmt=fmt, label=label, **kw)
         ok = plan.splits > 1 and same_bits(got, one) and within_bound(got, want, k7_order_bound(a, b))
         record("r2f2_matmul", f"split S={plan.splits} ({plan.ctas} CTAs) vs unsplit ({plan.gm * plan.gn} CTAs): {label}", ok,
                max_abs_err(got, want), f"bit-identical, within {K7_ORDER_C:g} units of the plain version")
@@ -1236,15 +1432,15 @@ def time_kernels(device, main_launches, errs, card):
     # flush
     recs = []
     specs = [
-        ("heat1d_sweep", "fused_pde.cu", "src/repro/kernels/heat_stencil.py:65",
+        ("heat1d_sweep", "heat1d_rod.cu", "src/repro/kernels/heat_stencil.py:65",
          lambda: heat1d_sweep(u, **hk), (heat1d_sweep_plain, (u,), hk), bound(heat_bytes, heat_flops), 20, 2, 1,
-         f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch"),
+         f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch {heat1d_launch_shape(1, cfg.nx)}"),
         ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
          lambda: swe_flux_fused(q1, q3, **sk), (swe_flux_fused_plain, (q1, q3), sk), bound(swe_bytes, swe_flops), 200, 5, 1,
          f"(127,128) r2f2_16, one tile {k3_launch_shape(q1, sk)}"),
-        ("heat1d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:503",
+        ("heat1d_mega", "heat1d_rod.cu", "src/repro/kernels/mega.py:503",
          lambda: heat1d_mega(u1, **mk), (heat1d_mega, (u1,), dict(mk, plain=True)), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
-         f"(128,) r2f2_16, one {hsteps}-substep horizon per launch"),
+         f"(128,) r2f2_16, one {hsteps}-substep horizon per launch {heat1d_launch_shape(1, cfg.nx)}"),
         ("swe2d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:607",
          lambda: swe2d_mega(U, **mk_swe), (swe2d_mega, (U,), dict(mk_swe, plain=True)), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
          f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch"),
@@ -1275,7 +1471,7 @@ def time_kernels(device, main_launches, errs, card):
         plain_ms, _ = cuda_time_ms(lambda: plain(*args, **kw), plain_reps, warmup=plain_warmup)
         ok = same_result(got, plain_on_cpu(plain, *args, **kw))
         call = ""
-        if name == "swe_flux_fused":  # a few microseconds: the kernel's device time, not the wrapper's call
+        if name in ("swe_flux_fused", "heat1d_sweep"):  # microseconds: the kernel's device time, not the wrapper's call
             call = f" (device time, CUDA graph; {ms:.4f} ms per call with the host's wrapper)"
             ms = graph_time_ms(kern, reps)
         line = (f"time {name} {shape}: kernel {ms:.4f} ms{call}, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
@@ -1297,6 +1493,87 @@ def time_kernels(device, main_launches, errs, card):
         ms, _ = cuda_time_ms(lambda: fn(x, tracker=trk, **kw), 5)
         log(f"time {name} rr_tracked, one horizon: kernel {ms:.4f} ms [{card}]")
     return recs
+
+
+#: heat1d rods phase 5 times K2 and K4 on (and ``--heat1d-sizes``): the
+#: 3-cell latency floor, the main path's 128, 1024 and 2048 (the warp
+#: shape's edge), 4096 and 25,600 (which the one-CTA kernel before the warp
+#: and grid shapes also held), and the grid shape at 30,000 and 10**6
+HEAT1D_TIMED_NX = (3, 128, 1024, 2048, 4096, 25_600, 30_000, 10**6)
+
+
+def time_heat1d(device, card, sizes=HEAT1D_TIMED_NX):
+    """K2 (one chunk of steps // 8 substeps) and K4 (a horizon of ``steps``
+    substeps, a snapshot every chunk) in r2f2_16 on each rod of ``sizes``,
+    by CUDA events over back-to-back launches (the shortest, K2 on the
+    3-cell rod, is ~0.1 ms, more than its wrapper's host time), with the
+    launch shape; ``steps`` is the main path's 4000 on a rod of the warp
+    shape (up to 2048 cells), 400 to 30,000 cells, 40 beyond. A rod the
+    tree's kernels refuse is logged as refused. Returns the rows."""
+    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, heat1d_sweep
+    from repro_torch.kernels.mega import heat1d_mega
+
+    L = ladder()
+    rows = []
+    for nx in sizes:
+        steps = 4000 if nx <= 2048 else 400 if nx <= 30_000 else 40
+        chunk = steps // 8
+        u = rod(nx, device)
+        kw = dict(heat_args(nx), prec=L["r2f2_16"])
+        try:
+            shape = heat1d_launch_shape(1, nx)
+        except ImportError:  # a tree from before heat1d_plan: one CTA
+            shape = "[one CTA, the rod in shared memory]"
+        try:
+            sweep_ms, _ = cuda_time_ms(lambda: heat1d_sweep(u, steps=chunk, block_rows=1, **kw), 10)
+            mega_ms, _ = cuda_time_ms(lambda: heat1d_mega(u[0], steps=steps, every=chunk, sites=HEAT1D_SITES, **kw), 5)
+        except (ValueError, RuntimeError) as exc:
+            log(f"time heat1d nx={nx}: refused: {exc} [{card}]")
+            rows.append(dict(nx=nx, refused=str(exc)))
+            continue
+        row = dict(nx=nx, shape=shape, sweep_ms=sweep_ms, chunk=chunk, mega_ms=mega_ms, steps=steps,
+                   sweep_us_per_substep=sweep_ms * 1e3 / chunk, mega_us_per_substep=mega_ms * 1e3 / steps)
+        rows.append(row)
+        log(f"time heat1d nx={nx} {shape}: K2 {sweep_ms:.4f} ms per {chunk} substeps ({row['sweep_us_per_substep']:.3f} us "
+            f"each), K4 {mega_ms:.4f} ms per {steps} ({row['mega_us_per_substep']:.3f} us each) [{card}]")
+    return rows
+
+
+def time_heat1d_shapes(device, card):
+    """K4 on the main path's 128-cell rod (4000 substeps, r2f2_16) on each
+    warp-shape launch that holds it: one warp of 4 cells a lane, two of 2,
+    four of 1 (the plan's). Returns the rows."""
+    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, Heat1DPlan
+    from repro_torch.kernels.mega import heat1d_mega
+
+    u = rod(128, device)[0]
+    kw = dict(heat_args(128), prec=ladder()["r2f2_16"], steps=4000, every=500, sites=HEAT1D_SITES)
+    rows = []
+    for warps, cells in ((1, 4), (2, 2), (4, 1)):
+        plan = Heat1DPlan("warp", 32 * warps, cells, 1)
+        ms, _ = cuda_time_ms(lambda: heat1d_mega(u, _plan=plan, **kw), 5)
+        rows.append(dict(warps=warps, cells=cells, ms=ms))
+        log(f"time heat1d K4 (128,) on {heat1d_launch_shape(1, 128, plan)}: {ms:.4f} ms per 4000 substeps "
+            f"({ms * 1e3 / 4000:.3f} us each) [{card}]")
+    return rows
+
+
+def heat1d_sizes(device, card):
+    """``--heat1d-sizes``: :func:`time_heat1d` and heat1d's rows of the
+    ladder on the three planes (4000 steps, the six modes), nothing else:
+    the comparison of two trees on one card (run this file from each)."""
+    six = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked", "deploy")
+    out = dict(times=time_heat1d(device, card), ladder=[])
+    try:
+        out["shapes"] = time_heat1d_shapes(device, card)
+    except ImportError:  # a tree from before heat1d_plan
+        pass
+    for execution in ("fused", "megakernel", "auto"):
+        rows, _ = run_ladder(device, {"heat1d": MAIN_STEPS["heat1d"]}, {"heat1d": six}, execution)
+        for r in rows:
+            log(format_row(r))
+        out["ladder"] += rows
+    return out
 
 
 def time_heat2d(device, card, sizes=(1, 2, 4, 8, 16)):
@@ -1580,6 +1857,22 @@ def time_contract_kernels(device, launches, errs, card):
         launch = f" [{r['launch']}]" if "launch" in r else ""
         log(f"time {r['name']} {r['shape']} r2f2_16: kernel {r['ms']:.4f} ms{dev}{cold}, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){sg}; library call: none{launch} [{card}]")
+    # the r2f2_16_384 preset's format at the router's prefill shape, the last
+    # half of A's rows and all of B tiny dyadics (their products f32
+    # subnormal): K7 split and unsplit against the plain version on the CPU
+    # under flush (r2f2_16 cannot reach a subnormal: its operands are
+    # multiples of 2**-39, so every product and sum is 0 or >= 2**-78)
+    f384 = FlexFormat(*FMT_384)
+    half = LM_PREFILL_ROWS // 2
+    a = dyadic((LM_PREFILL_ROWS, LM_D), g, "cpu")
+    a[half:] = tiny_dyadic((half, LM_D), g)
+    a, b = a.to(device), tiny_dyadic((LM_D, LM_E), g).to(device)
+    want = plain_on_cpu(r2f2_matmul_plain, a, b, fmt=f384)
+    for split in (True, False):
+        ok = same_bits(r2f2_matmul(a, b, fmt=f384, _split=split), want)
+        log(f"K7 r2f2_matmul fmt <{','.join(map(str, FMT_384))}> subnormal dyadic router prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_E}) "
+            f"{'split' if split else 'unsplit'} vs the CPU under flush: {'bit-exact' if ok else 'MISMATCH'}")
+        require(ok, "r2f2_matmul keeps a subnormal the CPU under flush does not")
     # K7 calls per generate by shape: each layer runs the router and the
     # shared expert's gate, up and down projections once per forward, in one
     # prefill and LM_NEW - 1 decode forwards (up has the gate's shape)
@@ -1632,14 +1925,20 @@ def main(argv) -> int:
     lib = _cuda.build()
     build_s = time.perf_counter() - t0
     _cuda.library()
-    log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)}; "
-        f"-ftz=true for {', '.join(_cuda.FTZ_SOURCES)}, -ftz=false for the rest)")
+    log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)})")
     log_path = lib.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
+
+    if "--heat1d-sizes" in argv:
+        report = heat1d_sizes(device, card)
+        log(card)
+        print(json.dumps({"heat1d_sizes": report["times"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
 
     t_phase = time.perf_counter()
 
@@ -1652,6 +1951,9 @@ def main(argv) -> int:
     mega_errs, mega_records = check_mega(device)
     k5_errs, k5_records = check_k5(device)
     c_errs, c_records = check_contract_kernels(device)
+    flush_records = check_flush_contract(device)
+    require(all(r["ok"] for r in flush_records), "K6 or K7 differs from its plain version on the CPU under flush")
+    c_records += flush_records
     errs.update(mega_errs)
     errs.update(k5_errs)
     errs.update(c_errs)
@@ -1708,6 +2010,7 @@ def main(argv) -> int:
     phase_done("6 (the path)")
 
     recs = time_kernels(device, main_launches, errs, card)
+    report["heat1d_times"] = time_heat1d(device, card)
     report["heat2d_times"] = time_heat2d(device, card)
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)

@@ -3,8 +3,8 @@
 XLA runs f32 arithmetic with subnormals flushed to zero, inputs and results,
 on the CPU and on the TPU, so ``repro`` never carries an f32 subnormal (its
 ``quantize_em_with_flags`` zeroes subnormal inputs for that reason). The
-port's CUDA kernels of the PDE path build with ``-ftz=true``
-(``kernels/_cuda.py::FTZ_SOURCES``); PyTorch's own CUDA ops keep subnormals
+port's CUDA kernels build with ``-ftz=true``
+(``kernels/_cuda.py::NVCC_FLAGS``); PyTorch's own CUDA ops keep subnormals
 and have no such switch. Under :func:`flush_subnormals` every subnormal f32
 result of a PyTorch op on a CUDA tensor becomes a zero of its sign, as an
 FTZ result does, ``out=`` targets and in-place results included.

@@ -1,16 +1,14 @@
-// The fused-plane PDE kernels of repro_torch, for sm_90a:
+// The fused-plane SWE kernel of repro_torch, for sm_90a:
 //
-//   K2 heat1d_sweep_kernel  replaces repro/kernels/fused.py::fused_sweep with
-//                           repro/kernels/heat_stencil.py::_heat1d_body
-//   K3 swe_flux_kernel      replaces repro/kernels/fused.py::fused_sweep with
-//                           repro/kernels/swe_flux.py::_swe_flux_body
+//   K3 swe_flux_kernel  replaces repro/kernels/fused.py::fused_sweep with
+//                       repro/kernels/swe_flux.py::_swe_flux_body
 //
-// The host driver (kernels/fused.py::fused_sweep) pads the field and fixes the
-// split blocks; K2 gives one split block to one CTA, K3 one split tile to one
-// thread-block cluster, so every block max spans exactly the reference's
-// block, pad lanes included. Evidence is
+// (K2, the heat1d sweep, is heat1d_rod.cu.) The host side
+// (kernels/fused.py::fused_sweep) pads the field and fixes the split blocks;
+// K3 gives one split tile to one thread-block cluster, so every block max
+// spans exactly the reference's block, pad lanes included. Evidence is
 // written per block as (gi, gj, steps, n_sites, 2) floats and max-reduced
-// across blocks on the host. Each C entry point returns cudaGetLastError().
+// across blocks on the host. The C entry point returns cudaGetLastError().
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -22,70 +20,9 @@ using r2f2::Policy;
 
 namespace {
 
-constexpr int kHeatThreads = 128;
 constexpr int kSweThreads = 256;
 constexpr int kSweWarps = kSweThreads / 32;
 constexpr int kMaxCluster = 16;  // the non-portable cluster size limit
-
-// K2: `steps` explicit-FD substeps of one (br, nx) row block, held in shared
-// memory for the whole chunk. Per substep: the interior laplacian and its
-// block max; flux = alpha*lap at the block's split (site 0) and its block max;
-// upd = flux*dtodx2 (site 1); u += upd on the interior, ends pinned. In the
-// f32 family the update is fma(lap, alpha*dtodx2, u), as the compiled
-// reference folds the two constant products and fuses the add.
-__global__ void __launch_bounds__(kHeatThreads)
-heat1d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ ev,
-                    const int* __restrict__ k_floor, int nx, int br, int steps, float alpha, float dtodx2,
-                    Policy p) {
-  extern __shared__ float smem[];
-  __shared__ uint32_t scratch[32];
-  float* u = smem;            // the block, br * nx
-  float* t = smem + br * nx;  // lap, then flux, then upd, at the same index
-  const int n = br * nx;
-  const size_t base = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) u[i] = u_in[base + i];
-  __syncthreads();
-
-  const int e_alpha = r2f2::mag_exponent(r2f2::finite_mag_bits(alpha));
-  const int e_dtodx2 = r2f2::mag_exponent(r2f2::finite_mag_bits(dtodx2));
-  const bool fold = p.family == r2f2::kF32;  // t keeps lap for fma(lap, alpha*dtodx2, u)
-  const float folded = __fmul_rn(alpha, dtodx2);
-  const int ni = nx - 2;
-  const int n_int = br * ni;
-  for (int s = 0; s < steps; ++s) {
-    uint32_t mx = 0u;
-    for (int i = threadIdx.x; i < n_int; i += blockDim.x) {
-      const int at = (i / ni) * nx + i % ni + 1;
-      const float lap = __fadd_rn(__fsub_rn(u[at - 1], __fmul_rn(2.0f, u[at])), u[at + 1]);
-      t[at] = lap;
-      mx = max(mx, r2f2::finite_mag_bits(lap));
-    }
-    const int e_lap = r2f2::block_max_exp(mx, scratch);
-    const int k_flux = r2f2::site_k(r2f2::select_k_mul(e_alpha, e_lap, p), k_floor, 0, p);
-    mx = 0u;
-    for (int i = threadIdx.x; i < n_int; i += blockDim.x) {
-      const int at = (i / ni) * nx + i % ni + 1;
-      const float flux = r2f2::family_mul(alpha, t[at], k_flux, p);
-      if (!fold) t[at] = flux;
-      mx = max(mx, r2f2::finite_mag_bits(flux));
-    }
-    const int e_flux = r2f2::block_max_exp(mx, scratch);
-    const int k_upd = r2f2::site_k(r2f2::select_k_mul(e_flux, e_dtodx2, p), k_floor, 1, p);
-    for (int i = threadIdx.x; i < n_int; i += blockDim.x) {
-      const int at = (i / ni) * nx + i % ni + 1;
-      u[at] = fold ? __fmaf_rn(t[at], folded, u[at]) : __fadd_rn(u[at], r2f2::family_mul(t[at], dtodx2, k_upd, p));
-    }
-    if (ev != nullptr && threadIdx.x == 0) {
-      float* e = ev + (static_cast<size_t>(blockIdx.x) * steps + s) * 4;
-      e[0] = static_cast<float>(e_alpha);
-      e[1] = static_cast<float>(e_lap);
-      e[2] = static_cast<float>(e_flux);
-      e[3] = static_cast<float>(e_dtodx2);
-    }
-    __syncthreads();  // the next laplacian reads neighbours written above
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) u_out[base + i] = u[i];
-}
 
 // G consecutive floats, one 16-byte access for G = 4.
 template <int G>
@@ -269,21 +206,6 @@ Policy make_policy(int family, int eb, int mb, int fx, int fe, int fm, int tail_
 }
 
 }  // namespace
-
-extern "C" int r2f2_heat1d_sweep(const float* u_in, float* u_out, float* ev, const int* k_floor, int rows, int nx,
-                                 int br, int steps, float alpha, float dtodx2, int family, int eb, int mb, int fx,
-                                 int fe, int fm, int tail_approx, int pinned, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(br) * nx * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(heat1d_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  heat1d_sweep_kernel<<<rows / br, kHeatThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u_in, u_out, ev, k_floor, nx, br, steps, alpha, dtodx2,
-      make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // One cluster of `cluster` CTAs per (br, bw) tile, each owning `band` rows
 // (cluster * band >= br > (cluster - 1) * band).

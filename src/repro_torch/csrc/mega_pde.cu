@@ -1,19 +1,15 @@
 // The megakernel plane of repro_torch (kernel K4), for sm_90a: a whole
 // simulation horizon in one launch, with the adjust unit on the card.
 //
-//   heat1d_mega_kernel  replaces repro/kernels/mega.py::mega_sweep with heat1d_mega
 //   swe2d_mega_kernel   replaces repro/kernels/mega.py::mega_sweep with swe2d_mega
 //
-// Both follow mega_sweep's contract for f32 storage without capture: the body
-// runs on the whole field as one split block; with an evolving tracker each
-// site's row ticks every substep (r2f2::adjust_tick) while the datapath floor
-// `ka` latches to the row's split only at snapshot boundaries; the state is
-// snapshot at every boundary and the remainder substeps run after the last
-// one. Each C entry point returns the launch's cudaError_t.
-//
-// heat1d: one CTA holds the rod in shared memory for the whole horizon (the
-// (1, 128) rod is 512 B). It is bound by the latency of the serial substep
-// chain and its block reductions, not by bytes or operations.
+// (heat1d's K4 is heat1d_rod.cu.) It follows mega_sweep's contract for f32
+// storage without capture: the body runs on the whole field as one split
+// block; with an evolving tracker each site's row ticks every substep
+// (r2f2::adjust_tick) while the datapath floor `ka` latches to the row's split
+// only at snapshot boundaries; the state is snapshot at every boundary and
+// the remainder substeps run after the last one. The C entry point returns
+// the launch's cudaError_t.
 //
 // swe2d: the (3, nx, ny) state and the Lax-Wendroff intermediates do not fit
 // one SM's shared memory (3x128x128 f32 alone is 196,608 B), so they live in
@@ -42,7 +38,6 @@ using r2f2::SiteState;
 
 namespace {
 
-constexpr int kHeatThreads = 128;
 constexpr int kSweThreads = 256;
 
 Policy make_policy(int family, int eb, int mb, int fx, int fe, int fm, int tail_approx, int pinned) {
@@ -64,83 +59,6 @@ __device__ __forceinline__ void store_rows(const SiteState* st, int n, int* k, f
     ov[j] = st[j].ov;
     sh[j] = st[j].sh;
   }
-}
-
-// ---------------------------------------------------------------------------
-// heat1d: K2's substep (fused_pde.cu, the f32 family's folded update too) on
-// one (1, nx) rod, plus the tracker, the latch and the snapshots. trk_k is the
-// tracker's k row (the floor's start, or the fixed splits when pinned), null
-// when untracked.
-__global__ void __launch_bounds__(kHeatThreads)
-heat1d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ snaps,
-                   float* __restrict__ ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
-                   const int* __restrict__ site_cfg, int evolve, int nx, int steps, int every, float alpha,
-                   float dtodx2, AdjustLaw law, Policy p) {
-  extern __shared__ float smem[];
-  __shared__ uint32_t scratch[32];
-  __shared__ int ka[2];
-  float* u = smem;       // the rod
-  float* t = smem + nx;  // lap, then flux, at the same index
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) u[i] = u_in[i];
-  const int* floor = nullptr;
-  if (trk_k != nullptr) {
-    if (threadIdx.x < 2) ka[threadIdx.x] = trk_k[threadIdx.x];
-    floor = ka;
-  }
-  SiteState st[2];
-  if (evolve && threadIdx.x == 0) load_rows(st, 2, trk_k, trk_hi, trk_lo, trk_ov, trk_sh);
-  __syncthreads();
-
-  const int e_alpha = r2f2::mag_exponent(r2f2::finite_mag_bits(alpha));
-  const int e_dtodx2 = r2f2::mag_exponent(r2f2::finite_mag_bits(dtodx2));
-  const bool fold = p.family == r2f2::kF32;  // t keeps lap for fma(lap, alpha*dtodx2, u)
-  const float folded = __fmul_rn(alpha, dtodx2);
-  for (int s = 0; s < steps; ++s) {
-    uint32_t mx = 0u;
-    for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
-      const float lap = __fadd_rn(__fsub_rn(u[i - 1], __fmul_rn(2.0f, u[i])), u[i + 1]);
-      t[i] = lap;
-      mx = max(mx, r2f2::finite_mag_bits(lap));
-    }
-    const int e_lap = r2f2::block_max_exp(mx, scratch);
-    const int k_flux = r2f2::site_k(r2f2::select_k_mul(e_alpha, e_lap, p), floor, 0, p);
-    mx = 0u;
-    for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
-      const float flux = r2f2::family_mul(alpha, t[i], k_flux, p);
-      if (!fold) t[i] = flux;
-      mx = max(mx, r2f2::finite_mag_bits(flux));
-    }
-    const int e_flux = r2f2::block_max_exp(mx, scratch);
-    const int k_upd = r2f2::site_k(r2f2::select_k_mul(e_flux, e_dtodx2, p), floor, 1, p);
-    for (int i = threadIdx.x + 1; i < nx - 1; i += blockDim.x) {
-      u[i] = fold ? __fmaf_rn(t[i], folded, u[i]) : __fadd_rn(u[i], r2f2::family_mul(t[i], dtodx2, k_upd, p));
-    }
-    __syncthreads();  // u is this substep's result; every thread has read ka
-    const bool boundary = (s + 1) % every == 0;
-    if (threadIdx.x == 0) {
-      if (ev != nullptr) {
-        float* e = ev + static_cast<size_t>(s) * 4;
-        e[0] = static_cast<float>(e_alpha);
-        e[1] = static_cast<float>(e_lap);
-        e[2] = static_cast<float>(e_flux);
-        e[3] = static_cast<float>(e_dtodx2);
-      }
-      if (evolve) {
-        r2f2::adjust_tick(st[0], e_alpha, e_lap, site_cfg[0], site_cfg[1], site_cfg[2], law);
-        r2f2::adjust_tick(st[1], e_flux, e_dtodx2, site_cfg[3], site_cfg[4], site_cfg[5], law);
-        if (boundary) {  // read again only after the next substep's first barrier
-          ka[0] = st[0].k;
-          ka[1] = st[1].k;
-        }
-      }
-    }
-    if (boundary) {
-      float* snap = snaps + static_cast<size_t>((s + 1) / every - 1) * nx;
-      for (int i = threadIdx.x; i < nx; i += blockDim.x) snap[i] = u[i];
-    }
-  }
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) u_out[i] = u[i];
-  if (evolve && threadIdx.x == 0) store_rows(st, 2, trk_k, trk_hi, trk_lo, trk_ov, trk_sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -334,24 +252,6 @@ __global__ void __launch_bounds__(kSweThreads) swe2d_mega_kernel(SweArgs a, Adju
 }
 
 }  // namespace
-
-extern "C" int r2f2_heat1d_mega(const float* u_in, float* u_out, float* snaps, float* ev, int* trk_k, float* trk_hi,
-                                float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
-                                int steps, int every, float alpha, float dtodx2, float ema, float one_minus,
-                                int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
-                                int pinned, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(nx) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(heat1d_mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const AdjustLaw law{ema, one_minus, headroom, eb, fx};
-  heat1d_mega_kernel<<<1, kHeatThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve, nx, steps, every, alpha,
-      dtodx2, law, make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The cooperative grid: at most one CTA per 256 positions, and no more than
 // can be resident at once (a grid barrier needs every CTA on the card).

@@ -84,36 +84,6 @@ constexpr int kHeat2DMaxThreads = 512;
 constexpr int kHeat2DMaxPerThread = 16;  // interior cells a thread holds in registers
 constexpr int kMaxCluster = 16;          // the non-portable cluster size limit
 
-// One policy product by a pass-wide constant c at the pass's split k:
-// family_mul(c, x, k, p) bit for bit (and family_mul(x, c, k, p): an IEEE
-// product does not see the order), with the constant's rounding and the
-// format's constants derived once per pass.
-struct ConstMul {
-  int family;
-  float c;  // f32: as given; bf16: bf16-rounded; fixed and rr: quantized
-  r2f2::SplitQuant q;
-
-  __device__ ConstMul(float c0, int k, const Policy& p, const r2f2::TileQuant& fixed) : family(p.family), c(c0) {
-    if (family == r2f2::kBF16) {
-      c = r2f2::bf16_round(c0);
-    } else if (family != r2f2::kF32) {
-      q = family == r2f2::kFixed ? r2f2::SplitQuant{fixed, fixed} : r2f2::split_quant(k, p);
-      c = r2f2::quantize_tile(c0, q.op);
-    }
-  }
-
-  __device__ float operator()(float x) const {
-    switch (family) {
-      case r2f2::kF32:
-        return __fmul_rn(c, x);
-      case r2f2::kBF16:
-        return __fmul_rn(c, r2f2::bf16_round(x));
-      default:
-        return r2f2::quantize_tile(__fmul_rn(c, r2f2::quantize_tile(x, q.op)), q.prod);
-    }
-  }
-};
-
 // One CTA's part of an (nx, ny) heat2d field, whose interior is
 // (nx - 2, ny - 2). CTA `rank` owns interior rows [1 + rank * band,
 // 1 + rank * band + rows) (every CTA `band`, the last the rest); its shared
@@ -193,7 +163,7 @@ struct Heat2DBand {
     const int e_alpha = scalar_exp(alpha), e_lap = r2f2::mag_exponent(cluster_max(mx, &pub[0], cluster));
     const int k_flux = r2f2::site_k(r2f2::select_k_mul(e_alpha, e_lap, p), floor, 0, p);
     const bool fold = p.family == r2f2::kF32;  // v keeps lap for the fused update
-    const ConstMul flux_of(alpha, k_flux, p, fixed);
+    const r2f2::ConstMul flux_of(alpha, k_flux, p, fixed);
     mx = 0u;
 #pragma unroll
     for (int k = 0; k < P; ++k) {
@@ -207,7 +177,7 @@ struct Heat2DBand {
     if (threadIdx.x == 0) pub[0] = 0u;  // every CTA read it before the barrier above
     const int e_dtodx2 = scalar_exp(dtodx2), e_flux = r2f2::mag_exponent(m_flux);
     const int k_upd = r2f2::site_k(r2f2::select_k_mul(e_flux, e_dtodx2, p), floor, 1, p);
-    const ConstMul upd_of(dtodx2, k_upd, p, fixed);
+    const r2f2::ConstMul upd_of(dtodx2, k_upd, p, fixed);
     const float folded = __fmul_rn(alpha, dtodx2);
     float* up = rank > 0 ? cluster.map_shared_rank(s, rank - 1) : nullptr;  // its halo below: row band + 1
     float* down = rank + 1 < n_ctas ? cluster.map_shared_rank(s, rank + 1) : nullptr;  // its halo above: row 0

@@ -9,10 +9,9 @@
 //   adjust_tick        core/policy.py::adjust_step (one site's tick)
 //
 // Build with --fmad=false -prec-div=true, so that nvcc contracts nothing on
-// its own. The PDE kernels (fused_pde.cu, mega_pde.cu, pde_steps.cu) build
-// with -ftz=true: f32 subnormal inputs and results flush to a zero of their
-// sign, as XLA runs the reference on the CPU and the TPU; K6 and K7
-// (-ftz=false) keep subnormals. The one fused multiply-add is
+// its own, and -ftz=true (every kernel, K2-K7): f32 subnormal inputs and
+// results flush to a zero of their sign, as XLA runs the reference on the
+// CPU and the TPU. The one fused multiply-add is
 // explicit (family_mul_add): the compiled reference (XLA:CPU) fuses a plain f32
 // product into the add that follows it, and rounds that sum once.
 //
@@ -254,6 +253,76 @@ __device__ __forceinline__ float family_div(float a, float b, int k, const Polic
       const int e = p.eb + k, m = p.mb + p.fx - k;
       return quantize_em(__fdiv_rn(quantize_em(a, e, m, -1), quantize_em(b, e, m, -1)), e, m, -1);
     }
+  }
+}
+
+// One policy product by a pass-wide constant c at the pass's split k:
+// family_mul(c, x, k, p) bit for bit (and family_mul(x, c, k, p): an IEEE
+// product does not see the order), with the constant's rounding and the
+// format's constants derived once per pass, or once per launch in a table
+// (the trivial default constructor lets one live in shared memory).
+struct ConstMul {
+  int family;
+  float c;  // f32: as given; bf16: bf16-rounded; fixed and rr: quantized
+  SplitQuant q;
+
+  ConstMul() = default;
+
+  __device__ ConstMul(float c0, int k, const Policy& p, const TileQuant& fixed) : family(p.family), c(c0) {
+    if (family == kBF16) {
+      c = bf16_round(c0);
+    } else if (family != kF32) {
+      q = family == kFixed ? SplitQuant{fixed, fixed} : split_quant(k, p);
+      c = quantize_tile(c0, q.op);
+    }
+  }
+
+  __device__ float operator()(float x) const {
+    switch (family) {
+      case kF32:
+        return __fmul_rn(c, x);
+      case kBF16:
+        return __fmul_rn(c, bf16_round(x));
+      default:
+        return quantize_tile(__fmul_rn(c, quantize_tile(x, q.op)), q.prod);
+    }
+  }
+
+  // The product's variant, uniform over a pass: 0 f32, 1 bf16, 2 both
+  // formats on quantize_tile_fast, 3 any other. A pass that selects it once
+  // (with_kind) runs its cells through straight-line code, so the cells'
+  // chains interleave instead of each product branching on the family and
+  // the format.
+  __device__ int kind() const { return family == kF32 ? 0 : family == kBF16 ? 1 : q.op.fast && q.prod.fast ? 2 : 3; }
+
+  // operator() for a product of kind K: the same bits.
+  template <int K>
+  __device__ float apply(float x) const {
+    if constexpr (K == 0) {
+      return __fmul_rn(c, x);
+    } else if constexpr (K == 1) {
+      return __fmul_rn(c, bf16_round(x));
+    } else if constexpr (K == 2) {
+      return quantize_tile_fast(__fmul_rn(c, quantize_tile_fast(x, q.op)), q.prod);
+    } else {
+      return (*this)(x);
+    }
+  }
+};
+
+template <int K>
+struct MulKind {
+  static constexpr int value = K;
+};
+
+// fn(MulKind<m.kind()>{}): a pass's cell loop compiled once per kind.
+template <typename Fn>
+__device__ __forceinline__ void with_kind(const ConstMul& m, Fn&& fn) {
+  switch (m.kind()) {
+    case 0: fn(MulKind<0>{}); break;
+    case 1: fn(MulKind<1>{}); break;
+    case 2: fn(MulKind<2>{}); break;
+    default: fn(MulKind<3>{}); break;
   }
 }
 

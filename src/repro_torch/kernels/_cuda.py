@@ -22,32 +22,24 @@ import torch
 
 __all__ = [
     "KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
-    "NVCC_FLAGS", "FTZ_SOURCES", "source_flags", "SMEM_LIMIT",
+    "NVCC_FLAGS", "SMEM_LIMIT",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu")
+SOURCES = ("fused_pde.cu", "mega_pde.cu", "heat1d_rod.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu")
 HEADERS = ("r2f2_device.cuh",)
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: IEEE arithmetic as the reference runs it: no fma contraction, IEEE
-#: division (never --use_fast_math); the subnormal flush is per source
+#: division (never --use_fast_math), and f32 subnormal inputs and results
+#: flushed to zero, as XLA runs the reference on the CPU and the TPU (every
+#: kernel: the PDE kernels, K6 and K7)
 NVCC_FLAGS = (
     *GENCODE, "-std=c++17", "-O3",
-    "--fmad=false", "-prec-div=true",
+    "--fmad=false", "-prec-div=true", "-ftz=true",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: the PDE kernels flush f32 subnormal inputs and results, as XLA does on the
-#: CPU and the TPU (the reference's quantize_em zeroes subnormal inputs for
-#: that reason); K6 and K7 keep them, held to the reference by a toleranced
-#: sum (ROADMAP.md queue 3)
-FTZ_SOURCES = ("fused_pde.cu", "mega_pde.cu", "pde_steps.cu")
-
-
-def source_flags(src: str):
-    """The nvcc flags of one source: NVCC_FLAGS and its subnormal mode."""
-    return (*NVCC_FLAGS, f"-ftz={'true' if src in FTZ_SOURCES else 'false'}")
 
 
 #: shared memory a one-CTA kernel may take for its field and scratch rows
@@ -55,13 +47,12 @@ SMEM_LIMIT = 200 * 1024
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
-    # u_in, u_out, ev, k_floor, rows, nx, br, steps, alpha, dtodx2, policy(8), stream
-    "r2f2_heat1d_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F] + [_I] * 8 + [_P],
+    # K2 and K4 heat1d: u_in, u_out, snaps, ev, work, maxes, count, trk k/hi/lo/ov/sh, site_cfg,
+    # evolve, blocks, n, nx, steps, every, shape, threads, cells, ctas, alpha, dtodx2, ema, 1 - ema,
+    # headroom, policy(8), stream
+    "r2f2_heat1d": [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
     # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
     "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
-    # u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, steps, every,
-    # alpha, dtodx2, ema, 1 - ema, headroom, policy(8), stream
-    "r2f2_heat1d_mega": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
     # u_in, u_out, snaps, ev, work, maxes, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny,
     # steps, every, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
     "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
@@ -116,7 +107,7 @@ def nvcc_version() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + FTZ_SOURCES).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -135,7 +126,7 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     procs = [
         subprocess.Popen(
-            [nvcc, *source_flags(src), "-c", "-o", str(obj), str(CSRC / src)],
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(SOURCES, objs)

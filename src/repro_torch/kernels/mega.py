@@ -26,10 +26,12 @@ runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
 tensors; a CUDA tensor takes the plain version only with ``plain=True``.
 :data:`HEAT1D_MEGA`, :data:`SWE2D_MEGA`, :data:`HEAT2D_MEGA`,
 :data:`ADVECTION1D_MEGA` and :data:`BURGERS1D_MEGA` count each kernel's
-launches and its plain runs. Kernel K4 lives in ``csrc/mega_pde.cu``:
-``heat1d_mega_kernel`` (one CTA, the rod in shared memory) and
-``swe2d_mega_kernel`` (a cooperative grid, the Lax-Wendroff intermediates
-in global memory, which the 50 MB L2 holds at this size). Kernels K5e-f
+launches and its plain runs. Kernel K4 is ``csrc/heat1d_rod.cu`` for
+heat1d (K2's device body on the launch shape of
+``heat_stencil.heat1d_plan``: up to eight warps of one CTA up to 2048
+cells, else a cooperative grid) and ``csrc/mega_pde.cu::swe2d_mega_kernel``
+(a cooperative grid, the Lax-Wendroff intermediates in global memory,
+which the 50 MB L2 holds at this size). Kernels K5e-f
 are ``csrc/pde_steps.cu::mega_sweep_kernel``, one template over the fused
 sweeps' 1-D device bodies (``kernels/pde_steps.py``, whose ``BODIES`` table
 holds the K5 counters): one CTA holds the rod in shared memory for the
@@ -53,6 +55,7 @@ from repro_torch._device import f32_scalar
 from repro_torch.core.policy import RangeTracker, adjust_step
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
+from repro_torch.kernels.heat_stencil import _heat1d_body, heat1d_plan, launch_heat1d
 from repro_torch.kernels.pde_steps import (
     ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
     check_field, heat2d_cluster_plan,
@@ -66,7 +69,6 @@ __all__ = [
     "mega_sweep",
     "mega_sweep_plain",
     "heat1d_mega",
-    "heat1d_mega_fits",
     "swe2d_mega",
     "HEAT2D_MEGA",
     "ADVECTION1D_MEGA",
@@ -253,37 +255,26 @@ def _tracker_buffers(tracker, evolve, device):
     return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
 
 
-def heat1d_mega_fits(nx: int) -> bool:
-    """Whether ``heat1d_mega_kernel`` takes an ``nx``-cell rod: one CTA holds
-    it and a scratch row in shared memory."""
-    return nx >= 3 and 2 * nx * 4 <= _cuda.SMEM_LIMIT
-
-
-def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites):
+def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites, plan=None):
     (u,) = leaves
     u = u.contiguous()
     if u.dim() != 2 or u.shape[0] != 1:
         raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
     nx = u.shape[1]
-    if not heat1d_mega_fits(nx):
-        raise ValueError(f"heat1d_mega holds the rod in shared memory: 3 <= nx <= {_cuda.SMEM_LIMIT // 8}; got {nx}")
+    plan = plan or heat1d_plan(1, nx, _cuda.sm_count(u.device))
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
     dev = u.device
-    n_out = steps // every
     out = torch.empty_like(u)
-    snaps = torch.empty((n_out, 1, nx), dtype=torch.float32, device=dev)
+    snaps = torch.empty((steps // every, 1, nx), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
-    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev)
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        err = lib.r2f2_heat1d_mega(
-            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev),
-            _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh), _cuda.ptr(table),
-            int(evolve), nx, steps, every, float(alpha), float(dtodx2), ema, one_minus, headroom,
-            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
-        )
+    # untracked, no host-to-device copy: a CUDA graph captures the launch
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
+    err = launch_heat1d(
+        u, out, plan, br=1, steps=steps, alpha=alpha, dtodx2=dtodx2, prec=prec, ev=ev, k=k, tracker_rows=(hi, lo, ov, sh),
+        table=table, evolve=evolve, every=every, snaps=snaps, law=(ema, one_minus, headroom),
+    )
     _cuda.check(err, "heat1d_mega")
     HEAT1D_MEGA.launches += 1
     return MegaResult((out,), (snaps,), tracker_out, ev)
@@ -364,14 +355,13 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
 
 def heat1d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False,
+    capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
     """Whole-horizon 1-D heat run of the ``(nx,)`` rod; snapshots come back
-    as ``(n_out, nx)``."""
-    from repro_torch.kernels.heat_stencil import _heat1d_body
-
+    as ``(n_out, nx)``. ``_plan`` asks the kernel for another launch shape
+    than ``heat_stencil.heat1d_plan``'s (the chip checks and timings)."""
     nx = u0.shape[-1]
-    kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites))
+    kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites), plan=_plan)
     res = mega_sweep(
         _heat1d_body(float(alpha), float(dtodx2), sites), (u0.reshape(1, nx),), prec=prec, sites=sites,
         steps=steps, every=every, tracker=tracker, collect_evidence=collect_evidence, kernel=kernel,

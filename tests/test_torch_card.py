@@ -26,12 +26,13 @@ from repro_torch.precision import fused_eligible, mega_eligible
 R2F2 = PRESETS["r2f2_16"]
 
 # (stepper, config, the card's plane under auto): each kernel's field limit
-# and one past it; the card falls back to the reference plane where both of
-# a stepper's kernels refuse the field
+# and one past it (heat1d's kernels have none); the card falls back to the
+# reference plane where both of a stepper's kernels refuse the field
 LIMITS = [
-    ("heat1d", HeatConfig(nx=25_600), "megakernel"),  # K2 and K4: 2 rows of nx f32 in 200 KiB
-    ("heat1d", HeatConfig(nx=25_601), "reference"),
-    ("heat1d", HeatConfig(nx=30_000), "reference"),
+    ("heat1d", HeatConfig(nx=25_600), "megakernel"),  # K2 and K4 take any length: a warp, then a cooperative grid
+    ("heat1d", HeatConfig(nx=25_601), "megakernel"),
+    ("heat1d", HeatConfig(nx=30_000), "megakernel"),
+    ("heat1d", HeatConfig(nx=1_000_000), "megakernel"),
     ("advection1d", AdvectionConfig(nx=25_600), "megakernel"),  # K5b, K5e: 2 rows
     ("advection1d", AdvectionConfig(nx=25_601), "reference"),
     ("burgers1d", BurgersConfig(nx=17_066), "megakernel"),  # K5c, K5f: 3 rows

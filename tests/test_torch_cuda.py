@@ -145,6 +145,26 @@ def test_cuda_k6_k7_match_plain_versions():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["r2f2_matmul", "r2f2_quantize"])
+def test_k6_k7_flush_subnormals_as_the_cpu_does(kernel):
+    """K7 and K6 on operands whose products (K7 at the r2f2_16_384 preset's
+    (3, 8, 4): its E7M8 split reaches 2**-70) or inputs (K6) are f32
+    subnormal, against their plain versions on the CPU under flush, raw
+    bits with NaNs canonical: split and unsplit, with and without
+    round_products, and at r2f2_16's (3, 9, 3) (chip_smoke.flush_contract_cases).
+    K7's unrounded (3, 8, 4) cases must differ from the CPU run keeping
+    subnormals, so the check sees the flush."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    records = [r for r in chip_smoke.check_flush_contract("cuda") if r["kernel"] == kernel]
+    assert len(records) == {"r2f2_matmul": 6, "r2f2_quantize": 2}[kernel]
+    failed = [r["case"] for r in records if not r["ok"]]
+    assert not failed, failed
+
+
+@pytest.mark.cuda
 def test_contract_on_cuda_launches_k7():
     """rr_tile with use_kernels sends a 2-D matmul on CUDA tensors to K7 (one
     launch, no plain call); other specs and modes do not reach it."""
@@ -299,14 +319,15 @@ def _assert_runs_equal(got, want):
 @pytest.mark.parametrize("name,size,plane,counter", [
     ("heat2d", (200, 200), "megakernel", "heat2d_mega"),
     ("burgers1d", 20_000, "reference", None),
-    ("heat1d", 30_000, "reference", None),
+    ("heat1d", 30_000, "megakernel", "heat1d_mega"),
 ], ids=["heat2d-200x200", "burgers1d-20000", "heat1d-30000"])
 def test_auto_runs_where_repro_does(name, size, plane, counter):
     """auto on the card at fields beyond one CTA's shared memory: heat2d at
-    200x200 runs its cluster megakernel (one launch), burgers1d and heat1d
-    fall back to the reference plane (no kernel, no plain version); each
-    equals the port's CPU run under flush from the same initial state (the
-    card's sin and linspace differ from the CPU's in the last ulp)."""
+    200x200 runs its cluster megakernel and heat1d at 30,000 cells K4 on its
+    cooperative grid (one launch each), burgers1d falls back to the
+    reference plane (no kernel, no plain version); each equals the port's
+    CPU run under flush from the same initial state (the card's sin and
+    linspace differ from the CPU's in the last ulp)."""
     _need_card()
     import dataclasses
 
@@ -332,6 +353,79 @@ def test_auto_runs_where_repro_does(name, size, plane, counter):
         assert moved == ({counter: (1, 0)} if counter else {})
         want = _on_cpu_flushed(lambda: Simulation(name, cfg, prec, device="cpu").run(24, **kw))
         _assert_runs_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("execution,counter,launches", [("fused", "heat1d_sweep", 3), ("megakernel", "heat1d_mega", 1)])
+def test_heat1d_kernel_planes_take_any_length(execution, counter, launches):
+    """An explicit kernel plane at heat1d nx = 30,000 (the grid shape) runs
+    on the card, one K2 launch a chunk or one K4 launch, no plain version,
+    and equals the port's CPU run under flush from the same initial state,
+    in r2f2_16 and rr_tracked."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+    from repro_torch.kernels.mega import HEAT1D_MEGA
+    from repro_torch.pde import HeatConfig, Simulation
+
+    cfg = HeatConfig(nx=30_000)
+    ctr = {"heat1d_sweep": HEAT1D_SWEEP, "heat1d_mega": HEAT1D_MEGA}[counter]
+    kw = dict(snapshot_every=10, execution=execution, state0=Simulation("heat1d", cfg, PRESETS["f32"], device="cpu")
+              .stepper.init_state(cfg, device="cpu"))
+    for prec in (PRESETS["r2f2_16"], dataclasses.replace(PRESETS["r2f2_16"], mode="rr_tracked")):
+        before = (ctr.launches, ctr.plain_calls)
+        got = Simulation("heat1d", cfg, prec, device="cuda").run(24, **kw)
+        assert (ctr.launches - before[0], ctr.plain_calls - before[1]) == (launches, 0)
+        want = _on_cpu_flushed(lambda: Simulation("heat1d", cfg, prec, device="cpu").run(24, **kw))
+        _assert_runs_equal(got, want)
+
+
+#: K2 and K4 heat1d's cases of chip_smoke.heat_cases and mega_cases, by the
+#: shape in their labels: the main path's rod (six modes, a k_floor, pinned,
+#: r2f2_16_384; K4 with evolving, growing, pinned and bounded trackers), the
+#: padded row blocks, eight rows of 128, the 3-cell rod, the warp shape's
+#: edge, the grid one cell past it, on several blocks, on the main path's rod
+#: and in batches, and rods of 30,000 and 10**6 cells
+HEAT1D_SHAPES = ["(1,128)", "(128,)", "(5,64)", "(8,128)", "(1,3)", "(3,)", "(1,2048)", "(2048,)", "(1,2049)", "(2049,)",
+                 "(6,700)", "forced grid", "30000", "1000000"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAT1D_SHAPES)
+def test_heat1d_kernels_match_plain_versions(shape):
+    """K2 and K4 heat1d on the launch shapes heat1d_plan gives (and the grid
+    forced onto the main path's rod), against their plain versions on the
+    CPU under flush bit for bit: the field, the evidence and, for K4, the
+    snapshots and every tracker row."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.mega import heat1d_mega
+
+    def picked(label):
+        return shape.replace(" ", "") in label.replace(" ", "") and (shape == "forced grid" or "forced" not in label)
+
+    n = 0
+    for label, u, kw in chip_smoke.heat_cases("cuda", 200):
+        if picked(label):
+            got, ev = heat1d_sweep(u, **kw)
+            want, ev_want = chip_smoke.plain_on_cpu(heat1d_sweep_plain, u, **{k: v for k, v in kw.items() if k != "_plan"})
+            assert chip_smoke.same_bits(got, want) and chip_smoke.same_bits(ev, ev_want), label
+            n += 1
+    for kern, label, x, kw in chip_smoke.mega_cases("cuda"):
+        if kern == "heat1d" and picked(label):
+            got = heat1d_mega(x, **kw)
+            want = chip_smoke.plain_on_cpu(heat1d_mega, x, plain=True, **{k: v for k, v in kw.items() if k != "_plan"})
+            assert chip_smoke.same_bits(got.state, want.state) and chip_smoke.same_bits(got.snaps, want.snaps), label
+            assert chip_smoke.same_bits(got.evidence, want.evidence), label
+            if want.tracker is not None:
+                assert all(chip_smoke.same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker)), label
+            n += 1
+    assert n > 0
 
 
 @pytest.mark.cuda

@@ -10,6 +10,8 @@ decide how a CUDA launch spreads its work, checked on the CPU.
   the row bands of a thread-block cluster.
 * K5a and K5d (``kernels/pde_steps.py``): ``heat2d_cluster_plan`` cuts a
   heat2d field's interior rows into the bands of a thread-block cluster.
+* K2 and K4 heat1d (``kernels/heat_stencil.py``): ``heat1d_plan`` gives a
+  ``(br, nx)`` row block one warp or a cooperative grid.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.r2f2_matmul import (
 from repro_torch.kernels.pde_steps import (
     HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, field_fits, heat2d_cluster_plan,
 )
+from repro_torch.kernels.heat_stencil import CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, heat1d_plan
 from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
 
 H100_SMS = 132
@@ -247,3 +250,78 @@ def test_heat2d_cluster_plan_refuses_bad_asks():
     with pytest.raises(ValueError, match="cannot hold"):
         heat2d_cluster_plan(200, 200, 1)  # 39,204 cells in one CTA
     assert HEAT2D_MAX_CTA_CELLS == 512 * 16
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4 heat1d: heat1d_plan
+
+
+@pytest.mark.parametrize("br,nx,plan", [(1, 128, ("warp", 128, 1, 1)), (8, 128, ("warp", 256, 4, 1)), (2, 64, ("warp", 128, 1, 1)),
+                                         (1, 3, ("warp", 32, 1, 1))],
+                         ids=["main-path", "block-rows-8", "block-rows-2", "three-cells"])
+def test_heat1d_plan_at_the_path_shapes(br, nx, plan):
+    """The main path's (1, 128) rod (four warps, one cell a lane), the
+    kernel API's eight rows of 128, phase 2's (5, 64) at block_rows=2 and
+    the 3-cell rod (one warp)."""
+    assert heat1d_plan(br, nx) == plan
+
+
+@pytest.mark.parametrize("br,nx", [(1, 2048), (2, 1024), (8, 256), (1, 2049), (3, 683), (5, 410)])
+def test_heat1d_plan_warp_grid_boundary(br, nx):
+    """WARP_MAX warps of 8 cells a lane hold WARP_LIMIT = 2048 cells: one
+    cell more takes the grid, on two CTAs (GRID_THREADS * GRID_CELLS cells a
+    CTA)."""
+    plan = heat1d_plan(br, nx)
+    if br * nx <= WARP_LIMIT:
+        assert plan == ("warp", 32 * WARP_MAX, 8, 1)
+    else:
+        assert plan == ("grid", 2 * GRID_THREADS, 8, 2)
+
+
+def _owners(plan, n):
+    """How often each cell of an n-cell block is taken: lane l of the warp
+    shape's threads holds [l * cells, (l + 1) * cells); a grid thread holds
+    first + i * threads for i < cells, batch after batch while below n."""
+    seen = torch.zeros(n, dtype=torch.int64)
+    if plan.shape == "warp":
+        for lane in range(plan.threads):
+            seen[lane * plan.cells:min((lane + 1) * plan.cells, n)] += 1
+        return seen
+    batches = -(-n // (plan.threads * plan.cells))
+    for first in range(plan.threads):
+        walk = first + plan.threads * torch.arange(batches * plan.cells)
+        seen[walk[walk < n]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("br", [1, 2, 3, 8])
+def test_heat1d_plan_covers_every_cell_once(br):
+    """Every cell of blocks from 3 cells to well past the warp shape, and
+    at 30,000, 10**6 and 2 * 10**6 (batches), is taken by exactly one lane
+    or thread; the warp shape takes a warp for each 32 cells up to
+    WARP_MAX; the grid never has more CTAs than the card's SMs, nor fewer
+    than its cells ask for, and holds a block in one batch up to 32 cells a
+    thread."""
+    for nx in [*range(3, 700, 7), WARP_LIMIT // br, WARP_LIMIT // br + 1, 4096, 30_000, 10**6, 2 * 10**6]:
+        plan = heat1d_plan(br, nx)
+        n = br * nx
+        assert bool((_owners(plan, n) == 1).all()), (br, nx)
+        assert plan.cells in CELLS
+        if plan.shape == "warp":
+            assert plan.threads == 32 * min(WARP_MAX, -(-n // 32)) and plan.cells <= 8 and plan.ctas == 1
+        else:
+            assert plan.threads == plan.ctas * GRID_THREADS
+            assert plan.ctas == min(-(-n // (GRID_THREADS * GRID_CELLS)), H100_SMS)
+            assert plan.threads * plan.cells >= n or plan.cells == 32
+
+
+def test_heat1d_plan_refuses_nothing_from_three_cells():
+    """Any rod of at least 3 cells has a launch shape (there is no field
+    limit: the card runs heat1d where repro does); fewer cells, or no rows,
+    are refused."""
+    for nx in [*range(3, 3000), 25_600, 25_601, 10**6, 10**8]:
+        assert heat1d_plan(1, nx).shape in ("warp", "grid")
+    assert heat1d_plan(1, 10**8, n_sms=16).ctas == 16
+    for br, nx in ((1, 2), (0, 128), (4, 1)):
+        with pytest.raises(ValueError, match="nx >= 3"):
+            heat1d_plan(br, nx)
