@@ -61,8 +61,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cuBLAS SGEMM (K7 by replayed CUDA graphs, split and unsplit, with its
    launch shape: the K blocks split S over CTAs, the CTA count).
 
-``--heat1d-sizes`` runs from another checkout's root times that tree's
-kernels the same way, so two trees compare on one card.
+``--heat1d-sizes`` times heat1d's K2 and K4 as phase 5 does and runs
+heat1d's ladder rows, nothing else; its last line is those times, with no
+verdict. Copied into another checkout's root, it times that tree's kernels
+the same way, so two trees compare on one card.
 
 Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
 bit and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
@@ -1505,44 +1507,48 @@ HEAT1D_TIMED_NX = (3, 128, 1024, 2048, 4096, 25_600, 30_000, 10**6)
 def time_heat1d(device, card, sizes=HEAT1D_TIMED_NX):
     """K2 (one chunk of steps // 8 substeps) and K4 (a horizon of ``steps``
     substeps, a snapshot every chunk) in r2f2_16 on each rod of ``sizes``,
-    by CUDA events over back-to-back launches (the shortest, K2 on the
-    3-cell rod, is ~0.1 ms, more than its wrapper's host time), with the
-    launch shape; ``steps`` is the main path's 4000 on a rod of the warp
-    shape (up to 2048 cells), 400 to 30,000 cells, 40 beyond. A rod the
-    tree's kernels refuse is logged as refused. Returns the rows."""
-    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, heat1d_sweep
+    with the launch shape: device time by replayed CUDA graphs (the shortest
+    launch, K2 on the 3-cell rod, is ~0.2 ms, near its wrapper's host
+    time), on a grid-shape rod with L2 flushed before each launch (the
+    flush's own time subtracted); ``steps`` is the main path's 4000 on a rod
+    of the warp shape (up to 2048 cells), 400 to 30,000 cells, 40 beyond.
+    Returns the rows."""
+    import torch
+
+    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, heat1d_plan, heat1d_sweep
     from repro_torch.kernels.mega import heat1d_mega
 
     L = ladder()
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)  # 256 MB, five times the L2
     rows = []
     for nx in sizes:
         steps = 4000 if nx <= 2048 else 400 if nx <= 30_000 else 40
         chunk = steps // 8
         u = rod(nx, device)
         kw = dict(heat_args(nx), prec=L["r2f2_16"])
-        try:
-            shape = heat1d_launch_shape(1, nx)
-        except ImportError:  # a tree from before heat1d_plan: one CTA
-            shape = "[one CTA, the rod in shared memory]"
-        try:
-            sweep_ms, _ = cuda_time_ms(lambda: heat1d_sweep(u, steps=chunk, block_rows=1, **kw), 10)
-            mega_ms, _ = cuda_time_ms(lambda: heat1d_mega(u[0], steps=steps, every=chunk, sites=HEAT1D_SITES, **kw), 5)
-        except (ValueError, RuntimeError) as exc:
-            log(f"time heat1d nx={nx}: refused: {exc} [{card}]")
-            rows.append(dict(nx=nx, refused=str(exc)))
-            continue
-        row = dict(nx=nx, shape=shape, sweep_ms=sweep_ms, chunk=chunk, mega_ms=mega_ms, steps=steps,
+        cold = heat1d_plan(1, nx).shape == "grid"
+
+        def timed(fn, reps):
+            if cold:
+                return graph_time_ms(lambda: (flush.zero_(), fn())[1], reps, replays=3, base=flush.zero_)
+            return graph_time_ms(fn, reps, replays=3)
+
+        sweep_ms = timed(lambda: heat1d_sweep(u, steps=chunk, block_rows=1, **kw), 10)
+        mega_ms = timed(lambda: heat1d_mega(u[0], steps=steps, every=chunk, sites=HEAT1D_SITES, **kw), 2)
+        shape = heat1d_launch_shape(1, nx)
+        row = dict(nx=nx, shape=shape, l2_flushed=cold, sweep_ms=sweep_ms, chunk=chunk, mega_ms=mega_ms, steps=steps,
                    sweep_us_per_substep=sweep_ms * 1e3 / chunk, mega_us_per_substep=mega_ms * 1e3 / steps)
         rows.append(row)
-        log(f"time heat1d nx={nx} {shape}: K2 {sweep_ms:.4f} ms per {chunk} substeps ({row['sweep_us_per_substep']:.3f} us "
-            f"each), K4 {mega_ms:.4f} ms per {steps} ({row['mega_us_per_substep']:.3f} us each) [{card}]")
+        log(f"time heat1d nx={nx} {shape}{' L2 flushed' if cold else ''}: K2 {sweep_ms:.4f} ms per {chunk} substeps "
+            f"({row['sweep_us_per_substep']:.3f} us each), K4 {mega_ms:.4f} ms per {steps} "
+            f"({row['mega_us_per_substep']:.3f} us each) [{card}]")
     return rows
 
 
 def time_heat1d_shapes(device, card):
     """K4 on the main path's 128-cell rod (4000 substeps, r2f2_16) on each
     warp-shape launch that holds it: one warp of 4 cells a lane, two of 2,
-    four of 1 (the plan's). Returns the rows."""
+    four of 1 (the plan's), by replayed CUDA graphs. Returns the rows."""
     from repro_torch.kernels.heat_stencil import HEAT1D_SITES, Heat1DPlan
     from repro_torch.kernels.mega import heat1d_mega
 
@@ -1551,7 +1557,7 @@ def time_heat1d_shapes(device, card):
     rows = []
     for warps, cells in ((1, 4), (2, 2), (4, 1)):
         plan = Heat1DPlan("warp", 32 * warps, cells, 1)
-        ms, _ = cuda_time_ms(lambda: heat1d_mega(u, _plan=plan, **kw), 5)
+        ms = graph_time_ms(lambda: heat1d_mega(u, _plan=plan, **kw), 2, replays=3)
         rows.append(dict(warps=warps, cells=cells, ms=ms))
         log(f"time heat1d K4 (128,) on {heat1d_launch_shape(1, 128, plan)}: {ms:.4f} ms per 4000 substeps "
             f"({ms * 1e3 / 4000:.3f} us each) [{card}]")
@@ -1559,15 +1565,12 @@ def time_heat1d_shapes(device, card):
 
 
 def heat1d_sizes(device, card):
-    """``--heat1d-sizes``: :func:`time_heat1d` and heat1d's rows of the
-    ladder on the three planes (4000 steps, the six modes), nothing else:
-    the comparison of two trees on one card (run this file from each)."""
+    """``--heat1d-sizes``: :func:`time_heat1d`, :func:`time_heat1d_shapes`
+    and heat1d's rows of the ladder on the three planes (4000 steps, the six
+    modes), nothing else: the comparison of two trees on one card (run this
+    file from each). It holds no kernel against its plain version."""
     six = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked", "deploy")
-    out = dict(times=time_heat1d(device, card), ladder=[])
-    try:
-        out["shapes"] = time_heat1d_shapes(device, card)
-    except ImportError:  # a tree from before heat1d_plan
-        pass
+    out = dict(times=time_heat1d(device, card), shapes=time_heat1d_shapes(device, card), ladder=[])
     for execution in ("fused", "megakernel", "auto"):
         rows, _ = run_ladder(device, {"heat1d": MAIN_STEPS["heat1d"]}, {"heat1d": six}, execution)
         for r in rows:
@@ -1933,11 +1936,10 @@ def main(argv) -> int:
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
 
-    if "--heat1d-sizes" in argv:
+    if "--heat1d-sizes" in argv:  # timings only: its last line is the times, not a verdict
         report = heat1d_sizes(device, card)
         log(card)
-        print(json.dumps({"heat1d_sizes": report["times"]}))
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        print(json.dumps({"heat1d_sizes": report["times"], "shapes": report["shapes"]}))
         return 0
 
     t_phase = time.perf_counter()

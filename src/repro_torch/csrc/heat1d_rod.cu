@@ -21,26 +21,25 @@
 // selections, the rounding of every product), not bytes or operations (the
 // main path's 128-cell rod is 512 B and ~800 f32 operations a substep). The
 // design shortens the chain:
-//   warp shape (br * nx <= 2048 cells): W <= 8 warps of one CTA a block
-//     (one warp a scheduler at the main path's 128 cells), lane l holding
-//     cells [l*G, l*G + G) of the flattened block in registers; neighbours
-//     come by shuffle, each block max is a __reduce_max_sync over the
-//     magnitude bit patterns, whose result every lane has, so every lane
-//     selects the splits itself. One warp (up to 32 cells) needs no shared
-//     memory and no barrier in a substep, and K2 packs up to four such
-//     blocks, one a warp, into a CTA; W > 1 warps add three CTA barriers a
-//     substep (the two maxima through a word a warp, the warps' edge cells).
+//   warp shape (br * nx <= 2048 cells): one CTA a block of W <= 8 warps, one
+//     a 32 cells (one a scheduler at the main path's 128 cells), lane l of
+//     the CTA holding cells [l*G, l*G + G) of the flattened block in
+//     registers; neighbours come by shuffle, each block max is a
+//     __reduce_max_sync over the magnitude bit patterns and one over the
+//     warps' words, whose result every lane has, so every lane selects the
+//     splits itself. Three CTA barriers a substep (the two maxima, the
+//     warps' edge cells).
 //   grid shape (larger blocks): a cooperative grid of `ctas` CTAs a block,
 //     the field in global memory (the 50 MB L2 holds it) in two buffers;
 //     each thread holds G cells (strided by the grid's threads) and their
 //     laplacians in registers from the neighbours' loads, all in flight
 //     before the first use, to the update (a block beyond ctas * 256 * G cells
 //     walks batches of them, the laplacians through a third buffer); each
-//     block max is an atomicMax into a per-(block, substep) slot that the
-//     host zeroes (an integer max of bit patterns, so arrival order does
-//     not matter), and three grid barriers a substep (lap max, flux max,
-//     update), each one release-add and acquire spin on a counter. It has
-//     no size limit.
+//     block max is an atomicMax into a per-block slot of a ring of two
+//     substeps (an integer max of bit patterns, so arrival order does not
+//     matter), and three grid barriers a substep (lap max, flux max,
+//     update), each one release-add and acquire spin on a 64-bit counter.
+//     It has no size limit.
 // Both products of a substep come from a per-launch table of r2f2::ConstMul
 // (the constant rounded and the split's formats built for every k of the
 // table), read at the uniform split, with the product's variant
@@ -64,7 +63,6 @@ using r2f2::SiteState;
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpBlocks = 4;    // one-warp row blocks a warp-shape CTA packs
 constexpr int kMaxWarps = 8;      // warps of a warp-shape block (kernels/heat_stencil.py::WARP_MAX)
 constexpr int kGridThreads = 256;  // threads of a grid-shape CTA
 constexpr int kTable = 8;          // splits of the product table: every k of a format (eb >= 2, eb + fx <= 8)
@@ -75,8 +73,8 @@ struct Heat1DArgs {
   float* snaps;     // (steps / every, n) or null
   float* ev;        // (blocks, steps, 2, 2) or null
   float* work;      // grid shape: per block the other field buffer and the laplacian, 2n floats
-  uint32_t* maxes;  // grid shape: (blocks, steps, 2) zeroed: the lap and flux maxima
-  uint32_t* count;  // grid shape: (blocks,) zeroed: a launch's barrier counter (at its first block)
+  uint32_t* maxes;  // grid shape: (blocks, 2, 2) zeroed: the lap and flux maxima of a ring of two substeps
+  unsigned long long* count;  // grid shape: (blocks,) zeroed: a launch's barrier counter (at its first block)
   int* trk_k;       // the floor's start (the carried or pinned split; K2's k_floor), null for none
   float* trk_hi;
   float* trk_lo;
@@ -200,7 +198,9 @@ __device__ __forceinline__ Floor load_floor(const Heat1DArgs& a, Tracker& trk) {
 // A pass's product at the split the last substep ran it at. The split rarely
 // moves from one substep to the next, so a substep starts its products at
 // that split while its block max is still being reduced, and redoes them
-// only where the max gives another split: the same bits, off the chain.
+// only where the max gives another split: the same bits, with the products
+// and the table read off the chain (without it a substep of the main path's
+// rod took 1.7x as long on an H100, PERF.md section 6).
 // `fast`: the product is of the kernel's kind K (ConstMul::kind), so the
 // straight-line apply<K> gives its bits.
 template <int K>
@@ -212,12 +212,11 @@ struct Guess {
   __device__ Guess(int k_, const ConstMul& m) : k(k_), mul(m), fast(m.kind() == K) {}
 };
 
-// What the warps of one block share when there are several (W > 1): each
-// warp's block-max word of the lap and of the flux, and its edge cells (its
-// first lane's first cell and its last lane's last cell) for the neighbour
-// warps' laplacians. Three CTA barriers a substep (the two maxima and the
-// edges); each slot is written again only after the barrier that follows
-// every read of it.
+// What the warps of one block share: each warp's block-max word of the lap
+// and of the flux, and its edge cells (its first lane's first cell and its
+// last lane's last cell) for the neighbour warps' laplacians. Three CTA
+// barriers a substep (the two maxima and the edges); each slot is written
+// again only after the barrier that follows every read of it.
 struct Warps {
   uint32_t lap[kMaxWarps], flux[kMaxWarps];
   float edge[kMaxWarps][2];
@@ -225,24 +224,23 @@ struct Warps {
 
 __shared__ Warps warps;
 
-// One block's cells on W warps of a CTA: lane l of warp w holds cells
+// One block's cells on the W warps of a CTA: lane l of warp w holds cells
 // [(32w + l) * G, (32w + l) * G + G) of the flattened (br, nx) block (zeros
 // past its end), and bit g of `interior` says whether such a cell is an
-// interior cell of its row. One warp (W = 1) takes no barrier: neighbours
-// come by shuffle, each block max is one __reduce_max_sync. K is the kind of
-// every product of the launch's table (r2f2::ConstMul::kind; 0 is the f32
-// family, whose update is the folded fma), so the cells' loops have no
-// branch; kMulti says whether W > 1.
-template <int G, int K, bool kMulti>
+// interior cell of its row. K is the kind of the products the launch's table
+// holds (r2f2::ConstMul::kind; 0 is the f32 family, whose update is the
+// folded fma), so the cells' loops have no branch; a split whose product is
+// of another kind takes the generic one (kind 3) in that pass.
+template <int G, int K>
 struct Rod {
   float u[G];
   uint32_t interior;
   int c0, n, lane, warp, w_count;
   Guess<K> flux_guess, upd_guess;
 
-  __device__ Rod(const float* src, int n_, int nx, int warp_, int w_count_, const Step& c)
-      : c0((warp_ * 32 + static_cast<int>(threadIdx.x & 31)) * G), n(n_), lane(threadIdx.x & 31), warp(warp_),
-        w_count(w_count_), flux_guess(0, c.flux_at(0)), upd_guess(0, c.upd_at(0)) {
+  __device__ Rod(const float* src, int n_, int nx, const Step& c)
+      : c0(static_cast<int>(threadIdx.x) * G), n(n_), lane(threadIdx.x & 31), warp(threadIdx.x >> 5),
+        w_count(blockDim.x >> 5), flux_guess(0, c.flux_at(0)), upd_guess(0, c.upd_at(0)) {
     int col = c0 % nx;
     interior = 0u;
 #pragma unroll
@@ -257,7 +255,6 @@ struct Rod {
 
   // The warp's edge cells for its neighbours, behind a CTA barrier.
   __device__ void publish_edges() {
-    if constexpr (!kMulti) return;
     if (lane == 0) warps.edge[warp][0] = u[0];
     if (lane == 31) warps.edge[warp][1] = u[G - 1];
     __syncthreads();
@@ -266,7 +263,6 @@ struct Rod {
   // The block max of the lanes' magnitude bits `mx`, in every lane.
   __device__ uint32_t block_max(uint32_t mx, uint32_t* slots) const {
     mx = __reduce_max_sync(kFull, mx);
-    if constexpr (!kMulti) return mx;
     if (lane == 0) slots[warp] = mx;
     __syncthreads();
     return __reduce_max_sync(kFull, lane < w_count ? slots[lane] : 0u);
@@ -301,10 +297,8 @@ struct Rod {
   __device__ void substep(const Step& c, const Floor& f, int (&e)[4]) {
     float left = __shfl_up_sync(kFull, u[G - 1], 1);
     float right = __shfl_down_sync(kFull, u[0], 1);
-    if constexpr (kMulti) {
-      if (lane == 0 && warp > 0) left = warps.edge[warp - 1][1];
-      if (lane == 31 && warp + 1 < w_count) right = warps.edge[warp + 1][0];
-    }
+    if (lane == 0 && warp > 0) left = warps.edge[warp - 1][1];
+    if (lane == 31 && warp + 1 < w_count) right = warps.edge[warp + 1][0];
     float v[G], w[G], next[G];  // lap, flux, the updated cells
     uint32_t mx = 0u;
 #pragma unroll
@@ -342,17 +336,14 @@ struct Rod {
   }
 };
 
-// `w_count` warps a block: one block a CTA, or (w_count = 1) up to
-// kWarpBlocks blocks a CTA, one a warp.
-template <int G, int K, bool kMulti>
-__global__ void __launch_bounds__(kMaxWarps * 32) heat1d_warp_kernel(Heat1DArgs a, int w_count, AdjustLaw law, Policy p) {
+// One CTA of `threads` / 32 warps a block.
+template <int G, int K>
+__global__ void __launch_bounds__(kMaxWarps * 32) heat1d_warp_kernel(Heat1DArgs a, AdjustLaw law, Policy p) {
   const Step c(a, p);
-  const int warp = threadIdx.x >> 5;
-  const int b = kMulti ? blockIdx.x : blockIdx.x * kWarpBlocks + warp;
-  if (b >= a.blocks) return;  // a whole warp of a CTA of one-warp blocks: no barrier follows
+  const int b = blockIdx.x;
   const size_t base = static_cast<size_t>(b) * a.n;
-  Rod<G, K, kMulti> rod(a.u_in + base, a.n, a.nx, kMulti ? warp : 0, w_count, c);
-  const bool lead = kMulti ? threadIdx.x == 0 : (threadIdx.x & 31) == 0;  // the block's first lane
+  Rod<G, K> rod(a.u_in + base, a.n, a.nx, c);
+  const bool lead = threadIdx.x == 0;
   Tracker trk;
   Floor f = load_floor(a, trk);
   int e[4];
@@ -377,16 +368,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) heat1d_warp_kernel(Heat1DArgs 
 // writes (the CTA barrier), its thread 0 adds one to the launch's counter
 // with release semantics and spins on acquire loads until the counter
 // reaches `target`; the CTA barrier after it lets the CTA go on. The counter
-// only grows, so the n-th barrier of a launch waits for n times its CTAs.
-// (The same pattern as CUTLASS's generic barrier; cooperative_groups'
-// grid.sync() adds a full fence on each side.)
-__device__ __forceinline__ void grid_barrier(uint32_t* counter, uint32_t target) {
+// only grows, so the n-th barrier of a launch waits for n times its CTAs; it
+// is 64-bit, so it does not wrap (three barriers a substep on 132 CTAs would
+// wrap 32 bits in 11 million substeps). (The same pattern as CUTLASS's
+// generic barrier; cooperative_groups' grid.sync() adds a full fence on each
+// side.)
+__device__ __forceinline__ void grid_barrier(unsigned long long* counter, unsigned long long target) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
-    uint32_t seen = 0u;
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(counter) : "memory");
+    unsigned long long seen = 0ull;
     do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(counter) : "memory");
     } while (seen < target);
   }
   __syncthreads();
@@ -447,6 +440,7 @@ __global__ void __launch_bounds__(kGridThreads) heat1d_grid_kernel(Heat1DArgs a,
   const int col0 = first % a.nx, dcol = stride % a.nx;
   const bool lead = part == 0 && threadIdx.x == 0;
   const size_t base = static_cast<size_t>(b) * a.n;
+  uint32_t* ring = a.maxes + static_cast<size_t>(b) * 4;  // the lap and flux maxima of substeps s & 1
   float* other = a.work + 2 * base;
   float* lap = other + a.n;
   const float* src = a.u_in + base;
@@ -463,11 +457,11 @@ __global__ void __launch_bounds__(kGridThreads) heat1d_grid_kernel(Heat1DArgs a,
   };
   GridBatch<G> cells;
   int e[4];
-  uint32_t passed = 0u;  // the grid barriers behind
+  unsigned long long passed = 0ull;  // the grid barriers behind
   const auto grid_sync = [&] { grid_barrier(a.count, ++passed * gridDim.x); };
   for (int s = 0, until = a.every, snap = 0; s < a.steps; ++s) {
     float* dst = ((a.steps - 1 - s) & 1) == 0 ? a.u_out + base : other;
-    uint32_t* slot = a.maxes + (static_cast<size_t>(b) * a.steps + s) * 2;
+    uint32_t* slot = ring + (s & 1) * 2;
 
     uint32_t mx = 0u;
     for (int bi = 0, col = col0; bi < batches; ++bi) {
@@ -534,6 +528,10 @@ __global__ void __launch_bounds__(kGridThreads) heat1d_grid_kernel(Heat1DArgs a,
       ++snap;
       if (a.evolve) f.k[0] = trk.st[0].k, f.k[1] = trk.st[1].k;
     }
+    // the next substep's slots, beside the field's stores: every read of them
+    // (substep s - 1) is behind the barriers passed, every write (substep
+    // s + 1) behind the next
+    if (lead) ring[2 - (s & 1) * 2] = 0u, ring[3 - (s & 1) * 2] = 0u;
     grid_sync();  // the next laplacian reads the neighbours written above
     src = dst;
   }
@@ -541,13 +539,8 @@ __global__ void __launch_bounds__(kGridThreads) heat1d_grid_kernel(Heat1DArgs a,
 }
 
 template <int G, int K>
-cudaError_t launch_warp(const Heat1DArgs& a, int w_count, const AdjustLaw& law, const Policy& p, cudaStream_t stream) {
-  if (w_count == 1) {
-    heat1d_warp_kernel<G, K, false>
-        <<<(a.blocks + kWarpBlocks - 1) / kWarpBlocks, 32 * min(a.blocks, kWarpBlocks), 0, stream>>>(a, 1, law, p);
-  } else {
-    heat1d_warp_kernel<G, K, true><<<a.blocks, 32 * w_count, 0, stream>>>(a, w_count, law, p);
-  }
+cudaError_t launch_warp(const Heat1DArgs& a, int threads, const AdjustLaw& law, const Policy& p, cudaStream_t stream) {
+  heat1d_warp_kernel<G, K><<<a.blocks, threads, 0, stream>>>(a, law, p);
   return cudaGetLastError();
 }
 
@@ -578,7 +571,7 @@ cudaError_t launch_grid(Heat1DArgs a, int ctas, const AdjustLaw& law, const Poli
     g.u_in = a.u_in + at;
     g.u_out = a.u_out + at;
     g.work = a.work + 2 * at;
-    g.maxes = a.maxes + static_cast<size_t>(b0) * a.steps * 2;
+    g.maxes = a.maxes + static_cast<size_t>(b0) * 4;
     g.count = a.count + b0;
     if (a.ev != nullptr) g.ev = a.ev + static_cast<size_t>(b0) * a.steps * 4;
     void* args[] = {&g, &ctas, const_cast<AdjustLaw*>(&law), const_cast<Policy*>(&p)};
@@ -616,7 +609,7 @@ cudaError_t with_cells(int cells, Fn&& fn) {
 // (kernels/heat_stencil.py::heat1d_plan). K2 passes its k_floor as trk_k,
 // evolve 0 and every 0; K4 one block and its tracker rows.
 extern "C" int r2f2_heat1d(const float* u_in, float* u_out, float* snaps, float* ev, float* work, unsigned int* maxes,
-                           unsigned int* count, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
+                           unsigned long long* count, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                            const int* site_cfg, int evolve, int blocks, int n, int nx, int steps, int every, int shape,
                            int threads, int cells, int ctas, float alpha, float dtodx2, float ema, float one_minus,
                            int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx, int pinned,
@@ -632,8 +625,7 @@ extern "C" int r2f2_heat1d(const float* u_in, float* u_out, float* snaps, float*
     if (work == nullptr || maxes == nullptr || count == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_cells(cells, [&](auto g) { return launch_grid<decltype(g)::value>(a, ctas, law, p, s); }));
   }
-  const int w_count = threads / 32;
-  if (shape != 0 || threads % 32 != 0 || w_count < 1 || w_count > kMaxWarps || n > threads * cells || cells > 8)
+  if (shape != 0 || threads % 32 != 0 || threads < 32 || threads > 32 * kMaxWarps || n > threads * cells || cells > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_cells(cells, [&](auto g) {
     constexpr int G = decltype(g)::value;
@@ -641,9 +633,9 @@ extern "C" int r2f2_heat1d(const float* u_in, float* u_out, float* snaps, float*
       return cudaErrorInvalidValue;
     } else {
       switch (table_kind(p)) {
-        case 0: return launch_warp<G, 0>(a, w_count, law, p, s);
-        case 1: return launch_warp<G, 1>(a, w_count, law, p, s);
-        default: return launch_warp<G, 2>(a, w_count, law, p, s);
+        case 0: return launch_warp<G, 0>(a, threads, law, p, s);
+        case 1: return launch_warp<G, 1>(a, threads, law, p, s);
+        default: return launch_warp<G, 2>(a, threads, law, p, s);
       }
     }
   }));

@@ -16,8 +16,8 @@ the main path's ``(1, 128)`` row) or operations: a substep is two block
 maxima, two split selections and the rounding of every product. So
 :func:`heat1d_plan` gives a block of at most 2048 cells the warp shape, up
 to eight warps of one CTA with the cells in registers and each maximum a
-warp reduction (one warp, up to 32 cells, takes no barrier in a substep);
-a larger block runs on a cooperative grid over the block, which has no
+warp reduction and one over the warps (three CTA barriers a substep); a
+larger block runs on a cooperative grid over the block, which has no
 size limit.
 """
 
@@ -36,7 +36,7 @@ from repro_torch.precision.fusion import fused_family
 
 __all__ = [
     "CELLS", "GRID_CELLS", "GRID_THREADS", "HEAT1D_SITES", "HEAT1D_SWEEP", "Heat1DPlan", "WARP_LIMIT", "WARP_MAX",
-    "heat1d_plan", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas", "launch_heat1d",
+    "grid_scratch", "heat1d_plan", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas", "launch_heat1d",
 ]
 
 HEAT1D_SITES = ("heat.flux", "heat.update")
@@ -73,15 +73,15 @@ class Heat1DPlan(NamedTuple):
     shape: str  # "warp": warps of one CTA; "grid": a cooperative grid over the block
     threads: int  # threads on the block: 32 * warps, or ctas * GRID_THREADS
     cells: int  # cells a lane or thread holds in registers (a grid block beyond threads * cells walks batches)
-    ctas: int  # CTAs on the block (a CTA packs up to four one-warp blocks)
+    ctas: int  # CTAs on the block
 
 
 def heat1d_plan(br: int, nx: int, n_sms: int = 132) -> Heat1DPlan:
     """How K2 and K4 run one ``(br, nx)`` row block on a card of ``n_sms``
-    SMs. Up to :data:`WARP_LIMIT` cells, the warp shape: one warp for each
-    32 cells up to :data:`WARP_MAX` (one a scheduler at the main path's 128
-    cells), each lane holding ``cells`` consecutive cells of the flattened
-    block (the smallest of :data:`CELLS` that covers it). Beyond that a
+    SMs. Up to :data:`WARP_LIMIT` cells, the warp shape: one CTA of one
+    warp for each 32 cells up to :data:`WARP_MAX` (one a scheduler at the
+    main path's 128 cells), each lane holding ``cells`` consecutive cells of
+    the flattened block (the smallest of :data:`CELLS` that covers it). Beyond that a
     cooperative grid of ``ctas`` CTAs of :data:`GRID_THREADS` threads (one
     per ``GRID_THREADS * GRID_CELLS`` cells, at most ``n_sms``), thread ``t``
     of CTA ``c`` holding cells ``c * GRID_THREADS + t + i * threads`` for
@@ -98,6 +98,19 @@ def heat1d_plan(br: int, nx: int, n_sms: int = 132) -> Heat1DPlan:
     return Heat1DPlan("grid", ctas * GRID_THREADS, next((g for g in CELLS if g >= share), CELLS[-1]), ctas)
 
 
+def grid_scratch(rows, nx, br, device):
+    """The grid shape's scratch for a ``(rows, nx)`` field of ``(br, nx)``
+    blocks, whatever the number of substeps: the other field buffer and the
+    laplacian (f32), the lap and flux maxima of a ring of two substeps a
+    block (int32, zeroed; the kernel zeroes each substep's slots for the one
+    after next) and a 64-bit barrier counter a block (zeroed)."""
+    blocks = rows // br
+    work = torch.empty(2 * rows * nx, dtype=torch.float32, device=device)
+    maxes = torch.zeros(blocks * 4, dtype=torch.int32, device=device)
+    count = torch.zeros(blocks, dtype=torch.int64, device=device)
+    return work, maxes, count
+
+
 def launch_heat1d(u, out, plan, *, br, steps, alpha, dtodx2, prec, ev=None, k=None, tracker_rows=(None,) * 4,
                   table=None, evolve=False, every=0, snaps=None, law=(0.0, 0.0, 0)):
     """Launch ``csrc/heat1d_rod.cu`` on the ``(rows, nx)`` f32 field ``u``
@@ -109,11 +122,7 @@ def launch_heat1d(u, out, plan, *, br, steps, alpha, dtodx2, prec, ev=None, k=No
     ``every``-th substep."""
     rows, nx = u.shape
     blocks, n = rows // br, br * nx
-    work = maxes = count = None
-    if plan.shape == "grid":  # the other field buffer and the laplacian; the zeroed maxima and barrier counters
-        work = torch.empty(2 * rows * nx, dtype=torch.float32, device=u.device)
-        maxes = torch.zeros(blocks * max(steps, 1) * 2 + blocks, dtype=torch.int32, device=u.device)
-        maxes, count = maxes[:-blocks], maxes[-blocks:]
+    work, maxes, count = grid_scratch(rows, nx, br, u.device) if plan.shape == "grid" else (None, None, None)
     lib = _cuda.library()
     with torch.cuda.device(u.device):
         err = lib.r2f2_heat1d(

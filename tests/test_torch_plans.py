@@ -11,7 +11,8 @@ decide how a CUDA launch spreads its work, checked on the CPU.
 * K5a and K5d (``kernels/pde_steps.py``): ``heat2d_cluster_plan`` cuts a
   heat2d field's interior rows into the bands of a thread-block cluster.
 * K2 and K4 heat1d (``kernels/heat_stencil.py``): ``heat1d_plan`` gives a
-  ``(br, nx)`` row block one warp or a cooperative grid.
+  ``(br, nx)`` row block the warps of one CTA or a cooperative grid, and
+  ``grid_scratch`` sizes the grid's scratch.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -26,7 +27,9 @@ from repro_torch.kernels.r2f2_matmul import (
 from repro_torch.kernels.pde_steps import (
     HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, field_fits, heat2d_cluster_plan,
 )
-from repro_torch.kernels.heat_stencil import CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, heat1d_plan
+from repro_torch.kernels.heat_stencil import (
+    CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, grid_scratch, heat1d_plan,
+)
 from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
 
 H100_SMS = 132
@@ -325,3 +328,18 @@ def test_heat1d_plan_refuses_nothing_from_three_cells():
     for br, nx in ((1, 2), (0, 128), (4, 1)):
         with pytest.raises(ValueError, match="nx >= 3"):
             heat1d_plan(br, nx)
+
+
+@pytest.mark.parametrize("rows,nx,br", [(1, 30_000, 1), (1, 10**6, 1), (12, 4096, 3)])
+def test_heat1d_grid_scratch_does_not_grow_with_the_horizon(rows, nx, br):
+    """The grid shape's scratch is the same for any number of substeps: two
+    field buffers of the field's size, a ring of two substeps' lap and flux
+    maxima a block and one barrier counter a block, both zeroed. The counter
+    is 64-bit: three barriers a substep over 132 CTAs would wrap 32 bits
+    after about 11 million substeps, and a wrapped target lets CTAs past
+    the barrier early."""
+    work, maxes, count = grid_scratch(rows, nx, br, "cpu")
+    blocks = rows // br
+    assert work.dtype == torch.float32 and work.numel() == 2 * rows * nx
+    assert maxes.dtype == torch.int32 and maxes.numel() == 4 * blocks and not maxes.any()
+    assert count.dtype == torch.int64 and count.numel() == blocks and not count.any()
