@@ -19,15 +19,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    thread-block cluster);
    K4 (both megakernels) over the mode ladder at full width, with evolving,
    growing, pinned and bounded trackers, snapshots and evidence; K2 and K4
-   heat1d also on every launch shape of ``heat_stencil.heat1d_plan`` (the
-   3-cell rod, eight rows of 128, the warp shape's 2048-cell edge, the grid
-   one cell past it, on several blocks, in batches, at 30,000 and 10**6
-   cells); K6 and K7 on operands with f32-subnormal products or inputs
-   against their plain versions on the CPU under flush; K5 (the
-   fused sweeps and megakernels of heat2d, advection1d and burgers1d) the
-   same way at full width, and heat2d's thread-block clusters
-   (:data:`HEAT2D_CLUSTER_SHAPES`: 64x64 at every cluster size, 200x200,
-   an unaligned field and 3x3) over the six modes;
+   heat1d also on every launch shape of ``rod.rod_plan`` (the 3-cell rod,
+   eight rows of 128, the warp shape's 2048-cell edge, the grid one cell
+   past it, on several blocks, in batches, at 30,000 and 10**6 cells); K4
+   swe2d on its thread-block cluster at 128x128, on a forced grid there and
+   on the grid at 200x200 (kernel_blocks (256, 256, 128)); K6 and K7 on
+   operands with f32-subnormal products or inputs against their plain
+   versions on the CPU under flush; K5 (the fused sweeps and megakernels
+   of heat2d, advection1d and burgers1d) the same way at full width,
+   heat2d's thread-block clusters (:data:`HEAT2D_CLUSTER_SHAPES`: 64x64 at
+   every cluster size, 200x200, an unaligned field and 3x3) over the six
+   modes, and in r2f2_16, e5m10 and rr_tracked the 1-D bodies on every rod
+   shape (:data:`ROD_SHAPES`: 3 cells, 256, the 2048 edge, 2049, a forced
+   grid, 30,000 cells over 15 CTAs and in batches) and heat2d on the rod's
+   grid (:data:`HEAT2D_GRID_SHAPES`: 359x359, 400x400, a forced
+   grid at 64x64);
 3. the paper's experiment on the fused plane, then on the megakernel plane
    and through ``execution="auto"``: heat1d (nx=128, 4000 steps), swe2d
    (128x128, 400 steps), heat2d (64x64, 1500 steps), advection1d (nx=256,
@@ -49,7 +55,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the warp shape's edge, the grid shape up to 10**6 cells) with their
    launch shapes; heat2d's K5a and K5d at 64x64 for every cluster size by
    replayed CUDA graphs, with their launch shapes, and both along the
-   main path's horizon chunk by chunk;
+   main path's horizon chunk by chunk; the new launch shapes by replayed
+   CUDA graphs (:func:`time_shapes`: the 1-D K5 kernels by rod size,
+   heat2d's grid, K4 swe2d's cluster, its grid and its latency floor);
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -364,20 +372,24 @@ def rod(nx, device):
 
 
 def grid_on_one_cta(br, nx, cells=None):
-    """The grid shape on one CTA for a (br, nx) block, whatever heat1d_plan
+    """The grid shape on one CTA for a (br, nx) block, whatever rod_plan
     gives it: the grid's body on a small rod, or (``cells`` a thread fewer
     than the block needs) its batches."""
-    from repro_torch.kernels.heat_stencil import CELLS, GRID_THREADS, Heat1DPlan
+    from repro_torch.kernels.rod import CELLS, GRID_THREADS, RodPlan
 
     share = -(-br * nx // GRID_THREADS)
-    return Heat1DPlan("grid", GRID_THREADS, cells or next((g for g in CELLS if g >= share), CELLS[-1]), 1)
+    return RodPlan("grid", GRID_THREADS, cells or next((g for g in CELLS if g >= share), CELLS[-1]), 1)
 
 
 def heat1d_launch_shape(br, nx, plan=None) -> str:
-    """The launch of one (br, nx) block: heat1d_plan's (or the forced ``plan``)."""
-    from repro_torch.kernels.heat_stencil import heat1d_plan
+    """The launch of one (br, nx) block: rod_plan's (or the forced ``plan``)."""
+    from repro_torch.kernels.rod import rod_plan
 
-    p = plan or heat1d_plan(br, nx)
+    return rod_launch_shape(plan or rod_plan(br, nx))
+
+
+def rod_launch_shape(p) -> str:
+    """A rod plan (kernels/rod.py::RodPlan) as text."""
     if p.shape == "warp":
         return f"[warp shape: {p.threads // 32} warp(s) of one CTA, {p.cells} cells a lane]"
     return f"[grid shape: {p.ctas} CTAs x {p.threads // p.ctas} threads, up to {p.cells} cells a thread]"
@@ -520,7 +532,33 @@ def mega_cases(device):
     kw = dict(base["heat1d"], **heat_args(30_000), steps=100, every=40, prec=L["rr_tracked"], tracker=trk, collect_evidence=True,
               _plan=grid_on_one_cta(1, 30_000, cells=8))
     cases.append(("heat1d", "rr_tracked (30000,) on a forced grid in batches", rod(30_000, device)[0], kw))
+    # K4 swe2d's shapes beyond the main path's cluster: the main path's state
+    # on a forced grid, and the grid at 200x200 (beyond the cluster) under
+    # kernel_blocks (256, 256, 128), the preset shape that admits it
+    from repro_torch.kernels.mega import Swe2DPlan
+
+    forced = Swe2DPlan("grid", -(-scfg.nx * scfg.ny // 256), 256, 0)
+    big = dataclasses.replace(scfg, nx=200, ny=200)
+    U200 = initial_state(big, device="cpu").to(device)
+    for name in SHAPE_MODES:
+        trk = tracker_init(4, L[name].fmt, device=device) if get_engine(L[name]).tracks else None
+        kw = dict(base["swe2d"], prec=L[name], tracker=trk, collect_evidence=True, _plan=forced)
+        cases.append(("swe2d", f"{name} on a forced grid", U, kw))
+        prec = dataclasses.replace(L[name], kernel_blocks=(256, 256, 128))
+        trk = tracker_init(4, prec.fmt, device=device) if get_engine(prec).tracks else None
+        cases.append(("swe2d", f"{name} (200,200) kernel_blocks (256,256,128)", U200,
+                      dict(base["swe2d"], cfg=big, prec=prec, tracker=trk, collect_evidence=True)))
     return cases
+
+
+def swe2d_launch_shape(nx, ny, plan=None) -> str:
+    """The launch of K4 swe2d on an (nx, ny) state: swe2d_plan's (or the forced ``plan``)."""
+    from repro_torch.kernels.mega import swe2d_plan
+
+    p = plan or swe2d_plan(nx, ny)
+    if p.shape == "cluster":
+        return f"[cluster C={p.ctas} in row bands, {p.threads} threads, {p.rows} row(s) of a column a thread]"
+    return f"[cooperative grid of up to {p.ctas} CTAs x {p.threads} threads, four grid barriers a substep]"
 
 
 def check_mega(device):
@@ -542,7 +580,10 @@ def check_mega(device):
         name = f"{kern}_mega"
         errs[name] = max(errs[name], err)
         trk = "" if got.tracker is None else f" k={got.tracker.k.tolist()} adj=+{int(got.tracker.overflow_steps.sum())}/-{int(got.tracker.shrink_steps.sum())}"
-        shape = f" {heat1d_launch_shape(1, x.shape[-1], kw.get('_plan'))}" if kern == "heat1d" else ""
+        if kern == "heat1d":
+            shape = f" {heat1d_launch_shape(1, x.shape[-1], kw.get('_plan'))}"
+        else:
+            shape = f" {swe2d_launch_shape(x.shape[1], x.shape[2], kw.get('_plan'))}"
         log(f"K4 {name} {label} steps={kw['steps']} every={kw['every']}{shape}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{trk}")
         records.append(dict(kernel=name, case=label, ok=ok, max_abs_err=err))
         require(ok, f"{name} disagrees with its plain version: {label}")
@@ -666,13 +707,109 @@ def heat2d_cluster_cases(device, shapes=HEAT2D_CLUSTER_SHAPES):
     return cases
 
 
-def k5_launch_shape(nx, ny, cluster=None) -> str:
-    """The cluster heat2d's kernels run for an (nx, ny) field: C CTAs of
-    band rows, and each CTA's threads and cells per thread (the launcher's
-    heat2d_shape in csrc/pde_steps.cu)."""
-    from repro_torch.kernels.pde_steps import heat2d_cluster_plan
+#: the modes phase 2 holds the rod shapes, heat2d's grid and swe2d's shapes in
+SHAPE_MODES = ("r2f2_16", "e5m10", "rr_tracked")
+#: the rods phase 2 holds K5b, K5c, K5e and K5f at, on every launch shape of
+#: rod.rod_plan: (cells, forced shape): the 3-cell rod (one warp), the main
+#: path's 256 (eight warps), the warp shape's edge (2048 cells, eight warps
+#: of 8 cells a lane), the grid one cell past it (two CTAs), the main path's
+#: rod on a forced one-CTA grid, 30,000 cells (15 CTAs: the wrap crosses
+#: CTAs) and 30,000 on one CTA in 15 batches of 2048
+ROD_SHAPES = ((3, None), (256, None), (2048, None), (2049, None), (256, "grid"), (30_000, None), (30_000, "batches"))
+#: heat2d's fields on the rod's grid: one row and column past the cluster's
+#: capacity, 400x400, and the main path's 64x64 on a forced grid
+HEAT2D_GRID_SHAPES = (((359, 359), None), ((400, 400), None), ((64, 64), "grid"))
+#: their depths: fused substeps, and megakernel (substeps, every) with a
+#: remainder; fields of 30,000 cells and more (whose plain runs on the CPU
+#: take the time) the second
+SHAPE_CHECK_STEPS = ((30, (35, 15)), (10, (12, 5)))
 
-    c, band = heat2d_cluster_plan(nx, ny, cluster)
+
+def forced_plan(n, force):
+    """A forced rod plan on n cells: "grid" the grid on one CTA, "batches"
+    one CTA of 8 cells a thread (a block beyond 2048 cells walks batches)."""
+    return None if force is None else grid_on_one_cta(1, n, cells=8 if force == "batches" else None)
+
+
+def shape_kwargs(device, name, base, extra=None, large=False):
+    """A sweep's and a megakernel's kwargs in mode ``name``: evidence, the
+    tracked modes at a carried floor (sweep) and an evolving tracker, at
+    :data:`SHAPE_CHECK_STEPS`' depth for a small or a ``large`` field."""
+    import torch
+
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.precision import get_engine
+
+    prec = ladder()[name]
+    tracks = get_engine(prec).tracks
+    sweep_steps, (mega_steps, every) = SHAPE_CHECK_STEPS[int(large)]
+    sweep_kw = dict(base, prec=prec, steps=sweep_steps, collect_evidence=True, **(extra or {}))
+    if tracks:
+        sweep_kw["k_floor"] = torch.tensor([2, 1], dtype=torch.int32, device=device)
+    trk = tracker_init(2, prec.fmt, device=device) if tracks else None
+    mega_kw = dict(base, prec=prec, steps=mega_steps, every=every, tracker=trk, collect_evidence=True, **(extra or {}))
+    return sweep_kw, mega_kw
+
+
+def rod_shape_cases(device, shapes=ROD_SHAPES):
+    """(kernel, label, input, kwargs) for K5b, K5c, K5e and K5f on the rods
+    of ``shapes`` in :data:`SHAPE_MODES`, each rod made on the CPU from its
+    config at that many cells."""
+    from repro_torch.pde import get_stepper
+
+    cases = []
+    for case in ("advection1d", "burgers1d"):
+        stepper = get_stepper(case)
+        for nx, force in shapes:
+            cfg = dataclasses.replace(workload_config(case)[0], nx=nx)
+            u = stepper.init_state(cfg, device="cpu").to(device)
+            args = dict(speed=cfg.speed, dtodx=cfg.dtodx) if case == "advection1d" else dict(dt=cfg.dt, dx=cfg.dx)
+            plan = forced_plan(nx, force)
+            where = f"({nx},) {k5_launch_shape(1, nx, plan=plan, body=case)}"
+            for name in SHAPE_MODES:
+                extra = {} if plan is None else dict(_plan=plan)
+                sweep_kw, mega_kw = shape_kwargs(device, name, dict(args, sites=stepper.sites), extra, nx >= 30_000)
+                cases.append((f"{case}_sweep", f"{name} {where} ev", u, sweep_kw))
+                cases.append((f"{case}_mega", f"{name} {where}", u, mega_kw))
+    return cases
+
+
+def heat2d_grid_cases(device, shapes=HEAT2D_GRID_SHAPES):
+    """(kernel, label, input, kwargs) for K5a and K5d on the rod's grid, in
+    :data:`SHAPE_MODES`: fields beyond the cluster, and the main path's on a
+    forced grid."""
+    from repro_torch.pde import Heat2DConfig, get_stepper
+
+    stepper = get_stepper("heat2d")
+    cases = []
+    for (nx, ny), force in shapes:
+        cfg = Heat2DConfig(nx=nx, ny=ny)
+        u = stepper.init_state(cfg, device="cpu").to(device)
+        plan = forced_plan(nx * ny, force)
+        where = f"({nx},{ny}) {k5_launch_shape(nx, ny, plan=plan)}"
+        for name in SHAPE_MODES:
+            extra = {} if plan is None else dict(_plan=plan)
+            base = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, sites=stepper.sites)
+            sweep_kw, mega_kw = shape_kwargs(device, name, base, extra, nx * ny >= 30_000)
+            cases.append(("heat2d_sweep", f"{name} {where} ev", u, sweep_kw))
+            cases.append(("heat2d_mega", f"{name} {where}", u, mega_kw))
+    return cases
+
+
+def k5_launch_shape(nx, ny, cluster=None, plan=None, body="heat2d") -> str:
+    """The launch a K5 kernel runs for an (nx, ny) field (a rod: nx = 1):
+    heat2d's cluster, C CTAs of band rows, and each CTA's threads and cells
+    per thread (the launcher's heat2d_shape in csrc/pde_steps.cu), or a rod
+    shape (heat2d beyond its cluster, a periodic rod); ``cluster`` or
+    ``plan`` forced."""
+    from repro_torch.kernels.pde_steps import heat2d_plan
+    from repro_torch.kernels.rod import RodPlan, rod_plan
+
+    if plan is None:
+        plan = heat2d_plan(nx, ny, cluster=cluster) if body == "heat2d" else rod_plan(1, nx * ny, periodic=True)
+    if isinstance(plan, RodPlan):
+        return rod_launch_shape(plan)
+    c, band = plan
     cells = band * (ny - 2)
     per_thread = 1
     while per_thread * 512 < cells:
@@ -682,17 +819,20 @@ def k5_launch_shape(nx, ny, cluster=None) -> str:
 
 
 def check_k5(device, cases=None):
-    """Every K5 case (:func:`k5_cases` and :func:`heat2d_cluster_cases`
-    unless ``cases`` are given): state, evidence and (megakernels)
+    """Every K5 case (:func:`k5_cases`, :func:`heat2d_cluster_cases`,
+    :func:`rod_shape_cases` and :func:`heat2d_grid_cases` unless ``cases``
+    are given): state, evidence and (megakernels)
     snapshots and every tracker field bit-equal to the plain version on the
     CPU under flush."""
     workloads = {case: k5_workload(case, device) for case in K5_CASES}
     records = []
     errs = {f"{case}_{kind}": 0.0 for case in K5_CASES for kind in ("sweep", "mega")}
-    for kern, label, x, kw in cases if cases is not None else k5_cases(device) + heat2d_cluster_cases(device):
+    if cases is None:
+        cases = k5_cases(device) + heat2d_cluster_cases(device) + rod_shape_cases(device) + heat2d_grid_cases(device)
+    for kern, label, x, kw in cases:
         case, kind = kern.rsplit("_", 1)
         w = workloads[case]
-        plain_kw = {k: v for k, v in kw.items() if k != "_cluster"}
+        plain_kw = {k: v for k, v in kw.items() if k not in ("_cluster", "_plan")}
         if kind == "sweep":
             got, ev = w["sweep"](x, **kw)
             want, ev_want = plain_on_cpu(w["plain"], x, **plain_kw)
@@ -1286,7 +1426,8 @@ def check_card_vs_cpu(device, cases=None):
     the six modes, state, snapshots and every tracker field bit for bit
     (NaNs canonical) against the same run of the port on the CPU under
     flush (the plain versions, which the CPU tests hold equal to repro),
-    from the same initial state. The same CPU run keeping subnormals is
+    from the same initial state. For swe2d, the stepper that reaches f32
+    subnormals at these sizes, the same CPU run keeping subnormals is
     counted too: where it differs, the flush is what the check saw."""
     from repro_torch.pde import Simulation
 
@@ -1301,12 +1442,12 @@ def check_card_vs_cpu(device, cases=None):
                 card = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, **kw)
                 with cpu_flushed():
                     cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
-                kept = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
                 ok = same_bits(card.state.cpu(), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
                 if cpu.tracker is not None:
                     pairs = zip(card.tracker.state, cpu.tracker.state)
                     ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in pairs)
-                differs = not same_bits(kept.state, cpu.state)
+                differs = case == "swe2d" and not same_bits(
+                    Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw).state, cpu.state)
                 kept_differs += differs
                 line = (f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps: state, snapshots"
                         f"{', tracker' if cpu.tracker is not None else ''} bit-identical: {'ok' if ok else 'MISMATCH'}"
@@ -1434,18 +1575,18 @@ def time_kernels(device, main_launches, errs, card):
     # flush
     recs = []
     specs = [
-        ("heat1d_sweep", "heat1d_rod.cu", "src/repro/kernels/heat_stencil.py:65",
+        ("heat1d_sweep", "rod_warp.cu", "src/repro/kernels/heat_stencil.py:65",
          lambda: heat1d_sweep(u, **hk), (heat1d_sweep_plain, (u,), hk), bound(heat_bytes, heat_flops), 20, 2, 1,
          f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch {heat1d_launch_shape(1, cfg.nx)}"),
         ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
          lambda: swe_flux_fused(q1, q3, **sk), (swe_flux_fused_plain, (q1, q3), sk), bound(swe_bytes, swe_flops), 200, 5, 1,
          f"(127,128) r2f2_16, one tile {k3_launch_shape(q1, sk)}"),
-        ("heat1d_mega", "heat1d_rod.cu", "src/repro/kernels/mega.py:503",
+        ("heat1d_mega", "rod_warp.cu", "src/repro/kernels/mega.py:503",
          lambda: heat1d_mega(u1, **mk), (heat1d_mega, (u1,), dict(mk, plain=True)), bound(heat_mega_bytes, heat_mega_flops), 5, 1, 0,
          f"(128,) r2f2_16, one {hsteps}-substep horizon per launch {heat1d_launch_shape(1, cfg.nx)}"),
         ("swe2d_mega", "mega_pde.cu", "src/repro/kernels/mega.py:607",
          lambda: swe2d_mega(U, **mk_swe), (swe2d_mega, (U,), dict(mk_swe, plain=True)), bound(swe_mega_bytes, swe_mega_flops), 5, 1, 0,
-         f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch"),
+         f"(3,128,128) r2f2_16, one {ssteps}-substep horizon per launch {swe2d_launch_shape(scfg.nx, scfg.ny)}"),
     ]
     # K5 at the main path's shapes: a fused chunk of one snapshot interval,
     # and the whole horizon with a snapshot at every interval
@@ -1458,14 +1599,16 @@ def time_kernels(device, main_launches, errs, card):
         kw = dict(w["args"], prec=L["r2f2_16"], sites=w["sites"])
         fk, mk5 = dict(kw, steps=every), dict(kw, steps=steps, every=every)
         shape = "x".join(map(str, x.shape))
+        launch = k5_launch_shape(*((1,) + tuple(x.shape) if x.dim() == 1 else tuple(x.shape)), body=case)
+        src = "pde_steps.cu" if case == "heat2d" else "rod_warp.cu"
         specs += [
-            (f"{case}_sweep", "pde_steps.cu", K5_REPLACES[f"{case}_sweep"],
+            (f"{case}_sweep", src, K5_REPLACES[f"{case}_sweep"],
              lambda w=w, x=x, fk=fk: w["sweep"](x, **fk), (w["plain"], (x,), fk),
-             bound(2 * n * 4, every * flops), 20, 2, 1, f"({shape}) r2f2_16, {every} substeps per launch"),
-            (f"{case}_mega", "pde_steps.cu", K5_REPLACES[f"{case}_mega"],
+             bound(2 * n * 4, every * flops), 20, 1, 1, f"({shape}) r2f2_16, {every} substeps per launch {launch}"),
+            (f"{case}_mega", src, K5_REPLACES[f"{case}_mega"],
              lambda w=w, x=x, mk5=mk5: w["mega"](x, **mk5), (w["mega"], (x,), dict(mk5, plain=True)),
              bound((2 + steps // every) * n * 4, steps * flops), 5, 1, 0,
-             f"({shape}) r2f2_16, one {steps}-substep horizon per launch"),
+             f"({shape}) r2f2_16, one {steps}-substep horizon per launch {launch}"),
         ]
         tracked.append((f"{case}_mega", w["mega"], x, mk5, 2))
     for name, src, replaces, kern, (plain, args, kw), (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
@@ -1473,7 +1616,8 @@ def time_kernels(device, main_launches, errs, card):
         plain_ms, _ = cuda_time_ms(lambda: plain(*args, **kw), plain_reps, warmup=plain_warmup)
         ok = same_result(got, plain_on_cpu(plain, *args, **kw))
         call = ""
-        if name in ("swe_flux_fused", "heat1d_sweep"):  # microseconds: the kernel's device time, not the wrapper's call
+        if name in ("swe_flux_fused", "heat1d_sweep", "advection1d_sweep", "burgers1d_sweep"):
+            # microseconds: the kernel's device time, not the wrapper's call
             call = f" (device time, CUDA graph; {ms:.4f} ms per call with the host's wrapper)"
             ms = graph_time_ms(kern, reps)
         line = (f"time {name} {shape}: kernel {ms:.4f} ms{call}, plain {plain_ms:.4f} ms ({plain_warmup} warm-up), "
@@ -1515,7 +1659,8 @@ def time_heat1d(device, card, sizes=HEAT1D_TIMED_NX):
     Returns the rows."""
     import torch
 
-    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, heat1d_plan, heat1d_sweep
+    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, heat1d_sweep
+    from repro_torch.kernels.rod import rod_plan
     from repro_torch.kernels.mega import heat1d_mega
 
     L = ladder()
@@ -1526,7 +1671,7 @@ def time_heat1d(device, card, sizes=HEAT1D_TIMED_NX):
         chunk = steps // 8
         u = rod(nx, device)
         kw = dict(heat_args(nx), prec=L["r2f2_16"])
-        cold = heat1d_plan(1, nx).shape == "grid"
+        cold = rod_plan(1, nx).shape == "grid"
 
         def timed(fn, reps):
             if cold:
@@ -1549,14 +1694,15 @@ def time_heat1d_shapes(device, card):
     """K4 on the main path's 128-cell rod (4000 substeps, r2f2_16) on each
     warp-shape launch that holds it: one warp of 4 cells a lane, two of 2,
     four of 1 (the plan's), by replayed CUDA graphs. Returns the rows."""
-    from repro_torch.kernels.heat_stencil import HEAT1D_SITES, Heat1DPlan
+    from repro_torch.kernels.heat_stencil import HEAT1D_SITES
+    from repro_torch.kernels.rod import RodPlan
     from repro_torch.kernels.mega import heat1d_mega
 
     u = rod(128, device)[0]
     kw = dict(heat_args(128), prec=ladder()["r2f2_16"], steps=4000, every=500, sites=HEAT1D_SITES)
     rows = []
     for warps, cells in ((1, 4), (2, 2), (4, 1)):
-        plan = Heat1DPlan("warp", 32 * warps, cells, 1)
+        plan = RodPlan("warp", 32 * warps, cells, 1)
         ms = graph_time_ms(lambda: heat1d_mega(u, _plan=plan, **kw), 2, replays=3)
         rows.append(dict(warps=warps, cells=cells, ms=ms))
         log(f"time heat1d K4 (128,) on {heat1d_launch_shape(1, 128, plan)}: {ms:.4f} ms per 4000 substeps "
@@ -1622,6 +1768,72 @@ def time_heat2d(device, card, sizes=(1, 2, 4, 8, 16)):
         "; ".join(f"{ch['start']}: {ch['sweep_us']:.3f} / {ch['mega_us']:.3f}" for ch in chunks) +
         f"; whole horizon: K5d one launch {whole_ms:.4f} ms, the fused plane's {len(chunks)} launches {fused_total:.4f} ms [{card}]")
     return dict(sizes=rows, chunks=chunks, whole_mega_ms=whole_ms, fused_chunks_ms=fused_total)
+
+
+#: rods phase 5 times K5b/K5c and K5e/K5f on: the 3-cell latency floor (one
+#: warp), the main path's 256, the warp shape's edge (2048) and the grid (30,000)
+ROD_TIMED_NX = (3, 256, 2048, 30_000)
+
+
+def time_shapes(device, card):
+    """Device times by replayed CUDA graphs, r2f2_16, each with its launch
+    shape: K5b/K5c (a fused chunk of the main path's snapshot interval) and
+    K5e/K5f (the main path's horizon) on the rods of :data:`ROD_TIMED_NX`;
+    heat2d's K5a (187 substeps) and K5d (1500) on the rod's grid at 359x359
+    and 400x400 and on a forced grid at the main path's 64x64; K4 swe2d (400
+    substeps) on the cluster at the main path's 128x128, on a forced grid
+    there, on the grid at 200x200, and on its latency floor, the cluster on
+    a (32, 3) state (16 CTAs of two rows). Returns the rows."""
+    from repro_torch.kernels.mega import Swe2DPlan, swe2d_mega
+    from repro_torch.pde import Heat2DConfig, get_stepper
+    from repro_torch.pde.swe2d import initial_state
+
+    L = ladder()
+    rows = []
+
+    def row(kind, label, shape, ms, steps):
+        rows.append(dict(kernel=kind, case=label, shape=shape, ms=ms, substeps=steps, us_per_substep=ms * 1e3 / steps))
+        log(f"time {kind} {label} {shape}: {ms:.4f} ms per {steps} substeps ({ms * 1e3 / steps:.3f} us each) [{card}]")
+
+    for case in ("advection1d", "burgers1d"):
+        w, stepper = k5_workload(case, device), get_stepper(case)
+        steps = MAIN_STEPS[case]
+        every = snapshot_every(case, steps)
+        for nx in ROD_TIMED_NX:
+            cfg = dataclasses.replace(w["cfg"], nx=nx)
+            u = stepper.init_state(cfg, device="cpu").to(device)
+            args = dict(speed=cfg.speed, dtodx=cfg.dtodx) if case == "advection1d" else dict(dt=cfg.dt, dx=cfg.dx)
+            kw = dict(args, prec=L["r2f2_16"], sites=stepper.sites)
+            shape = k5_launch_shape(1, nx, body=case)
+            row(f"{case}_sweep", f"({nx},)", shape, graph_time_ms(lambda: w["sweep"](u, steps=every, **kw), 10), every)
+            row(f"{case}_mega", f"({nx},)", shape,
+                graph_time_ms(lambda: w["mega"](u, steps=steps, every=every, **kw), 2, replays=3), steps)
+    w, stepper = k5_workload("heat2d", device), get_stepper("heat2d")
+    steps = MAIN_STEPS["heat2d"]
+    every = snapshot_every("heat2d", steps)
+    for (nx, ny), force in (((359, 359), None), ((400, 400), None), ((64, 64), "grid")):
+        cfg = Heat2DConfig(nx=nx, ny=ny)
+        u = stepper.init_state(cfg, device="cpu").to(device)
+        plan = forced_plan(nx * ny, force)
+        kw = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=L["r2f2_16"], sites=stepper.sites)
+        if plan is not None:
+            kw["_plan"] = plan
+        shape = k5_launch_shape(nx, ny, plan=plan)
+        row("heat2d_sweep", f"({nx},{ny})", shape, graph_time_ms(lambda: w["sweep"](u, steps=every, **kw), 5), every)
+        row("heat2d_mega", f"({nx},{ny})", shape,
+            graph_time_ms(lambda: w["mega"](u, steps=steps, every=every, **kw), 2, replays=3), steps)
+    scfg = workload_config("swe2d")[0]
+    mk = dict(steps=MAIN_STEPS["swe2d"], every=SWE_EVERY, sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"),
+              site_ops=("mul", "mul", "mul", "div"))
+    for (nx, ny), plan, blocks in (((128, 128), None, None), ((128, 128), Swe2DPlan("grid", 64, 256, 0), None),
+                                   ((200, 200), None, (256, 256, 128)), ((32, 3), None, None)):
+        cfg = dataclasses.replace(scfg, nx=nx, ny=ny)
+        U = initial_state(cfg, device="cpu").to(device)
+        prec = L["r2f2_16"] if blocks is None else dataclasses.replace(L["r2f2_16"], kernel_blocks=blocks)
+        kw = dict(mk, cfg=cfg, prec=prec, _plan=plan)
+        row("swe2d_mega", f"(3,{nx},{ny})", swe2d_launch_shape(nx, ny, plan),
+            graph_time_ms(lambda: swe2d_mega(U, **kw), 2, replays=3), mk["steps"])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1932,7 +2144,9 @@ def main(argv) -> int:
     log_path = lib.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            if line.startswith("== "):
+                log(f"  nvcc: {line[3:]}")  # a source and its compile wall time
+            elif any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
 
@@ -1949,11 +2163,17 @@ def main(argv) -> int:
         log(f"phase {n} took {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
 
-    errs, records = check_kernels(device, 100 if quick else HEAT_CHUNK)
-    mega_errs, mega_records = check_mega(device)
-    k5_errs, k5_records = check_k5(device)
-    c_errs, c_records = check_contract_kernels(device)
-    flush_records = check_flush_contract(device)
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"  {label} took {time.perf_counter() - t:.1f} s")
+        return out
+
+    errs, records = timed("K2/K3 checks", check_kernels, device, 100 if quick else HEAT_CHUNK)
+    mega_errs, mega_records = timed("K4 checks", check_mega, device)
+    k5_errs, k5_records = timed("K5 checks", check_k5, device)
+    c_errs, c_records = timed("K6/K7 checks", check_contract_kernels, device)
+    flush_records = timed("K6/K7 flush checks", check_flush_contract, device)
     require(all(r["ok"] for r in flush_records), "K6 or K7 differs from its plain version on the CPU under flush")
     c_records += flush_records
     errs.update(mega_errs)
@@ -1992,12 +2212,14 @@ def main(argv) -> int:
     for execution in ("fused", "megakernel"):
         bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
         report["bench_compare"] += check_bench(bench)
-    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
-    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
-    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
-    report["planes"] = check_planes(device, cut) + check_mega_planes(device, MAIN_STEPS)
-    link, kept_differs = check_card_vs_cpu(device)
-    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "
+    # the reference plane at a cut depth (heat1d 500 of 4000 steps, swe2d 200
+    # of 400, heat2d 150 of 1500, advection1d 128 of 256, burgers1d 300 of
+    # 1200), the megakernel at the full horizons
+    cut = {"heat1d": 500, "swe2d": 200, "heat2d": 150, "advection1d": 128, "burgers1d": 300}
+    report["planes"] = timed("fused vs reference", check_planes, device, cut)
+    report["planes"] += timed("megakernel vs fused", check_mega_planes, device, MAIN_STEPS)
+    link, kept_differs = timed("card vs CPU", check_card_vs_cpu, device)
+    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of swe2d's differ "
         "on the CPU keeping subnormals")
     require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
     report["planes"] += link
@@ -2014,6 +2236,7 @@ def main(argv) -> int:
     recs = time_kernels(device, main_launches, errs, card)
     report["heat1d_times"] = time_heat1d(device, card)
     report["heat2d_times"] = time_heat2d(device, card)
+    report["shape_times"] = time_shapes(device, card)
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs

@@ -3,7 +3,7 @@
 //   K3 swe_flux_kernel  replaces repro/kernels/fused.py::fused_sweep with
 //                       repro/kernels/swe_flux.py::_swe_flux_body
 //
-// (K2, the heat1d sweep, is heat1d_rod.cu.) The host side
+// (K2, the heat1d sweep, is the rod, rod.cuh.) The host side
 // (kernels/fused.py::fused_sweep) pads the field and fixes the split blocks;
 // K3 gives one split tile to one thread-block cluster, so every block max
 // spans exactly the reference's block, pad lanes included. Evidence is

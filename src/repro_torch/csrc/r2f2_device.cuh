@@ -5,7 +5,10 @@
 //   quantize_em        core/flexformat.py::quantize_em_with_flags (value only)
 //   select_k, ...      core/r2f2.py (split widths in integer logic)
 //   block_max_u32      kernels/blockops.py::block_max_exp (as a CTA reduction)
-//   family_mul/div     kernels/fused.py::FusedOps.mul / .div
+//   family_mul/div     kernels/fused.py::FusedOps.mul / .div (ConstMul, PairMul:
+//                      a pass's formats built once, branch-free by kind)
+//   grid_barrier, cluster_publish/collect: barriers over a cooperative grid
+//                      and maxima over a thread-block cluster
 //   adjust_tick        core/policy.py::adjust_step (one site's tick)
 //
 // Build with --fmad=false -prec-div=true, so that nvcc contracts nothing on
@@ -308,17 +311,104 @@ struct ConstMul {
       return (*this)(x);
     }
   }
+
+  // family_mul_add(c, x, y, k, p) for a product of kind K: one rounding in
+  // the f32 and bf16 families, whose product is a plain f32 multiply.
+  template <int K>
+  __device__ float mul_add(float x, float y) const {
+    if constexpr (K == 0) {
+      return __fmaf_rn(c, x, y);
+    } else if constexpr (K == 1) {
+      return __fmaf_rn(c, bf16_round(x), y);
+    } else if constexpr (K == 2) {
+      return __fadd_rn(apply<2>(x), y);
+    } else {
+      if (family == kF32) return __fmaf_rn(c, x, y);
+      if (family == kBF16) return __fmaf_rn(c, bf16_round(x), y);
+      return __fadd_rn((*this)(x), y);
+    }
+  }
 };
+
+// One policy product or quotient of two variable operands at a pass's split
+// k: family_mul(a, b, k, p) and family_div(a, b, k, p) bit for bit, with the
+// split's formats built once (ConstMul's counterpart where neither operand is
+// a constant). Its kind is ConstMul's; the quotient rounds to the operand
+// format, with no tail truncation.
+struct PairMul {
+  int family;
+  SplitQuant q;
+
+  PairMul() = default;
+
+  __device__ PairMul(int k, const Policy& p, const TileQuant& fixed) : family(p.family) {
+    if (family != kF32 && family != kBF16) q = family == kFixed ? SplitQuant{fixed, fixed} : split_quant(k, p);
+  }
+
+  __device__ int kind() const { return family == kF32 ? 0 : family == kBF16 ? 1 : q.op.fast && q.prod.fast ? 2 : 3; }
+
+  template <int K>
+  __device__ float mul(float a, float b) const {
+    if constexpr (K == 0) {
+      return __fmul_rn(a, b);
+    } else if constexpr (K == 1) {
+      return __fmul_rn(bf16_round(a), bf16_round(b));
+    } else if constexpr (K == 2) {
+      return quantize_tile_fast(__fmul_rn(quantize_tile_fast(a, q.op), quantize_tile_fast(b, q.op)), q.prod);
+    } else {
+      if (family == kF32) return __fmul_rn(a, b);
+      if (family == kBF16) return __fmul_rn(bf16_round(a), bf16_round(b));
+      return rr_mul(a, b, q);
+    }
+  }
+
+  template <int K>
+  __device__ float div(float a, float b) const {
+    if constexpr (K == 0) {
+      return __fdiv_rn(a, b);
+    } else if constexpr (K == 1) {
+      return __fdiv_rn(bf16_round(a), bf16_round(b));
+    } else if constexpr (K == 2) {
+      return quantize_tile_fast(__fdiv_rn(quantize_tile_fast(a, q.op), quantize_tile_fast(b, q.op)), q.op);
+    } else {
+      if (family == kF32) return __fdiv_rn(a, b);
+      if (family == kBF16) return __fdiv_rn(bf16_round(a), bf16_round(b));
+      return rr_div(a, b, q);
+    }
+  }
+};
+
+// Host side: the kind (ConstMul::kind) a launch's products run at where its
+// formats are fast, a template parameter of its kernel: 0 f32, 1 bf16, 2 the
+// fixed family's and the rr splits' formats on quantize_tile_fast (a split
+// whose formats are not takes the generic product, kind 3, in that pass).
+inline int table_kind(const Policy& p) { return p.family == kF32 || p.family == kBF16 ? p.family : 2; }
 
 template <int K>
 struct MulKind {
   static constexpr int value = K;
 };
 
-// fn(MulKind<m.kind()>{}): a pass's cell loop compiled once per kind.
-template <typename Fn>
-__device__ __forceinline__ void with_kind(const ConstMul& m, Fn&& fn) {
+// fn(MulKind<m.kind()>{}) for a ConstMul or a PairMul: a pass's cell loop
+// compiled once per kind.
+template <typename Mul, typename Fn>
+__device__ __forceinline__ void with_kind(const Mul& m, Fn&& fn) {
   switch (m.kind()) {
+    case 0: fn(MulKind<0>{}); break;
+    case 1: fn(MulKind<1>{}); break;
+    case 2: fn(MulKind<2>{}); break;
+    default: fn(MulKind<3>{}); break;
+  }
+}
+
+// fn(MulKind<K>{}) for two products of one pass (of one family): K their
+// common kind, or 3 (the generic product, right for every kind) where a
+// split puts one on the fast path and not the other; four variants of the
+// pass where a nested with_kind would compile sixteen.
+template <typename MulA, typename MulB, typename Fn>
+__device__ __forceinline__ void with_kinds(const MulA& a, const MulB& b, Fn&& fn) {
+  const int k = a.kind();
+  switch (k == b.kind() ? k : 3) {
     case 0: fn(MulKind<0>{}); break;
     case 1: fn(MulKind<1>{}); break;
     case 2: fn(MulKind<2>{}); break;
@@ -414,6 +504,96 @@ __device__ __forceinline__ int block_max_exp(uint32_t local_mag_bits, uint32_t* 
   return mag_exponent(block_max_u32(local_mag_bits, scratch));
 }
 
+// ---------------------------------------------------------------------------
+// Barriers beyond one CTA
+
+// A barrier over a cooperative grid: once the CTA's threads are past their
+// writes (the CTA barrier), its thread 0 adds one to the launch's counter
+// with release semantics and spins on acquire loads until the counter
+// reaches `target`; the CTA barrier after it lets the CTA go on. The counter
+// only grows, so the n-th barrier of a launch waits for n times its CTAs; it
+// is 64-bit, so it does not wrap (three barriers a substep on 132 CTAs would
+// wrap 32 bits in 11 million substeps). (The same pattern as CUTLASS's
+// generic barrier; cooperative_groups' grid.sync() adds a full fence on each
+// side.) Data a barrier publishes is read with __ldcg (L2), never through L1.
+__device__ __forceinline__ void grid_barrier(unsigned long long* counter, unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(counter) : "memory");
+    unsigned long long seen = 0ull;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// The two halves of a thread-block cluster's barrier: arrive once this
+// thread's writes (shared memory, its own and the neighbours' through
+// distributed shared memory) are out, wait before reading what the others
+// wrote. Work between the two overlaps the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+// Field-wide maxima of N magnitude-bit words over a thread-block cluster of
+// n_ctas CTAs, in two halves around its barrier. cluster_publish folds each
+// thread's words into this CTA's `words` (a warp reduction, then one
+// shared-memory atomicMax a warp) and arrives; cluster_collect waits, then
+// lane r of every warp reads CTA r's words through distributed shared memory,
+// and every thread gets the maxima. A CTA zeroes its words again only after
+// the next cluster barrier, when every CTA has read them. An integer max of
+// bit patterns, so the order of arrival does not matter.
+template <int N>
+__device__ __forceinline__ void cluster_publish(uint32_t (&v)[N], uint32_t* words) {
+  for (int i = 0; i < N; ++i) {
+    v[i] = __reduce_max_sync(0xffffffffu, v[i]);
+    if ((threadIdx.x & 31) == 0) atomicMax(words + i, v[i]);
+  }
+  cluster_arrive();
+}
+
+template <int N, typename Cluster>
+__device__ __forceinline__ void cluster_collect(uint32_t (&v)[N], uint32_t* words, int n_ctas, const Cluster& cluster) {
+  cluster_wait();
+  const int lane = threadIdx.x & 31;
+  const uint32_t* remote = lane < n_ctas ? cluster.map_shared_rank(words, lane) : nullptr;
+  for (int i = 0; i < N; ++i) v[i] = __reduce_max_sync(0xffffffffu, remote != nullptr ? remote[i] : 0u);
+}
+
+// Host side: launch `kernel` on a cooperative grid (every CTA resident at
+// once, which a grid barrier needs) through cudaLaunchKernelEx.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cooperative(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                      cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The CTAs of `threads` threads and `smem` bytes of dynamic shared memory
+// that a cooperative grid of `kernel` holds on the current device.
+template <typename Kernel>
+inline cudaError_t cooperative_capacity(Kernel kernel, int threads, size_t smem, int& ctas) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  ctas = coop ? per_sm * sms : 0;
+  return err;
+}
+
 // Host side: the launch attributes a kernel needs beyond the defaults, set
 // once per kernel and device (at its first launch, so never inside a CUDA
 // graph's capture). `allowed` is the kernel's own record, one entry per device.
@@ -437,6 +617,31 @@ inline cudaError_t allow_large_clusters(Kernel kernel, bool* allowed) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
   return err;
+}
+
+// Host side: one thread-block cluster of `cluster` CTAs (cudaLaunchKernelEx
+// with a cluster dimension); `smem_allowed` and `clusters_allowed` are the
+// kernel's own records of the attributes set.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), size_t* smem_allowed, bool* clusters_allowed,
+                                  int cluster, int threads, size_t smem, void* stream, Args... args) {
+  cudaError_t err = allow_dynamic_smem(kernel, smem, smem_allowed);
+  if (err == cudaSuccess && cluster > 8) err = allow_large_clusters(kernel, clusters_allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace r2f2

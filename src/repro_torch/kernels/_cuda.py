@@ -9,12 +9,14 @@ and flags, so an edited source rebuilds and an unchanged one loads at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -27,8 +29,10 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_pde.cu", "mega_pde.cu", "heat1d_rod.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu")
-HEADERS = ("r2f2_device.cuh",)
+SOURCES = (
+    "fused_pde.cu", "mega_pde.cu", "rod_warp.cu", "rod_grid.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu",
+)
+HEADERS = ("r2f2_device.cuh", "rod.cuh")
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: IEEE arithmetic as the reference runs it: no fma contraction, IEEE
@@ -45,31 +49,29 @@ NVCC_FLAGS = (
 #: shared memory a one-CTA kernel may take for its field and scratch rows
 SMEM_LIMIT = 200 * 1024
 
+
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
-    # K2 and K4 heat1d: u_in, u_out, snaps, ev, work, maxes, count, trk k/hi/lo/ov/sh, site_cfg,
-    # evolve, blocks, n, nx, steps, every, shape, threads, cells, ctas, alpha, dtodx2, ema, 1 - ema,
-    # headroom, policy(8), stream
-    "r2f2_heat1d": [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
+    # the rod bodies (K2, K4 heat1d, K5b/c/e/f, K5a/d's grid): body, u_in, u_out, snaps, ev, work,
+    # maxes, count, trk k/hi/lo/ov/sh, site_cfg, evolve, blocks, n, row, steps, every, shape,
+    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), stream
+    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
     # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
     "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
-    # u_in, u_out, snaps, ev, work, maxes, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny,
-    # steps, every, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
-    "r2f2_swe2d_mega": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
+    # u_in, u_out, snaps, ev, work, maxes, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny,
+    # steps, every, shape, cluster, threads, rows, ctas, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2,
+    # ema, 1 - ema, headroom, policy(8), stream
+    "r2f2_swe2d_mega": [_P] * 14 + [_I] * 10 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
     # x, y, k_tiles, m, n, bm, bn, eb, mb, fx, stream
     "r2f2_quantize": [_P] * 3 + [_I] * 7 + [_P],
     # a, b, c, scratch, m, n, kdim, bm, bn, bk, splits, slots, eb, mb, fx, round_products,
     # tail_approx, stream
     "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
-# K5 (csrc/pde_steps.cu), one signature per template for the 1-D bodies:
-# sweep: u_in, u_out, ev, k_floor, nx, ny, steps, c0, c1, policy(8), stream
-# mega: u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps,
-# every, c0, c1, ema, 1 - ema, headroom, policy(8), stream
-for _body in ("advection1d", "burgers1d"):
-    _SIGNATURES[f"r2f2_{_body}_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 8 + [_P]
-    _SIGNATURES[f"r2f2_{_body}_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 4 + [_I] + [_I] * 8 + [_P]
-# heat2d's cluster kernels take the cluster's CTAs and band rows after c0, c1
+# heat2d's cluster kernels (csrc/pde_steps.cu): sweep u_in, u_out, ev, k_floor, nx, ny, steps,
+# c0, c1, the cluster's CTAs and band rows, policy(8), stream; mega u_in, u_out, snaps, ev,
+# trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band, ema, 1 - ema,
+# headroom, policy(8), stream
 _SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + [_P]
 _SIGNATURES["r2f2_heat2d_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + [_P]
 
@@ -124,6 +126,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
@@ -131,7 +134,10 @@ def build() -> Path:
         )
         for src, obj in zip(SOURCES, objs)
     ]
-    logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+    # each source's wall time, read as it finishes (the slowest sets the build's)
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(lambda p: (p.communicate()[0], time.perf_counter() - t0), procs))
+    logs = [f"== {src} ({seconds:.1f} s)\n{text}" for src, (text, seconds) in zip(SOURCES, done)]
     failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))

@@ -26,18 +26,19 @@ runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
 tensors; a CUDA tensor takes the plain version only with ``plain=True``.
 :data:`HEAT1D_MEGA`, :data:`SWE2D_MEGA`, :data:`HEAT2D_MEGA`,
 :data:`ADVECTION1D_MEGA` and :data:`BURGERS1D_MEGA` count each kernel's
-launches and its plain runs. Kernel K4 is ``csrc/heat1d_rod.cu`` for
-heat1d (K2's device body on the launch shape of
-``heat_stencil.heat1d_plan``: up to eight warps of one CTA up to 2048
-cells, else a cooperative grid) and ``csrc/mega_pde.cu::swe2d_mega_kernel``
-(a cooperative grid, the Lax-Wendroff intermediates in global memory,
-which the 50 MB L2 holds at this size). Kernels K5e-f
-are ``csrc/pde_steps.cu::mega_sweep_kernel``, one template over the fused
-sweeps' 1-D device bodies (``kernels/pde_steps.py``, whose ``BODIES`` table
-holds the K5 counters): one CTA holds the rod in shared memory for the
-whole horizon. K5d is ``heat2d_mega_kernel``, the fused sweep's
-thread-block cluster (``pde_steps.heat2d_cluster_plan``) with the adjust
-unit ticked in every CTA on the cluster-wide evidence.
+launches and its plain runs. Kernel K4 is ``csrc/rod.cuh`` for heat1d
+(K2's device body on the launch shape of ``rod.rod_plan``: up to eight
+warps of one CTA up to 2048 cells, else a cooperative grid) and
+``csrc/mega_pde.cu`` for swe2d on the shape of :func:`swe2d_plan`: one
+thread-block cluster of up to 16 CTAs in row bands, the state and the
+Lax-Wendroff intermediates in shared memory and registers, three cluster
+barriers a substep, where a CTA holds its band; else a cooperative grid,
+the intermediates in global memory (which the 50 MB L2 holds). Kernels
+K5e-f are the 1-D bodies of ``csrc/rod.cuh`` on their rod's shape, K5d
+heat2d's thread-block cluster (``csrc/pde_steps.cu::heat2d_mega_kernel``)
+or, beyond it, the rod's grid (``pde_steps.heat2d_plan``), with the
+adjust unit ticked on the card; ``pde_steps.BODIES`` holds the K5
+counters.
 
 Replaces the TPU kernel ``repro/kernels/mega.py::mega_sweep``
 (``_mega_kernel``) running ``heat1d_mega`` and ``swe2d_mega`` (K4), and
@@ -55,17 +56,25 @@ from repro_torch._device import f32_scalar
 from repro_torch.core.policy import RangeTracker, adjust_step
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
-from repro_torch.kernels.heat_stencil import _heat1d_body, heat1d_plan, launch_heat1d
+from repro_torch.kernels.heat_stencil import _heat1d_body
 from repro_torch.kernels.pde_steps import (
     ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
-    check_field, heat2d_cluster_plan,
+    k5_plan, launch_k5,
 )
+from repro_torch.kernels.rod import launch_rod, rod_plan
 from repro_torch.precision.fusion import fused_family
 
 __all__ = [
     "MegaResult",
     "HEAT1D_MEGA",
     "SWE2D_MEGA",
+    "SWE2D_CTA_CELLS",
+    "SWE2D_MAX_CLUSTER",
+    "SWE2D_MAX_THREADS",
+    "SWE2D_ROWS",
+    "Swe2DPlan",
+    "swe2d_plan",
+    "swe2d_grid_scratch",
     "mega_sweep",
     "mega_sweep_plain",
     "heat1d_mega",
@@ -261,7 +270,7 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     if u.dim() != 2 or u.shape[0] != 1:
         raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
     nx = u.shape[1]
-    plan = plan or heat1d_plan(1, nx, _cuda.sm_count(u.device))
+    plan = plan or rod_plan(1, nx, _cuda.sm_count(u.device))
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
     dev = u.device
@@ -271,16 +280,74 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
-    err = launch_heat1d(
-        u, out, plan, br=1, steps=steps, alpha=alpha, dtodx2=dtodx2, prec=prec, ev=ev, k=k, tracker_rows=(hi, lo, ov, sh),
-        table=table, evolve=evolve, every=every, snaps=snaps, law=(ema, one_minus, headroom),
+    err = launch_rod(
+        "heat1d", u, out, plan, br=1, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k,
+        tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
+        law=(ema, one_minus, headroom),
     )
     _cuda.check(err, "heat1d_mega")
     HEAT1D_MEGA.launches += 1
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops):
+#: swe2d's cluster (csrc/mega_pde.cu): at most SWE2D_MAX_CLUSTER CTAs of at
+#: most SWE2D_MAX_THREADS threads (170 registers each), each CTA holding at
+#: most SWE2D_CTA_CELLS points of its band and halo rows (four planes of
+#: three components, its Gy and Fx in shared memory: under 100 KB), each
+#: thread one of SWE2D_ROWS rows of a column (the kernel's template sizes).
+#: At the main path's 128x128, 384 threads of four rows took 11.68 us a
+#: substep and 640 of two 12.07 (PERF.md section 6)
+SWE2D_MAX_CLUSTER, SWE2D_MAX_THREADS, SWE2D_CTA_CELLS = 16, 384, 2048
+SWE2D_ROWS = (1, 2, 4)
+#: threads of a grid-shape CTA
+_SWE2D_GRID_THREADS = 256
+
+
+class Swe2DPlan(NamedTuple):
+    """The launch shape of swe2d's megakernel (``csrc/mega_pde.cu``)."""
+
+    shape: str  # "cluster": one thread-block cluster in row bands; "grid": a cooperative grid over the field
+    ctas: int  # the cluster's CTAs, or the grid's (at most; the launch takes as many as the card holds at once)
+    threads: int  # threads a CTA
+    rows: int  # cluster: rows of its column each thread works (0 on the grid)
+
+
+def swe2d_plan(nx: int, ny: int) -> Swe2DPlan:
+    """How K4 runs an ``(nx, ny)`` swe2d state. One thread-block cluster of
+    ``C = min(16, nx // 2)`` CTAs, CTA ``r`` owning rows ``[r*nx//C,
+    (r+1)*nx//C)`` (two or more, so each wall's mirror is its own), where a
+    CTA holds its band and two halo rows (at most :data:`SWE2D_CTA_CELLS`
+    points): thread ``t < R * ny`` works column ``t % ny`` of rows ``t // ny
+    + R*m``, ``m < rows``, with ``rows`` the fewest of :data:`SWE2D_ROWS`
+    that keeps the whole warps of ``R * ny`` threads within
+    :data:`SWE2D_MAX_THREADS` (the main path's 128x128 and 129x128, the
+    largest field of the default kernel_blocks, run 16 CTAs of 384 threads,
+    four rows each). Beyond that a cooperative grid, one CTA of 256 threads
+    per 256 points. Any ``nx, ny >= 3``."""
+    if min(nx, ny) < 3:
+        raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
+    c = min(SWE2D_MAX_CLUSTER, nx // 2)
+    band_rows = -(-nx // c) + 2
+    if band_rows * ny <= SWE2D_CTA_CELLS:
+        for rows in SWE2D_ROWS:
+            threads = 32 * -(-(-(-band_rows // rows) * ny) // 32)
+            if threads <= SWE2D_MAX_THREADS:
+                return Swe2DPlan("cluster", c, threads, rows)
+    return Swe2DPlan("grid", -(-nx * ny // _SWE2D_GRID_THREADS), _SWE2D_GRID_THREADS, 0)
+
+
+def swe2d_grid_scratch(nx, ny, device):
+    """The grid shape's scratch, whatever the number of substeps: 17 planes
+    of intermediates (f32), the four maxima of a ring of two substeps (int32,
+    zeroed; the kernel zeroes each substep's for the one after next) and the
+    64-bit barrier counter (zeroed)."""
+    work = torch.empty(17 * nx * ny, dtype=torch.float32, device=device)
+    maxes = torch.zeros(8, dtype=torch.int32, device=device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    return work, maxes, count
+
+
+def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None):
     (U,) = leaves
     U = U.contiguous()
     if U.dim() != 3 or U.shape[0] != 3 or min(U.shape[1:]) < 3:
@@ -288,18 +355,18 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     if len(sites) != 4 or _site_ops(sites, site_ops) != ("mul", "mul", "mul", "div"):
         raise ValueError(f"swe2d_mega's sites are (q1q1, q3q3, gq3, div) as mul, mul, mul, div; got {site_ops}")
     _, nx, ny = U.shape
+    plan = plan or swe2d_plan(nx, ny)
     dev = U.device
     n_out = steps // every
     out = torch.empty_like(U)
     snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
-    # the Lax-Wendroff intermediates, and per substep the four grid-wide
-    # magnitude maxima (zeroed here, so the kernel resets nothing)
-    work = torch.empty(17 * nx * ny, dtype=torch.float32, device=dev)
-    maxes = torch.zeros((max(steps, 1), 4), dtype=torch.int32, device=dev)
+    grid = plan.shape == "grid"
+    work, maxes, count = swe2d_grid_scratch(nx, ny, dev) if grid else (None, None, None)
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
-    ka = None if k is None else k.clone()  # the datapath floor, latched at boundaries
-    table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev)
+    ka = None if k is None or not grid else k.clone()  # the grid's datapath floor, latched at boundaries
+    # untracked, no host-to-device copy: a CUDA graph captures the launch
+    table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev if evolve else None)
     consts = [float(f32_scalar(v, "cpu")) for v in (
         cfg.dt / (2 * cfg.dx), cfg.dt / (2 * cfg.dy), cfg.dt / cfg.dx, cfg.dt / cfg.dy, 0.5 * 9.81,
     )]
@@ -307,27 +374,25 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     with torch.cuda.device(dev):
         err = lib.r2f2_swe2d_mega(
             _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work), _cuda.ptr(maxes),
-            _cuda.ptr(ka), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh),
-            _cuda.ptr(table), int(evolve), nx, ny, steps, every, *consts,
-            ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(U),
+            _cuda.ptr(count), _cuda.ptr(ka), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh),
+            _cuda.ptr(table), int(evolve), nx, ny, steps, every, int(grid), plan.ctas, plan.threads, plan.rows,
+            plan.ctas, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
+            _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")
     SWE2D_MEGA.launches += 1
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None):
-    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf: heat2d's
-    cluster, a rod's one CTA."""
+def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None,
+               plan=None):
+    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf
+    (``pde_steps.k5_plan``'s shape)."""
     (u,) = leaves
     u = u.contiguous()
     if u.shape != (1, nx * ny) or len(sites) != 2:
         raise ValueError(f"{body}_mega takes one (1, {nx * ny}) leaf and two sites; got {tuple(u.shape)}, {len(sites)} sites")
-    plan = ()
-    if body == "heat2d":
-        plan = heat2d_cluster_plan(nx, ny, cluster)
-    else:
-        check_field(body, nx, ny)
+    plan = k5_plan(body, nx, ny, u.device, cluster, plan)
     dev = u.device
     out = torch.empty_like(u)
     snaps = torch.empty((steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
@@ -335,14 +400,11 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"r2f2_{body}_mega")(
-            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev),
-            _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh), _cuda.ptr(table),
-            int(evolve), nx, ny, steps, every, *consts, *plan, ema, one_minus, headroom,
-            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
-        )
+    err = launch_k5(
+        body, u, out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k,
+        tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
+        law=(ema, one_minus, headroom),
+    )
     _cuda.check(err, f"{body}_mega")
     BODIES[body].mega.launches += 1
     return MegaResult((out,), (snaps,), tracker_out, ev)
@@ -359,7 +421,7 @@ def heat1d_mega(
 ) -> MegaResult:
     """Whole-horizon 1-D heat run of the ``(nx,)`` rod; snapshots come back
     as ``(n_out, nx)``. ``_plan`` asks the kernel for another launch shape
-    than ``heat_stencil.heat1d_plan``'s (the chip checks and timings)."""
+    than ``rod.rod_plan``'s (the chip checks and timings)."""
     nx = u0.shape[-1]
     kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites), plan=_plan)
     res = mega_sweep(
@@ -385,10 +447,14 @@ def _swe2d_body(cfg, sites):
 
 def swe2d_mega(
     U0, *, cfg, prec, steps, every, sites, site_ops, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False,
+    capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon shallow-water run of the stacked ``(3, nx, ny)`` state."""
-    kernel = functools.partial(_launch_swe2d, cfg=cfg, prec=prec, sites=tuple(sites), site_ops=tuple(site_ops))
+    """Whole-horizon shallow-water run of the stacked ``(3, nx, ny)`` state.
+    ``_plan`` asks the kernel for another launch shape than
+    :func:`swe2d_plan`'s (the chip checks and timings)."""
+    kernel = functools.partial(
+        _launch_swe2d, cfg=cfg, prec=prec, sites=tuple(sites), site_ops=tuple(site_ops), plan=_plan,
+    )
     res = mega_sweep(
         _swe2d_body(cfg, sites), (U0,), prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
         tracker=tracker, collect_evidence=collect_evidence, kernel=kernel, counter=SWE2D_MEGA, plain=plain,
@@ -399,9 +465,9 @@ def swe2d_mega(
 
 
 def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker, collect_evidence, capture, storage, plain,
-             cluster=None):
+             cluster=None, plan=None):
     kernel = functools.partial(
-        _launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites), cluster=cluster,
+        _launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites), cluster=cluster, plan=plan,
     )
     res = mega_sweep(
         fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
@@ -414,41 +480,44 @@ def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker
 
 def heat2d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _cluster=None,
+    capture=None, storage="f32", plain=False, _cluster=None, _plan=None,
 ) -> MegaResult:
     """Whole-horizon 2-D heat run of the ``(nx, ny)`` field; snapshots come
     back as ``(n_out, nx, ny)``. ``_cluster`` asks the kernel for a cluster
-    size other than the plan's (the chip checks and timings)."""
+    size other than the plan's, ``_plan`` for a grid shape (the chip checks
+    and timings)."""
     nx, ny = u0.shape
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _k5_mega(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain, cluster=_cluster,
+        storage=storage, plain=plain, cluster=_cluster, plan=_plan,
     )
 
 
 def advection1d_mega(
     u0, *, speed, dtodx, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False,
+    capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon upwind advection run of the ``(nx,)`` profile."""
+    """Whole-horizon upwind advection run of the ``(nx,)`` profile. ``_plan``
+    asks the kernel for another launch shape than ``rod.rod_plan``'s."""
     speed, dtodx = float(speed), float(dtodx)
     return _k5_mega(
         "advection1d", _advection1d_body(speed, dtodx, sites), u0, 1, u0.shape[-1], (speed, dtodx), prec=prec,
         steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
-        capture=capture, storage=storage, plain=plain,
+        capture=capture, storage=storage, plain=plain, plan=_plan,
     )
 
 
 def burgers1d_mega(
     u0, *, dt, dx, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False,
+    capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon Lax-Friedrichs Burgers run of the ``(nx,)`` wave."""
+    """Whole-horizon Lax-Friedrichs Burgers run of the ``(nx,)`` wave.
+    ``_plan`` asks the kernel for another launch shape than ``rod.rod_plan``'s."""
     dt, dx = float(dt), float(dx)
     return _k5_mega(
         "burgers1d", _burgers1d_body(dt, dx, sites), u0, 1, u0.shape[-1], (dt / (2.0 * dx), 0.5), prec=prec,
         steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
-        capture=capture, storage=storage, plain=plain,
+        capture=capture, storage=storage, plain=plain, plan=_plan,
     )

@@ -16,30 +16,30 @@ Replaces the TPU kernel ``repro/kernels/fused.py::fused_sweep``
 a few thousand f32 operations: the kernels are bound by the latency of the
 serial substep chain and its field-wide maxima, not by bytes or operations.
 
-heat2d (``csrc/pde_steps.cu::heat2d_sweep_kernel``, and the megakernel
-K5d) runs as one thread-block cluster of up to 16 CTAs in row bands
-(:func:`heat2d_cluster_plan`): each CTA holds its band and two halo rows in
-shared memory and each thread its cells in registers; the substep's two
-maxima and the halo exchange go through distributed shared memory, three
-cluster barriers a substep. 16 CTAs of 512 threads hold up to 16 interior
-cells a thread: at most :data:`HEAT2D_MAX_CTA_CELLS` interior cells a CTA,
-131,072 a field, so 358x358 is the largest square field. The 1-D bodies
-(``fused_sweep_kernel``) keep one CTA holding the rod in shared memory; a
-rod beyond one CTA's shared memory (:data:`SMEM_LIMIT`) is refused, where
-``repro`` on the TPU has no such limit. :func:`field_fits` says what the
-card takes; the steppers' shape gates ask it, so ``auto`` falls back.
+Every field size runs on the card, as on ``repro``. :func:`heat2d_plan`
+gives heat2d one thread-block cluster of up to 16 CTAs in row bands
+(``csrc/pde_steps.cu::heat2d_sweep_kernel``, and the megakernel K5d;
+:func:`heat2d_cluster_plan`) where its CTAs hold the field: each CTA holds
+its band and two halo rows in shared memory and each thread its cells in
+registers; the substep's two maxima and the halo exchange go through
+distributed shared memory, three cluster barriers a substep. 16 CTAs of 512
+threads hold up to 16 interior cells a thread: at most
+:data:`HEAT2D_MAX_CTA_CELLS` interior cells a CTA, so 358x358 is the largest
+square field there. A larger field runs on the grid shape of ``csrc/rod.cuh``
+(``rod.rod_plan``), as the periodic rods do on its warp or grid shape: the
+1-D bodies are rod bodies, each a substep of two barriers.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels._cuda import SMEM_LIMIT
 from repro_torch.kernels.fused import fused_sweep
+from repro_torch.kernels.rod import RodPlan, launch_rod, rod_plan
 from repro_torch.kernels.updates import advection1d_update, burgers1d_update, heat2d_update
 from repro_torch.precision.fusion import fused_family
 
@@ -54,13 +54,12 @@ __all__ = [
     "ADVECTION1D_MEGA",
     "BURGERS1D_MEGA",
     "BODIES",
-    "SMEM_LIMIT",
     "HEAT2D_CLUSTERS",
     "HEAT2D_CTA_CELLS",
     "HEAT2D_MAX_CTA_CELLS",
+    "ClusterPlan",
     "heat2d_cluster_plan",
-    "field_fits",
-    "check_field",
+    "heat2d_plan",
     "heat2d_sweep",
     "heat2d_sweep_plain",
     "advection1d_sweep",
@@ -82,19 +81,16 @@ BURGERS1D_MEGA = _cuda.KernelCounter("burgers1d_mega")
 
 
 class Body(NamedTuple):
-    """What the launchers know of one device body of csrc/pde_steps.cu."""
+    """The counters of one K5 body's two kernels."""
 
-    smem_rows: Optional[int]  # f32 rows of a one-CTA rod in shared memory (Body::kRows); heat2d: bands
-    sweep: _cuda.KernelCounter  # its fused sweep, C entry r2f2_<body>_sweep
-    mega: _cuda.KernelCounter  # its megakernel (kernels/mega.py), C entry r2f2_<body>_mega
+    sweep: _cuda.KernelCounter  # its fused sweep
+    mega: _cuda.KernelCounter  # its megakernel (kernels/mega.py)
 
 
-#: per 1-D body: the state and a scratch row, and for Lax-Friedrichs a second
-#: state row (its update reads both neighbours of the old state)
 BODIES = {
-    "heat2d": Body(None, HEAT2D_SWEEP, HEAT2D_MEGA),
-    "advection1d": Body(2, ADVECTION1D_SWEEP, ADVECTION1D_MEGA),
-    "burgers1d": Body(3, BURGERS1D_SWEEP, BURGERS1D_MEGA),
+    "heat2d": Body(HEAT2D_SWEEP, HEAT2D_MEGA),
+    "advection1d": Body(ADVECTION1D_SWEEP, ADVECTION1D_MEGA),
+    "burgers1d": Body(BURGERS1D_SWEEP, BURGERS1D_MEGA),
 }
 
 #: the cluster sizes heat2d's kernels are measured at (chip_smoke.py phase 5)
@@ -108,7 +104,14 @@ HEAT2D_MAX_CTA_CELLS = 512 * 16
 HEAT2D_CTA_CELLS = 256
 
 
-def heat2d_cluster_plan(nx: int, ny: int, cluster: Optional[int] = None) -> Tuple[int, int]:
+class ClusterPlan(NamedTuple):
+    """heat2d's thread-block cluster: ``ctas`` CTAs of ``band`` interior rows."""
+
+    ctas: int
+    band: int
+
+
+def heat2d_cluster_plan(nx: int, ny: int, cluster: Optional[int] = None) -> ClusterPlan:
     """``(C, band)``: the thread-block cluster that runs an ``(nx, ny)``
     heat2d field, C CTAs each owning ``band`` of its ``nx - 2`` interior
     rows (the last CTA the rest, every CTA at least one). By default C is
@@ -117,7 +120,8 @@ def heat2d_cluster_plan(nx: int, ny: int, cluster: Optional[int] = None) -> Tupl
     a size instead (fewer CTAs where the rows run out). Raises ValueError
     where the CTAs cannot hold the field (:data:`HEAT2D_MAX_CTA_CELLS`
     interior cells a CTA; their shared memory, the band and two halo rows,
-    stays under 100 KB then)."""
+    stays under 100 KB then): :func:`heat2d_plan` gives such a field the
+    grid."""
     if min(nx, ny) < 3:
         raise ValueError(f"heat2d needs nx, ny >= 3; got ({nx}, {ny})")
     ni, mi = nx - 2, ny - 2
@@ -131,30 +135,22 @@ def heat2d_cluster_plan(nx: int, ny: int, cluster: Optional[int] = None) -> Tupl
             f"heat2d's cluster of {cluster} CTAs cannot hold a ({nx}, {ny}) field: {band} x {mi} interior cells a CTA, "
             f"the kernel takes at most {HEAT2D_MAX_CTA_CELLS}"
         )
-    return -(-ni // band), band
+    return ClusterPlan(-(-ni // band), band)
 
 
-def check_field(body: str, nx: int, ny: int) -> None:
-    """Refuse a field a K5 kernel does not take (a rod has nx = 1): heat2d
-    beyond its largest cluster (:func:`heat2d_cluster_plan`), a rod beyond
-    one CTA's shared memory (:data:`SMEM_LIMIT`)."""
-    if body == "heat2d":
-        heat2d_cluster_plan(nx, ny, HEAT2D_CLUSTERS[-1])
-    elif BODIES[body].smem_rows * nx * ny * 4 > SMEM_LIMIT:
-        raise ValueError(
-            f"{body} holds its {nx * ny}-cell rod in one CTA's shared memory: "
-            f"{BODIES[body].smem_rows * nx * ny * 4} B needed, the kernel takes at most SMEM_LIMIT = {SMEM_LIMIT} B"
-        )
-
-
-def field_fits(body: str, nx: int, ny: int) -> bool:
-    """Whether the body's CUDA kernels take an ``(nx, ny)`` field
-    (:func:`check_field`): the card's shape gate."""
-    try:
-        check_field(body, nx, ny)
-    except ValueError:
-        return False
-    return True
+def heat2d_plan(nx: int, ny: int, n_sms: int = 132, *, cluster: Optional[int] = None) -> Union[ClusterPlan, RodPlan]:
+    """How K5a and K5d run an ``(nx, ny)`` heat2d field: the thread-block
+    cluster of :func:`heat2d_cluster_plan` where its CTAs hold the field (or
+    the ``cluster`` size asked for), else the grid shape of ``csrc/rod.cuh``
+    over the flattened field (``rod.rod_plan``; such a field is far beyond
+    its warp shape). Any ``nx, ny >= 3``."""
+    if cluster is not None or (nx - 2) * (ny - 2) <= HEAT2D_CLUSTERS[-1] * HEAT2D_MAX_CTA_CELLS:
+        try:
+            return heat2d_cluster_plan(nx, ny, cluster)
+        except ValueError:
+            if cluster is not None or min(nx, ny) < 3:
+                raise
+    return rod_plan(nx, ny, n_sms)  # a field the cluster cannot hold is far beyond the warp shape's cells
 
 
 def _heat2d_body(nx, ny, alpha, dtodx2, sites):
@@ -187,35 +183,63 @@ def _burgers1d_body(dt, dx, sites):
     return body
 
 
-def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster):
-    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf: heat2d's
-    cluster (:func:`heat2d_cluster_plan`), a rod's one CTA."""
+def k5_plan(body, nx, ny, device, cluster=None, plan=None):
+    """The launch shape of a K5 kernel on its field: heat2d's cluster or grid
+    (:func:`heat2d_plan`), a periodic rod's warp or grid shape
+    (``rod.rod_plan``); ``cluster`` or ``plan`` forces one."""
+    if plan is not None:
+        return plan
+    if body == "heat2d":
+        return heat2d_plan(nx, ny, _cuda.sm_count(device), cluster=cluster)
+    return rod_plan(1, nx * ny, _cuda.sm_count(device), periodic=True)
+
+
+def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, **kw):
+    """Launch a K5 kernel on the ``(1, nx*ny)`` leaf ``u`` into ``out``:
+    heat2d's cluster (``csrc/pde_steps.cu``, its own entries) or a rod shape
+    (``csrc/rod.cuh``, :func:`rod.launch_rod` with its keywords). Returns the
+    CUDA error code."""
+    if isinstance(plan, RodPlan):
+        field = u.view(nx, ny) if body == "heat2d" else u
+        return launch_rod(body, field, out.view(field.shape), plan, br=field.shape[0], steps=steps, consts=consts,
+                          prec=prec, **kw)
+    lib = _cuda.library()
+    policy = _cuda.policy_args(prec, fused_family(prec.mode))
+    ptrs = [_cuda.ptr(kw.get(name)) for name in ("snaps", "ev")]
+    with torch.cuda.device(u.device):
+        if kw.get("every", 0) == 0:  # the fused sweep
+            return lib.r2f2_heat2d_sweep(
+                _cuda.ptr(u), _cuda.ptr(out), ptrs[1], _cuda.ptr(kw.get("k")), nx, ny, steps, *consts, *plan, *policy,
+                _cuda.stream_of(u),
+            )
+        hi, lo, ov, sh = kw["tracker_rows"]
+        return lib.r2f2_heat2d_mega(
+            _cuda.ptr(u), _cuda.ptr(out), *ptrs, _cuda.ptr(kw.get("k")), *map(_cuda.ptr, (hi, lo, ov, sh)),
+            _cuda.ptr(kw.get("table")), int(kw["evolve"]), nx, ny, steps, kw["every"], *consts, *plan, *kw["law"],
+            *policy, _cuda.stream_of(u),
+        )
+
+
+def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster, plan):
+    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf (:func:`k5_plan`'s shape)."""
     (u,) = leaves
     u = u.contiguous()
     if n_sites != 2 or (gi, gj) != (1, 1) or u.shape != (1, nx * ny):
         raise ValueError(f"{body}_sweep takes one (1, {nx * ny}) block and two sites; got {tuple(u.shape)}, {n_sites} sites")
-    plan = ()
-    if body == "heat2d":
-        plan = heat2d_cluster_plan(nx, ny, cluster)
-    else:
-        check_field(body, nx, ny)
+    plan = k5_plan(body, nx, ny, u.device, cluster, plan)
     out = torch.empty_like(u)
     ev = torch.empty((1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
-    lib = _cuda.library()
-    with torch.cuda.device(u.device):
-        err = getattr(lib, f"r2f2_{body}_sweep")(
-            _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor), nx, ny, steps, *consts, *plan,
-            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
-        )
+    err = launch_k5(body, u, out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k_floor)
     _cuda.check(err, f"{body}_sweep")
     BODIES[body].sweep.launches += 1
     return [out], ev
 
 
 def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
-           cluster=None):
+           cluster=None, plan=None):
     kernel = functools.partial(
         _launch, body=body, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, n_sites=len(sites), cluster=cluster,
+        plan=plan,
     )
     (out,), ev = fused_sweep(
         fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, block=(1, nx * ny),
@@ -225,27 +249,29 @@ def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect
     return out.reshape(u0.shape), ev
 
 
-def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None):
+def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None,
+            plan=None):
     nx, ny = u0.shape
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _sweep(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, storage=storage, plain=plain,
-        cluster=cluster,
+        cluster=cluster, plan=plan,
     )
 
 
 def heat2d_sweep(
     u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32", _cluster=None,
+    capture=None, storage="f32", _cluster=None, _plan=None,
 ):
     """Advance an ``(nx, ny)`` field ``steps`` 5-point substeps in one
     launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
-    ``_cluster`` asks the kernel for a cluster size other than the plan's
-    (the chip checks and timings go through each size)."""
+    ``_cluster`` asks the kernel for a cluster size other than the plan's,
+    ``_plan`` for a grid shape (``rod.RodPlan``): the chip checks and
+    timings go through each."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, cluster=_cluster,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, cluster=_cluster, plan=_plan,
     )
 
 
@@ -257,24 +283,27 @@ def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, 
     )
 
 
-def _advection1d(u0, *, speed, dtodx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain):
+def _advection1d(u0, *, speed, dtodx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
+                 plan=None):
     speed, dtodx = float(speed), float(dtodx)
     return _sweep(
         "advection1d", _advection1d_body(speed, dtodx, sites), u0, 1, u0.shape[-1], (speed, dtodx), prec=prec,
         steps=steps, sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain,
+        storage=storage, plain=plain, plan=plan,
     )
 
 
 def advection1d_sweep(
     u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32",
+    capture=None, storage="f32", _plan=None,
 ):
     """Advance an ``(nx,)`` periodic profile ``steps`` upwind substeps in one
-    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None."""
+    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
+    ``_plan`` asks the kernel for another launch shape than ``rod.rod_plan``'s
+    (the chip checks and timings)."""
     return _advection1d(
         u0, speed=speed, dtodx=dtodx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, plan=_plan,
     )
 
 
@@ -288,24 +317,26 @@ def advection1d_sweep_plain(
     )
 
 
-def _burgers1d(u0, *, dt, dx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain):
+def _burgers1d(u0, *, dt, dx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, plan=None):
     dt, dx = float(dt), float(dx)
     return _sweep(
         "burgers1d", _burgers1d_body(dt, dx, sites), u0, 1, u0.shape[-1], (dt / (2.0 * dx), 0.5), prec=prec,
         steps=steps, sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain,
+        storage=storage, plain=plain, plan=plan,
     )
 
 
 def burgers1d_sweep(
     u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32",
+    capture=None, storage="f32", _plan=None,
 ):
     """Advance an ``(nx,)`` periodic wave ``steps`` Lax-Friedrichs substeps in
-    one launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None."""
+    one launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
+    ``_plan`` asks the kernel for another launch shape than ``rod.rod_plan``'s
+    (the chip checks and timings)."""
     return _burgers1d(
         u0, dt=dt, dx=dx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, plan=_plan,
     )
 
 

@@ -1,0 +1,113 @@
+"""The launch shapes of ``csrc/rod.cuh`` (``rod_warp.cu``, ``rod_grid.cu``), the explicit stencil bodies on a
+rod: K2 and K4 heat1d, the 1-D K5 bodies (advection1d, burgers1d) and
+heat2d's fields beyond its thread-block cluster.
+
+A field is flattened to a rod of ``n`` cells; :func:`rod_plan` gives a rod
+its shape. Up to :data:`WARP_LIMIT` cells the warp shape: up to eight warps
+of one CTA, the cells in registers, each field-wide maximum a warp reduction
+and one over the warps. Beyond it a cooperative grid over the rod, the field
+in global memory in two buffers, each maximum an atomic into a ring of two
+substeps and each pass behind a grid barrier; it has no size limit.
+:func:`launch_rod` launches one body on a plan.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import _cuda
+from repro_torch.precision.fusion import fused_family
+
+__all__ = [
+    "BODIES", "CELLS", "GRID_CELLS", "GRID_THREADS", "RodPlan", "WARP_LIMIT", "WARP_MAX", "grid_scratch",
+    "launch_rod", "rod_plan",
+]
+
+#: the bodies of csrc/rod.cuh (its enum Body)
+BODIES = {"heat1d": 0, "advection1d": 1, "burgers1d": 2, "heat2d": 3}
+#: cells a lane (warp shape, up to 8) or a thread (grid shape) holds in
+#: registers: the kernels' template sizes
+CELLS = (1, 2, 4, 8, 16, 32)
+#: the warp shape: at most WARP_MAX warps of one CTA on a block, so at most
+#: WARP_LIMIT cells
+WARP_MAX = 8
+WARP_LIMIT = 32 * WARP_MAX * 8
+#: threads of a grid-shape CTA, and the cells a thread should hold before the
+#: plan adds a CTA to the block (and the most a periodic rod's thread holds:
+#: csrc/rod.cuh::kPeriodicGridCells)
+GRID_THREADS, GRID_CELLS = 256, 8
+
+
+class RodPlan(NamedTuple):
+    """The launch shape of one block of a rod (``csrc/rod.cuh``)."""
+
+    shape: str  # "warp": warps of one CTA; "grid": a cooperative grid over the block
+    threads: int  # threads on the block: 32 * warps, or ctas * GRID_THREADS
+    cells: int  # cells a lane or thread holds in registers (a grid block beyond threads * cells walks batches)
+    ctas: int  # CTAs on the block
+
+
+def rod_plan(br: int, nx: int, n_sms: int = 132, *, periodic: bool = False) -> RodPlan:
+    """How the rod kernels run one ``(br, nx)`` block of ``br * nx`` cells on
+    a card of ``n_sms`` SMs: heat1d's row blocks, a periodic rod (one row:
+    advection1d, burgers1d) and heat2d's ``(nx, ny)`` field beyond its
+    cluster. Up to :data:`WARP_LIMIT` cells, the warp shape: one CTA of one
+    warp for each 32 cells up to :data:`WARP_MAX` (one a scheduler at the
+    main path's 128 cells), each lane holding ``cells`` consecutive cells of
+    the flattened block (the smallest of :data:`CELLS` that covers it).
+    Beyond that a cooperative grid of ``ctas`` CTAs of :data:`GRID_THREADS`
+    threads (one per ``GRID_THREADS * GRID_CELLS`` cells, at most ``n_sms``),
+    thread ``t`` of CTA ``c`` holding cells ``c * GRID_THREADS + t + i *
+    threads`` for ``i < cells`` (the smallest of :data:`CELLS` that covers
+    its share, at most 32, a periodic rod's at most :data:`GRID_CELLS`; a
+    larger block walks them in batches). Any ``nx >= 3`` (a periodic rod:
+    any ``nx >= 1``)."""
+    if br < 1 or nx < (1 if periodic else 3):
+        raise ValueError(f"a rod block needs br >= 1 and nx >= {1 if periodic else 3}; got ({br}, {nx})")
+    n = br * nx
+    if n <= WARP_LIMIT:
+        threads = 32 * min(WARP_MAX, -(-n // 32))
+        return RodPlan("warp", threads, next(g for g in CELLS if threads * g >= n), 1)
+    ctas = min(-(-n // (GRID_THREADS * GRID_CELLS)), n_sms)
+    share = -(-n // (ctas * GRID_THREADS))
+    most = GRID_CELLS if periodic else CELLS[-1]
+    return RodPlan("grid", ctas * GRID_THREADS, next((g for g in CELLS if g >= min(share, most)), most), ctas)
+
+
+def grid_scratch(rows, nx, br, device):
+    """The grid shape's scratch for a ``(rows, nx)`` field of ``(br, nx)``
+    blocks, whatever the number of substeps: the other field buffer and the
+    laplacian (f32), a substep's two maxima in a ring of two substeps a
+    block (int32, zeroed; the kernel zeroes each substep's slots for the one
+    after next) and a 64-bit barrier counter a block (zeroed)."""
+    blocks = rows // br
+    work = torch.empty(2 * rows * nx, dtype=torch.float32, device=device)
+    maxes = torch.zeros(blocks * 4, dtype=torch.int32, device=device)
+    count = torch.zeros(blocks, dtype=torch.int64, device=device)
+    return work, maxes, count
+
+
+def launch_rod(body, u, out, plan, *, br, steps, consts, prec, ev=None, k=None, tracker_rows=(None,) * 4, table=None,
+               evolve=False, every=0, snaps=None, law=(0.0, 0.0, 0)):
+    """Launch ``body`` of the rod kernels on the ``(rows, nx)`` f32 field
+    ``u`` (contiguous, ``rows`` a multiple of ``br``; heat2d's field is one
+    ``(nx, ny)`` block) into ``out`` on the launch shape ``plan`` of one
+    ``(br, nx)`` block, with the body's two constants ``consts``: a fused
+    sweep with its carried floor ``k`` and per-block evidence ``ev``
+    ``(blocks, steps, 2, 2)``; a megakernel (one block) with its tracker's
+    ``k`` and other rows, the adjust unit's ``table`` and ``law`` (ema, 1 -
+    ema, headroom), and ``snaps`` at every ``every``-th substep. Returns the
+    launch's CUDA error code."""
+    rows, nx = u.shape
+    blocks, n = rows // br, br * nx
+    work, maxes, count = grid_scratch(rows, nx, br, u.device) if plan.shape == "grid" else (None, None, None)
+    lib = _cuda.library()
+    with torch.cuda.device(u.device):
+        return lib.r2f2_rod(
+            BODIES[body], _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work),
+            _cuda.ptr(maxes), _cuda.ptr(count), _cuda.ptr(k), *map(_cuda.ptr, tracker_rows), _cuda.ptr(table),
+            int(evolve), blocks, n, nx, steps, every, int(plan.shape == "grid"), plan.threads, plan.cells, plan.ctas,
+            *map(float, consts), *law, *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(u),
+        )

@@ -65,10 +65,8 @@ class Advection1DStepper(Stepper):
     snapshots_default = 8
 
     def kernels_hold(self, cfg: AdvectionConfig) -> bool:
-        """Kernels K5b and K5e hold the rod in one CTA's shared memory."""
-        from repro_torch.kernels.pde_steps import field_fits
-
-        return field_fits("advection1d", 1, cfg.nx)
+        """Kernels K5b and K5e take a rod of any length (``kernels/rod.py::rod_plan``)."""
+        return True
 
     def default_config(self) -> AdvectionConfig:
         return AdvectionConfig()

@@ -62,10 +62,8 @@ class Burgers1DStepper(Stepper):
     snapshots_default = 8
 
     def kernels_hold(self, cfg: BurgersConfig) -> bool:
-        """Kernels K5c and K5f hold the rod in one CTA's shared memory."""
-        from repro_torch.kernels.pde_steps import field_fits
-
-        return field_fits("burgers1d", 1, cfg.nx)
+        """Kernels K5c and K5f take a rod of any length (``kernels/rod.py::rod_plan``)."""
+        return True
 
     def default_config(self) -> BurgersConfig:
         return BurgersConfig()

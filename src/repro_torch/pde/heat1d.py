@@ -74,7 +74,7 @@ class Heat1DStepper(Stepper):
 
     def kernels_hold(self, cfg: HeatConfig) -> bool:
         """Kernels K2 and K4 take a rod of any length
-        (``kernels/heat_stencil.py::heat1d_plan``)."""
+        (``kernels/rod.py::rod_plan``)."""
         return True
 
     def default_config(self) -> HeatConfig:

@@ -103,10 +103,9 @@ class Heat2DStepper(Stepper):
     snapshots_default = 8
 
     def kernels_hold(self, cfg: Heat2DConfig) -> bool:
-        """Kernels K5a and K5d hold the field in heat2d's cluster."""
-        from repro_torch.kernels.pde_steps import field_fits
-
-        return field_fits("heat2d", cfg.nx, cfg.ny)
+        """Kernels K5a and K5d take a field of any size: heat2d's cluster,
+        or beyond it a cooperative grid (``kernels/pde_steps.py::heat2d_plan``)."""
+        return True
 
     def default_config(self) -> Heat2DConfig:
         return Heat2DConfig()

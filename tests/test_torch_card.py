@@ -25,24 +25,25 @@ from repro_torch.precision import fused_eligible, mega_eligible
 
 R2F2 = PRESETS["r2f2_16"]
 
-# (stepper, config, the card's plane under auto): each kernel's field limit
-# and one past it (heat1d's kernels have none); the card falls back to the
-# reference plane where both of a stepper's kernels refuse the field
+# (stepper, config, the card's plane under auto): the field limits the
+# kernels had before the rod's grid shape took the 1-D K5 bodies and heat2d
+# beyond its cluster, and one past each: every builtin stepper's kernels now
+# take any field, as repro does
 LIMITS = [
     ("heat1d", HeatConfig(nx=25_600), "megakernel"),  # K2 and K4 take any length: a warp, then a cooperative grid
     ("heat1d", HeatConfig(nx=25_601), "megakernel"),
     ("heat1d", HeatConfig(nx=30_000), "megakernel"),
     ("heat1d", HeatConfig(nx=1_000_000), "megakernel"),
-    ("advection1d", AdvectionConfig(nx=25_600), "megakernel"),  # K5b, K5e: 2 rows
-    ("advection1d", AdvectionConfig(nx=25_601), "reference"),
-    ("burgers1d", BurgersConfig(nx=17_066), "megakernel"),  # K5c, K5f: 3 rows
-    ("burgers1d", BurgersConfig(nx=17_067), "reference"),
-    ("burgers1d", BurgersConfig(nx=20_000), "reference"),
+    ("advection1d", AdvectionConfig(nx=25_600), "megakernel"),  # K5b, K5e: the rod's grid shape
+    ("advection1d", AdvectionConfig(nx=25_601), "megakernel"),
+    ("burgers1d", BurgersConfig(nx=17_066), "megakernel"),  # K5c, K5f: the rod's grid shape
+    ("burgers1d", BurgersConfig(nx=17_067), "megakernel"),
+    ("burgers1d", BurgersConfig(nx=20_000), "megakernel"),
     ("heat2d", Heat2DConfig(nx=200, ny=200), "megakernel"),  # over one CTA's shared memory, in the cluster
     ("heat2d", Heat2DConfig(nx=358, ny=358), "megakernel"),  # 16 CTAs of 23 x 356 cells
-    ("heat2d", Heat2DConfig(nx=359, ny=359), "reference"),
+    ("heat2d", Heat2DConfig(nx=359, ny=359), "megakernel"),  # beyond the cluster: the rod's grid shape
     ("heat2d", Heat2DConfig(nx=258, ny=514), "megakernel"),  # 16 CTAs of 16 x 512 cells, the most a CTA holds
-    ("heat2d", Heat2DConfig(nx=258, ny=515), "reference"),
+    ("heat2d", Heat2DConfig(nx=258, ny=515), "megakernel"),
     ("swe2d", SWEConfig(), "megakernel"),
     ("swe2d", SWEConfig(nx=144, ny=144), "fused"),  # more than one K3 tile: the megakernel's own gate
 ]
@@ -65,11 +66,14 @@ def test_auto_on_the_card_falls_back_at_the_field_limits(name, cfg, plane):
 
 @pytest.mark.parametrize("execution", ["fused", "megakernel"])
 def test_explicit_plane_over_the_limit_raises(execution):
-    """An explicit kernel plane keeps raising ValueError where the card's
-    kernel cannot hold the field (ROADMAP.md queue 3)."""
-    sim = Simulation("burgers1d", BurgersConfig(nx=20_000), R2F2, device="cuda")
-    with pytest.raises(ValueError, match=f"not {execution}-eligible"):
-        sim.run(2, execution=execution)
+    """An explicit kernel plane past the old one-CTA limit (burgers1d at
+    20,000 cells, beyond the 17,066 one CTA's shared memory held) no longer
+    raises on the card: both planes are eligible there and resolve to
+    themselves, as on the CPU (ROADMAP.md queue 3, handled)."""
+    card = Simulation("burgers1d", BurgersConfig(nx=20_000), R2F2, device="cuda")
+    cpu = Simulation("burgers1d", BurgersConfig(nx=20_000), R2F2, device="cpu")
+    assert card._resolve_execution(execution) == execution == cpu._resolve_execution(execution)
+    assert card.fused_eligible() and card.mega_eligible()
 
 
 def test_builtin_steppers_declare_their_kernels():

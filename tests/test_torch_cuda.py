@@ -318,16 +318,16 @@ def _assert_runs_equal(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,size,plane,counter", [
     ("heat2d", (200, 200), "megakernel", "heat2d_mega"),
-    ("burgers1d", 20_000, "reference", None),
+    ("burgers1d", 20_000, "megakernel", "burgers1d_mega"),
     ("heat1d", 30_000, "megakernel", "heat1d_mega"),
 ], ids=["heat2d-200x200", "burgers1d-20000", "heat1d-30000"])
 def test_auto_runs_where_repro_does(name, size, plane, counter):
     """auto on the card at fields beyond one CTA's shared memory: heat2d at
-    200x200 runs its cluster megakernel and heat1d at 30,000 cells K4 on its
-    cooperative grid (one launch each), burgers1d falls back to the
-    reference plane (no kernel, no plain version); each equals the port's
-    CPU run under flush from the same initial state (the card's sin and
-    linspace differ from the CPU's in the last ulp)."""
+    200x200 runs its cluster megakernel, burgers1d at 20,000 cells K5f and
+    heat1d at 30,000 cells K4 on the rod's cooperative grid (one launch
+    each, no plain version); each equals the port's CPU run under flush
+    from the same initial state (the card's sin and linspace differ from
+    the CPU's in the last ulp)."""
     _need_card()
     import dataclasses
 
@@ -353,6 +353,104 @@ def test_auto_runs_where_repro_does(name, size, plane, counter):
         assert moved == ({counter: (1, 0)} if counter else {})
         want = _on_cpu_flushed(lambda: Simulation(name, cfg, prec, device="cpu").run(24, **kw))
         _assert_runs_equal(got, want)
+
+
+#: (stepper, field size) past the one-CTA and cluster limits the K5 kernels
+#: had: each runs on the rod's cooperative grid
+K5_ANY_SIZE = [("advection1d", dict(nx=30_000)), ("burgers1d", dict(nx=20_000)), ("heat2d", dict(nx=400, ny=400))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("execution", ["fused", "megakernel"])
+@pytest.mark.parametrize("name,size", K5_ANY_SIZE, ids=[n for n, _ in K5_ANY_SIZE])
+def test_k5_kernel_planes_take_any_size(name, size, execution):
+    """An explicit kernel plane at advection1d nx = 30,000, burgers1d
+    20,000 and heat2d 400x400 (all on the rod's grid) runs on the card, one
+    K5 sweep launch a chunk or one megakernel launch, no plain version, and
+    equals the port's CPU run under flush from the same initial state, in
+    r2f2_16, e5m10 and rr_tracked."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch import pde
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels import pde_steps
+
+    cfg = dataclasses.replace(pde.get_stepper(name).default_config(), **size)
+    body = pde_steps.BODIES[name]
+    ctr = body.sweep if execution == "fused" else body.mega
+    kw = dict(snapshot_every=10, execution=execution,
+              state0=pde.Simulation(name, cfg, PRESETS["f32"], device="cpu").stepper.init_state(cfg, device="cpu"))
+    for prec in (PRESETS["r2f2_16"], PRESETS["e5m10"], dataclasses.replace(PRESETS["r2f2_16"], mode="rr_tracked")):
+        sim = pde.Simulation(name, cfg, prec, device="cuda")
+        assert sim._resolve_execution("auto") == "megakernel"
+        before = (ctr.launches, ctr.plain_calls)
+        got = sim.run(24, **kw)
+        assert (ctr.launches - before[0], ctr.plain_calls - before[1]) == (3 if execution == "fused" else 1, 0)
+        want = _on_cpu_flushed(lambda: pde.Simulation(name, cfg, prec, device="cpu").run(24, **kw))
+        _assert_runs_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["(3,)", "(256,) [warp", "(2048,)", "(2049,)", "(256,) [grid", "(30000,) [grid shape: 15",
+                                   "(30000,) [grid shape: 1 CTA"])
+def test_rod_k5_kernels_match_plain_versions(shape):
+    """K5b, K5c, K5e and K5f on every rod shape of chip_smoke.ROD_SHAPES
+    (by the shape in their labels), against their plain versions on the CPU
+    under flush bit for bit, in r2f2_16, e5m10 and rr_tracked."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.rod_shape_cases("cuda") if f" {shape}" in c[1]]
+    assert len(cases) == 12
+    errs, records = chip_smoke.check_k5("cuda", cases)
+    assert all(r["ok"] for r in records) and max(errs.values()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["(359,359)", "(400,400)", "(64,64)"])
+def test_heat2d_grid_matches_plain(shape):
+    """K5a and K5d on the rod's grid (fields beyond the cluster, and the
+    main path's on a forced grid) against the plain version on the CPU
+    under flush, bit for bit, in r2f2_16, e5m10 and rr_tracked."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.heat2d_grid_cases("cuda") if f" {shape} " in c[1]]
+    assert len(cases) == 6
+    errs, records = chip_smoke.check_k5("cuda", cases)
+    assert all(r["ok"] for r in records) and max(errs.values()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cluster", "forced grid", "(200,200)"])
+def test_swe2d_mega_shapes_match_plain(which):
+    """K4 swe2d on its cluster (the main path's 128x128 over the ladder and
+    the trackers), on a forced grid at 128x128, and on the grid at 200x200
+    under kernel_blocks (256, 256, 128), against its plain version on the
+    CPU under flush bit for bit: state, snapshots, evidence, tracker."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    from repro_torch.kernels.mega import swe2d_mega, swe2d_plan
+
+    def picked(label, kw):
+        if which == "cluster":
+            return kw.get("_plan") is None and swe2d_plan(kw["cfg"].nx, kw["cfg"].ny).shape == "cluster"
+        return which in label
+
+    cases = [(label, x, kw) for kern, label, x, kw in chip_smoke.mega_cases("cuda") if kern == "swe2d" and picked(label, kw)]
+    assert cases
+    for label, x, kw in cases:
+        got = swe2d_mega(x, **kw)
+        want = chip_smoke.plain_on_cpu(swe2d_mega, x, plain=True, **{k: v for k, v in kw.items() if k != "_plan"})
+        assert chip_smoke.same_bits(got.state, want.state) and chip_smoke.same_bits(got.snaps, want.snaps), label
+        assert chip_smoke.same_bits(got.evidence, want.evidence), label
+        if want.tracker is not None:
+            assert all(chip_smoke.same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker)), label
 
 
 @pytest.mark.cuda

@@ -9,10 +9,15 @@ decide how a CUDA launch spreads its work, checked on the CPU.
 * K3 (``kernels/swe_flux.py``): ``cluster_plan`` cuts one split tile into
   the row bands of a thread-block cluster.
 * K5a and K5d (``kernels/pde_steps.py``): ``heat2d_cluster_plan`` cuts a
-  heat2d field's interior rows into the bands of a thread-block cluster.
-* K2 and K4 heat1d (``kernels/heat_stencil.py``): ``heat1d_plan`` gives a
-  ``(br, nx)`` row block the warps of one CTA or a cooperative grid, and
+  heat2d field's interior rows into the bands of a thread-block cluster;
+  ``heat2d_plan`` gives a field beyond it the rod's grid.
+* The rod kernels, K2 and K4 heat1d and the 1-D K5 bodies
+  (``kernels/rod.py``): ``rod_plan`` gives a ``(br, nx)`` row block or a
+  periodic rod the warps of one CTA or a cooperative grid, and
   ``grid_scratch`` sizes the grid's scratch.
+* K4 swe2d (``kernels/mega.py``): ``swe2d_plan`` gives a state one
+  thread-block cluster in row bands or a cooperative grid, and
+  ``swe2d_grid_scratch`` sizes the grid's scratch.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -24,11 +29,14 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.r2f2_matmul import (
     MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
 )
-from repro_torch.kernels.pde_steps import (
-    HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, field_fits, heat2d_cluster_plan,
+from repro_torch.kernels.mega import (
+    SWE2D_CTA_CELLS, SWE2D_MAX_CLUSTER, SWE2D_MAX_THREADS, SWE2D_ROWS, swe2d_grid_scratch, swe2d_plan,
 )
-from repro_torch.kernels.heat_stencil import (
-    CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, grid_scratch, heat1d_plan,
+from repro_torch.kernels.pde_steps import (
+    HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, ClusterPlan, heat2d_cluster_plan, heat2d_plan,
+)
+from repro_torch.kernels.rod import (
+    CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, RodPlan, grid_scratch, rod_plan,
 )
 from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
 
@@ -236,13 +244,18 @@ def test_heat2d_cluster_plan_at_the_main_path_sizes():
 
 @pytest.mark.parametrize("shape", [(359, 359), (258, 515), (3, 8195), (131_075, 3)])
 def test_heat2d_cluster_plan_refuses_beyond_capacity(shape):
-    """16 CTAs hold at most HEAT2D_MAX_CTA_CELLS interior cells each; a field
-    beyond that is refused, and field_fits (the card's shape gate) says so."""
+    """16 CTAs hold at most HEAT2D_MAX_CTA_CELLS interior cells each; the
+    cluster refuses a field beyond that, and heat2d_plan gives it the rod's
+    cooperative grid instead (one row or column fewer fits the cluster)."""
     with pytest.raises(ValueError, match="cannot hold"):
         heat2d_cluster_plan(*shape)
-    assert not field_fits("heat2d", *shape)
     nx, ny = shape
-    assert field_fits("heat2d", nx - 1, ny) or field_fits("heat2d", nx, ny - 1)
+    assert heat2d_plan(nx, ny) == rod_plan(nx, ny) and heat2d_plan(nx, ny).shape == "grid"
+    assert _in_cluster(nx - 1, ny) or _in_cluster(nx, ny - 1)
+
+
+def _in_cluster(nx, ny):
+    return min(nx, ny) >= 3 and isinstance(heat2d_plan(nx, ny), ClusterPlan)
 
 
 def test_heat2d_cluster_plan_refuses_bad_asks():
@@ -256,7 +269,7 @@ def test_heat2d_cluster_plan_refuses_bad_asks():
 
 
 # ---------------------------------------------------------------------------
-# K2 and K4 heat1d: heat1d_plan
+# K2 and K4 heat1d: rod_plan
 
 
 @pytest.mark.parametrize("br,nx,plan", [(1, 128, ("warp", 128, 1, 1)), (8, 128, ("warp", 256, 4, 1)), (2, 64, ("warp", 128, 1, 1)),
@@ -266,7 +279,7 @@ def test_heat1d_plan_at_the_path_shapes(br, nx, plan):
     """The main path's (1, 128) rod (four warps, one cell a lane), the
     kernel API's eight rows of 128, phase 2's (5, 64) at block_rows=2 and
     the 3-cell rod (one warp)."""
-    assert heat1d_plan(br, nx) == plan
+    assert rod_plan(br, nx) == plan
 
 
 @pytest.mark.parametrize("br,nx", [(1, 2048), (2, 1024), (8, 256), (1, 2049), (3, 683), (5, 410)])
@@ -274,7 +287,7 @@ def test_heat1d_plan_warp_grid_boundary(br, nx):
     """WARP_MAX warps of 8 cells a lane hold WARP_LIMIT = 2048 cells: one
     cell more takes the grid, on two CTAs (GRID_THREADS * GRID_CELLS cells a
     CTA)."""
-    plan = heat1d_plan(br, nx)
+    plan = rod_plan(br, nx)
     if br * nx <= WARP_LIMIT:
         assert plan == ("warp", 32 * WARP_MAX, 8, 1)
     else:
@@ -306,7 +319,7 @@ def test_heat1d_plan_covers_every_cell_once(br):
     than its cells ask for, and holds a block in one batch up to 32 cells a
     thread."""
     for nx in [*range(3, 700, 7), WARP_LIMIT // br, WARP_LIMIT // br + 1, 4096, 30_000, 10**6, 2 * 10**6]:
-        plan = heat1d_plan(br, nx)
+        plan = rod_plan(br, nx)
         n = br * nx
         assert bool((_owners(plan, n) == 1).all()), (br, nx)
         assert plan.cells in CELLS
@@ -323,11 +336,11 @@ def test_heat1d_plan_refuses_nothing_from_three_cells():
     limit: the card runs heat1d where repro does); fewer cells, or no rows,
     are refused."""
     for nx in [*range(3, 3000), 25_600, 25_601, 10**6, 10**8]:
-        assert heat1d_plan(1, nx).shape in ("warp", "grid")
-    assert heat1d_plan(1, 10**8, n_sms=16).ctas == 16
+        assert rod_plan(1, nx).shape in ("warp", "grid")
+    assert rod_plan(1, 10**8, n_sms=16).ctas == 16
     for br, nx in ((1, 2), (0, 128), (4, 1)):
         with pytest.raises(ValueError, match="nx >= 3"):
-            heat1d_plan(br, nx)
+            rod_plan(br, nx)
 
 
 @pytest.mark.parametrize("rows,nx,br", [(1, 30_000, 1), (1, 10**6, 1), (12, 4096, 3)])
@@ -343,3 +356,160 @@ def test_heat1d_grid_scratch_does_not_grow_with_the_horizon(rows, nx, br):
     assert work.dtype == torch.float32 and work.numel() == 2 * rows * nx
     assert maxes.dtype == torch.int32 and maxes.numel() == 4 * blocks and not maxes.any()
     assert count.dtype == torch.int64 and count.numel() == blocks and not count.any()
+
+
+# ---------------------------------------------------------------------------
+# the 1-D K5 bodies on the rod: rod_plan(periodic=True)
+
+
+def _wrap_neighbours(plan, n):
+    """The cells a periodic rod's kernel reads as each cell's left and right
+    neighbour (-1: a value no cell holds), as csrc/rod_warp.cu and rod_grid.cu take them. Warp
+    shape: lane l holds cells [l*G, l*G + G); a lane's first cell takes the
+    last cell of the lane before (by shuffle, or the warp before's edge) and
+    cell 0 the wrap, u[n - 1]; a lane's last cell takes the first of the
+    lane after (lane 31 of the last warp: its own first cell), and the lane
+    holding cell n - 1 picks the wrap, u[0], for that cell alone. Grid shape:
+    indices mod n."""
+    if plan.shape == "grid":
+        return [n - 1 if j == 0 else j - 1 for j in range(n)], [0 if j + 1 == n else j + 1 for j in range(n)]
+    g_cells, warps = plan.cells, plan.threads // 32
+    cell = lambda lane, g: lane * g_cells + g if lane * g_cells + g < n else -1  # noqa: E731
+    left, right = [], []
+    for j in range(n):
+        lane, g = divmod(j, g_cells)
+        if g > 0:
+            left.append(cell(lane, g - 1))
+        else:
+            left.append(n - 1 if lane == 0 else cell(lane - 1, g_cells - 1))
+        if j == n - 1:
+            right.append(0)  # the lane's `last` bit picks the wrap
+        elif g < g_cells - 1:
+            right.append(cell(lane, g + 1))
+        else:
+            last_lane = lane % 32 == 31 and lane // 32 + 1 == warps
+            right.append(cell(lane, 0) if last_lane else cell(lane + 1, 0))
+    return left, right
+
+
+@pytest.mark.parametrize("nx", [1, 2, 3, 5, 255, 256, 257, 1000, WARP_LIMIT - 1, WARP_LIMIT, WARP_LIMIT + 1,
+                                WARP_LIMIT + 2, 30_000])
+def test_rod_plan_periodic_rods(nx):
+    """A periodic rod (advection1d, burgers1d) takes the warp shape up to
+    WARP_LIMIT cells and the grid one cell past it (heat1d's plan from 3
+    cells on), every cell taken by one lane or thread, and the kernel's
+    neighbours are the periodic ones, (j - 1) mod n and (j + 1) mod n: cell
+    0 takes cell n - 1 and cell n - 1 takes cell 0 in both shapes."""
+    plan = rod_plan(1, nx, periodic=True)
+    assert plan.shape == ("warp" if nx <= WARP_LIMIT else "grid")
+    if nx >= 3:
+        assert plan == rod_plan(1, nx)
+    assert bool((_owners(plan, nx) == 1).all())
+    for p in (plan, RodPlan("grid", GRID_THREADS, next(g for g in CELLS if g * GRID_THREADS >= nx or g == 32), 1)):
+        left, right = _wrap_neighbours(p, nx)
+        assert left == [(j - 1) % nx for j in range(nx)], p
+        assert right == [(j + 1) % nx for j in range(nx)], p
+        assert (left[0], right[nx - 1]) == (nx - 1, 0)
+
+
+def test_rod_plan_periodic_grid_walks_batches():
+    """A periodic rod's grid thread holds at most GRID_CELLS cells (the
+    kernel's kPeriodicGridCells); a longer rod walks batches, every cell
+    taken once, where heat1d's thread holds up to 32."""
+    n = 10**6
+    plan = rod_plan(1, n, periodic=True)
+    assert plan == ("grid", H100_SMS * GRID_THREADS, GRID_CELLS, H100_SMS)
+    assert rod_plan(1, n).cells == 32
+    assert -(-n // (plan.threads * plan.cells)) == 4
+    assert bool((_owners(plan, n) == 1).all())
+
+
+def test_rod_plan_periodic_refuses_no_rod():
+    """Any periodic rod of one cell or more has a shape; no rod, or no row, is refused."""
+    assert rod_plan(1, 1, periodic=True) == ("warp", 32, 1, 1)
+    for br, nx in ((1, 0), (0, 256)):
+        with pytest.raises(ValueError, match="nx >= 1"):
+            rod_plan(br, nx, periodic=True)
+
+
+# ---------------------------------------------------------------------------
+# heat2d beyond its cluster: heat2d_plan
+
+
+@pytest.mark.parametrize("shape,shape_kind", [((358, 358), "cluster"), ((258, 514), "cluster"), ((359, 359), "grid"),
+                                              ((258, 515), "grid"), ((64, 64), "cluster"), ((400, 400), "grid")])
+def test_heat2d_plan_cluster_or_grid(shape, shape_kind):
+    """heat2d's plan is the cluster up to its capacity (358x358, and 16 CTAs
+    of 16 x 512 interior cells at (258, 514)) and the rod's cooperative grid
+    one row or column past it; an asked-for cluster size stays a cluster."""
+    nx, ny = shape
+    plan = heat2d_plan(nx, ny)
+    if shape_kind == "cluster":
+        assert plan == heat2d_cluster_plan(nx, ny) and isinstance(plan, ClusterPlan)
+    else:
+        assert plan == rod_plan(nx, ny) and plan.shape == "grid"
+        assert plan.ctas == min(-(-nx * ny // (GRID_THREADS * GRID_CELLS)), H100_SMS)
+        with pytest.raises(ValueError, match="cannot hold"):
+            heat2d_plan(nx, ny, cluster=16)
+    assert heat2d_plan(64, 64, cluster=4) == (4, 16)
+
+
+# ---------------------------------------------------------------------------
+# K4 swe2d: swe2d_plan
+
+
+def _swe2d_cluster_holds(plan, nx, ny):
+    """The cluster kernel's own conditions (csrc/mega_pde.cu): C <= 16 CTAs
+    of at least two rows each, the band and halo rows within
+    SWE2D_CTA_CELLS, R row groups of `rows` rows covering them, R * ny
+    threads at work within whole warps of at most SWE2D_MAX_THREADS."""
+    c = plan.ctas
+    bands = [(r + 1) * nx // c - r * nx // c for r in range(c)]
+    bmax = -(-nx // c)
+    groups = -(-(bmax + 2) // plan.rows)
+    return (1 <= c <= SWE2D_MAX_CLUSTER and min(bands) >= 2 and max(bands) == bmax and sum(bands) == nx
+            and (bmax + 2) * ny <= SWE2D_CTA_CELLS and groups * plan.rows >= bmax + 2
+            and plan.rows in SWE2D_ROWS and groups * ny <= plan.threads <= SWE2D_MAX_THREADS and plan.threads % 32 == 0)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((64, 64), ("cluster", 16, 384, 1)),  # the card link's field: 16 CTAs of 4 rows, one a thread
+    ((128, 128), ("cluster", 16, 384, 4)),  # the main path: 16 CTAs of 8 rows, three row groups of four
+    ((129, 128), ("cluster", 16, 384, 4)),  # the largest field of the default kernel_blocks: bands of 9 rows
+    ((200, 200), ("grid", 157, 256, 0)),  # phase 2's grid under kernel_blocks (256, 256, 128)
+    ((3, 3), ("cluster", 1, 32, 1)),
+])
+def test_swe2d_plan(shape, want):
+    nx, ny = shape
+    plan = swe2d_plan(nx, ny)
+    assert plan == want
+    if plan.shape == "cluster":
+        assert _swe2d_cluster_holds(plan, nx, ny)
+
+
+def test_swe2d_plan_clusters_every_default_field():
+    """Every field the megakernel takes under the default kernel_blocks
+    ((nx - 1, ny) within (128, 128)) runs on the cluster, on at most 16 CTAs
+    of at least two rows; a field whose band does not fit a CTA takes the
+    grid, one CTA of 256 threads per 256 points."""
+    for nx in range(3, 130):
+        for ny in (3, 4, 31, 64, 100, 127, 128):
+            plan = swe2d_plan(nx, ny)
+            assert plan.shape == "cluster" and _swe2d_cluster_holds(plan, nx, ny), (nx, ny, plan)
+    for nx, ny in ((200, 200), (3, 1000), (256, 256), (1000, 64)):
+        plan = swe2d_plan(nx, ny)
+        assert plan == ("grid", -(-nx * ny // 256), 256, 0), (nx, ny)
+    with pytest.raises(ValueError, match="nx, ny >= 3"):
+        swe2d_plan(2, 64)
+
+
+@pytest.mark.parametrize("nx,ny", [(128, 128), (200, 200), (512, 512)])
+def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
+    """The grid shape's scratch is the same for any number of substeps: 17
+    planes of intermediates, the four maxima of a ring of two substeps
+    (zeroed) and one 64-bit barrier counter (zeroed): four grid barriers a
+    substep would wrap 32 bits after about 8 million substeps on 132 CTAs."""
+    work, maxes, count = swe2d_grid_scratch(nx, ny, "cpu")
+    assert work.dtype == torch.float32 and work.numel() == 17 * nx * ny
+    assert maxes.dtype == torch.int32 and maxes.numel() == 8 and not maxes.any()
+    assert count.dtype == torch.int64 and count.numel() == 1 and not count.any()

@@ -32,7 +32,8 @@ from repro_torch.core import policy as tpol
 from repro_torch.core.fma import fma
 from repro_torch.kernels import mega as tmega
 from repro_torch.kernels import pde_steps as tsteps
-from repro_torch.pde import AdvectionConfig, BurgersConfig, Heat2DConfig, HeatConfig, Simulation
+from repro_torch.kernels.rod import rod_plan
+from repro_torch.pde import AdvectionConfig, BurgersConfig, Heat2DConfig, HeatConfig, Simulation, get_stepper
 
 MODES = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked", "deploy")
 PLANES = ("reference", "fused", "megakernel")
@@ -269,19 +270,24 @@ def test_mega_plain_matches_interpret(name, variant, state0s):
 
 
 def test_field_beyond_one_cta_is_refused():
-    """A K5 kernel holds its field on the card, a rod in one CTA's shared
-    memory and heat2d in one thread-block cluster of up to 16 CTAs: a larger
-    field raises, naming the limit, and never falls back to the plain
-    version."""
-    tsteps.check_field("heat2d", 64, 64)
-    tsteps.check_field("heat2d", 256, 256)
-    tsteps.check_field("burgers1d", 1, 4096)
-    with pytest.raises(ValueError, match="cannot hold"):
-        tsteps.check_field("heat2d", 359, 359)
-    with pytest.raises(ValueError, match="SMEM_LIMIT"):
-        tsteps.check_field("burgers1d", 1, 1 << 16)
+    """A K5 kernel takes every field on the card, as repro does: heat2d in
+    one thread-block cluster of up to 16 CTAs and beyond it on the rod's
+    cooperative grid, a periodic rod on the rod's warp or grid shape. The
+    old limits (heat2d past 358x358 or 258x514, a rod past one CTA's shared
+    memory) are accepted; a field no body has (heat2d below nx, ny >= 3)
+    is still refused, and nothing falls back to the plain version."""
+    assert tsteps.heat2d_plan(64, 64) == (16, 4)
+    assert tsteps.heat2d_plan(256, 256) == (16, 16)
+    assert tsteps.heat2d_plan(358, 358) == (16, 23)
+    for shape in ((359, 359), (258, 515), (400, 400)):
+        assert tsteps.heat2d_plan(*shape).shape == "grid", shape
+    for nx in (256, 4096, 25_601, 17_067, 20_000, 1 << 16):
+        assert rod_plan(1, nx, periodic=True).shape == ("warp" if nx <= 2048 else "grid"), nx
+    for name, cfg in (("advection1d", AdvectionConfig(nx=25_601)), ("burgers1d", BurgersConfig(nx=1 << 16)),
+                      ("heat2d", Heat2DConfig(nx=359, ny=359))):
+        assert get_stepper(name).kernels_hold(cfg), name
     with pytest.raises(ValueError, match="nx, ny >= 3"):
-        tsteps.check_field("heat2d", 2, 64)
+        tsteps.heat2d_plan(2, 64)
 
 
 # ---------------------------------------------------------------------------
