@@ -22,8 +22,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    heat1d also on every launch shape of ``rod.rod_plan`` (the 3-cell rod,
    eight rows of 128, the warp shape's 2048-cell edge, the grid one cell
    past it, on several blocks, in batches, at 30,000 and 10**6 cells); K4
-   swe2d on its thread-block cluster at 128x128, on a forced grid there and
-   on the grid at 200x200 (kernel_blocks (256, 256, 128)); K6 and K7 on
+   swe2d on its grid at 128x128, on a forced grid of 8 CTAs there and at
+   200x200 (kernel_blocks (256, 256, 128)); K6 and K7 on
    operands with f32-subnormal products or inputs against their plain
    versions on the CPU under flush; K5 (the fused sweeps and megakernels
    of heat2d, advection1d and burgers1d) the same way at full width,
@@ -57,7 +57,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    replayed CUDA graphs, with their launch shapes, and both along the
    main path's horizon chunk by chunk; the new launch shapes by replayed
    CUDA graphs (:func:`time_shapes`: the 1-D K5 kernels by rod size,
-   heat2d's grid, K4 swe2d's cluster, its grid and its latency floor);
+   heat2d's grid, K4 swe2d at 128x128, 200x200 and its latency floor);
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -532,18 +532,18 @@ def mega_cases(device):
     kw = dict(base["heat1d"], **heat_args(30_000), steps=100, every=40, prec=L["rr_tracked"], tracker=trk, collect_evidence=True,
               _plan=grid_on_one_cta(1, 30_000, cells=8))
     cases.append(("heat1d", "rr_tracked (30000,) on a forced grid in batches", rod(30_000, device)[0], kw))
-    # K4 swe2d's shapes beyond the main path's cluster: the main path's state
-    # on a forced grid, and the grid at 200x200 (beyond the cluster) under
-    # kernel_blocks (256, 256, 128), the preset shape that admits it
+    # K4 swe2d beyond the main path's grid: its state on a forced grid of 8
+    # CTAs (each thread walks eight points a phase), and the grid at 200x200
+    # under kernel_blocks (256, 256, 128), the preset shape that admits it
     from repro_torch.kernels.mega import Swe2DPlan
 
-    forced = Swe2DPlan("grid", -(-scfg.nx * scfg.ny // 256), 256, 0)
+    forced = Swe2DPlan(8, 256)
     big = dataclasses.replace(scfg, nx=200, ny=200)
     U200 = initial_state(big, device="cpu").to(device)
     for name in SHAPE_MODES:
         trk = tracker_init(4, L[name].fmt, device=device) if get_engine(L[name]).tracks else None
         kw = dict(base["swe2d"], prec=L[name], tracker=trk, collect_evidence=True, _plan=forced)
-        cases.append(("swe2d", f"{name} on a forced grid", U, kw))
+        cases.append(("swe2d", f"{name} on a forced grid of 8 CTAs", U, kw))
         prec = dataclasses.replace(L[name], kernel_blocks=(256, 256, 128))
         trk = tracker_init(4, prec.fmt, device=device) if get_engine(prec).tracks else None
         cases.append(("swe2d", f"{name} (200,200) kernel_blocks (256,256,128)", U200,
@@ -556,8 +556,6 @@ def swe2d_launch_shape(nx, ny, plan=None) -> str:
     from repro_torch.kernels.mega import swe2d_plan
 
     p = plan or swe2d_plan(nx, ny)
-    if p.shape == "cluster":
-        return f"[cluster C={p.ctas} in row bands, {p.threads} threads, {p.rows} row(s) of a column a thread]"
     return f"[cooperative grid of up to {p.ctas} CTAs x {p.threads} threads, four grid barriers a substep]"
 
 
@@ -1426,8 +1424,7 @@ def check_card_vs_cpu(device, cases=None):
     the six modes, state, snapshots and every tracker field bit for bit
     (NaNs canonical) against the same run of the port on the CPU under
     flush (the plain versions, which the CPU tests hold equal to repro),
-    from the same initial state. For swe2d, the stepper that reaches f32
-    subnormals at these sizes, the same CPU run keeping subnormals is
+    from the same initial state. The same CPU run keeping subnormals is
     counted too: where it differs, the flush is what the check saw."""
     from repro_torch.pde import Simulation
 
@@ -1442,12 +1439,12 @@ def check_card_vs_cpu(device, cases=None):
                 card = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, **kw)
                 with cpu_flushed():
                     cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
+                kept = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
                 ok = same_bits(card.state.cpu(), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
                 if cpu.tracker is not None:
                     pairs = zip(card.tracker.state, cpu.tracker.state)
                     ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in pairs)
-                differs = case == "swe2d" and not same_bits(
-                    Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw).state, cpu.state)
+                differs = not same_bits(kept.state, cpu.state)
                 kept_differs += differs
                 line = (f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps: state, snapshots"
                         f"{', tracker' if cpu.tracker is not None else ''} bit-identical: {'ok' if ok else 'MISMATCH'}"
@@ -1781,10 +1778,9 @@ def time_shapes(device, card):
     K5e/K5f (the main path's horizon) on the rods of :data:`ROD_TIMED_NX`;
     heat2d's K5a (187 substeps) and K5d (1500) on the rod's grid at 359x359
     and 400x400 and on a forced grid at the main path's 64x64; K4 swe2d (400
-    substeps) on the cluster at the main path's 128x128, on a forced grid
-    there, on the grid at 200x200, and on its latency floor, the cluster on
-    a (32, 3) state (16 CTAs of two rows). Returns the rows."""
-    from repro_torch.kernels.mega import Swe2DPlan, swe2d_mega
+    substeps) at the main path's 128x128, at 200x200, and on its latency
+    floor, a (32, 3) state (one CTA). Returns the rows."""
+    from repro_torch.kernels.mega import swe2d_mega
     from repro_torch.pde import Heat2DConfig, get_stepper
     from repro_torch.pde.swe2d import initial_state
 
@@ -1825,13 +1821,12 @@ def time_shapes(device, card):
     scfg = workload_config("swe2d")[0]
     mk = dict(steps=MAIN_STEPS["swe2d"], every=SWE_EVERY, sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"),
               site_ops=("mul", "mul", "mul", "div"))
-    for (nx, ny), plan, blocks in (((128, 128), None, None), ((128, 128), Swe2DPlan("grid", 64, 256, 0), None),
-                                   ((200, 200), None, (256, 256, 128)), ((32, 3), None, None)):
+    for (nx, ny), blocks in (((128, 128), None), ((200, 200), (256, 256, 128)), ((32, 3), None)):
         cfg = dataclasses.replace(scfg, nx=nx, ny=ny)
         U = initial_state(cfg, device="cpu").to(device)
         prec = L["r2f2_16"] if blocks is None else dataclasses.replace(L["r2f2_16"], kernel_blocks=blocks)
-        kw = dict(mk, cfg=cfg, prec=prec, _plan=plan)
-        row("swe2d_mega", f"(3,{nx},{ny})", swe2d_launch_shape(nx, ny, plan),
+        kw = dict(mk, cfg=cfg, prec=prec)
+        row("swe2d_mega", f"(3,{nx},{ny})", swe2d_launch_shape(nx, ny),
             graph_time_ms(lambda: swe2d_mega(U, **kw), 2, replays=3), mk["steps"])
     return rows
 
@@ -2212,14 +2207,13 @@ def main(argv) -> int:
     for execution in ("fused", "megakernel"):
         bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
         report["bench_compare"] += check_bench(bench)
-    # the reference plane at a cut depth (heat1d 500 of 4000 steps, swe2d 200
-    # of 400, heat2d 150 of 1500, advection1d 128 of 256, burgers1d 300 of
-    # 1200), the megakernel at the full horizons
-    cut = {"heat1d": 500, "swe2d": 200, "heat2d": 150, "advection1d": 128, "burgers1d": 300}
+    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
+    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
+    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
     report["planes"] = timed("fused vs reference", check_planes, device, cut)
     report["planes"] += timed("megakernel vs fused", check_mega_planes, device, MAIN_STEPS)
     link, kept_differs = timed("card vs CPU", check_card_vs_cpu, device)
-    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of swe2d's differ "
+    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "
         "on the CPU keeping subnormals")
     require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
     report["planes"] += link

@@ -1,7 +1,7 @@
 // The megakernel plane of repro_torch for swe2d (kernel K4), for sm_90a: a
 // whole simulation horizon in one launch, with the adjust unit on the card.
 //
-//   swe2d_cluster_kernel, swe2d_grid_kernel   replace repro/kernels/mega.py::mega_sweep with swe2d_mega
+//   swe2d_grid_kernel   replaces repro/kernels/mega.py::mega_sweep with swe2d_mega
 //
 // (heat1d's K4 is the rod, rod.cuh.) It follows mega_sweep's contract for f32 storage
 // without capture: the body runs on the whole field as one split block; with
@@ -11,70 +11,43 @@
 // substeps run after the last one. The C entry point returns the launch's
 // cudaError_t.
 //
-// A substep is the Richtmyer two-step Lax-Wendroff update of pde/swe2d.py:
-//   A  Ux, Uy from U (the f32 fluxes F, G at each point), Gy from Uy, and
-//      the field-wide maxima of |Ux.hu|, |Ux.h|;
-//   B  t1 = hu*hu and t3 = h*h on the policy at k11/k33 and their maxima;
-//   C  Fx through the policy's quotient and mul_add at k_div/k_gq3;
-//   D  the interior update as two fmas, the walls as the interior value they
-//      mirror (written with it), the snapshot and the latch.
-// It is bound by the latency of the substep's chain (three field-wide
-// barriers: two maxima and the update's rows), not by bytes or operations
-// (the main path's 128x128 state is 196 KB and ~2.5 MFLOP a substep).
-//
-// swe2d_plan (kernels/mega.py) picks the shape:
-//   cluster (fields whose band of rows fits a CTA: 129x128 and below under the
-//     default kernel_blocks): one thread-block cluster of C <= 16 CTAs in row
-//     bands; CTA r owns rows [r*nx/C, (r+1)*nx/C) (at least two, so the walls'
-//     mirrors are its own) and holds them, a halo row above and below, the
-//     fluxes at each of those points and its Gy and Fx in shared memory, and
-//     each thread its Ux and policy products in registers: no intermediate
-//     goes through L2 and no cell's index takes a division (thread t works
-//     column t % ny of every R-th row, P rows). Each CTA computes the Ux and
-//     Fx row above its band itself, so the update needs no barrier after C.
-//     Three cluster barriers a substep: A's maxima, B's maxima (both through
-//     distributed shared memory, r2f2::cluster_publish/collect) and D's edge
-//     rows, written into the neighbours' halos. The products come from a
-//     per-launch table of each split's formats (r2f2::PairMul for hu*hu, h*h
-//     and the quotient, r2f2::ConstMul for (g/2)*t3), their variant fixed per
-//     launch, and each pass starts at the last substep's split while its
-//     maxima cross the cluster barrier (Guess), redoing the products only
-//     where the split moved.
-//   grid (larger fields): a cooperative grid over the field in global memory
-//     (the 50 MB L2 holds it), each phase a grid-stride loop behind
-//     r2f2::grid_barrier, four a substep, the maxima by atomicMax into a ring
-//     of two substeps.
-// The maxima are integer maxima of magnitude bit patterns, so every order of
-// arrival gives the same answer.
-#include <cooperative_groups.h>
+// swe2d: the (3, nx, ny) state and the Lax-Wendroff intermediates do not fit
+// one SM's shared memory (3x128x128 f32 alone is 196,608 B), so they live in
+// global memory, which the 50 MB L2 holds. A cooperative grid of CTAs
+// (kernels/mega.py::swe2d_plan) walks each substep in four phases, each a
+// grid-stride loop behind an r2f2::grid_barrier:
+//   A  Ux, Uy from U (the f32 fluxes F, G at each point), and the field-wide
+//      maxima of |Ux.hu|, |Ux.h|;
+//   B  t1 = hu*hu and t3 = h*h on the policy at k11/k33 and their maxima; Gy;
+//   C  Fx through the policy's quotient and mul_add at k_div/k_gq3; CTA 0
+//      ticks the four sites;
+//   D  the interior update as two fmas into the other state buffer, the walls
+//      as the interior value they mirror, the snapshot and the latch.
+// It is bound by the latency of four grid barriers a substep, not by bytes or
+// operations (the main path's 128x128 state is 196 KB and ~2.5 MFLOP a
+// substep). The maxima are integer maxima of magnitude bit patterns, so an
+// atomicMax into a ring of two substeps gives the same answer in every order.
 #include <cuda_runtime.h>
 
 #include "r2f2_device.cuh"
 
-namespace cg = cooperative_groups;
 using r2f2::AdjustLaw;
-using r2f2::ConstMul;
-using r2f2::PairMul;
 using r2f2::Policy;
 using r2f2::SiteState;
 
 namespace {
 
-constexpr int kSweThreads = 256;        // threads of a grid-shape CTA
-constexpr int kMaxCluster = 16;          // the non-portable cluster size limit
-constexpr int kTable = 8;                // splits of the product table (rod.cuh's)
-constexpr int kClusterThreads = 384;     // the most threads of a cluster-shape CTA, 170 registers each
-                                         // (kernels/mega.py::SWE2D_MAX_THREADS)
+constexpr int kSweThreads = 256;  // threads of a CTA
 
 struct SweArgs {
   const float* u_in;
   float* u_out;
   float* snaps;
   float* ev;        // (steps, 4, 2) or null
-  float* work;      // grid: 17 * nx * ny floats of intermediates
-  uint32_t* maxes;  // grid: (2, 4) zeroed: |Ux.hu|, |Ux.h|, |t1|, |t3| of a ring of two substeps
-  unsigned long long* count;  // grid: the launch's barrier counter, zeroed
-  int* ka;          // grid: the datapath floor (4), null when untracked
+  float* work;      // 17 * nx * ny floats of intermediates
+  uint32_t* maxes;  // (2, 4) zeroed: |Ux.hu|, |Ux.h|, |t1|, |t3| of a ring of two substeps
+  unsigned long long* count;  // the launch's barrier counter, zeroed
+  int* ka;          // the datapath floor (4), null when untracked
   int* trk_k;
   float* trk_hi;
   float* trk_lo;
@@ -130,348 +103,6 @@ struct Evidence {
     for (int w = 0; w < 8; ++w) ev[static_cast<size_t>(s) * 8 + w] = e[w];
   }
 };
-
-// ---------------------------------------------------------------------------
-// cluster shape
-
-// The splits' product formats of a launch, one per CTA: the pair products
-// (hu*hu, h*h, the quotient) and (g/2)*t3, at every k of the table.
-struct SweTable {
-  PairMul pair[kTable];
-  ConstMul gq3[kTable];
-};
-
-__shared__ SweTable swe_table;
-
-// CTA `rank`'s band: rows [r0, r1) of the (nx, ny) field, b = r1 - r0 >= 2,
-// and in dynamic shared memory, each as three component planes:
-//   U   rows r0 - 1 .. r1 (local 0 .. b + 1; the halo rows are the
-//       neighbours' edge rows of the last substep);
-//   FL  at the same points: mom(hu, h), hu*hv/h, mom(hv, h);
-//   GY  Gy at rows r0 .. r1 - 1 (columns 0 .. ny - 2);
-//   FX  Fx at x-midpoint rows r0 - 1 .. r1 - 1 (local 0 .. b).
-// Every CTA lays its planes out for the largest band (bmax), so a neighbour's
-// halo row is at the same offset in every CTA. Thread t < R * ny works column
-// j = t % ny of the rows rg + R*m, m < P (rg = t / ny) of each array.
-template <int P>
-struct SweBand {
-  int nx, ny, r0, r1, b, rank, n_ctas, R, j, rg;
-  bool active;
-  float *U, *FL, *GY, *FX;
-  int pu, pg, px;  // plane strides of U and FL, GY, FX
-
-  __device__ SweBand(float* smem, int nx_, int ny_, int bmax, int R_, const cg::cluster_group& cluster)
-      : nx(nx_), ny(ny_), R(R_) {
-    rank = static_cast<int>(cluster.block_rank());
-    n_ctas = static_cast<int>(cluster.num_blocks());
-    r0 = rank * nx / n_ctas;
-    r1 = (rank + 1) * nx / n_ctas;
-    b = r1 - r0;
-    pu = (bmax + 2) * ny, pg = bmax * ny, px = (bmax + 1) * ny;
-    U = smem, FL = U + 3 * pu, GY = FL + 3 * pu, FX = GY + 3 * pg;
-    const int t = threadIdx.x;
-    active = t < R * ny;
-    j = t % ny, rg = t / ny;
-  }
-
-  __device__ float& u(int c, int lr, int col) const { return U[c * pu + lr * ny + col]; }
-  __device__ float& fl(int c, int lr, int col) const { return FL[c * pu + lr * ny + col]; }
-  __device__ float& gy(int c, int lr, int col) const { return GY[c * pg + lr * ny + col]; }
-  __device__ float& fx(int c, int lr, int col) const { return FX[c * px + lr * ny + col]; }
-
-  // The thread's m-th row of an array (U and FL from local row 0, GY from
-  // the band's first row, FX from its x-midpoint row above the band).
-  __device__ int row(int m) const { return rg + R * m; }
-
-  // U's local rows that exist in the field: [lo, hi).
-  __device__ int u_lo() const { return r0 == 0 ? 1 : 0; }
-  __device__ int u_hi() const { return r1 == nx ? b + 1 : b + 2; }
-
-  // The x-midpoint rows the CTA computes: local lx of row r0 - 1 + lx, for
-  // lx in [ux_lo, ux_hi); it owns (counts in the maxima) those with lx >= 1.
-  __device__ int ux_lo() const { return r0 == 0 ? 1 : 0; }
-  __device__ int ux_hi() const { return r1 == nx ? b : b + 1; }
-
-  __device__ void load(const float* src) const {
-    const size_t n = static_cast<size_t>(nx) * ny;
-    for (int i = threadIdx.x; i < 3 * pu; i += blockDim.x) {
-      const int c = i / pu, at = i % pu, lr = at / ny;
-      const int g = r0 - 1 + lr;
-      if (lr < b + 2 && g >= 0 && g < nx) U[i] = src[c * n + static_cast<size_t>(g) * ny + at % ny];
-    }
-  }
-
-  // The fluxes at the thread's U points of local rows [lo, hi).
-  __device__ void fluxes(int lo, int hi, float c) const {
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lr = row(m);
-      if (active && lr >= lo && lr < hi) {
-        const float h = u(0, lr, j), hu = u(1, lr, j), hv = u(2, lr, j);
-        fl(0, lr, j) = mom32(hu, h, c);
-        fl(1, lr, j) = cross(hu, hv, h);
-        fl(2, lr, j) = mom32(hv, h, c);
-      }
-    }
-  }
-
-  // The thread's own rows [r0, r1) (local 1 .. b) into dst (3, nx, ny).
-  __device__ void store(float* dst) const {
-    const size_t n = static_cast<size_t>(nx) * ny;
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lr = 1 + row(m);
-      if (active && lr <= b) {
-        const size_t at = static_cast<size_t>(r0 + lr - 1) * ny + j;
-        for (int c = 0; c < 3; ++c) dst[c * n + at] = u(c, lr, j);
-      }
-    }
-  }
-};
-
-// The products of the thread's x-midpoint points: t1 = hu*hu, t3 = h*h at
-// their splits (B), and Fx's policy component from them (C).
-template <int P>
-struct Midpoints {
-  float h[P], hu[P], hv[P], t1[P], t3[P], f1[P];
-  uint32_t valid, owned;  // bit m: the thread's m-th row is computed; counted in the maxima
-
-  __device__ bool is(uint32_t bits, int m) const { return (bits >> m) & 1u; }
-
-  template <int J>
-  __device__ void squares(const PairMul& q11, const PairMul& q33, uint32_t& mt1, uint32_t& mt3) {
-    mt1 = mt3 = 0u;
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      t1[m] = q11.mul<J>(hu[m], hu[m]);
-      t3[m] = q33.mul<J>(h[m], h[m]);
-      if (is(owned, m)) {
-        mt1 = max(mt1, r2f2::finite_mag_bits(t1[m]));
-        mt3 = max(mt3, r2f2::finite_mag_bits(t3[m]));
-      }
-    }
-  }
-
-  template <int J>
-  __device__ void momenta(const PairMul& qd, const ConstMul& gq3) {
-#pragma unroll
-    for (int m = 0; m < P; ++m) f1[m] = gq3.mul_add<J>(t3[m], qd.div<J>(t1[m], h[m]));
-  }
-};
-
-// A product pass at the last substep's split k (`guess`), redone at the
-// split the maxima give where they differ or the product is not of the
-// launch's kind K.
-struct Guess {
-  int k[4];      // k11, k33, k_gq3, k_div
-  bool fast[2];  // B's products (k11, k33) and C's (k_gq3, k_div) there are of kind K
-};
-
-template <int P, int K>
-__global__ void __launch_bounds__(kClusterThreads)
-swe2d_cluster_kernel(SweArgs a, int bmax, int R, AdjustLaw law, Policy p) {
-  const cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ float smem[];
-  __shared__ uint32_t words[4];  // this CTA's maxima: |Ux.hu|, |Ux.h| (A), |t1|, |t3| (B)
-  __shared__ int ka[4];          // the datapath floor, latched at snapshot boundaries
-  SweBand<P> band(smem, a.nx, a.ny, bmax, R, cluster);
-  const int nx = a.nx, ny = a.ny, j = band.j;
-  const r2f2::TileQuant fixed = r2f2::tile_quant(p.fe, p.fm, -1);
-  if (threadIdx.x < kTable) {
-    swe_table.pair[threadIdx.x] = PairMul(threadIdx.x, p, fixed);
-    swe_table.gq3[threadIdx.x] = ConstMul(a.c, threadIdx.x, p, fixed);
-  }
-  if (threadIdx.x < 4) {
-    words[threadIdx.x] = 0u;
-    if (a.trk_k != nullptr) ka[threadIdx.x] = a.trk_k[threadIdx.x];
-  }
-  const bool floored = a.trk_k != nullptr;
-  const auto site_k = [&](int k_select, int site) {
-    if (!floored) return k_select;
-    return p.pinned ? ka[site] : max(k_select, ka[site]);
-  };
-  const auto pair_at = [&](int k) { return k >= 0 && k < kTable ? swe_table.pair[k] : PairMul(k, p, fixed); };
-  const auto gq3_at = [&](int k) { return k >= 0 && k < kTable ? swe_table.gq3[k] : ConstMul(a.c, k, p, fixed); };
-  // lanes 0-3 of warp 0 tick one site each; rank 0's write the rows back
-  const int site = threadIdx.x;
-  const bool ticks = a.evolve && threadIdx.x < 4;
-  SiteState st{};
-  int cfg[3] = {0, 0, 0};
-  if (ticks) {
-    st = SiteState{a.trk_k[site], a.trk_hi[site], a.trk_lo[site], a.trk_ov[site], a.trk_sh[site]};
-    for (int w = 0; w < 3; ++w) cfg[w] = a.site_cfg[3 * site + w];
-  }
-  band.load(a.u_in);
-  cluster.sync();  // the table, the words and ka; every CTA started (before a remote read or write)
-  const int ec = r2f2::mag_exponent(r2f2::finite_mag_bits(a.c));
-  Guess guess{{0, 0, 0, 0}, {pair_at(0).kind() == K, pair_at(0).kind() == K && gq3_at(0).kind() == K}};
-  Midpoints<P> mp;
-  mp.valid = mp.owned = 0u;
-#pragma unroll
-  for (int m = 0; m < P; ++m) {
-    const int lx = band.row(m);
-    if (band.active && lx >= band.ux_lo() && lx < band.ux_hi()) mp.valid |= 1u << m;
-    if (band.active && lx >= 1 && lx < band.ux_hi()) mp.owned |= 1u << m;
-  }
-  band.fluxes(band.u_lo(), band.u_hi(), a.c);
-  __syncthreads();
-  for (int s = 0, until = a.every; s < a.steps; ++s) {
-    if (threadIdx.x == 0) words[2] = words[3] = 0u;  // every CTA read them before the last substep's end
-
-    // A: Ux at the thread's x-midpoint rows and its maxima; then, while they
-    // cross the cluster barrier, Gy at the thread's own rows and B's products
-    // at the last substep's splits
-    uint32_t m_a[2] = {0u, 0u};  // |Ux.hu|, |Ux.h|
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lx = band.row(m);
-      if (mp.is(mp.valid, m)) {
-        const float h0 = band.u(0, lx, j), hu0 = band.u(1, lx, j), hv0 = band.u(2, lx, j);
-        const float h1 = band.u(0, lx + 1, j), hu1 = band.u(1, lx + 1, j), hv1 = band.u(2, lx + 1, j);
-        mp.h[m] = half_step(h1, h0, hu1, hu0, a.cx2);
-        mp.hu[m] = half_step(hu1, hu0, band.fl(0, lx + 1, j), band.fl(0, lx, j), a.cx2);
-        mp.hv[m] = half_step(hv1, hv0, band.fl(1, lx + 1, j), band.fl(1, lx, j), a.cx2);
-        if (mp.is(mp.owned, m)) {
-          m_a[0] = max(m_a[0], r2f2::finite_mag_bits(mp.hu[m]));
-          m_a[1] = max(m_a[1], r2f2::finite_mag_bits(mp.h[m]));
-        }
-      } else {
-        mp.h[m] = mp.hu[m] = mp.hv[m] = 0.0f;
-      }
-    }
-    r2f2::cluster_publish(m_a, words);
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lr = 1 + band.row(m), g = band.r0 + band.row(m);
-      if (band.active && lr <= band.b && g >= 1 && g <= nx - 2 && j < ny - 1) {
-        const float h = band.u(0, lr, j), hu = band.u(1, lr, j), hv = band.u(2, lr, j);
-        const float hr = band.u(0, lr, j + 1), hur = band.u(1, lr, j + 1), hvr = band.u(2, lr, j + 1);
-        const float uy0 = half_step(hr, h, hvr, hv, a.cy2);
-        const float uy1 = half_step(hur, hu, band.fl(1, lr, j + 1), band.fl(1, lr, j), a.cy2);
-        const float uy2 = half_step(hvr, hv, band.fl(2, lr, j + 1), band.fl(2, lr, j), a.cy2);
-        band.gy(0, lr - 1, j) = uy2;
-        band.gy(1, lr - 1, j) = cross(uy1, uy2, uy0);
-        band.gy(2, lr - 1, j) = mom32(uy2, uy0, a.c);
-      }
-    }
-
-    // B: the policy products
-    uint32_t m_b[2];  // |t1|, |t3|
-    mp.template squares<K>(pair_at(guess.k[0]), pair_at(guess.k[1]), m_b[0], m_b[1]);
-    r2f2::cluster_collect(m_a, words, band.n_ctas, cluster);
-    const int e1 = r2f2::mag_exponent(m_a[0]), e3 = r2f2::mag_exponent(m_a[1]);
-    const int k11 = site_k(r2f2::select_k_mul(e1, e1, p), 0), k33 = site_k(r2f2::select_k_mul(e3, e3, p), 1);
-    if (k11 != guess.k[0] || k33 != guess.k[1] || !guess.fast[0]) {
-      const PairMul q11 = pair_at(k11), q33 = pair_at(k33);
-      guess.k[0] = k11, guess.k[1] = k33, guess.fast[0] = q11.kind() == K && q33.kind() == K;
-      if (guess.fast[0]) {
-        mp.template squares<K>(q11, q33, m_b[0], m_b[1]);
-      } else {
-        mp.template squares<3>(q11, q33, m_b[0], m_b[1]);
-      }
-    }
-    r2f2::cluster_publish(m_b, words + 2);
-
-    // C: Fx, its policy component started at the last substep's splits
-    mp.template momenta<K>(pair_at(guess.k[3]), gq3_at(guess.k[2]));
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lx = band.row(m);
-      if (mp.is(mp.valid, m) && j >= 1 && j <= ny - 2) {
-        band.fx(0, lx, j) = mp.hu[m];
-        band.fx(2, lx, j) = cross(mp.hu[m], mp.hv[m], mp.h[m]);
-      }
-    }
-    r2f2::cluster_collect(m_b, words + 2, band.n_ctas, cluster);
-    if (threadIdx.x == 0) words[0] = words[1] = 0u;  // every CTA read them before this barrier
-    const int et1 = r2f2::mag_exponent(m_b[0]), et3 = r2f2::mag_exponent(m_b[1]);
-    const int k_gq3 = site_k(r2f2::select_k_mul(ec, et3, p), 2), k_div = site_k(r2f2::select_k_div(et1, e3, p), 3);
-    if (k_gq3 != guess.k[2] || k_div != guess.k[3] || !guess.fast[1]) {
-      const PairMul qd = pair_at(k_div);
-      const ConstMul gq3 = gq3_at(k_gq3);
-      guess.k[2] = k_gq3, guess.k[3] = k_div, guess.fast[1] = qd.kind() == K && gq3.kind() == K;
-      if (guess.fast[1]) {
-        mp.template momenta<K>(qd, gq3);
-      } else {
-        mp.template momenta<3>(qd, gq3);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      if (mp.is(mp.valid, m) && j >= 1 && j <= ny - 2) band.fx(1, band.row(m), j) = mp.f1[m];
-    }
-    const Evidence ev(e1, e3, ec, et1, et3);
-    if (a.ev != nullptr && band.rank == 0 && threadIdx.x == 0) ev.write(a.ev, s);
-    const bool boundary = --until == 0;
-    if (ticks) {
-      r2f2::adjust_tick(st, ev.e[2 * site], ev.e[2 * site + 1], cfg[0], cfg[1], cfg[2], law);
-    }
-    __syncthreads();  // Fx in; every thread has read ka
-
-    // D: the interior update in place; each result also goes into the wall
-    // cells that mirror it (the wall row beside the first or last interior
-    // row, the wall column beside the first or last interior column, the
-    // corner), which no thread reads in this phase
-    if (ticks && boundary) ka[site] = st.k;
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const int lr = 1 + band.row(m), g = band.r0 + band.row(m);
-      if (band.active && lr <= band.b && g >= 1 && g <= nx - 2 && j >= 1 && j <= ny - 2) {
-        float v[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          v[c] = lw_update(band.u(c, lr, j), band.fx(c, lr, j), band.fx(c, lr - 1, j), band.gy(c, lr - 1, j),
-                           band.gy(c, lr - 1, j - 1), a.cx, a.cy);
-          band.u(c, lr, j) = v[c];
-        }
-        const int wi[3] = {g, g == 1 ? 0 : -1, g == nx - 2 ? nx - 1 : -1};
-        const int wj[3] = {j, j == 1 ? 0 : -1, j == ny - 2 ? ny - 1 : -1};
-        for (int x = 0; x < 3; ++x) {
-          for (int y = 0; y < 3; ++y) {
-            if ((x | y) == 0 || wi[x] < 0 || wj[y] < 0) continue;
-            for (int c = 0; c < 3; ++c)
-              band.u(c, wi[x] - band.r0 + 1, wj[y]) = wall_flips(c, wi[x], wj[y], nx, ny) ? -v[c] : v[c];
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (boundary) {
-      band.store(a.snaps + static_cast<size_t>((s + 1) / a.every - 1) * 3 * nx * ny);
-      until = a.every;
-    }
-    // the edge rows into the neighbours' halos, then the fluxes of the rows
-    // no neighbour writes while the barrier completes
-    if (s + 1 < a.steps) {
-      float* up = band.rank > 0 ? cluster.map_shared_rank(band.U, band.rank - 1) : nullptr;
-      float* down = band.rank + 1 < band.n_ctas ? cluster.map_shared_rank(band.U, band.rank + 1) : nullptr;
-      const int b_up = band.r0 - (band.rank - 1) * nx / band.n_ctas;  // the upper neighbour's band
-      for (int i = threadIdx.x; i < 3 * ny; i += blockDim.x) {
-        const int c = i / ny, col = i % ny;
-        if (up != nullptr) up[c * band.pu + (b_up + 1) * ny + col] = band.u(c, 1, col);
-        if (down != nullptr) down[c * band.pu + col] = band.u(c, band.b, col);
-      }
-      r2f2::cluster_arrive();
-      band.fluxes(1, band.b + 1, a.c);
-      r2f2::cluster_wait();
-      band.fluxes(band.u_lo(), 1, a.c);
-      band.fluxes(band.b + 1, band.u_hi(), a.c);
-      __syncthreads();
-    }
-  }
-  band.store(a.u_out);
-  if (ticks && band.rank == 0) {
-    a.trk_k[site] = st.k;
-    a.trk_hi[site] = st.hi;
-    a.trk_lo[site] = st.lo;
-    a.trk_ov[site] = st.ov;
-    a.trk_sh[site] = st.sh;
-  }
-  cluster.sync();  // no CTA leaves while a neighbour may read its words
-}
-
-// ---------------------------------------------------------------------------
-// grid shape
 
 __device__ __forceinline__ void load_rows(SiteState* st, int n, const int* k, const float* hi, const float* lo,
                                           const int* ov, const int* sh) {
@@ -647,58 +278,22 @@ __global__ void __launch_bounds__(kSweThreads) swe2d_grid_kernel(SweArgs a, Adju
   if (a.evolve && lead) store_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
 }
 
-template <int P, int K>
-cudaError_t launch_swe_cluster(const SweArgs& a, int cluster, int threads, int bmax, int R, size_t smem,
-                               const AdjustLaw& law, const Policy& p, void* stream) {
-  static size_t smem_allowed[r2f2::kMaxDevices] = {};
-  static bool clusters_allowed[r2f2::kMaxDevices] = {};
-  return r2f2::launch_cluster(swe2d_cluster_kernel<P, K>, smem_allowed, clusters_allowed, cluster, threads, smem,
-                              stream, a, bmax, R, law, p);
-}
-
-template <int P>
-cudaError_t launch_cluster_kind(const SweArgs& a, int cluster, int threads, int bmax, int R, size_t smem,
-                                const AdjustLaw& law, const Policy& p, void* stream) {
-  switch (r2f2::table_kind(p)) {
-    case 0: return launch_swe_cluster<P, 0>(a, cluster, threads, bmax, R, smem, law, p, stream);
-    case 1: return launch_swe_cluster<P, 1>(a, cluster, threads, bmax, R, smem, law, p, stream);
-    default: return launch_swe_cluster<P, 2>(a, cluster, threads, bmax, R, smem, law, p, stream);
-  }
-}
-
 }  // namespace
 
-// Shape 0: one cluster of `cluster` CTAs of `threads` threads, each thread
-// `rows` (P) rows of a column (kernels/mega.py::swe2d_plan); shape 1: a
-// cooperative grid of up to `ctas` CTAs (as many as the card holds at once),
+// A cooperative grid of up to `ctas` CTAs (as many as the card holds at once),
 // with work, maxes and count as its scratch.
 extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, float* work,
                                unsigned int* maxes, unsigned long long* count, int* ka, int* trk_k, float* trk_hi,
                                float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
-                               int ny, int steps, int every, int shape, int cluster, int threads, int rows, int ctas,
-                               float cx2, float cy2, float cx, float cy, float c, float ema, float one_minus,
-                               int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
-                               int pinned, void* stream) {
-  if (nx < 3 || ny < 3 || every < 1) return static_cast<int>(cudaErrorInvalidValue);
+                               int ny, int steps, int every, int ctas, float cx2, float cy2, float cx, float cy,
+                               float c, float ema, float one_minus, int headroom, int family, int eb, int mb, int fx,
+                               int fe, int fm, int tail_approx, int pinned, void* stream) {
+  if (nx < 3 || ny < 3 || every < 1 || work == nullptr || maxes == nullptr || count == nullptr || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   SweArgs a{u_in, u_out, snaps, ev, work, maxes, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve,
             nx, ny, steps, every, cx2, cy2, cx, cy, c};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
-  if (shape == 0) {
-    const int bmax = (nx + cluster - 1) / cluster, R = (bmax + 2 + rows - 1) / rows;
-    if (cluster < 1 || cluster > kMaxCluster || 2 * cluster > nx || threads % 32 != 0 || threads < R * ny ||
-        threads > kClusterThreads)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = static_cast<size_t>(6 * (bmax + 2) + 3 * bmax + 3 * (bmax + 1)) * ny * sizeof(float);
-    switch (rows) {
-      case 1: return static_cast<int>(launch_cluster_kind<1>(a, cluster, threads, bmax, R, smem, law, p, stream));
-      case 2: return static_cast<int>(launch_cluster_kind<2>(a, cluster, threads, bmax, R, smem, law, p, stream));
-      case 4: return static_cast<int>(launch_cluster_kind<4>(a, cluster, threads, bmax, R, smem, law, p, stream));
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (shape != 1 || work == nullptr || maxes == nullptr || count == nullptr || ctas < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
   int capacity = 0;
   const cudaError_t err = r2f2::cooperative_capacity(swe2d_grid_kernel, kSweThreads, 0, capacity);
   if (err != cudaSuccess) return static_cast<int>(err);

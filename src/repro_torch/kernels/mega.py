@@ -29,11 +29,9 @@ tensors; a CUDA tensor takes the plain version only with ``plain=True``.
 launches and its plain runs. Kernel K4 is ``csrc/rod.cuh`` for heat1d
 (K2's device body on the launch shape of ``rod.rod_plan``: up to eight
 warps of one CTA up to 2048 cells, else a cooperative grid) and
-``csrc/mega_pde.cu`` for swe2d on the shape of :func:`swe2d_plan`: one
-thread-block cluster of up to 16 CTAs in row bands, the state and the
-Lax-Wendroff intermediates in shared memory and registers, three cluster
-barriers a substep, where a CTA holds its band; else a cooperative grid,
-the intermediates in global memory (which the 50 MB L2 holds). Kernels
+``csrc/mega_pde.cu`` for swe2d on the shape of :func:`swe2d_plan`: a
+cooperative grid, the intermediates in global memory (which the 50 MB L2
+holds), four grid barriers a substep. Kernels
 K5e-f are the 1-D bodies of ``csrc/rod.cuh`` on their rod's shape, K5d
 heat2d's thread-block cluster (``csrc/pde_steps.cu::heat2d_mega_kernel``)
 or, beyond it, the rod's grid (``pde_steps.heat2d_plan``), with the
@@ -68,10 +66,6 @@ __all__ = [
     "MegaResult",
     "HEAT1D_MEGA",
     "SWE2D_MEGA",
-    "SWE2D_CTA_CELLS",
-    "SWE2D_MAX_CLUSTER",
-    "SWE2D_MAX_THREADS",
-    "SWE2D_ROWS",
     "Swe2DPlan",
     "swe2d_plan",
     "swe2d_grid_scratch",
@@ -290,54 +284,28 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-#: swe2d's cluster (csrc/mega_pde.cu): at most SWE2D_MAX_CLUSTER CTAs of at
-#: most SWE2D_MAX_THREADS threads (170 registers each), each CTA holding at
-#: most SWE2D_CTA_CELLS points of its band and halo rows (four planes of
-#: three components, its Gy and Fx in shared memory: under 100 KB), each
-#: thread one of SWE2D_ROWS rows of a column (the kernel's template sizes).
-#: At the main path's 128x128, 384 threads of four rows took 11.68 us a
-#: substep and 640 of two 12.07 (PERF.md section 6)
-SWE2D_MAX_CLUSTER, SWE2D_MAX_THREADS, SWE2D_CTA_CELLS = 16, 384, 2048
-SWE2D_ROWS = (1, 2, 4)
-#: threads of a grid-shape CTA
-_SWE2D_GRID_THREADS = 256
+#: threads of a CTA of swe2d's grid (csrc/mega_pde.cu)
+_SWE2D_THREADS = 256
 
 
 class Swe2DPlan(NamedTuple):
     """The launch shape of swe2d's megakernel (``csrc/mega_pde.cu``)."""
 
-    shape: str  # "cluster": one thread-block cluster in row bands; "grid": a cooperative grid over the field
-    ctas: int  # the cluster's CTAs, or the grid's (at most; the launch takes as many as the card holds at once)
+    ctas: int  # the grid's CTAs (at most: the launch takes as many as the card holds at once)
     threads: int  # threads a CTA
-    rows: int  # cluster: rows of its column each thread works (0 on the grid)
 
 
 def swe2d_plan(nx: int, ny: int) -> Swe2DPlan:
-    """How K4 runs an ``(nx, ny)`` swe2d state. One thread-block cluster of
-    ``C = min(16, nx // 2)`` CTAs, CTA ``r`` owning rows ``[r*nx//C,
-    (r+1)*nx//C)`` (two or more, so each wall's mirror is its own), where a
-    CTA holds its band and two halo rows (at most :data:`SWE2D_CTA_CELLS`
-    points): thread ``t < R * ny`` works column ``t % ny`` of rows ``t // ny
-    + R*m``, ``m < rows``, with ``rows`` the fewest of :data:`SWE2D_ROWS`
-    that keeps the whole warps of ``R * ny`` threads within
-    :data:`SWE2D_MAX_THREADS` (the main path's 128x128 and 129x128, the
-    largest field of the default kernel_blocks, run 16 CTAs of 384 threads,
-    four rows each). Beyond that a cooperative grid, one CTA of 256 threads
-    per 256 points. Any ``nx, ny >= 3``."""
+    """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one CTA
+    of 256 threads per 256 points, each phase a grid-stride loop over the
+    field (the main path's 128x128 runs 64 CTAs). Any ``nx, ny >= 3``."""
     if min(nx, ny) < 3:
         raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
-    c = min(SWE2D_MAX_CLUSTER, nx // 2)
-    band_rows = -(-nx // c) + 2
-    if band_rows * ny <= SWE2D_CTA_CELLS:
-        for rows in SWE2D_ROWS:
-            threads = 32 * -(-(-(-band_rows // rows) * ny) // 32)
-            if threads <= SWE2D_MAX_THREADS:
-                return Swe2DPlan("cluster", c, threads, rows)
-    return Swe2DPlan("grid", -(-nx * ny // _SWE2D_GRID_THREADS), _SWE2D_GRID_THREADS, 0)
+    return Swe2DPlan(-(-nx * ny // _SWE2D_THREADS), _SWE2D_THREADS)
 
 
 def swe2d_grid_scratch(nx, ny, device):
-    """The grid shape's scratch, whatever the number of substeps: 17 planes
+    """The grid's scratch, whatever the number of substeps: 17 planes
     of intermediates (f32), the four maxima of a ring of two substeps (int32,
     zeroed; the kernel zeroes each substep's for the one after next) and the
     64-bit barrier counter (zeroed)."""
@@ -361,10 +329,11 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     out = torch.empty_like(U)
     snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
-    grid = plan.shape == "grid"
-    work, maxes, count = swe2d_grid_scratch(nx, ny, dev) if grid else (None, None, None)
+    if plan.threads != _SWE2D_THREADS:
+        raise ValueError(f"swe2d_mega's CTAs have {_SWE2D_THREADS} threads; got {plan}")
+    work, maxes, count = swe2d_grid_scratch(nx, ny, dev)
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
-    ka = None if k is None or not grid else k.clone()  # the grid's datapath floor, latched at boundaries
+    ka = None if k is None else k.clone()  # the datapath floor, latched at boundaries
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev if evolve else None)
     consts = [float(f32_scalar(v, "cpu")) for v in (
@@ -375,8 +344,7 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
         err = lib.r2f2_swe2d_mega(
             _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work), _cuda.ptr(maxes),
             _cuda.ptr(count), _cuda.ptr(ka), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh),
-            _cuda.ptr(table), int(evolve), nx, ny, steps, every, int(grid), plan.ctas, plan.threads, plan.rows,
-            plan.ctas, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
+            _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
             _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")

@@ -425,21 +425,21 @@ def test_heat2d_grid_matches_plain(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["cluster", "forced grid", "(200,200)"])
+@pytest.mark.parametrize("which", ["main path", "forced grid", "(200,200)"])
 def test_swe2d_mega_shapes_match_plain(which):
-    """K4 swe2d on its cluster (the main path's 128x128 over the ladder and
-    the trackers), on a forced grid at 128x128, and on the grid at 200x200
-    under kernel_blocks (256, 256, 128), against its plain version on the
-    CPU under flush bit for bit: state, snapshots, evidence, tracker."""
+    """K4 swe2d on its grid at the main path's 128x128 (over the ladder and
+    the trackers), on a forced grid of 8 CTAs there, and at 200x200 under
+    kernel_blocks (256, 256, 128), against its plain version on the CPU
+    under flush bit for bit: state, snapshots, evidence, tracker."""
     _need_card()
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    from repro_torch.kernels.mega import swe2d_mega, swe2d_plan
+    from repro_torch.kernels.mega import swe2d_mega
 
     def picked(label, kw):
-        if which == "cluster":
-            return kw.get("_plan") is None and swe2d_plan(kw["cfg"].nx, kw["cfg"].ny).shape == "cluster"
+        if which == "main path":
+            return kw.get("_plan") is None and kw["cfg"].nx == 128
         return which in label
 
     cases = [(label, x, kw) for kern, label, x, kw in chip_smoke.mega_cases("cuda") if kern == "swe2d" and picked(label, kw)]

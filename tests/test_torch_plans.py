@@ -15,9 +15,8 @@ decide how a CUDA launch spreads its work, checked on the CPU.
   (``kernels/rod.py``): ``rod_plan`` gives a ``(br, nx)`` row block or a
   periodic rod the warps of one CTA or a cooperative grid, and
   ``grid_scratch`` sizes the grid's scratch.
-* K4 swe2d (``kernels/mega.py``): ``swe2d_plan`` gives a state one
-  thread-block cluster in row bands or a cooperative grid, and
-  ``swe2d_grid_scratch`` sizes the grid's scratch.
+* K4 swe2d (``kernels/mega.py``): ``swe2d_plan`` gives a state its
+  cooperative grid, and ``swe2d_grid_scratch`` sizes the grid's scratch.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -29,9 +28,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.r2f2_matmul import (
     MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
 )
-from repro_torch.kernels.mega import (
-    SWE2D_CTA_CELLS, SWE2D_MAX_CLUSTER, SWE2D_MAX_THREADS, SWE2D_ROWS, swe2d_grid_scratch, swe2d_plan,
-)
+from repro_torch.kernels.mega import swe2d_grid_scratch, swe2d_plan
 from repro_torch.kernels.pde_steps import (
     HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, ClusterPlan, heat2d_cluster_plan, heat2d_plan,
 )
@@ -458,54 +455,33 @@ def test_heat2d_plan_cluster_or_grid(shape, shape_kind):
 # K4 swe2d: swe2d_plan
 
 
-def _swe2d_cluster_holds(plan, nx, ny):
-    """The cluster kernel's own conditions (csrc/mega_pde.cu): C <= 16 CTAs
-    of at least two rows each, the band and halo rows within
-    SWE2D_CTA_CELLS, R row groups of `rows` rows covering them, R * ny
-    threads at work within whole warps of at most SWE2D_MAX_THREADS."""
-    c = plan.ctas
-    bands = [(r + 1) * nx // c - r * nx // c for r in range(c)]
-    bmax = -(-nx // c)
-    groups = -(-(bmax + 2) // plan.rows)
-    return (1 <= c <= SWE2D_MAX_CLUSTER and min(bands) >= 2 and max(bands) == bmax and sum(bands) == nx
-            and (bmax + 2) * ny <= SWE2D_CTA_CELLS and groups * plan.rows >= bmax + 2
-            and plan.rows in SWE2D_ROWS and groups * ny <= plan.threads <= SWE2D_MAX_THREADS and plan.threads % 32 == 0)
-
-
 @pytest.mark.parametrize("shape,want", [
-    ((64, 64), ("cluster", 16, 384, 1)),  # the card link's field: 16 CTAs of 4 rows, one a thread
-    ((128, 128), ("cluster", 16, 384, 4)),  # the main path: 16 CTAs of 8 rows, three row groups of four
-    ((129, 128), ("cluster", 16, 384, 4)),  # the largest field of the default kernel_blocks: bands of 9 rows
-    ((200, 200), ("grid", 157, 256, 0)),  # phase 2's grid under kernel_blocks (256, 256, 128)
-    ((3, 3), ("cluster", 1, 32, 1)),
+    ((64, 64), (16, 256)),  # the card link's field
+    ((128, 128), (64, 256)),  # the main path
+    ((129, 128), (65, 256)),  # the largest field of the default kernel_blocks
+    ((200, 200), (157, 256)),  # phase 2's field under kernel_blocks (256, 256, 128)
+    ((3, 3), (1, 256)),
 ])
 def test_swe2d_plan(shape, want):
-    nx, ny = shape
-    plan = swe2d_plan(nx, ny)
-    assert plan == want
-    if plan.shape == "cluster":
-        assert _swe2d_cluster_holds(plan, nx, ny)
+    assert swe2d_plan(*shape) == want
 
 
-def test_swe2d_plan_clusters_every_default_field():
-    """Every field the megakernel takes under the default kernel_blocks
-    ((nx - 1, ny) within (128, 128)) runs on the cluster, on at most 16 CTAs
-    of at least two rows; a field whose band does not fit a CTA takes the
-    grid, one CTA of 256 threads per 256 points."""
+def test_swe2d_plan_covers_every_field():
+    """Every field takes one CTA of 256 threads per 256 points: the grid's
+    threads cover each point once, with no CTA left idle."""
     for nx in range(3, 130):
         for ny in (3, 4, 31, 64, 100, 127, 128):
             plan = swe2d_plan(nx, ny)
-            assert plan.shape == "cluster" and _swe2d_cluster_holds(plan, nx, ny), (nx, ny, plan)
+            assert plan.threads == 256 and (plan.ctas - 1) * 256 < nx * ny <= plan.ctas * 256, (nx, ny, plan)
     for nx, ny in ((200, 200), (3, 1000), (256, 256), (1000, 64)):
-        plan = swe2d_plan(nx, ny)
-        assert plan == ("grid", -(-nx * ny // 256), 256, 0), (nx, ny)
+        assert swe2d_plan(nx, ny) == (-(-nx * ny // 256), 256), (nx, ny)
     with pytest.raises(ValueError, match="nx, ny >= 3"):
         swe2d_plan(2, 64)
 
 
 @pytest.mark.parametrize("nx,ny", [(128, 128), (200, 200), (512, 512)])
 def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
-    """The grid shape's scratch is the same for any number of substeps: 17
+    """The grid's scratch is the same for any number of substeps: 17
     planes of intermediates, the four maxima of a ring of two substeps
     (zeroed) and one 64-bit barrier counter (zeroed): four grid barriers a
     substep would wrap 32 bits after about 8 million substeps on 132 CTAs."""
