@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -532,31 +533,55 @@ def mega_cases(device):
     kw = dict(base["heat1d"], **heat_args(30_000), steps=100, every=40, prec=L["rr_tracked"], tracker=trk, collect_evidence=True,
               _plan=grid_on_one_cta(1, 30_000, cells=8))
     cases.append(("heat1d", "rr_tracked (30000,) on a forced grid in batches", rod(30_000, device)[0], kw))
-    # K4 swe2d beyond the main path's grid: its state on a forced grid of 8
-    # CTAs (each thread walks eight points a phase), and the grid at 200x200
-    # under kernel_blocks (256, 256, 128), the preset shape that admits it
-    from repro_torch.kernels.mega import Swe2DPlan
+    # K4 swe2d beyond the main path's plan (64 bands of two rows): forced
+    # grids at 128x128 (8 CTAs of 16-row bands; one-row bands; one CTA owning
+    # every row), uneven last bands (127x128, 130x64), 200x200 under
+    # kernel_blocks (256, 256, 128) (the preset shape that admits it), the
+    # latency floor's (32, 3) and a wide field whose band arrays live in
+    # device memory (64x5000), each in SHAPE_MODES; then tracked runs across
+    # six snapshot boundaries (the CTA-local latch) and every = 1
+    from repro_torch.kernels.mega import swe2d_plan
 
-    forced = Swe2DPlan(8, 256)
-    big = dataclasses.replace(scfg, nx=200, ny=200)
-    U200 = initial_state(big, device="cpu").to(device)
-    for name in SHAPE_MODES:
+    def swe_state(nx, ny):
+        c = dataclasses.replace(scfg, nx=nx, ny=ny)
+        return c, initial_state(c, device="cpu").to(device)
+
+    swe_shapes = [
+        ("on a forced grid of 8 CTAs", 128, 128, swe2d_plan(128, 128, ctas=8), None),
+        ("on one-row bands", 128, 128, swe2d_plan(128, 128, band_rows=1), None),
+        ("on one CTA", 128, 128, swe2d_plan(128, 128, ctas=1), None),
+        ("(127,128)", 127, 128, None, None),
+        ("(130,64)", 130, 64, None, None),
+        ("(200,200) kernel_blocks (256,256,128)", 200, 200, None, (256, 256, 128)),
+        ("(32,3)", 32, 3, None, None),
+        ("(64,5000) band arrays in device memory", 64, 5000, None, (64, 5120, 128)),
+        ("with three grid barriers", 128, 128, swe2d_plan(128, 128, barriers=3), None),
+    ]
+    for label, nx, ny, plan, blocks in swe_shapes:
+        cfg, x = swe_state(nx, ny) if (nx, ny) != (128, 128) else (scfg, U)
+        for name in SHAPE_MODES:
+            prec = L[name] if blocks is None else dataclasses.replace(L[name], kernel_blocks=blocks)
+            trk = tracker_init(4, prec.fmt, device=device) if get_engine(prec).tracks else None
+            kw = dict(base["swe2d"], cfg=cfg, prec=prec, tracker=trk, collect_evidence=True)
+            if plan is not None:
+                kw["_plan"] = plan
+            cases.append(("swe2d", f"{name} {label}", x, kw))
+    for name, steps, every in (("rr_tracked", 24, 4), ("deploy", 24, 4), ("r2f2_16", 8, 1), ("rr_tracked", 8, 1)):
         trk = tracker_init(4, L[name].fmt, device=device) if get_engine(L[name]).tracks else None
-        kw = dict(base["swe2d"], prec=L[name], tracker=trk, collect_evidence=True, _plan=forced)
-        cases.append(("swe2d", f"{name} on a forced grid of 8 CTAs", U, kw))
-        prec = dataclasses.replace(L[name], kernel_blocks=(256, 256, 128))
-        trk = tracker_init(4, prec.fmt, device=device) if get_engine(prec).tracks else None
-        cases.append(("swe2d", f"{name} (200,200) kernel_blocks (256,256,128)", U200,
-                      dict(base["swe2d"], cfg=big, prec=prec, tracker=trk, collect_evidence=True)))
+        kw = dict(base["swe2d"], steps=steps, every=every, prec=L[name], tracker=trk, collect_evidence=True)
+        cases.append(("swe2d", f"{name} every={every} over {steps // every} boundaries", U, kw))
     return cases
 
 
 def swe2d_launch_shape(nx, ny, plan=None) -> str:
     """The launch of K4 swe2d on an (nx, ny) state: swe2d_plan's (or the forced ``plan``)."""
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels.mega import swe2d_plan
 
-    p = plan or swe2d_plan(nx, ny)
-    return f"[cooperative grid of up to {p.ctas} CTAs x {p.threads} threads, four grid barriers a substep]"
+    p = plan or swe2d_plan(nx, ny, sms=_cuda.sm_count("cuda"))
+    where = "shared memory" if p.smem else "device memory"
+    return (f"[cooperative grid of {p.ctas} CTAs x {p.threads} threads, bands of up to {p.rows} rows, "
+            f"band arrays in {where}, {p.barriers} grid barriers a substep]")
 
 
 def check_mega(device):
@@ -1049,6 +1074,13 @@ def check_flush_contract(device):
     return records
 
 
+def k6_launch_shape(plan) -> str:
+    """K6's launch shape (kernels/r2f2_quantize.py::quantize_plan)."""
+    if plan.shape == "two_pass":
+        return f"two-pass, {plan.ctas} CTAs of 512 threads"
+    return f"cluster of {plan.cluster} CTAs a tile, {plan.rows} rows ({plan.smem} B) each, {plan.ctas} CTAs"
+
+
 def check_contract_kernels(device):
     """K6 against its plain version bit for bit (y and k), over the four
     formats, three blocks, special tiles and the shared-expert gate's
@@ -1066,7 +1098,7 @@ def check_contract_kernels(device):
     from repro_torch.core.flexformat import FlexFormat
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.r2f2_matmul import DEFAULT_BLOCKS, launch_plan, r2f2_matmul, r2f2_matmul_plain
-    from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
+    from repro_torch.kernels.r2f2_quantize import quantize_plan, r2f2_quantize, r2f2_quantize_plain
 
     g = torch.Generator().manual_seed(5)
     fmt = FlexFormat(3, 9, 3)
@@ -1080,22 +1112,33 @@ def check_contract_kernels(device):
         require(ok, f"{kernel} disagrees with its plain version: {label}")
 
     x = spread_data((1024, 1024), g, device)
-    k6 = [(f"fmt <{e},{m},{f}> (1024,1024) block (256,256)", x, FlexFormat(e, m, f), (256, 256)) for e, m, f in K6_FMTS]
-    k6 += [(f"(1024,1024) block {blk}", x, fmt, blk) for blk in ((128, 256), (256, 128))]
-    k6 += [("special tiles (256,1024): zero, subnormal, inf/NaN, 1e6", special_tiles(device), fmt, (256, 256))]
-    k6 += [(f"shared-expert gate ({LM_D},{LM_FF})", spread_data((LM_D, LM_FF), g, device, (-3, 0)), fmt, (256, 256))]
+    k6 = [(f"fmt <{e},{m},{f}> (1024,1024) block (256,256)", x, FlexFormat(e, m, f), (256, 256), None) for e, m, f in K6_FMTS]
+    # each launch shape of quantize_plan: the cluster at (256, 256), (128, 256)
+    # and (256, 128), and forced onto clusters of 8 and 1; the two-pass shape
+    # at (8, 128) (a small tile), (512, 512) (more than the cluster holds)
+    # and (1024, 6) (no 16-byte vectors); a block larger than the matrix
+    k6 += [(f"(1024,1024) block {blk}", x, fmt, blk, None) for blk in ((128, 256), (256, 128), (8, 128), (512, 512))]
+    k6 += [("(1024,1026) block (1024,6)", spread_data((1024, 1026), g, device), fmt, (1024, 6), None)]
+    k6 += [("(1024,1024) block (256,256) on clusters of 8", x, fmt, (256, 256), quantize_plan(1024, 1024, 256, 256, cta_bytes=32768))]
+    k6 += [("(1024,1024) block (128,128) on clusters of 1", x, fmt, (128, 128), None)]
+    k6 += [("(96,512) block (256,256): bm = m", spread_data((96, 512), g, device), fmt, (256, 256), None)]
+    k6 += [(f"special tiles (256,1024): zero, subnormal, inf/NaN, 1e6 block {blk}", special_tiles(device), fmt, blk, None)
+           for blk in ((256, 256), (128, 256), (8, 128), (256, 1024))]
+    k6 += [(f"shared-expert gate ({LM_D},{LM_FF})", spread_data((LM_D, LM_FF), g, device, (-3, 0)), fmt, (256, 256), None)]
     def plain(fn, *args, label, **kw):
         """The plain version on the card, or on the CPU under flush where
         the operands hold f32 subnormals (the special tiles)."""
         return plain_on_cpu(fn, *args, **kw) if label.startswith("special") else fn(*args, **kw)
 
-    for label, xin, f, blk in k6:
-        y, k = r2f2_quantize(xin, fmt=f, block=blk)
+    for label, xin, f, blk, forced in k6:
+        y, k = r2f2_quantize(xin, fmt=f, block=blk, _plan=forced)
         y_want, k_want = plain(r2f2_quantize_plain, xin, fmt=f, block=blk, label=label)
         ok = same_bits(y, y_want) and torch.equal(k, k_want) and k.dtype == torch.int32
-        if label.startswith("special"):
+        if label.startswith("special") and blk[1] == 256:
             ok = ok and k[0, 0].item() == 3 and k[0, 1].item() == 3 and k[0, 3].item() == 3
-        record("r2f2_quantize", label, ok, max_abs_err(y, y_want), "bit-exact (y and k)")
+        m, n = xin.shape
+        plan = forced or quantize_plan(m, n, min(blk[0], m), min(blk[1], n))
+        record("r2f2_quantize", f"{label} [{k6_launch_shape(plan)}]", ok, max_abs_err(y, y_want), "bit-exact (y and k)")
 
     sp = special_tiles(device)[:128, :768:2].contiguous()  # K blocks: zero, subnormal, inf/NaN
     # (label, a, b, kwargs, kind): "dyadic" and "rounded" held bit for bit
@@ -1777,12 +1820,9 @@ def time_shapes(device, card):
     shape: K5b/K5c (a fused chunk of the main path's snapshot interval) and
     K5e/K5f (the main path's horizon) on the rods of :data:`ROD_TIMED_NX`;
     heat2d's K5a (187 substeps) and K5d (1500) on the rod's grid at 359x359
-    and 400x400 and on a forced grid at the main path's 64x64; K4 swe2d (400
-    substeps) at the main path's 128x128, at 200x200, and on its latency
-    floor, a (32, 3) state (one CTA). Returns the rows."""
-    from repro_torch.kernels.mega import swe2d_mega
+    and 400x400 and on a forced grid at the main path's 64x64; K4 swe2d
+    (:func:`time_swe2d`). Returns the rows."""
     from repro_torch.pde import Heat2DConfig, get_stepper
-    from repro_torch.pde.swe2d import initial_state
 
     L = ladder()
     rows = []
@@ -1818,16 +1858,73 @@ def time_shapes(device, card):
         row("heat2d_sweep", f"({nx},{ny})", shape, graph_time_ms(lambda: w["sweep"](u, steps=every, **kw), 5), every)
         row("heat2d_mega", f"({nx},{ny})", shape,
             graph_time_ms(lambda: w["mega"](u, steps=steps, every=every, **kw), 2, replays=3), steps)
+    rows += time_swe2d(device, card)
+    return rows
+
+
+def time_swe2d(device, card, explore=False):
+    """K4 swe2d over the main path's horizon (400 substeps, a snapshot every
+    100) in r2f2_16, by replayed CUDA graphs and by CUDA events (which hold
+    the wrapper's host work too), each with its launch shape: the plan's
+    grid at 128x128, 200x200 and 400x400, and the latency floor, a (32, 3)
+    state on one CTA. On the band kernel also the main path's field with a
+    third grid barrier a substep, and with ``explore`` the other band
+    heights, CTA sizes and grids the plan chose among. A tree without the
+    band kernel (copied into it, this script times that tree's kernel) runs
+    the shapes its plan gives. Returns the rows."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import mega
+    from repro_torch.pde.swe2d import initial_state
+
+    L = ladder()
     scfg = workload_config("swe2d")[0]
     mk = dict(steps=MAIN_STEPS["swe2d"], every=SWE_EVERY, sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"),
-              site_ops=("mul", "mul", "mul", "div"))
-    for (nx, ny), blocks in (((128, 128), None), ((200, 200), (256, 256, 128)), ((32, 3), None)):
+              site_ops=("mul", "mul", "mul", "div"), prec=L["r2f2_16"])
+    bands = hasattr(mega, "swe2d_bands")
+    sms = _cuda.sm_count(device)
+    shapes = [("", 128, 128, None), ("", 200, 200, None), ("", 400, 400, None)]
+    if bands:
+        plan = functools.partial(mega.swe2d_plan, sms=sms)
+        shapes += [
+            ("latency floor", 32, 3, plan(32, 3, ctas=1)),
+            ("three grid barriers", 128, 128, plan(128, 128)._replace(barriers=3)),
+        ]
+        if explore:
+            for rows, threads in ((1, 256), (1, 384), (1, 512), (2, 256), (2, 384), (2, 512)):
+                shapes.append((f"{rows}-row bands, {threads} threads", 128, 128,
+                               plan(128, 128, band_rows=rows, threads=threads)))
+            shapes += [
+                ("2-row bands, three grid barriers", 128, 128, plan(128, 128, band_rows=2)._replace(barriers=3)),
+                ("1-row bands, 512 threads", 200, 200, plan(200, 200, band_rows=1, threads=512)),
+                ("199 CTAs, 256 threads", 200, 200, plan(200, 200, ctas=199, threads=256)),
+                ("199 CTAs, 320 threads", 200, 200, plan(200, 200, ctas=199, threads=320)),
+                ("132 CTAs, 512 threads", 400, 400, plan(400, 400, threads=512)),
+                ("264 CTAs, 256 threads", 400, 400, plan(400, 400, ctas=264, threads=256)),
+                ("latency floor, 384 threads", 32, 3, plan(32, 3, ctas=1, threads=384)),
+            ]
+    else:
+        shapes += [("latency floor", 32, 3, None)]
+    rows = []
+    for label, nx, ny, plan in shapes:
         cfg = dataclasses.replace(scfg, nx=nx, ny=ny)
         U = initial_state(cfg, device="cpu").to(device)
-        prec = L["r2f2_16"] if blocks is None else dataclasses.replace(L["r2f2_16"], kernel_blocks=blocks)
-        kw = dict(mk, cfg=cfg, prec=prec)
-        row("swe2d_mega", f"(3,{nx},{ny})", swe2d_launch_shape(nx, ny),
-            graph_time_ms(lambda: swe2d_mega(U, **kw), 2, replays=3), mk["steps"])
+        kw = dict(mk, cfg=cfg)
+        if plan is not None:
+            kw["_plan"] = plan
+        try:
+            ms = graph_time_ms(lambda: mega.swe2d_mega(U, **kw), 2, replays=3)
+            ev_ms, _ = cuda_time_ms(lambda: mega.swe2d_mega(U, **kw), 5)
+        except RuntimeError as exc:  # a forced grid larger than the card holds at once
+            if not explore:
+                raise
+            log(f"time swe2d_mega (3,{nx},{ny}) {label}: {exc}")
+            continue
+        steps = mk["steps"]
+        shape = swe2d_launch_shape(nx, ny, plan) if bands else f"[cooperative grid of up to {mega.swe2d_plan(nx, ny).ctas} CTAs]"
+        rows.append(dict(kernel="swe2d_mega", case=f"(3,{nx},{ny}) {label}".strip(), shape=shape, ms=ms, events_ms=ev_ms,
+                         substeps=steps, us_per_substep=ms * 1e3 / steps))
+        log(f"time swe2d_mega (3,{nx},{ny}) {label} {shape}: {ms:.4f} ms per {steps} substeps by graphs "
+            f"({ms * 1e3 / steps:.3f} us each), {ev_ms:.4f} ms by CUDA events [{card}]")
     return rows
 
 
@@ -2004,7 +2101,7 @@ def time_contract_kernels(device, launches, errs, card):
     from repro_torch.core.flexformat import FlexFormat
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.r2f2_matmul import launch_plan, r2f2_matmul, r2f2_matmul_plain
-    from repro_torch.kernels.r2f2_quantize import r2f2_quantize, r2f2_quantize_plain
+    from repro_torch.kernels.r2f2_quantize import QuantizePlan, quantize_plan, r2f2_quantize, r2f2_quantize_plain
 
     fmt = FlexFormat(3, 9, 3)
     g = torch.Generator().manual_seed(31)
@@ -2017,12 +2114,24 @@ def time_contract_kernels(device, launches, errs, card):
     rows, recs = [], []
     for m, n in ((1024, 1024), (LM_D, LM_FF)):
         x = torch.randn(m, n, generator=g).to(device) * LM_D**-0.5
-        ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 20)
+        ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 50, warmup=5)
         plain_ms, (yp, kp) = cuda_time_ms(lambda: r2f2_quantize_plain(x, fmt=fmt), 3)
         require(same_bits(y, yp) and torch.equal(k, kp), f"r2f2_quantize disagrees with its plain version at ({m},{n})")
         b_ms, b_by = bound(8 * m * n + 4 * k.numel(), 0)
+        # the other launch shapes on the same matrix: the cluster on 2 and 8
+        # CTAs a tile, and the two-pass shape (the parent's kernel)
+        shapes = {"plan": quantize_plan(m, n, 256, 256)}
+        shapes.update({f"{c} CTAs a tile": quantize_plan(m, n, 256, 256, cta_bytes=256 * 1024 // c) for c in (2, 8)})
+        shapes["two-pass"] = QuantizePlan("two_pass", 0, 256, 0, (m // 256) * (n // 256))
+        by_shape = {}
+        for label, plan in shapes.items():
+            t, (ys, ks) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=plan), 50, warmup=5)
+            require(same_bits(ys, yp) and torch.equal(ks, kp), f"r2f2_quantize on {label} disagrees at ({m},{n})")
+            graph_ms = graph_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=plan), 20)
+            by_shape[label] = dict(ms=t, graph_ms=graph_ms, launch=k6_launch_shape(plan))
+        launch = "; ".join(f"{k} [{v['launch']}] {v['ms']:.4f} ms (graphs {v['graph_ms']:.4f})" for k, v in by_shape.items())
         rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, sgemm_ms=None))
+                         bound_by=b_by, sgemm_ms=None, launch=launch, by_shape=by_shape))
     k7_shapes = [
         ("router prefill", LM_PREFILL_ROWS, LM_D, LM_E), ("router decode", LM_DECODE_ROWS, LM_D, LM_E),
         ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
@@ -2144,6 +2253,12 @@ def main(argv) -> int:
             elif any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
+
+    if "--swe2d-times" in argv:  # timings only: its last line is the times, not a verdict
+        times = time_swe2d(device, card, explore=True)
+        log(card)
+        print(json.dumps({"swe2d_times": times}))
+        return 0
 
     if "--heat1d-sizes" in argv:  # timings only: its last line is the times, not a verdict
         report = heat1d_sizes(device, card)

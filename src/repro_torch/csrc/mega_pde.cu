@@ -1,7 +1,7 @@
 // The megakernel plane of repro_torch for swe2d (kernel K4), for sm_90a: a
 // whole simulation horizon in one launch, with the adjust unit on the card.
 //
-//   swe2d_grid_kernel   replaces repro/kernels/mega.py::mega_sweep with swe2d_mega
+//   swe2d_band_kernel   replaces repro/kernels/mega.py::mega_sweep with swe2d_mega
 //
 // (heat1d's K4 is the rod, rod.cuh.) It follows mega_sweep's contract for f32 storage
 // without capture: the body runs on the whole field as one split block; with
@@ -11,22 +11,54 @@
 // substeps run after the last one. The C entry point returns the launch's
 // cudaError_t.
 //
-// swe2d: the (3, nx, ny) state and the Lax-Wendroff intermediates do not fit
-// one SM's shared memory (3x128x128 f32 alone is 196,608 B), so they live in
-// global memory, which the 50 MB L2 holds. A cooperative grid of CTAs
-// (kernels/mega.py::swe2d_plan) walks each substep in four phases, each a
-// grid-stride loop behind an r2f2::grid_barrier:
-//   A  Ux, Uy from U (the f32 fluxes F, G at each point), and the field-wide
-//      maxima of |Ux.hu|, |Ux.h|;
-//   B  t1 = hu*hu and t3 = h*h on the policy at k11/k33 and their maxima; Gy;
-//   C  Fx through the policy's quotient and mul_add at k_div/k_gq3; CTA 0
-//      ticks the four sites;
-//   D  the interior update as two fmas into the other state buffer, the walls
-//      as the interior value they mirror, the snapshot and the latch.
-// It is bound by the latency of four grid barriers a substep, not by bytes or
+// swe2d: the (3, nx, ny) state does not fit one SM (3x128x128 f32 alone is
+// 196,608 B), so a cooperative grid of CTAs (kernels/mega.py::swe2d_plan)
+// cuts it into bands of rows: CTA b of C owns rows [r0, r1) = [b*nx/C,
+// (b+1)*nx/C) and keeps them, with the halo row r1 below them, in its band
+// arrays (shared memory, or a per-CTA slice of device memory where the band
+// does not fit). A substep runs in three phases and two grid barriers:
+//   A  Ux on the band's own rows (the last one reads the halo row) into the
+//      band and into a global ring, and the maxima of |Ux.hu|, |Ux.h|;
+//      barrier 1 arrives, then Uy and Gy on rows r0..r1 (all from the band)
+//      while it completes;
+//   B  t1 = hu*hu and t3 = h*h on the policy at k11/k33 and their maxima, and
+//      Fx's f32 components, on the own Ux rows; barrier 2 arrives, then the
+//      same on the halo Fx rows r0-1 and r1 (their Ux read from the ring);
+//   C+D Fx's momentum component through the policy's quotient and mul_add at
+//      k_div/k_gq3 on rows r0-1..r1, a CTA barrier, then the update of rows
+//      r0..r1 (the walls as the interior value they mirror) into the band's
+//      other U buffer; the own rows go to the snapshot and the output. The
+//      halo row r1 is the next band's row r1, recomputed bit for bit from the
+//      same values, so the next A needs no barrier before it.
+// Every value comes from the device functions and operation order of the
+// four-phase grid it replaces; Fx's halo rows and row r1 are recomputed, not
+// exchanged. Each CTA's thread 0 ticks the adjust unit on the same evidence
+// (deterministic), so the latch is CTA-local; CTA 0 alone writes the evidence
+// and the tracker rows.
+//
+// Hazards the two grid barriers leave open, and what covers each:
+//   Ux     a fast CTA's A of substep s+1 writes Ux rows that its neighbour's
+//          B-gap of substep s may still read for its halo Fx: Ux is a ring
+//          of two substeps (a slot is written again in s+2, behind barrier 1
+//          of s+1, which waits for every CTA's substep s).
+//   maxima CTA 0 zeroes substep s+1's four words at the start of substep s,
+//          while a slow CTA may still be about to read words 2-3 of s-1: the
+//          maxima are a ring of three substeps.
+//   ka     the floor was a global word latched behind a barrier; it is now
+//          per CTA in shared memory, written by thread 0 after the CTA's
+//          last read of the substep (behind the CTA barrier in C+D).
+//   walls  row 0 mirrors row 1 (CTA 0 holds row 1, its own or its halo);
+//          row nx-1 mirrors row nx-2, and the plan gives the last band two
+//          rows or more (C <= nx - 1).
+//   Gy, t1, t3 of the halo rows are the band's own work, so no other CTA's
+//          copy is read.
+// Any field: a band loops over its rows and columns with the CTA's threads,
+// and fields with more rows than CTAs take taller bands.
+//
+// It is bound by the latency of its chain of phases, not by bytes or
 // operations (the main path's 128x128 state is 196 KB and ~2.5 MFLOP a
 // substep). The maxima are integer maxima of magnitude bit patterns, so an
-// atomicMax into a ring of two substeps gives the same answer in every order.
+// atomicMax gives the same answer in every order.
 #include <cuda_runtime.h>
 
 #include "r2f2_device.cuh"
@@ -37,17 +69,19 @@ using r2f2::SiteState;
 
 namespace {
 
-constexpr int kSweThreads = 256;  // threads of a CTA
+constexpr int kSweMaxThreads = 512;  // threads of a CTA, at most (a multiple of 32)
+constexpr int kSweMaxWarps = kSweMaxThreads / 32;
 
 struct SweArgs {
   const float* u_in;
   float* u_out;
   float* snaps;
   float* ev;        // (steps, 4, 2) or null
-  float* work;      // 17 * nx * ny floats of intermediates
-  uint32_t* maxes;  // (2, 4) zeroed: |Ux.hu|, |Ux.h|, |t1|, |t3| of a ring of two substeps
+  float* ux;        // Ux in a ring of two substeps, (2, 3, nx-1, ny)
+  float* bands;     // the CTAs' band arrays in device memory, or null: in shared memory
+  uint32_t* maxes;  // (3, 4) zeroed: |Ux.hu|, |Ux.h|, |t1|, |t3| of a ring of three substeps
   unsigned long long* count;  // the launch's barrier counter, zeroed
-  int* ka;          // the datapath floor (4), null when untracked
+  const int* ka;    // the datapath floor (4) the run starts from, null when untracked
   int* trk_k;
   float* trk_hi;
   float* trk_lo;
@@ -56,8 +90,15 @@ struct SweArgs {
   const int* site_cfg;
   int evolve;
   int nx, ny, steps, every;
+  int rows;      // the tallest band's rows
+  int barriers;  // grid barriers a substep: 2, or 3 with one after the update
   float cx2, cy2, cx, cy, c;  // dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, each rounded once to f32
 };
+
+// Floats of one CTA's band arrays for bands of up to `rows` rows (mega.py::swe2d_band_floats).
+__host__ __device__ __forceinline__ size_t band_floats(int rows, int ny) {
+  return static_cast<size_t>(14 * rows + 19) * ny;
+}
 
 // The f32 momentum flux q1*q1/q3 + c*(q3*q3), its sum fused into the product
 // as the compiled reference computes it.
@@ -120,120 +161,189 @@ __device__ __forceinline__ void store_rows(const SiteState* st, int n, int* k, f
   }
 }
 
-// The site's split: the selection floored at the latched split (read through
-// L2: the lead thread latches it behind a grid barrier), or that split when pinned.
-__device__ __forceinline__ int grid_site_k(int k_select, const int* ka, int site, const Policy& p) {
-  if (ka == nullptr) return k_select;
-  const int f = __ldcg(ka + site);
-  return p.pinned ? f : max(k_select, f);
+// The first half of a grid barrier that carries two maxima: the CTA's
+// maxima of (v0, v1) go into the substep's words with one atomicMax each
+// from thread 0, which then adds one to the counter with release semantics.
+// Work between grid_arrive and grid_wait overlaps the barrier; its writes are
+// published by the next grid_arrive.
+__device__ __forceinline__ void grid_arrive(uint32_t v0, uint32_t v1, uint32_t* words, uint32_t (*red)[2],
+                                       unsigned long long* count) {
+  v0 = warp_max(v0);
+  v1 = warp_max(v1);
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5][0] = v0;
+    red[threadIdx.x >> 5][1] = v1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      v0 = max(v0, red[w][0]);
+      v1 = max(v1, red[w][1]);
+    }
+    atomicMax(words, v0);
+    atomicMax(words + 1, v1);
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(count) : "memory");
+  }
 }
 
-__global__ void __launch_bounds__(kSweThreads) swe2d_grid_kernel(SweArgs a, AdjustLaw law, Policy p) {
-  const int nx = a.nx, ny = a.ny, n = nx * ny;
-  const int nxm = (nx - 1) * ny, nym = nx * (ny - 1);
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  float* tmp = a.work;         // the other state buffer, 3n
-  float* ux = tmp + 3 * n;     // (3, nx-1, ny)
-  float* uy = ux + 3 * n;      // (3, nx, ny-1)
-  float* t1b = uy + 3 * n;     // (nx-1, ny)
-  float* t3b = t1b + n;        // (nx-1, ny)
-  float* gy = t3b + n;         // (3, nx, ny-1)
-  float* fx = gy + 3 * n;      // (3, nx-1, ny)
+// The second half: thread 0 spins on acquire loads until the counter
+// reaches `target`, then reads the two words; every thread gets them.
+__device__ __forceinline__ uint2 grid_wait(const uint32_t* words, uint32_t* seen, unsigned long long* count,
+                                      unsigned long long target) {
+  if (threadIdx.x == 0) {
+    unsigned long long now = 0ull;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(now) : "l"(count) : "memory");
+    } while (now < target);
+    seen[0] = __ldcg(words);
+    seen[1] = __ldcg(words + 1);
+  }
+  __syncthreads();
+  return make_uint2(seen[0], seen[1]);
+}
+
+__global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, AdjustLaw law, Policy p) {
+  extern __shared__ __align__(16) float band_smem[];
+  __shared__ uint32_t red[kSweMaxWarps][2];
+  __shared__ uint32_t seen[2];
+  __shared__ int floor_k[4];  // the latched datapath floor, CTA-local
+  const int nx = a.nx, ny = a.ny, n = nx * ny, nxm = (nx - 1) * ny, R = a.rows, T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int C = gridDim.x, b = blockIdx.x;
+  const int r0 = static_cast<int>(static_cast<long long>(b) * nx / C);
+  const int r1 = static_cast<int>(static_cast<long long>(b + 1) * nx / C);
+  const int own = r1 - r0;
+  const int ur = own + (r1 < nx ? 1 : 0);  // U rows held: the own rows and the halo row r1
+  const int xr = min(r1, nx - 1) - r0;     // own Ux rows r0 .. r0 + xr - 1
+  const int f_lo = max(r0 - 1, 0), f_hi = min(r1, nx - 2);  // Fx rows
+  const int g_lo = max(r0, 1), g_hi = min(r1, nx - 2);      // Gy rows
+  const bool lead = b == 0 && tid == 0;
+  // band arrays: U (2 buffers x 3 planes of R+1 rows), Fx rows r0-1..r1 (3 planes
+  // of R+2 rows: Ux's hu, h, hv, then Fx), t1 and t3 there, Gy rows r0..r1
+  const size_t up = static_cast<size_t>(R + 1) * ny, fp = static_cast<size_t>(R + 2) * ny;
+  float* band = a.bands != nullptr ? a.bands + b * band_floats(R, ny) : band_smem;
+  float* ub = band;
+  float* fx = ub + 6 * up;
+  float* tt = fx + 3 * fp;
+  float* gy = tt + 2 * fp;
+  // local offsets: U and Gy row i at (i - r0) * ny, Fx and t row i at (i - r0 + 1) * ny
   const int ec = r2f2::mag_exponent(r2f2::finite_mag_bits(a.c));
+  const r2f2::TileQuant fixed = p.family == r2f2::kFixed ? r2f2::tile_quant(p.fe, p.fm, -1) : r2f2::TileQuant{};
+  const bool has_floor = a.ka != nullptr;
+  const int* fk = has_floor ? floor_k : nullptr;
   SiteState st[4];
-  if (a.evolve && lead) load_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
 
   if (a.steps == 0) {
-    for (int q = tid; q < 3 * n; q += stride) a.u_out[q] = a.u_in[q];
+    for (int c = 0; c < 3; ++c)
+      for (int q = tid; q < own * ny; q += T) a.u_out[c * n + r0 * ny + q] = a.u_in[c * n + r0 * ny + q];
     return;
   }
-  unsigned long long passed = 0ull;  // the grid barriers behind
-  const auto grid_sync = [&] { r2f2::grid_barrier(a.count, ++passed * gridDim.x); };
-  const float* src = a.u_in;
+  for (int c = 0; c < 3; ++c)
+    for (int q = tid; q < ur * ny; q += T) ub[c * up + q] = a.u_in[c * n + r0 * ny + q];
+  if (tid == 0) {
+    if (a.evolve) load_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
+    for (int j = 0; j < 4; ++j) floor_k[j] = has_floor ? a.ka[j] : 0;
+  }
+  __syncthreads();
+
+  unsigned long long passed = 0ull;  // grid barriers behind
   for (int s = 0; s < a.steps; ++s) {
-    float* dst = ((a.steps - 1 - s) & 1) == 0 ? a.u_out : tmp;
-    uint32_t* mx = a.maxes + (s & 1) * 4;
-    // the next substep's slots: every read of them (substep s - 1) is behind
-    // the barriers passed, every write (substep s + 1) behind the next
+    const float* u = ub + (s & 1) * 3 * up;
+    float* un = ub + ((s + 1) & 1) * 3 * up;
+    uint32_t* mx = a.maxes + (s % 3) * 4;
+    float* uxs = a.ux + static_cast<size_t>(s & 1) * 3 * nxm;
     if (lead) {
-      for (int w = 0; w < 4; ++w) a.maxes[4 - (s & 1) * 4 + w] = 0u;
+      for (int w = 0; w < 4; ++w) a.maxes[((s + 1) % 3) * 4 + w] = 0u;
     }
 
-    // A: the half steps
+    // A: Ux on the own rows
     uint32_t m1 = 0u, m3 = 0u;
-    for (int q = tid; q < n; q += stride) {
-      const int i = q / ny, j = q % ny;
-      const float h = __ldcg(src + q), hu = __ldcg(src + n + q), hv = __ldcg(src + 2 * n + q);
+    for (int q = tid; q < xr * ny; q += T) {
+      const float h = u[q], hu = u[up + q], hv = u[2 * up + q];
+      const float hd = u[q + ny], hud = u[up + q + ny], hvd = u[2 * up + q + ny];
       const float f1 = mom32(hu, h, a.c), f2 = cross(hu, hv, h);
-      const float g1 = f2, g2 = mom32(hv, h, a.c);
-      if (i < nx - 1) {
-        const int d = q + ny;
-        const float hd = __ldcg(src + d), hud = __ldcg(src + n + d), hvd = __ldcg(src + 2 * n + d);
-        const float x0 = half_step(hd, h, hud, hu, a.cx2);
-        const float x1 = half_step(hud, hu, mom32(hud, hd, a.c), f1, a.cx2);
-        const float x2 = half_step(hvd, hv, cross(hud, hvd, hd), f2, a.cx2);
-        __stcg(ux + q, x0);
-        __stcg(ux + nxm + q, x1);
-        __stcg(ux + 2 * nxm + q, x2);
-        m3 = max(m3, r2f2::finite_mag_bits(x0));
-        m1 = max(m1, r2f2::finite_mag_bits(x1));
-      }
-      if (j < ny - 1) {
-        const int r = q + 1, o = i * (ny - 1) + j;
-        const float hr = __ldcg(src + r), hur = __ldcg(src + n + r), hvr = __ldcg(src + 2 * n + r);
-        __stcg(uy + o, half_step(hr, h, hvr, hv, a.cy2));
-        __stcg(uy + nym + o, half_step(hur, hu, cross(hur, hvr, hr), g1, a.cy2));
-        __stcg(uy + 2 * nym + o, half_step(hvr, hv, mom32(hvr, hr, a.c), g2, a.cy2));
-      }
+      const float x0 = half_step(hd, h, hud, hu, a.cx2);
+      const float x1 = half_step(hud, hu, mom32(hud, hd, a.c), f1, a.cx2);
+      const float x2 = half_step(hvd, hv, cross(hud, hvd, hd), f2, a.cx2);
+      const int g = r0 * ny + q;
+      __stcg(uxs + g, x0);
+      __stcg(uxs + nxm + g, x1);
+      __stcg(uxs + 2 * nxm + g, x2);
+      fx[ny + q] = x1;
+      fx[fp + ny + q] = x0;
+      fx[2 * fp + ny + q] = x2;
+      m3 = max(m3, r2f2::finite_mag_bits(x0));
+      m1 = max(m1, r2f2::finite_mag_bits(x1));
     }
-    m1 = warp_max(m1);
-    m3 = warp_max(m3);
-    if ((threadIdx.x & 31) == 0) {
-      atomicMax(mx + 0, m1);
-      atomicMax(mx + 1, m3);
+    grid_arrive(m1, m3, mx, red, a.count);
+    // while barrier 1 completes: Uy and Gy on rows g_lo..g_hi
+    const int gw = ny - 1;
+    for (int q = tid; q < (g_hi - g_lo + 1) * gw; q += T) {
+      const int l = q / gw, j = q - l * gw;
+      const int at = (g_lo - r0 + l) * ny + j;
+      const float h = u[at], hu = u[up + at], hv = u[2 * up + at];
+      const float hr = u[at + 1], hur = u[up + at + 1], hvr = u[2 * up + at + 1];
+      const float g1 = cross(hu, hv, h), g2 = mom32(hv, h, a.c);
+      const float y0 = half_step(hr, h, hvr, hv, a.cy2);
+      const float y1 = half_step(hur, hu, cross(hur, hvr, hr), g1, a.cy2);
+      const float y2 = half_step(hvr, hv, mom32(hvr, hr, a.c), g2, a.cy2);
+      gy[at] = y2;
+      gy[up + at] = cross(y1, y2, y0);
+      gy[2 * up + at] = mom32(y2, y0, a.c);
     }
-    grid_sync();
+    const uint2 w1 = grid_wait(mx, seen, a.count, ++passed * C);
 
-    // B: the policy products and Gy
-    const int e1 = r2f2::mag_exponent(__ldcg(mx + 0));
-    const int e3 = r2f2::mag_exponent(__ldcg(mx + 1));
-    const int k11 = grid_site_k(r2f2::select_k_mul(e1, e1, p), a.ka, 0, p);
-    const int k33 = grid_site_k(r2f2::select_k_mul(e3, e3, p), a.ka, 1, p);
+    // B: the policy products and Fx's f32 components on the own Ux rows
+    const int e1 = r2f2::mag_exponent(w1.x);
+    const int e3 = r2f2::mag_exponent(w1.y);
+    const int k11 = r2f2::site_k(r2f2::select_k_mul(e1, e1, p), fk, 0, p);
+    const int k33 = r2f2::site_k(r2f2::select_k_mul(e3, e3, p), fk, 1, p);
+    // the products with their formats built once, in the variant (kind) the
+    // two splits share: family_mul bit for bit
+    const r2f2::PairMul m11(k11, p, fixed), m33(k33, p, fixed);
     uint32_t mt1 = 0u, mt3 = 0u;
-    for (int q = tid; q < n; q += stride) {
-      if (q < nxm) {
-        const float q1 = __ldcg(ux + nxm + q), q3 = __ldcg(ux + q);
-        const float t1 = r2f2::family_mul(q1, q1, k11, p), t3 = r2f2::family_mul(q3, q3, k33, p);
-        __stcg(t1b + q, t1);
-        __stcg(t3b + q, t3);
+    r2f2::with_kinds(m11, m33, [&](auto kind) {
+      constexpr int K = decltype(kind)::value;
+      for (int q = tid; q < xr * ny; q += T) {
+        const int at = ny + q;
+        const float q1 = fx[at], q3 = fx[fp + at];
+        const float t1 = m11.template mul<K>(q1, q1), t3 = m33.template mul<K>(q3, q3);
+        tt[at] = t1;
+        tt[fp + at] = t3;
+        fx[2 * fp + at] = cross(q1, fx[2 * fp + at], q3);
         mt1 = max(mt1, r2f2::finite_mag_bits(t1));
         mt3 = max(mt3, r2f2::finite_mag_bits(t3));
       }
-      if (q < nym) {
-        const float h = __ldcg(uy + q), hu = __ldcg(uy + nym + q), hv = __ldcg(uy + 2 * nym + q);
-        __stcg(gy + q, hv);
-        __stcg(gy + nym + q, cross(hu, hv, h));
-        __stcg(gy + 2 * nym + q, mom32(hv, h, a.c));
+    });
+    grid_arrive(mt1, mt3, mx + 2, red, a.count);
+    // while barrier 2 completes: the same on the halo Fx rows r0-1 and r1,
+    // their Ux from the neighbours' slots of the ring
+    const int halo_top = r0 > 0 ? 1 : 0, halo_bot = r1 <= nx - 2 ? 1 : 0;
+    r2f2::with_kinds(m11, m33, [&](auto kind) {
+      constexpr int K = decltype(kind)::value;
+      for (int q = tid; q < (halo_top + halo_bot) * ny; q += T) {
+        const bool top = halo_top && q < ny;
+        const int j = top || !halo_top ? q : q - ny;
+        const int i = top ? r0 - 1 : r1;
+        const int at = (i - r0 + 1) * ny + j, g = i * ny + j;
+        const float h = __ldcg(uxs + g), hu = __ldcg(uxs + nxm + g), hv = __ldcg(uxs + 2 * nxm + g);
+        tt[at] = m11.template mul<K>(hu, hu);
+        tt[fp + at] = m33.template mul<K>(h, h);
+        fx[at] = hu;
+        fx[fp + at] = h;
+        fx[2 * fp + at] = cross(hu, hv, h);
       }
-    }
-    mt1 = warp_max(mt1);
-    mt3 = warp_max(mt3);
-    if ((threadIdx.x & 31) == 0) {
-      atomicMax(mx + 2, mt1);
-      atomicMax(mx + 3, mt3);
-    }
-    grid_sync();
+    });
+    const uint2 w2 = grid_wait(mx + 2, seen, a.count, ++passed * C);
 
-    // C: Fx on the policy, and the adjust unit's tick
-    const int et1 = r2f2::mag_exponent(__ldcg(mx + 2));
-    const int et3 = r2f2::mag_exponent(__ldcg(mx + 3));
-    const int k_gq3 = grid_site_k(r2f2::select_k_mul(ec, et3, p), a.ka, 2, p);
-    const int k_div = grid_site_k(r2f2::select_k_div(et1, e3, p), a.ka, 3, p);
-    const Evidence ev(e1, e3, ec, et1, et3);
-    if (lead) {
-      if (a.ev != nullptr) ev.write(a.ev, s);
+    // C: Fx's momentum component on the policy, and the adjust unit's tick
+    const int et1 = r2f2::mag_exponent(w2.x);
+    const int et3 = r2f2::mag_exponent(w2.y);
+    const int k_gq3 = r2f2::site_k(r2f2::select_k_mul(ec, et3, p), fk, 2, p);
+    const int k_div = r2f2::site_k(r2f2::select_k_div(et1, e3, p), fk, 3, p);
+    if (tid == 0) {
+      const Evidence ev(e1, e3, ec, et1, et3);
+      if (lead && a.ev != nullptr) ev.write(a.ev, s);
       if (a.evolve) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -242,62 +352,83 @@ __global__ void __launch_bounds__(kSweThreads) swe2d_grid_kernel(SweArgs a, Adju
         }
       }
     }
-    for (int q = tid; q < nxm; q += stride) {
-      const float h = __ldcg(ux + q), hu = __ldcg(ux + nxm + q), hv = __ldcg(ux + 2 * nxm + q);
-      const float t2 = r2f2::family_div(__ldcg(t1b + q), h, k_div, p);
-      __stcg(fx + q, hu);
-      __stcg(fx + nxm + q, r2f2::family_mul_add(a.c, __ldcg(t3b + q), t2, k_gq3, p));
-      __stcg(fx + 2 * nxm + q, cross(hu, hv, h));
-    }
-    grid_sync();
+    // family_div and family_mul_add bit for bit, as in B
+    const r2f2::ConstMul mg(a.c, k_gq3, p, fixed);
+    const r2f2::PairMul md(k_div, p, fixed);
+    const int f0 = (f_lo - r0 + 1) * ny;
+    r2f2::with_kinds(mg, md, [&](auto kind) {
+      constexpr int K = decltype(kind)::value;
+      for (int q = tid; q < (f_hi - f_lo + 1) * ny; q += T) {
+        const int at = f0 + q;
+        fx[fp + at] = mg.template mul_add<K>(tt[fp + at], md.template div<K>(tt[at], fx[fp + at]));
+      }
+    });
+    __syncthreads();
 
-    // D: the update; each wall cell takes the interior value it mirrors
+    // D: the update of rows r0..r1; each wall cell takes the interior value it mirrors
     const bool boundary = (s + 1) % a.every == 0;
     float* snap = boundary ? a.snaps + static_cast<size_t>((s + 1) / a.every - 1) * 3 * n : nullptr;
-    for (int q = tid; q < n; q += stride) {
-      const int i = q / ny, j = q % ny;
+    float* out = s == a.steps - 1 ? a.u_out : nullptr;
+    for (int q = tid; q < ur * ny; q += T) {
+      const int l = q / ny, j = q - l * ny, i = r0 + l;
       const int ci = min(max(i, 1), nx - 2), cj = min(max(j, 1), ny - 2);
-      const int at = ci * ny + cj, fx_at = ci * ny + cj, gy_at = ci * (ny - 1) + cj;
+      const int at = (ci - r0) * ny + cj;  // U and Gy at (ci, cj); Fx at (ci, cj) is at + ny
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float* fc = fx + c * nxm;
-        const float* gc = gy + c * nym;
-        float v = lw_update(__ldcg(src + c * n + at), __ldcg(fc + fx_at), __ldcg(fc + fx_at - ny), __ldcg(gc + gy_at),
-                            __ldcg(gc + gy_at - 1), a.cx, a.cy);
+        const float* fc = fx + c * fp;
+        const float* gc = gy + c * up;
+        float v = lw_update(u[c * up + at], fc[at + ny], fc[at], gc[at], gc[at - 1], a.cx, a.cy);
         if (wall_flips(c, i, j, nx, ny)) v = -v;
-        __stcg(dst + c * n + q, v);
-        if (snap != nullptr) snap[c * n + q] = v;
+        un[c * up + q] = v;
+        if (l < own) {
+          const size_t g = static_cast<size_t>(c) * n + r0 * ny + q;
+          if (snap != nullptr) snap[g] = v;
+          if (out != nullptr) out[g] = v;
+        }
       }
     }
-    if (boundary && a.evolve && lead) {  // read again only after the next barrier
-      for (int j = 0; j < 4; ++j) a.ka[j] = st[j].k;
+    if (boundary && a.evolve && tid == 0) {  // read again only behind the next barrier
+      for (int j = 0; j < 4; ++j) floor_k[j] = st[j].k;
     }
-    grid_sync();
-    src = dst;
+    if (a.barriers == 3) {
+      r2f2::grid_barrier(a.count, ++passed * C);
+    } else {
+      __syncthreads();
+    }
   }
   if (a.evolve && lead) store_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
 }
 
+size_t smem_allowed[r2f2::kMaxDevices] = {};
+
 }  // namespace
 
-// A cooperative grid of up to `ctas` CTAs (as many as the card holds at once),
-// with work, maxes and count as its scratch.
-extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, float* work,
-                               unsigned int* maxes, unsigned long long* count, int* ka, int* trk_k, float* trk_hi,
-                               float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
-                               int ny, int steps, int every, int ctas, float cx2, float cy2, float cx, float cy,
-                               float c, float ema, float one_minus, int headroom, int family, int eb, int mb, int fx,
-                               int fe, int fm, int tail_approx, int pinned, void* stream) {
-  if (nx < 3 || ny < 3 || every < 1 || work == nullptr || maxes == nullptr || count == nullptr || ctas < 1)
+// A cooperative grid of `ctas` CTAs, one band each (bands of up to `rows`
+// rows; the last band two rows or more), with the band arrays in `smem`
+// bytes of shared memory, or in `bands` (device memory) when smem is 0; ux,
+// maxes and count are its scratch.
+extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, float* ux, float* bands,
+                               unsigned int* maxes, unsigned long long* count, const int* ka, int* trk_k,
+                               float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg,
+                               int evolve, int nx, int ny, int steps, int every, int ctas, int threads, int rows,
+                               int smem, int barriers, float cx2, float cy2, float cx, float cy, float c, float ema,
+                               float one_minus, int headroom, int family, int eb, int mb, int fx, int fe, int fm,
+                               int tail_approx, int pinned, void* stream) {
+  if (nx < 3 || ny < 3 || every < 1 || ux == nullptr || maxes == nullptr || count == nullptr || ctas < 1 ||
+      ctas > nx - 1 || rows < (nx + ctas - 1) / ctas || (barriers != 2 && barriers != 3) || threads < 32 ||
+      threads > kSweMaxThreads || threads % 32 != 0 ||
+      (smem == 0) != (bands != nullptr) ||
+      (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
-  SweArgs a{u_in, u_out, snaps, ev, work, maxes, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve,
-            nx, ny, steps, every, cx2, cy2, cx, cy, c};
+  SweArgs a{u_in, u_out, snaps, ev, ux, bands, maxes, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg,
+            evolve, nx, ny, steps, every, rows, barriers, cx2, cy2, cx, cy, c};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
+  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel, static_cast<size_t>(smem), smem_allowed);
   int capacity = 0;
-  const cudaError_t err = r2f2::cooperative_capacity(swe2d_grid_kernel, kSweThreads, 0, capacity);
+  if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel, threads, smem, capacity);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (capacity < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  return static_cast<int>(r2f2::launch_cooperative(swe2d_grid_kernel, dim3(min(ctas, capacity)), dim3(kSweThreads), 0,
+  if (capacity < ctas) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  return static_cast<int>(r2f2::launch_cooperative(swe2d_band_kernel, dim3(ctas), dim3(threads), smem,
                                                    static_cast<cudaStream_t>(stream), a, law, p));
 }

@@ -30,8 +30,8 @@ launches and its plain runs. Kernel K4 is ``csrc/rod.cuh`` for heat1d
 (K2's device body on the launch shape of ``rod.rod_plan``: up to eight
 warps of one CTA up to 2048 cells, else a cooperative grid) and
 ``csrc/mega_pde.cu`` for swe2d on the shape of :func:`swe2d_plan`: a
-cooperative grid, the intermediates in global memory (which the 50 MB L2
-holds), four grid barriers a substep. Kernels
+cooperative grid of CTAs that each own a band of rows and recompute the
+halo row below it, two grid barriers a substep. Kernels
 K5e-f are the 1-D bodies of ``csrc/rod.cuh`` on their rod's shape, K5d
 heat2d's thread-block cluster (``csrc/pde_steps.cu::heat2d_mega_kernel``)
 or, beyond it, the rod's grid (``pde_steps.heat2d_plan``), with the
@@ -67,7 +67,10 @@ __all__ = [
     "HEAT1D_MEGA",
     "SWE2D_MEGA",
     "Swe2DPlan",
+    "SWE2D_BAND_ROWS",
     "swe2d_plan",
+    "swe2d_bands",
+    "swe2d_band_floats",
     "swe2d_grid_scratch",
     "mega_sweep",
     "mega_sweep_plain",
@@ -284,35 +287,72 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-#: threads of a CTA of swe2d's grid (csrc/mega_pde.cu)
+#: threads of a CTA of swe2d's grid (csrc/mega_pde.cu), and the most it takes
 _SWE2D_THREADS = 256
+_SWE2D_MAX_THREADS = 512
+#: rows of a band on the main path's plan (the shorter of the two timed on
+#: the card, PERF.md)
+SWE2D_BAND_ROWS = 2
+#: a CTA keeps its band arrays in shared memory up to this size, else in a
+#: slice of device memory
+SWE2D_SMEM_LIMIT = _cuda.SMEM_LIMIT
 
 
 class Swe2DPlan(NamedTuple):
     """The launch shape of swe2d's megakernel (``csrc/mega_pde.cu``)."""
 
-    ctas: int  # the grid's CTAs (at most: the launch takes as many as the card holds at once)
+    ctas: int  # the cooperative grid's CTAs, one band of rows each
     threads: int  # threads a CTA
+    rows: int  # the tallest band's rows
+    smem: int  # bytes of shared memory a CTA's band arrays take; 0: they live in device memory
+    barriers: int = 2  # grid barriers a substep (3: one more after the update, for timings)
 
 
-def swe2d_plan(nx: int, ny: int) -> Swe2DPlan:
-    """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one CTA
-    of 256 threads per 256 points, each phase a grid-stride loop over the
-    field (the main path's 128x128 runs 64 CTAs). Any ``nx, ny >= 3``."""
+def swe2d_band_floats(rows: int, ny: int) -> int:
+    """Floats of one CTA's band arrays for bands of up to ``rows`` rows:
+    two U buffers of ``rows + 1`` rows (the halo row below the band), Ux
+    then Fx and the two policy products on ``rows + 2`` rows (a halo row on
+    each side) and Gy on ``rows + 1``, each ``ny`` wide."""
+    return (14 * rows + 19) * ny
+
+
+def swe2d_bands(nx: int, ctas: int):
+    """Row ranges ``[r0, r1)`` of the bands, as the kernel cuts them: band b
+    is ``[b*nx // ctas, (b+1)*nx // ctas)``; the last is the tallest."""
+    return [(b * nx // ctas, (b + 1) * nx // ctas) for b in range(ctas)]
+
+
+def swe2d_plan(nx: int, ny: int, *, sms: int = 132, band_rows: int = SWE2D_BAND_ROWS, ctas: Optional[int] = None,
+               threads: int = _SWE2D_THREADS, barriers: int = 2) -> Swe2DPlan:
+    """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one
+    CTA of 256 threads per band of ``band_rows`` rows (the main path's
+    128x128 runs 64 CTAs of two rows), at most one CTA per SM (``sms``) and
+    at most ``nx - 1`` CTAs, so the last band holds both wall rows
+    ``nx - 2`` and ``nx - 1``; fields with more rows than that take taller
+    bands. ``ctas`` asks for another grid (the chip checks and timings).
+    Any ``nx, ny >= 3``."""
     if min(nx, ny) < 3:
         raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
-    return Swe2DPlan(-(-nx * ny // _SWE2D_THREADS), _SWE2D_THREADS)
+    if ctas is None:
+        ctas = min(-(-nx // band_rows), sms)
+    ctas = max(1, min(ctas, nx - 1))
+    rows = -(-nx // ctas)
+    nbytes = 4 * swe2d_band_floats(rows, ny)
+    return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0, barriers)
 
 
-def swe2d_grid_scratch(nx, ny, device):
-    """The grid's scratch, whatever the number of substeps: 17 planes
-    of intermediates (f32), the four maxima of a ring of two substeps (int32,
-    zeroed; the kernel zeroes each substep's for the one after next) and the
-    64-bit barrier counter (zeroed)."""
-    work = torch.empty(17 * nx * ny, dtype=torch.float32, device=device)
-    maxes = torch.zeros(8, dtype=torch.int32, device=device)
+def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device):
+    """The grid's scratch, whatever the number of substeps: Ux in a ring of
+    two substeps (f32, ``(2, 3, nx-1, ny)``), the band arrays of every CTA
+    when they do not fit shared memory (else None), the four maxima of a
+    ring of three substeps (int32, zeroed; the kernel zeroes each substep's
+    for the one after next) and the 64-bit barrier counter (zeroed)."""
+    ux = torch.empty(2 * 3 * (nx - 1) * ny, dtype=torch.float32, device=device)
+    bands = None if plan.smem else torch.empty(plan.ctas * swe2d_band_floats(plan.rows, ny), dtype=torch.float32,
+                                               device=device)
+    maxes = torch.zeros(12, dtype=torch.int32, device=device)
     count = torch.zeros(1, dtype=torch.int64, device=device)
-    return work, maxes, count
+    return ux, bands, maxes, count
 
 
 def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None):
@@ -323,17 +363,16 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     if len(sites) != 4 or _site_ops(sites, site_ops) != ("mul", "mul", "mul", "div"):
         raise ValueError(f"swe2d_mega's sites are (q1q1, q3q3, gq3, div) as mul, mul, mul, div; got {site_ops}")
     _, nx, ny = U.shape
-    plan = plan or swe2d_plan(nx, ny)
+    plan = plan or swe2d_plan(nx, ny, sms=_cuda.sm_count(U.device))
     dev = U.device
     n_out = steps // every
     out = torch.empty_like(U)
     snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
-    if plan.threads != _SWE2D_THREADS:
-        raise ValueError(f"swe2d_mega's CTAs have {_SWE2D_THREADS} threads; got {plan}")
-    work, maxes, count = swe2d_grid_scratch(nx, ny, dev)
+    if plan.threads % 32 or not 32 <= plan.threads <= _SWE2D_MAX_THREADS:
+        raise ValueError(f"swe2d_mega's CTAs have a multiple of 32 threads up to {_SWE2D_MAX_THREADS}; got {plan}")
+    ux, bands, maxes, count = swe2d_grid_scratch(nx, ny, plan, dev)
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
-    ka = None if k is None else k.clone()  # the datapath floor, latched at boundaries
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev if evolve else None)
     consts = [float(f32_scalar(v, "cpu")) for v in (
@@ -341,10 +380,13 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     )]
     lib = _cuda.library()
     with torch.cuda.device(dev):
+        # k is the floor the run starts from; the kernel latches it per CTA
+        # and writes the evolved rows back into k, hi, lo, ov, sh at the end
         err = lib.r2f2_swe2d_mega(
-            _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work), _cuda.ptr(maxes),
-            _cuda.ptr(count), _cuda.ptr(ka), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov), _cuda.ptr(sh),
-            _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
+            _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(ux), _cuda.ptr(bands),
+            _cuda.ptr(maxes), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
+            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows,
+            plan.smem, plan.barriers, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
             _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")

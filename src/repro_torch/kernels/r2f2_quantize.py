@@ -7,14 +7,22 @@ matrix and one int32 k per tile; a block that does not divide the shape
 raises ``ValueError``.
 
 Replaces the TPU kernel ``repro/kernels/r2f2_quantize.py::r2f2_quantize_pallas``
-(``_quantize_kernel``). The CUDA kernel (``csrc/r2f2_quantize.cu``) gives
-each tile one CTA that reads the tile twice, a block max and then
-quantize-and-write (a 256 KB tile does not fit in shared memory; the second
-read comes from L2). It is bound by bytes: 8 B per element, read once and
-written once.
+(``_quantize_kernel``). The CUDA kernel (``csrc/r2f2_quantize.cu``) is
+bound by bytes, 8 B per element, and runs in one of two launch shapes that
+:func:`quantize_plan` picks from the shapes alone. The cluster shape reads
+each element from device memory once: a tile is split over a thread-block
+cluster of CTAs (4 of 64 KB at ``(256, 256)``), each loading its rows into
+shared memory with 16-byte copies, the tile's max taken across the cluster
+through distributed shared memory, then quantized from shared memory and
+stored in 16-byte vectors. The two-pass shape (one CTA per tile, a block
+max, then quantize-and-write over the same elements read again) takes the
+tiles the cluster cannot hold (``(512, 512)`` is 1 MB), tiles under 16 KB,
+and rows without 16-byte vectors.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,11 +30,50 @@ from repro_torch.core.flexformat import FlexFormat, quantize_em
 from repro_torch.core.r2f2 import _finite_max_exp, select_k_operand
 from repro_torch.kernels import _cuda
 
-__all__ = ["DEFAULT_BLOCK", "R2F2_QUANTIZE", "r2f2_quantize", "r2f2_quantize_plain"]
+__all__ = ["DEFAULT_BLOCK", "QuantizePlan", "R2F2_QUANTIZE", "quantize_plan", "r2f2_quantize", "r2f2_quantize_plain"]
 
 DEFAULT_BLOCK = (256, 256)
 #: launches of the CUDA kernel and runs of the plain version
 R2F2_QUANTIZE = _cuda.KernelCounter("r2f2_quantize")
+
+
+#: the most shared memory one CTA of the cluster shape fills with its rows
+CTA_TILE_BYTES = 64 * 1024
+#: the most CTAs a tile's cluster takes (the portable cluster size)
+MAX_CLUSTER = 8
+#: smaller tiles take the two-pass shape, whose second read finds them in L1
+MIN_CLUSTER_TILE_BYTES = 16 * 1024
+
+
+class QuantizePlan(NamedTuple):
+    """The launch shape of K6 (``csrc/r2f2_quantize.cu``)."""
+
+    shape: str  # "cluster" (each element read once) or "two_pass"
+    cluster: int  # CTAs per tile in the cluster shape; 0 in the two-pass shape
+    rows: int  # tile rows one CTA holds (the cluster shape), or bm
+    smem: int  # bytes of shared memory a CTA fills with its rows (the cluster shape)
+    ctas: int  # CTAs of the launch
+
+
+def quantize_plan(m: int, n: int, bm: int, bn: int, *, aligned: bool = True,
+                  cta_bytes: int = CTA_TILE_BYTES) -> QuantizePlan:
+    """How K6 runs an ``(m, n)`` matrix in ``(bm, bn)`` tiles (a block that
+    divides the shape): the cluster shape splits a tile over the fewest CTAs
+    (a power of two, at most :data:`MAX_CLUSTER`) whose rows fit
+    ``cta_bytes`` each, where ``bn`` allows 16-byte vectors, the matrix is
+    16-byte ``aligned``, the cluster divides ``bm`` and the tile is at
+    least :data:`MIN_CLUSTER_TILE_BYTES`; every other tile takes the
+    two-pass shape, one CTA each."""
+    tiles = (m // bm) * (n // bn)
+    tile_bytes = 4 * bm * bn
+    cluster = 1
+    while cluster * cta_bytes < tile_bytes:
+        cluster *= 2
+    if (not aligned or bn % 4 or tile_bytes < MIN_CLUSTER_TILE_BYTES or cluster > MAX_CLUSTER
+            or bm % cluster):
+        return QuantizePlan("two_pass", 0, bm, 0, tiles)
+    rows = bm // cluster
+    return QuantizePlan("cluster", cluster, rows, 4 * rows * bn, tiles * cluster)
 
 
 def _tiles(x, block):
@@ -50,9 +97,11 @@ def r2f2_quantize_plain(x, *, fmt: FlexFormat, block=DEFAULT_BLOCK):
     return y.reshape(m, n), k.to(torch.int32)
 
 
-def r2f2_quantize(x, *, fmt: FlexFormat, block=DEFAULT_BLOCK):
+def r2f2_quantize(x, *, fmt: FlexFormat, block=DEFAULT_BLOCK, _plan: Optional[QuantizePlan] = None):
     """Quantize a 2-D f32 matrix tile by tile. Returns ``(y, k_tiles)``.
-    A CUDA tensor launches K6; a CPU tensor runs the plain version."""
+    A CUDA tensor launches K6 on the shape of :func:`quantize_plan` (or
+    ``_plan``, for the chip checks and timings); a CPU tensor runs the plain
+    version."""
     m, n, bm, bn = _tiles(x, block)
     if not x.is_cuda:
         R2F2_QUANTIZE.plain_calls += 1
@@ -60,10 +109,12 @@ def r2f2_quantize(x, *, fmt: FlexFormat, block=DEFAULT_BLOCK):
     x = x.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     k = torch.empty((m // bm, n // bn), dtype=torch.int32, device=x.device)
+    plan = _plan or quantize_plan(m, n, bm, bn, aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         err = lib.r2f2_quantize(
-            _cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(k), m, n, bm, bn, fmt.eb, fmt.mb, fmt.fx, _cuda.stream_of(x)
+            _cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(k), m, n, bm, bn, fmt.eb, fmt.mb, fmt.fx, plan.cluster, plan.rows,
+            _cuda.stream_of(x),
         )
     _cuda.check(err, "r2f2_quantize")
     R2F2_QUANTIZE.launches += 1

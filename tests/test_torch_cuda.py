@@ -425,12 +425,18 @@ def test_heat2d_grid_matches_plain(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["main path", "forced grid", "(200,200)"])
+@pytest.mark.parametrize("which", [
+    "main path", "forced grid", "one-row bands", "one CTA", "(127,128)", "(130,64)", "(200,200)", "(32,3)",
+    "(64,5000)", "boundaries",
+])
 def test_swe2d_mega_shapes_match_plain(which):
-    """K4 swe2d on its grid at the main path's 128x128 (over the ladder and
-    the trackers), on a forced grid of 8 CTAs there, and at 200x200 under
-    kernel_blocks (256, 256, 128), against its plain version on the CPU
-    under flush bit for bit: state, snapshots, evidence, tracker."""
+    """K4 swe2d on its band plan at the main path's 128x128 (over the ladder
+    and the trackers), on forced grids there (8 CTAs, one-row bands, one
+    CTA owning every row), with uneven last bands (127x128, 130x64), at
+    200x200, (32, 3) and 64x5000 (band arrays in device memory), and tracked
+    across six snapshot boundaries and with every = 1, against its plain
+    version on the CPU under flush bit for bit: state, snapshots, evidence,
+    tracker."""
     _need_card()
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -439,7 +445,7 @@ def test_swe2d_mega_shapes_match_plain(which):
 
     def picked(label, kw):
         if which == "main path":
-            return kw.get("_plan") is None and kw["cfg"].nx == 128
+            return kw.get("_plan") is None and kw["cfg"].nx == 128 and "boundaries" not in label
         return which in label
 
     cases = [(label, x, kw) for kern, label, x, kw in chip_smoke.mega_cases("cuda") if kern == "swe2d" and picked(label, kw)]

@@ -1,4 +1,4 @@
-"""Launch plans of kernels K3 and K7 (repro_torch): the pure functions that
+"""Launch plans of kernels K3-K7 (repro_torch): the pure functions that
 decide how a CUDA launch spreads its work, checked on the CPU.
 
 * K7 (``kernels/r2f2_matmul.py``): ``split_plan`` gives every K block its
@@ -15,8 +15,11 @@ decide how a CUDA launch spreads its work, checked on the CPU.
   (``kernels/rod.py``): ``rod_plan`` gives a ``(br, nx)`` row block or a
   periodic rod the warps of one CTA or a cooperative grid, and
   ``grid_scratch`` sizes the grid's scratch.
-* K4 swe2d (``kernels/mega.py``): ``swe2d_plan`` gives a state its
-  cooperative grid, and ``swe2d_grid_scratch`` sizes the grid's scratch.
+* K4 swe2d (``kernels/mega.py``): ``swe2d_plan`` cuts a state's rows into
+  the bands of a cooperative grid, and ``swe2d_grid_scratch`` sizes the
+  grid's scratch.
+* K6 (``kernels/r2f2_quantize.py``): ``quantize_plan`` puts a tile on a
+  thread-block cluster or on the two-pass shape.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``)."""
 
@@ -28,13 +31,17 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.r2f2_matmul import (
     MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
 )
-from repro_torch.kernels.mega import swe2d_grid_scratch, swe2d_plan
+from repro_torch.kernels.mega import SWE2D_SMEM_LIMIT, swe2d_band_floats, swe2d_bands, swe2d_grid_scratch, swe2d_plan
 from repro_torch.kernels.pde_steps import (
     HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, ClusterPlan, heat2d_cluster_plan, heat2d_plan,
 )
 from repro_torch.kernels.rod import (
     CELLS, GRID_CELLS, GRID_THREADS, WARP_LIMIT, WARP_MAX, RodPlan, grid_scratch, rod_plan,
 )
+from repro_torch.kernels.r2f2_quantize import (
+    CTA_TILE_BYTES, MIN_CLUSTER_TILE_BYTES, R2F2_QUANTIZE, quantize_plan, r2f2_quantize, r2f2_quantize_plain,
+)
+from repro_torch.kernels.r2f2_quantize import MAX_CLUSTER as K6_MAX_CLUSTER
 from repro_torch.kernels.swe_flux import MAX_CLUSTER, cluster_plan
 
 H100_SMS = 132
@@ -456,36 +463,136 @@ def test_heat2d_plan_cluster_or_grid(shape, shape_kind):
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((64, 64), (16, 256)),  # the card link's field
-    ((128, 128), (64, 256)),  # the main path
-    ((129, 128), (65, 256)),  # the largest field of the default kernel_blocks
-    ((200, 200), (157, 256)),  # phase 2's field under kernel_blocks (256, 256, 128)
-    ((3, 3), (1, 256)),
+    ((64, 64), (32, 256, 2)),  # the card link's field
+    ((128, 128), (64, 256, 2)),  # the main path: 64 bands of two rows
+    ((129, 128), (65, 256, 2)),  # the largest field of the default kernel_blocks
+    ((127, 128), (64, 256, 2)),  # an uneven last band
+    ((200, 200), (100, 256, 2)),  # phase 2's field under kernel_blocks (256, 256, 128)
+    ((400, 400), (132, 256, 4)),  # more rows than SMs: taller bands
+    ((3, 3), (2, 256, 2)),  # the last band holds both wall rows
+    ((32, 3), (16, 256, 2)),
 ])
 def test_swe2d_plan(shape, want):
-    assert swe2d_plan(*shape) == want
+    plan = swe2d_plan(*shape)
+    assert (plan.ctas, plan.threads, plan.rows) == want and plan.barriers == 2
+    assert plan.smem == 4 * swe2d_band_floats(plan.rows, shape[1])
 
 
 def test_swe2d_plan_covers_every_field():
-    """Every field takes one CTA of 256 threads per 256 points: the grid's
-    threads cover each point once, with no CTA left idle."""
-    for nx in range(3, 130):
-        for ny in (3, 4, 31, 64, 100, 127, 128):
-            plan = swe2d_plan(nx, ny)
-            assert plan.threads == 256 and (plan.ctas - 1) * 256 < nx * ny <= plan.ctas * 256, (nx, ny, plan)
-    for nx, ny in ((200, 200), (3, 1000), (256, 256), (1000, 64)):
-        assert swe2d_plan(nx, ny) == (-(-nx * ny // 256), 256), (nx, ny)
+    """Every row is owned by exactly one band; each band's halo row (the row
+    below it) lies inside the field; the last band holds both wall rows
+    nx - 2 and nx - 1 (and the first band holds row 1 or has it as its
+    halo); the grid fits one CTA per SM; rows beyond that take taller bands;
+    the band arrays fit shared memory or go to device memory."""
+    sms = H100_SMS
+    for nx in list(range(3, 140)) + [255, 256, 257, 263, 264, 265, 400, 1000, 4097]:
+        for ny in (3, 4, 64, 128, 5000):
+            for band_rows in (1, 2, 4):
+                plan = swe2d_plan(nx, ny, sms=sms, band_rows=band_rows)
+                bands = swe2d_bands(nx, plan.ctas)
+                assert 1 <= plan.ctas <= min(sms, nx - 1), (nx, ny, plan)
+                assert bands[0][0] == 0 and bands[-1][1] == nx
+                assert all(a[1] == b[0] for a, b in zip(bands, bands[1:])), (nx, bands)
+                heights = [r1 - r0 for r0, r1 in bands]
+                assert min(heights) >= 1 and max(heights) == plan.rows == -(-nx // plan.ctas)
+                assert all(r1 < nx for _, r1 in bands[:-1])  # every halo row is in the field
+                assert heights[-1] >= 2  # the wall pair nx-2, nx-1 in one band
+                assert bands[0][1] >= 1  # row 0 mirrors row 1: CTA 0 holds it (own or halo)
+                if -(-nx // band_rows) <= min(sms, nx - 1):
+                    assert plan.ctas == -(-nx // band_rows)
+                else:
+                    assert plan.ctas == min(sms, nx - 1) and plan.rows >= band_rows
+                nbytes = 4 * swe2d_band_floats(plan.rows, ny)
+                assert plan.smem == (nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0)
     with pytest.raises(ValueError, match="nx, ny >= 3"):
         swe2d_plan(2, 64)
 
 
-@pytest.mark.parametrize("nx,ny", [(128, 128), (200, 200), (512, 512)])
+@pytest.mark.parametrize("nx,ny,ctas,want_rows", [(128, 128, 1, 128), (128, 128, 8, 16), (128, 128, 500, 2), (9, 7, 3, 3)])
+def test_swe2d_plan_forced_grids(nx, ny, ctas, want_rows):
+    """An asked-for grid keeps its CTA count up to nx - 1 bands; a CTA that
+    owns every row takes the whole field, its band arrays in device memory
+    when they do not fit shared memory."""
+    plan = swe2d_plan(nx, ny, ctas=ctas)
+    assert plan.ctas == min(ctas, nx - 1) and plan.rows == want_rows
+    assert (plan.smem == 0) == (4 * swe2d_band_floats(want_rows, ny) > SWE2D_SMEM_LIMIT)
+    assert swe2d_plan(nx, ny, barriers=3).barriers == 3
+
+
+@pytest.mark.parametrize("nx,ny", [(128, 128), (200, 200), (512, 512), (64, 5000)])
 def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
-    """The grid's scratch is the same for any number of substeps: 17
-    planes of intermediates, the four maxima of a ring of two substeps
-    (zeroed) and one 64-bit barrier counter (zeroed): four grid barriers a
-    substep would wrap 32 bits after about 8 million substeps on 132 CTAs."""
-    work, maxes, count = swe2d_grid_scratch(nx, ny, "cpu")
-    assert work.dtype == torch.float32 and work.numel() == 17 * nx * ny
-    assert maxes.dtype == torch.int32 and maxes.numel() == 8 and not maxes.any()
+    """The grid's scratch is the same for any number of substeps: Ux in a
+    ring of two substeps, the band arrays in device memory only where they
+    do not fit shared memory, the four maxima of a ring of three substeps
+    (zeroed) and one 64-bit barrier counter (zeroed): two grid barriers a
+    substep would wrap 32 bits after about 16 million substeps on 132 CTAs."""
+    plan = swe2d_plan(nx, ny)
+    ux, bands, maxes, count = swe2d_grid_scratch(nx, ny, plan, "cpu")
+    assert ux.dtype == torch.float32 and ux.numel() == 2 * 3 * (nx - 1) * ny
+    if plan.smem:
+        assert bands is None
+    else:
+        assert bands.dtype == torch.float32 and bands.numel() == plan.ctas * swe2d_band_floats(plan.rows, ny)
+    assert maxes.dtype == torch.int32 and maxes.numel() == 12 and not maxes.any()
     assert count.dtype == torch.int64 and count.numel() == 1 and not count.any()
+
+
+# ---------------------------------------------------------------------------
+# K6: quantize_plan
+
+
+@pytest.mark.parametrize("m,n,block,want", [
+    (5120, 8192, (256, 256), ("cluster", 4, 64, 65536, 2560)),  # the shared-expert gate's weight
+    (1024, 1024, (256, 256), ("cluster", 4, 64, 65536, 64)),  # bench_kernels: 16 tiles, 64 CTAs
+    (1024, 1024, (128, 256), ("cluster", 2, 64, 65536, 64)),
+    (1024, 1024, (256, 128), ("cluster", 2, 128, 65536, 64)),
+    (1024, 1024, (128, 128), ("cluster", 1, 128, 65536, 64)),
+    (96, 512, (96, 256), ("cluster", 2, 48, 49152, 4)),  # a block as tall as the matrix
+    (1024, 1024, (512, 512), ("two_pass", 0, 512, 0, 4)),  # 1 MB: more than 8 CTAs of 64 KB
+    (1024, 1024, (8, 128), ("two_pass", 0, 8, 0, 1024)),  # 4 KB: its second read hits L1
+    (1024, 1026, (1024, 6), ("two_pass", 0, 1024, 0, 171)),  # no 16-byte vectors
+    (1024, 1028, (256, 514), ("two_pass", 0, 256, 0, 8)),
+])
+def test_quantize_plan(m, n, block, want):
+    assert tuple(quantize_plan(m, n, *block)) == want
+
+
+def test_quantize_plan_cluster_shapes():
+    """Over blocks of every power-of-two side from 8 to 1024 and some that
+    are not: the cluster divides the tile's rows, a CTA's rows fit its 64 KB
+    of shared memory (several CTAs an SM, under the 227 KB a CTA may take),
+    the cluster is at most 8 CTAs, the rows allow 16-byte vectors, and the
+    tile is at least 16 KB; every other block takes the two-pass shape, one
+    CTA per tile. An unaligned matrix always takes the two-pass shape."""
+    sides = [8, 16, 32, 64, 96, 128, 200, 256, 512, 1024, 6, 12, 250, 514]
+    for bm in sides:
+        for bn in sides:
+            m, n = 4 * bm, 2 * bn
+            plan = quantize_plan(m, n, bm, bn)
+            tile = 4 * bm * bn
+            if plan.shape == "cluster":
+                assert bm % plan.cluster == 0 and plan.rows * plan.cluster == bm
+                assert 1 <= plan.cluster <= K6_MAX_CLUSTER and plan.cluster & (plan.cluster - 1) == 0
+                assert plan.smem == 4 * plan.rows * bn <= CTA_TILE_BYTES < 227 * 1024
+                assert plan.cluster == 1 or plan.smem * 2 > CTA_TILE_BYTES  # the fewest CTAs that hold it
+                assert bn % 4 == 0 and tile >= MIN_CLUSTER_TILE_BYTES
+                assert plan.ctas == 8 * plan.cluster
+            else:
+                assert (bn % 4 or tile < MIN_CLUSTER_TILE_BYTES or tile > K6_MAX_CLUSTER * CTA_TILE_BYTES
+                        or bm % -(-tile // CTA_TILE_BYTES)), (bm, bn, plan)
+                assert plan == ("two_pass", 0, bm, 0, 8)
+            assert quantize_plan(m, n, bm, bn, aligned=False) == ("two_pass", 0, bm, 0, 8)
+    # asked-for CTA sizes: 32 KB puts a (256, 256) tile on 8 CTAs, 128 KB on 2
+    assert quantize_plan(5120, 8192, 256, 256, cta_bytes=32 * 1024)[:3] == ("cluster", 8, 32)
+    assert quantize_plan(5120, 8192, 256, 256, cta_bytes=128 * 1024)[:3] == ("cluster", 2, 128)
+
+
+def test_r2f2_quantize_cpu_runs_the_plain_version():
+    """On the CPU the wrapper runs the plain version whatever the plan (and
+    counts it); the plan is a function of the shapes alone."""
+    x = torch.randn(64, 256, generator=torch.Generator().manual_seed(0))
+    fmt = FlexFormat(3, 9, 3)
+    plain = R2F2_QUANTIZE.plain_calls
+    y, k = r2f2_quantize(x, fmt=fmt, block=(64, 128))
+    want = r2f2_quantize_plain(x, fmt=fmt, block=(64, 128))
+    assert torch.equal(y, want[0]) and torch.equal(k, want[1]) and R2F2_QUANTIZE.plain_calls == plain + 1
