@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # the full run
     python3 chip_smoke.py --quick          # build + kernel-vs-plain checks only
     python3 chip_smoke.py --heat1d-sizes   # build + heat1d's K2/K4 times by rod size and its ladder rows
+    python3 chip_smoke.py --swe2d-times    # build + K4 swe2d's times by shape
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -22,8 +23,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    heat1d also on every launch shape of ``rod.rod_plan`` (the 3-cell rod,
    eight rows of 128, the warp shape's 2048-cell edge, the grid one cell
    past it, on several blocks, in batches, at 30,000 and 10**6 cells); K4
-   swe2d on its grid at 128x128, on a forced grid of 8 CTAs there and at
-   200x200 (kernel_blocks (256, 256, 128)); K6 and K7 on
+   swe2d on its band plan at 128x128, on forced grids there (8 CTAs,
+   two-row bands of 512 threads, one CTA owning every row), with uneven
+   last bands (127x128, 130x64), at 200x200 (kernel_blocks (256, 256,
+   128)), (32, 3) and 64x5000 (band arrays in device memory), tracked
+   across six snapshot boundaries and with every = 1; K6 and K7 on
    operands with f32-subnormal products or inputs against their plain
    versions on the CPU under flush; K5 (the fused sweeps and megakernels
    of heat2d, advection1d and burgers1d) the same way at full width,
@@ -57,7 +61,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    replayed CUDA graphs, with their launch shapes, and both along the
    main path's horizon chunk by chunk; the new launch shapes by replayed
    CUDA graphs (:func:`time_shapes`: the 1-D K5 kernels by rod size,
-   heat2d's grid, K4 swe2d at 128x128, 200x200 and its latency floor);
+   heat2d's grid, K4 swe2d at 128x128, 200x200, 400x400 and its latency
+   floor, also by CUDA events);
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -66,16 +71,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tokens, bit-identical prefill logits) and f32 (the logits' rel-L2), each
    then timed warm (a prefill and decode steps one by one), then K6 and K7
    timed at the path's shapes beside their bounds, plain versions and
-   cuBLAS SGEMM (K7 by replayed CUDA graphs, split and unsplit, with its
-   launch shape: the K blocks split S over CTAs, the CTA count).
+   cuBLAS SGEMM (K6 on each launch shape of ``quantize_plan`` too; K7 by
+   replayed CUDA graphs, split and unsplit, with its launch shape: the K
+   blocks split S over CTAs, the CTA count).
 
 ``--heat1d-sizes`` times heat1d's K2 and K4 as phase 5 does and runs
-heat1d's ladder rows, nothing else; its last line is those times, with no
-verdict. Copied into another checkout's root, it times that tree's kernels
-the same way, so two trees compare on one card.
+heat1d's ladder rows, nothing else; ``--swe2d-times`` times K4 swe2d as
+phase 5 does, with the band heights and CTA sizes its plan chose among.
+Either one's last line is those times, with no verdict. Copied into
+another checkout's root, each times that tree's kernels the same way, so
+two trees compare on one card.
 
 Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
-bit and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
+bit, on each launch shape of ``quantize_plan`` (the cluster at (256, 256),
+(128, 256) and (256, 128) and forced onto clusters of 8 and 1; the
+two-pass shape at (8, 128), (512, 512) and (1024, 6); a block taller than
+the matrix; the special tiles at four blocks), and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
 (:func:`k7_order_bound`), bit for bit on dyadic operands, also on dyadic
 operands that need rounding (the result must equal the unrounded ones'),
 and K7's split launches bit for bit against unsplit ones
@@ -548,14 +559,13 @@ def mega_cases(device):
 
     swe_shapes = [
         ("on a forced grid of 8 CTAs", 128, 128, swe2d_plan(128, 128, ctas=8), None),
-        ("on one-row bands", 128, 128, swe2d_plan(128, 128, band_rows=1), None),
+        ("on two-row bands of 512 threads", 128, 128, swe2d_plan(128, 128, band_rows=2, threads=512), None),
         ("on one CTA", 128, 128, swe2d_plan(128, 128, ctas=1), None),
         ("(127,128)", 127, 128, None, None),
         ("(130,64)", 130, 64, None, None),
         ("(200,200) kernel_blocks (256,256,128)", 200, 200, None, (256, 256, 128)),
         ("(32,3)", 32, 3, None, None),
         ("(64,5000) band arrays in device memory", 64, 5000, None, (64, 5120, 128)),
-        ("with three grid barriers", 128, 128, swe2d_plan(128, 128, barriers=3), None),
     ]
     for label, nx, ny, plan, blocks in swe_shapes:
         cfg, x = swe_state(nx, ny) if (nx, ny) != (128, 128) else (scfg, U)
@@ -581,7 +591,7 @@ def swe2d_launch_shape(nx, ny, plan=None) -> str:
     p = plan or swe2d_plan(nx, ny, sms=_cuda.sm_count("cuda"))
     where = "shared memory" if p.smem else "device memory"
     return (f"[cooperative grid of {p.ctas} CTAs x {p.threads} threads, bands of up to {p.rows} rows, "
-            f"band arrays in {where}, {p.barriers} grid barriers a substep]")
+            f"band arrays in {where}, two grid barriers a substep]")
 
 
 def check_mega(device):
@@ -1867,9 +1877,8 @@ def time_swe2d(device, card, explore=False):
     100) in r2f2_16, by replayed CUDA graphs and by CUDA events (which hold
     the wrapper's host work too), each with its launch shape: the plan's
     grid at 128x128, 200x200 and 400x400, and the latency floor, a (32, 3)
-    state on one CTA. On the band kernel also the main path's field with a
-    third grid barrier a substep, and with ``explore`` the other band
-    heights, CTA sizes and grids the plan chose among. A tree without the
+    state on one CTA. With ``explore``, on the band kernel also the band
+    heights and CTA sizes the plan chose among. A tree without the
     band kernel (copied into it, this script times that tree's kernel) runs
     the shapes its plan gives. Returns the rows."""
     from repro_torch.kernels import _cuda
@@ -1885,22 +1894,15 @@ def time_swe2d(device, card, explore=False):
     shapes = [("", 128, 128, None), ("", 200, 200, None), ("", 400, 400, None)]
     if bands:
         plan = functools.partial(mega.swe2d_plan, sms=sms)
-        shapes += [
-            ("latency floor", 32, 3, plan(32, 3, ctas=1)),
-            ("three grid barriers", 128, 128, plan(128, 128)._replace(barriers=3)),
-        ]
+        shapes += [("latency floor", 32, 3, plan(32, 3, ctas=1))]
         if explore:
-            for rows, threads in ((1, 256), (1, 384), (1, 512), (2, 256), (2, 384), (2, 512)):
+            for rows, threads in ((1, 384), (2, 256), (2, 384), (2, 512), (4, 512)):
                 shapes.append((f"{rows}-row bands, {threads} threads", 128, 128,
                                plan(128, 128, band_rows=rows, threads=threads)))
             shapes += [
-                ("2-row bands, three grid barriers", 128, 128, plan(128, 128, band_rows=2)._replace(barriers=3)),
-                ("1-row bands, 512 threads", 200, 200, plan(200, 200, band_rows=1, threads=512)),
-                ("199 CTAs, 256 threads", 200, 200, plan(200, 200, ctas=199, threads=256)),
-                ("199 CTAs, 320 threads", 200, 200, plan(200, 200, ctas=199, threads=320)),
-                ("132 CTAs, 512 threads", 400, 400, plan(400, 400, threads=512)),
-                ("264 CTAs, 256 threads", 400, 400, plan(400, 400, ctas=264, threads=256)),
-                ("latency floor, 384 threads", 32, 3, plan(32, 3, ctas=1, threads=384)),
+                ("256 threads", 200, 200, plan(200, 200, threads=256)),
+                ("256 threads", 400, 400, plan(400, 400, threads=256)),
+                ("(32,3) on its plan", 32, 3, None),
             ]
     else:
         shapes += [("latency floor", 32, 3, None)]

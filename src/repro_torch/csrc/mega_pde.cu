@@ -14,13 +14,14 @@
 // swe2d: the (3, nx, ny) state does not fit one SM (3x128x128 f32 alone is
 // 196,608 B), so a cooperative grid of CTAs (kernels/mega.py::swe2d_plan)
 // cuts it into bands of rows: CTA b of C owns rows [r0, r1) = [b*nx/C,
-// (b+1)*nx/C) and keeps them, with the halo row r1 below them, in its band
-// arrays (shared memory, or a per-CTA slice of device memory where the band
-// does not fit). A substep runs in three phases and two grid barriers:
+// (b+1)*nx/C) (one row at the main path's 128x128, 127 CTAs) and keeps them,
+// with the halo row r1 below them, in its band arrays (shared memory, or a
+// per-CTA slice of device memory where the band does not fit). A substep
+// runs in three phases and two grid barriers:
 //   A  Ux on the band's own rows (the last one reads the halo row) into the
-//      band and into a global ring, and the maxima of |Ux.hu|, |Ux.h|;
-//      barrier 1 arrives, then Uy and Gy on rows r0..r1 (all from the band)
-//      while it completes;
+//      band and into a global ring, the fluxes G on rows r0..r1, and the
+//      maxima of |Ux.hu|, |Ux.h|; barrier 1 arrives, then Uy and Gy on rows
+//      r0..r1 (all from the band) while it completes;
 //   B  t1 = hu*hu and t3 = h*h on the policy at k11/k33 and their maxima, and
 //      Fx's f32 components, on the own Ux rows; barrier 2 arrives, then the
 //      same on the halo Fx rows r0-1 and r1 (their Ux read from the ring);
@@ -32,18 +33,19 @@
 //      same values, so the next A needs no barrier before it.
 // Every value comes from the device functions and operation order of the
 // four-phase grid it replaces; Fx's halo rows and row r1 are recomputed, not
-// exchanged. Each CTA's thread 0 ticks the adjust unit on the same evidence
-// (deterministic), so the latch is CTA-local; CTA 0 alone writes the evidence
-// and the tracker rows.
+// exchanged. The policy products run as r2f2::PairMul / ConstMul of one kind
+// a pass (family_mul, family_div, family_mul_add bit for bit). Each CTA's
+// thread 0 ticks the adjust unit on the same evidence (deterministic), so the
+// latch is CTA-local; CTA 0 alone writes the evidence and the tracker rows.
 //
 // Hazards the two grid barriers leave open, and what covers each:
 //   Ux     a fast CTA's A of substep s+1 writes Ux rows that its neighbour's
 //          B-gap of substep s may still read for its halo Fx: Ux is a ring
 //          of two substeps (a slot is written again in s+2, behind barrier 1
 //          of s+1, which waits for every CTA's substep s).
-//   maxima CTA 0 zeroes substep s+1's four words at the start of substep s,
-//          while a slow CTA may still be about to read words 2-3 of s-1: the
-//          maxima are a ring of three substeps.
+//   maxima each CTA posts its maxima in its own word of the barrier's row,
+//          and a row is posted again only behind the other barrier, which no
+//          CTA passes before every CTA has read the row (grid_arrive).
 //   ka     the floor was a global word latched behind a barrier; it is now
 //          per CTA in shared memory, written by thread 0 after the CTA's
 //          last read of the substep (behind the CTA barrier in C+D).
@@ -53,12 +55,15 @@
 //   Gy, t1, t3 of the halo rows are the band's own work, so no other CTA's
 //          copy is read.
 // Any field: a band loops over its rows and columns with the CTA's threads,
-// and fields with more rows than CTAs take taller bands.
+// and fields with more rows than CTAs take taller bands and CTAs of up to
+// 512 threads (kernels/mega.py::swe2d_plan).
 //
 // It is bound by the latency of its chain of phases, not by bytes or
 // operations (the main path's 128x128 state is 196 KB and ~2.5 MFLOP a
-// substep). The maxima are integer maxima of magnitude bit patterns, so an
-// atomicMax gives the same answer in every order.
+// substep): at 128x128 each of the ten steps of a substep (the phases, each
+// barrier's arrive with its release fence, each wait with its two L2 round
+// trips) takes 0.5-1 us. The maxima are maxima of exponent fields, so their
+// fold gives the same answer in every order.
 #include <cuda_runtime.h>
 
 #include "r2f2_device.cuh"
@@ -79,7 +84,7 @@ struct SweArgs {
   float* ev;        // (steps, 4, 2) or null
   float* ux;        // Ux in a ring of two substeps, (2, 3, nx-1, ny)
   float* bands;     // the CTAs' band arrays in device memory, or null: in shared memory
-  uint32_t* maxes;  // (3, 4) zeroed: |Ux.hu|, |Ux.h|, |t1|, |t3| of a ring of three substeps
+  uint32_t* words;  // (2, CTAs): each CTA's maxima at a substep's two grid barriers
   unsigned long long* count;  // the launch's barrier counter, zeroed
   const int* ka;    // the datapath floor (4) the run starts from, null when untracked
   int* trk_k;
@@ -90,14 +95,13 @@ struct SweArgs {
   const int* site_cfg;
   int evolve;
   int nx, ny, steps, every;
-  int rows;      // the tallest band's rows
-  int barriers;  // grid barriers a substep: 2, or 3 with one after the update
+  int rows;  // the tallest band's rows
   float cx2, cy2, cx, cy, c;  // dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, each rounded once to f32
 };
 
 // Floats of one CTA's band arrays for bands of up to `rows` rows (mega.py::swe2d_band_floats).
 __host__ __device__ __forceinline__ size_t band_floats(int rows, int ny) {
-  return static_cast<size_t>(14 * rows + 19) * ny;
+  return static_cast<size_t>(16 * rows + 21) * ny;
 }
 
 // The f32 momentum flux q1*q1/q3 + c*(q3*q3), its sum fused into the product
@@ -126,10 +130,7 @@ __device__ __forceinline__ bool wall_flips(int comp, int i, int j, int nx, int n
   return (comp == 1 && (i == 0 || i == nx - 1)) || (comp == 2 && (j == 0 || j == ny - 1));
 }
 
-__device__ __forceinline__ uint32_t warp_max(uint32_t v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+__device__ __forceinline__ uint32_t warp_max(uint32_t v) { return __reduce_max_sync(0xffffffffu, v); }
 
 // The substep's evidence rows: q1q1 (e1, e1), q3q3 (e3, e3), gq3 (ec, et3), div (et1, e3).
 struct Evidence {
@@ -161,13 +162,22 @@ __device__ __forceinline__ void store_rows(const SiteState* st, int n, int* k, f
   }
 }
 
-// The first half of a grid barrier that carries two maxima: the CTA's
-// maxima of (v0, v1) go into the substep's words with one atomicMax each
-// from thread 0, which then adds one to the counter with release semantics.
-// Work between grid_arrive and grid_wait overlaps the barrier; its writes are
-// published by the next grid_arrive.
+// A grid barrier that carries two maxima, as exponent fields. grid_arrive:
+// the CTA's maxima of (v0, v1), magnitude bit patterns, fold to one word,
+// f0 | f1 << 8, that thread 0 stores in the CTA's own slot of the
+// barrier's row of `words`; then it adds one to the counter with release
+// semantics, the one atomic a CTA makes on a shared address. Work between
+// grid_arrive and grid_wait overlaps the barrier; its writes are published
+// by the next grid_arrive. grid_wait: warp 0 spins on acquire loads until
+// the counter reaches `target`, then reads every CTA's word (each lane a few
+// CTAs) and folds them; every thread gets the two exponents. Barrier 1 of
+// a substep takes row 0, barrier 2 row 1: a CTA writes a row again only
+// after the other barrier, which no CTA passes before every CTA has read
+// the row.
+constexpr int kMaxWordsPerLane = 8;  // a grid of up to 256 CTAs
+
 __device__ __forceinline__ void grid_arrive(uint32_t v0, uint32_t v1, uint32_t* words, uint32_t (*red)[2],
-                                       unsigned long long* count) {
+                                            unsigned long long* count) {
   v0 = warp_max(v0);
   v1 = warp_max(v1);
   if ((threadIdx.x & 31) == 0) {
@@ -180,33 +190,49 @@ __device__ __forceinline__ void grid_arrive(uint32_t v0, uint32_t v1, uint32_t* 
       v0 = max(v0, red[w][0]);
       v1 = max(v1, red[w][1]);
     }
-    atomicMax(words, v0);
-    atomicMax(words + 1, v1);
+    __stcg(words + blockIdx.x, (v0 >> 23) | (v1 >> 23) << 8);
     asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(count) : "memory");
   }
 }
 
-// The second half: thread 0 spins on acquire loads until the counter
-// reaches `target`, then reads the two words; every thread gets them.
-__device__ __forceinline__ uint2 grid_wait(const uint32_t* words, uint32_t* seen, unsigned long long* count,
-                                      unsigned long long target) {
-  if (threadIdx.x == 0) {
+// The unbiased exponents of the two maxima.
+__device__ __forceinline__ int2 grid_wait(const uint32_t* words, uint32_t* seen, unsigned long long* count,
+                                          unsigned long long target) {
+  if (threadIdx.x < 32) {
     unsigned long long now = 0ull;
     do {
       asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(now) : "l"(count) : "memory");
     } while (now < target);
-    seen[0] = __ldcg(words);
-    seen[1] = __ldcg(words + 1);
+    uint32_t w[kMaxWordsPerLane];
+#pragma unroll
+    for (int i = 0; i < kMaxWordsPerLane; ++i) {  // every load in flight at once
+      const int b = threadIdx.x + 32 * i;
+      w[i] = b < static_cast<int>(gridDim.x) ? __ldcg(words + b) : 0u;
+    }
+    uint32_t f0 = 0u, f1 = 0u;
+#pragma unroll
+    for (int i = 0; i < kMaxWordsPerLane; ++i) {
+      f0 = max(f0, w[i] & 0xFFu);
+      f1 = max(f1, w[i] >> 8);
+    }
+    f0 = warp_max(f0);
+    f1 = warp_max(f1);
+    if (threadIdx.x == 0) {
+      seen[0] = f0;
+      seen[1] = f1;
+    }
   }
   __syncthreads();
-  return make_uint2(seen[0], seen[1]);
+  return make_int2(static_cast<int>(seen[0]) - 127, static_cast<int>(seen[1]) - 127);
 }
 
-__global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, AdjustLaw law, Policy p) {
+template <int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, AdjustLaw law, Policy p) {
   extern __shared__ __align__(16) float band_smem[];
   __shared__ uint32_t red[kSweMaxWarps][2];
   __shared__ uint32_t seen[2];
-  __shared__ int floor_k[4];  // the latched datapath floor, CTA-local
+  __shared__ int floor_k[4];      // the latched datapath floor, CTA-local
+  __shared__ SiteState st[4];     // the tracker rows, thread 0's
   const int nx = a.nx, ny = a.ny, n = nx * ny, nxm = (nx - 1) * ny, R = a.rows, T = blockDim.x;
   const int tid = threadIdx.x;
   const int C = gridDim.x, b = blockIdx.x;
@@ -219,19 +245,20 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
   const int g_lo = max(r0, 1), g_hi = min(r1, nx - 2);      // Gy rows
   const bool lead = b == 0 && tid == 0;
   // band arrays: U (2 buffers x 3 planes of R+1 rows), Fx rows r0-1..r1 (3 planes
-  // of R+2 rows: Ux's hu, h, hv, then Fx), t1 and t3 there, Gy rows r0..r1
+  // of R+2 rows: Ux's hu, h, hv, then Fx), t1 and t3 there, Gy and G's two
+  // flux components on rows r0..r1
   const size_t up = static_cast<size_t>(R + 1) * ny, fp = static_cast<size_t>(R + 2) * ny;
   float* band = a.bands != nullptr ? a.bands + b * band_floats(R, ny) : band_smem;
   float* ub = band;
   float* fx = ub + 6 * up;
   float* tt = fx + 3 * fp;
   float* gy = tt + 2 * fp;
+  float* gf = gy + 3 * up;
   // local offsets: U and Gy row i at (i - r0) * ny, Fx and t row i at (i - r0 + 1) * ny
   const int ec = r2f2::mag_exponent(r2f2::finite_mag_bits(a.c));
   const r2f2::TileQuant fixed = p.family == r2f2::kFixed ? r2f2::tile_quant(p.fe, p.fm, -1) : r2f2::TileQuant{};
   const bool has_floor = a.ka != nullptr;
   const int* fk = has_floor ? floor_k : nullptr;
-  SiteState st[4];
 
   if (a.steps == 0) {
     for (int c = 0; c < 3; ++c)
@@ -250,21 +277,24 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
   for (int s = 0; s < a.steps; ++s) {
     const float* u = ub + (s & 1) * 3 * up;
     float* un = ub + ((s + 1) & 1) * 3 * up;
-    uint32_t* mx = a.maxes + (s % 3) * 4;
     float* uxs = a.ux + static_cast<size_t>(s & 1) * 3 * nxm;
-    if (lead) {
-      for (int w = 0; w < 4; ++w) a.maxes[((s + 1) % 3) * 4 + w] = 0u;
-    }
 
-    // A: Ux on the own rows
+    // A: Ux on the own rows, and the fluxes G (its second component is F's
+    // third) on rows r0..r1, which Uy reads
     uint32_t m1 = 0u, m3 = 0u;
     for (int q = tid; q < xr * ny; q += T) {
       const float h = u[q], hu = u[up + q], hv = u[2 * up + q];
       const float hd = u[q + ny], hud = u[up + q + ny], hvd = u[2 * up + q + ny];
-      const float f1 = mom32(hu, h, a.c), f2 = cross(hu, hv, h);
+      const float f1 = mom32(hu, h, a.c), f2 = cross(hu, hv, h), fd2 = cross(hud, hvd, hd);
       const float x0 = half_step(hd, h, hud, hu, a.cx2);
       const float x1 = half_step(hud, hu, mom32(hud, hd, a.c), f1, a.cx2);
-      const float x2 = half_step(hvd, hv, cross(hud, hvd, hd), f2, a.cx2);
+      const float x2 = half_step(hvd, hv, fd2, f2, a.cx2);
+      gf[q] = f2;
+      gf[up + q] = mom32(hv, h, a.c);
+      if (q >= (xr - 1) * ny) {  // the last Ux row also gives G of the row below it
+        gf[ny + q] = fd2;
+        gf[up + ny + q] = mom32(hvd, hd, a.c);
+      }
       const int g = r0 * ny + q;
       __stcg(uxs + g, x0);
       __stcg(uxs + nxm + g, x1);
@@ -275,7 +305,7 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
       m3 = max(m3, r2f2::finite_mag_bits(x0));
       m1 = max(m1, r2f2::finite_mag_bits(x1));
     }
-    grid_arrive(m1, m3, mx, red, a.count);
+    grid_arrive(m1, m3, a.words, red, a.count);
     // while barrier 1 completes: Uy and Gy on rows g_lo..g_hi
     const int gw = ny - 1;
     for (int q = tid; q < (g_hi - g_lo + 1) * gw; q += T) {
@@ -283,19 +313,17 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
       const int at = (g_lo - r0 + l) * ny + j;
       const float h = u[at], hu = u[up + at], hv = u[2 * up + at];
       const float hr = u[at + 1], hur = u[up + at + 1], hvr = u[2 * up + at + 1];
-      const float g1 = cross(hu, hv, h), g2 = mom32(hv, h, a.c);
       const float y0 = half_step(hr, h, hvr, hv, a.cy2);
-      const float y1 = half_step(hur, hu, cross(hur, hvr, hr), g1, a.cy2);
-      const float y2 = half_step(hvr, hv, mom32(hvr, hr, a.c), g2, a.cy2);
+      const float y1 = half_step(hur, hu, gf[at + 1], gf[at], a.cy2);
+      const float y2 = half_step(hvr, hv, gf[up + at + 1], gf[up + at], a.cy2);
       gy[at] = y2;
       gy[up + at] = cross(y1, y2, y0);
       gy[2 * up + at] = mom32(y2, y0, a.c);
     }
-    const uint2 w1 = grid_wait(mx, seen, a.count, ++passed * C);
+    const int2 w1 = grid_wait(a.words, seen, a.count, ++passed * C);
 
     // B: the policy products and Fx's f32 components on the own Ux rows
-    const int e1 = r2f2::mag_exponent(w1.x);
-    const int e3 = r2f2::mag_exponent(w1.y);
+    const int e1 = w1.x, e3 = w1.y;
     const int k11 = r2f2::site_k(r2f2::select_k_mul(e1, e1, p), fk, 0, p);
     const int k33 = r2f2::site_k(r2f2::select_k_mul(e3, e3, p), fk, 1, p);
     // the products with their formats built once, in the variant (kind) the
@@ -315,7 +343,7 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
         mt3 = max(mt3, r2f2::finite_mag_bits(t3));
       }
     });
-    grid_arrive(mt1, mt3, mx + 2, red, a.count);
+    grid_arrive(mt1, mt3, a.words + C, red, a.count);
     // while barrier 2 completes: the same on the halo Fx rows r0-1 and r1,
     // their Ux from the neighbours' slots of the ring
     const int halo_top = r0 > 0 ? 1 : 0, halo_bot = r1 <= nx - 2 ? 1 : 0;
@@ -334,11 +362,10 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
         fx[2 * fp + at] = cross(hu, hv, h);
       }
     });
-    const uint2 w2 = grid_wait(mx + 2, seen, a.count, ++passed * C);
+    const int2 w2 = grid_wait(a.words + C, seen, a.count, ++passed * C);
 
     // C: Fx's momentum component on the policy, and the adjust unit's tick
-    const int et1 = r2f2::mag_exponent(w2.x);
-    const int et3 = r2f2::mag_exponent(w2.y);
+    const int et1 = w2.x, et3 = w2.y;
     const int k_gq3 = r2f2::site_k(r2f2::select_k_mul(ec, et3, p), fk, 2, p);
     const int k_div = r2f2::site_k(r2f2::select_k_div(et1, e3, p), fk, 3, p);
     if (tid == 0) {
@@ -390,45 +417,51 @@ __global__ void __launch_bounds__(kSweMaxThreads) swe2d_band_kernel(SweArgs a, A
     if (boundary && a.evolve && tid == 0) {  // read again only behind the next barrier
       for (int j = 0; j < 4; ++j) floor_k[j] = st[j].k;
     }
-    if (a.barriers == 3) {
-      r2f2::grid_barrier(a.count, ++passed * C);
-    } else {
-      __syncthreads();
-    }
+    __syncthreads();
   }
   if (a.evolve && lead) store_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
 }
 
-size_t smem_allowed[r2f2::kMaxDevices] = {};
+// The kernel for CTAs of up to `threads` threads: the 256-thread instance
+// keeps up to 255 registers a thread, the 384-thread one 170, the
+// 512-thread one 128.
+template <int kMaxThreads>
+cudaError_t launch_bands(int ctas, int threads, int smem, cudaStream_t stream, const SweArgs& a, const AdjustLaw& law,
+                         const Policy& p) {
+  static size_t smem_allowed[r2f2::kMaxDevices] = {};
+  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel<kMaxThreads>, static_cast<size_t>(smem), smem_allowed);
+  int capacity = 0;
+  if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel<kMaxThreads>, threads, smem, capacity);
+  if (err != cudaSuccess) return err;
+  if (capacity < ctas) return cudaErrorCooperativeLaunchTooLarge;
+  return r2f2::launch_cooperative(swe2d_band_kernel<kMaxThreads>, dim3(ctas), dim3(threads), smem, stream, a, law, p);
+}
 
 }  // namespace
 
-// A cooperative grid of `ctas` CTAs, one band each (bands of up to `rows`
-// rows; the last band two rows or more), with the band arrays in `smem`
-// bytes of shared memory, or in `bands` (device memory) when smem is 0; ux,
-// maxes and count are its scratch.
+// A cooperative grid of `ctas` CTAs of `threads` threads, one band each
+// (bands of up to `rows` rows; the last band two rows or more), with the
+// band arrays in `smem` bytes of shared memory, or in `bands` (device
+// memory) when smem is 0; ux, words and count are its scratch.
 extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, float* ux, float* bands,
-                               unsigned int* maxes, unsigned long long* count, const int* ka, int* trk_k,
+                               unsigned int* words, unsigned long long* count, const int* ka, int* trk_k,
                                float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg,
                                int evolve, int nx, int ny, int steps, int every, int ctas, int threads, int rows,
-                               int smem, int barriers, float cx2, float cy2, float cx, float cy, float c, float ema,
-                               float one_minus, int headroom, int family, int eb, int mb, int fx, int fe, int fm,
-                               int tail_approx, int pinned, void* stream) {
-  if (nx < 3 || ny < 3 || every < 1 || ux == nullptr || maxes == nullptr || count == nullptr || ctas < 1 ||
-      ctas > nx - 1 || rows < (nx + ctas - 1) / ctas || (barriers != 2 && barriers != 3) || threads < 32 ||
-      threads > kSweMaxThreads || threads % 32 != 0 ||
-      (smem == 0) != (bands != nullptr) ||
+                               int smem, float cx2, float cy2, float cx, float cy, float c, float ema, float one_minus,
+                               int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
+                               int pinned, void* stream) {
+  if (nx < 3 || ny < 3 || every < 1 || ux == nullptr || words == nullptr || count == nullptr || ctas < 1 ||
+      ctas > nx - 1 || ctas > 32 * kMaxWordsPerLane || rows < (nx + ctas - 1) / ctas || threads < 32 ||
+      threads > kSweMaxThreads ||
+      threads % 32 != 0 || (smem == 0) != (bands != nullptr) ||
       (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
-  SweArgs a{u_in, u_out, snaps, ev, ux, bands, maxes, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg,
-            evolve, nx, ny, steps, every, rows, barriers, cx2, cy2, cx, cy, c};
+  const SweArgs a{u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh,
+                  site_cfg, evolve, nx, ny, steps, every, rows, cx2, cy2, cx, cy, c};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
-  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel, static_cast<size_t>(smem), smem_allowed);
-  int capacity = 0;
-  if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel, threads, smem, capacity);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (capacity < ctas) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  return static_cast<int>(r2f2::launch_cooperative(swe2d_band_kernel, dim3(ctas), dim3(threads), smem,
-                                                   static_cast<cudaStream_t>(stream), a, law, p));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(threads <= 256   ? launch_bands<256>(ctas, threads, smem, s, a, law, p)
+                          : threads <= 384 ? launch_bands<384>(ctas, threads, smem, s, a, law, p)
+                                           : launch_bands<kSweMaxThreads>(ctas, threads, smem, s, a, law, p));
 }

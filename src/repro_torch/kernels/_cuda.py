@@ -58,10 +58,10 @@ _SIGNATURES = {
     "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
     # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
     "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
-    # u_in, u_out, snaps, ev, ux, bands, maxes, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx,
-    # ny, steps, every, ctas, threads, rows, smem, barriers, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2,
-    # ema, 1 - ema, headroom, policy(8), stream
-    "r2f2_swe2d_mega": [_P] * 15 + [_I] * 10 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
+    # u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx,
+    # ny, steps, every, ctas, threads, rows, smem, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema,
+    # 1 - ema, headroom, policy(8), stream
+    "r2f2_swe2d_mega": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
     # x, y, k_tiles, m, n, bm, bn, eb, mb, fx, cluster (0: the two-pass shape), rows, stream
     "r2f2_quantize": [_P] * 3 + [_I] * 9 + [_P],
     # a, b, c, scratch, m, n, kdim, bm, bn, bk, splits, slots, eb, mb, fx, round_products,

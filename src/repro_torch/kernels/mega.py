@@ -287,12 +287,12 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     return MegaResult((out,), (snaps,), tracker_out, ev)
 
 
-#: threads of a CTA of swe2d's grid (csrc/mega_pde.cu), and the most it takes
+#: threads of a CTA of swe2d's grid (csrc/mega_pde.cu): at least, and at most
 _SWE2D_THREADS = 256
 _SWE2D_MAX_THREADS = 512
-#: rows of a band on the main path's plan (the shorter of the two timed on
-#: the card, PERF.md)
-SWE2D_BAND_ROWS = 2
+#: rows of a band on swe2d_plan's grid (the fastest of one, two and four
+#: timed on the card at the main path's 128x128, PERF.md)
+SWE2D_BAND_ROWS = 1
 #: a CTA keeps its band arrays in shared memory up to this size, else in a
 #: slice of device memory
 SWE2D_SMEM_LIMIT = _cuda.SMEM_LIMIT
@@ -305,15 +305,15 @@ class Swe2DPlan(NamedTuple):
     threads: int  # threads a CTA
     rows: int  # the tallest band's rows
     smem: int  # bytes of shared memory a CTA's band arrays take; 0: they live in device memory
-    barriers: int = 2  # grid barriers a substep (3: one more after the update, for timings)
 
 
 def swe2d_band_floats(rows: int, ny: int) -> int:
     """Floats of one CTA's band arrays for bands of up to ``rows`` rows:
     two U buffers of ``rows + 1`` rows (the halo row below the band), Ux
     then Fx and the two policy products on ``rows + 2`` rows (a halo row on
-    each side) and Gy on ``rows + 1``, each ``ny`` wide."""
-    return (14 * rows + 19) * ny
+    each side), and Gy and two components of the flux G on ``rows + 1``,
+    each ``ny`` wide."""
+    return (16 * rows + 21) * ny
 
 
 def swe2d_bands(nx: int, ctas: int):
@@ -323,36 +323,39 @@ def swe2d_bands(nx: int, ctas: int):
 
 
 def swe2d_plan(nx: int, ny: int, *, sms: int = 132, band_rows: int = SWE2D_BAND_ROWS, ctas: Optional[int] = None,
-               threads: int = _SWE2D_THREADS, barriers: int = 2) -> Swe2DPlan:
+               threads: Optional[int] = None) -> Swe2DPlan:
     """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one
-    CTA of 256 threads per band of ``band_rows`` rows (the main path's
-    128x128 runs 64 CTAs of two rows), at most one CTA per SM (``sms``) and
-    at most ``nx - 1`` CTAs, so the last band holds both wall rows
-    ``nx - 2`` and ``nx - 1``; fields with more rows than that take taller
-    bands. ``ctas`` asks for another grid (the chip checks and timings).
-    Any ``nx, ny >= 3``."""
+    CTA per band of ``band_rows`` rows, at most one CTA per SM (``sms``) and
+    at most ``nx - 1`` CTAs, so the last band holds both wall rows ``nx - 2``
+    and ``nx - 1`` (the main path's 128x128 runs 127 CTAs, the last band two
+    rows); fields with more rows take taller bands. A CTA has a thread per
+    point of its tallest band's rows, rounded up to 128, from 256 to 512.
+    ``ctas`` and ``threads`` ask for another grid (the chip checks and
+    timings). Any ``nx, ny >= 3``."""
     if min(nx, ny) < 3:
         raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
     if ctas is None:
         ctas = min(-(-nx // band_rows), sms)
     ctas = max(1, min(ctas, nx - 1))
     rows = -(-nx // ctas)
+    if threads is None:
+        threads = min(max(-(-rows * ny // 128) * 128, _SWE2D_THREADS), _SWE2D_MAX_THREADS)
     nbytes = 4 * swe2d_band_floats(rows, ny)
-    return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0, barriers)
+    return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0)
 
 
 def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device):
     """The grid's scratch, whatever the number of substeps: Ux in a ring of
     two substeps (f32, ``(2, 3, nx-1, ny)``), the band arrays of every CTA
-    when they do not fit shared memory (else None), the four maxima of a
-    ring of three substeps (int32, zeroed; the kernel zeroes each substep's
-    for the one after next) and the 64-bit barrier counter (zeroed)."""
+    when they do not fit shared memory (else None), each CTA's maxima at a
+    substep's two grid barriers (int32, ``(2, ctas)``, written before they
+    are read) and the 64-bit barrier counter (zeroed)."""
     ux = torch.empty(2 * 3 * (nx - 1) * ny, dtype=torch.float32, device=device)
     bands = None if plan.smem else torch.empty(plan.ctas * swe2d_band_floats(plan.rows, ny), dtype=torch.float32,
                                                device=device)
-    maxes = torch.zeros(12, dtype=torch.int32, device=device)
+    words = torch.empty(2 * plan.ctas, dtype=torch.int32, device=device)
     count = torch.zeros(1, dtype=torch.int64, device=device)
-    return ux, bands, maxes, count
+    return ux, bands, words, count
 
 
 def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None):
@@ -371,7 +374,7 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
     if plan.threads % 32 or not 32 <= plan.threads <= _SWE2D_MAX_THREADS:
         raise ValueError(f"swe2d_mega's CTAs have a multiple of 32 threads up to {_SWE2D_MAX_THREADS}; got {plan}")
-    ux, bands, maxes, count = swe2d_grid_scratch(nx, ny, plan, dev)
+    ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, dev)
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev if evolve else None)
@@ -384,9 +387,8 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
         # and writes the evolved rows back into k, hi, lo, ov, sh at the end
         err = lib.r2f2_swe2d_mega(
             _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(ux), _cuda.ptr(bands),
-            _cuda.ptr(maxes), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
-            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows,
-            plan.smem, plan.barriers, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
+            _cuda.ptr(words), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
+            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows, plan.smem, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
             _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")

@@ -426,13 +426,13 @@ def test_heat2d_grid_matches_plain(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", [
-    "main path", "forced grid", "one-row bands", "one CTA", "(127,128)", "(130,64)", "(200,200)", "(32,3)",
+    "main path", "forced grid", "two-row bands", "one CTA", "(127,128)", "(130,64)", "(200,200)", "(32,3)",
     "(64,5000)", "boundaries",
 ])
 def test_swe2d_mega_shapes_match_plain(which):
     """K4 swe2d on its band plan at the main path's 128x128 (over the ladder
-    and the trackers), on forced grids there (8 CTAs, one-row bands, one
-    CTA owning every row), with uneven last bands (127x128, 130x64), at
+    and the trackers), on forced grids there (8 CTAs, two-row bands of 512
+    threads, one CTA owning every row), with uneven last bands (127x128, 130x64), at
     200x200, (32, 3) and 64x5000 (band arrays in device memory), and tracked
     across six snapshot boundaries and with every = 1, against its plain
     version on the CPU under flush bit for bit: state, snapshots, evidence,

@@ -463,19 +463,21 @@ def test_heat2d_plan_cluster_or_grid(shape, shape_kind):
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((64, 64), (32, 256, 2)),  # the card link's field
-    ((128, 128), (64, 256, 2)),  # the main path: 64 bands of two rows
-    ((129, 128), (65, 256, 2)),  # the largest field of the default kernel_blocks
-    ((127, 128), (64, 256, 2)),  # an uneven last band
-    ((200, 200), (100, 256, 2)),  # phase 2's field under kernel_blocks (256, 256, 128)
-    ((400, 400), (132, 256, 4)),  # more rows than SMs: taller bands
+    ((64, 64), (63, 256, 2)),  # the card link's field: one-row bands, the last two rows
+    ((128, 128), (127, 256, 2)),  # the main path
+    ((129, 128), (128, 256, 2)),  # the largest field of the default kernel_blocks
+    ((127, 128), (126, 256, 2)),
+    ((200, 200), (132, 512, 2)),  # more rows than SMs: taller bands, more threads
+    ((400, 400), (132, 512, 4)),
     ((3, 3), (2, 256, 2)),  # the last band holds both wall rows
-    ((32, 3), (16, 256, 2)),
+    ((32, 3), (31, 256, 2)),
+    ((64, 5000), (63, 512, 2)),  # a wide field: its band arrays in device memory
 ])
 def test_swe2d_plan(shape, want):
     plan = swe2d_plan(*shape)
-    assert (plan.ctas, plan.threads, plan.rows) == want and plan.barriers == 2
-    assert plan.smem == 4 * swe2d_band_floats(plan.rows, shape[1])
+    assert (plan.ctas, plan.threads, plan.rows) == want
+    nbytes = 4 * swe2d_band_floats(plan.rows, shape[1])
+    assert plan.smem == (nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0) and (plan.smem == 0) == (shape == (64, 5000))
 
 
 def test_swe2d_plan_covers_every_field():
@@ -483,7 +485,8 @@ def test_swe2d_plan_covers_every_field():
     below it) lies inside the field; the last band holds both wall rows
     nx - 2 and nx - 1 (and the first band holds row 1 or has it as its
     halo); the grid fits one CTA per SM; rows beyond that take taller bands;
-    the band arrays fit shared memory or go to device memory."""
+    a CTA has a thread per point of its tallest band, 256 to 512; the band
+    arrays fit shared memory or go to device memory."""
     sms = H100_SMS
     for nx in list(range(3, 140)) + [255, 256, 257, 263, 264, 265, 400, 1000, 4097]:
         for ny in (3, 4, 64, 128, 5000):
@@ -502,38 +505,45 @@ def test_swe2d_plan_covers_every_field():
                     assert plan.ctas == -(-nx // band_rows)
                 else:
                     assert plan.ctas == min(sms, nx - 1) and plan.rows >= band_rows
+                assert plan.threads % 128 == 0 and 256 <= plan.threads <= 512
+                assert plan.threads == 512 or plan.threads >= plan.rows * ny
                 nbytes = 4 * swe2d_band_floats(plan.rows, ny)
                 assert plan.smem == (nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0)
     with pytest.raises(ValueError, match="nx, ny >= 3"):
         swe2d_plan(2, 64)
 
 
-@pytest.mark.parametrize("nx,ny,ctas,want_rows", [(128, 128, 1, 128), (128, 128, 8, 16), (128, 128, 500, 2), (9, 7, 3, 3)])
-def test_swe2d_plan_forced_grids(nx, ny, ctas, want_rows):
-    """An asked-for grid keeps its CTA count up to nx - 1 bands; a CTA that
-    owns every row takes the whole field, its band arrays in device memory
-    when they do not fit shared memory."""
-    plan = swe2d_plan(nx, ny, ctas=ctas)
-    assert plan.ctas == min(ctas, nx - 1) and plan.rows == want_rows
-    assert (plan.smem == 0) == (4 * swe2d_band_floats(want_rows, ny) > SWE2D_SMEM_LIMIT)
-    assert swe2d_plan(nx, ny, barriers=3).barriers == 3
+@pytest.mark.parametrize("nx,ny,kw,want", [
+    (128, 128, dict(ctas=1), (1, 512, 128)),  # one CTA owns every row
+    (128, 128, dict(ctas=8), (8, 512, 16)),
+    (128, 128, dict(ctas=500), (127, 256, 2)),
+    (128, 128, dict(band_rows=2, threads=512), (64, 512, 2)),
+    (9, 7, dict(ctas=3, threads=64), (3, 64, 3)),
+])
+def test_swe2d_plan_forced_grids(nx, ny, kw, want):
+    """An asked-for grid keeps its CTA count up to nx - 1 bands, and its CTA
+    size; a CTA that owns every row takes the whole field, its band arrays
+    in device memory when they do not fit shared memory."""
+    plan = swe2d_plan(nx, ny, **kw)
+    assert (plan.ctas, plan.threads, plan.rows) == want
+    assert (plan.smem == 0) == (4 * swe2d_band_floats(want[2], ny) > SWE2D_SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("nx,ny", [(128, 128), (200, 200), (512, 512), (64, 5000)])
 def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
     """The grid's scratch is the same for any number of substeps: Ux in a
     ring of two substeps, the band arrays in device memory only where they
-    do not fit shared memory, the four maxima of a ring of three substeps
-    (zeroed) and one 64-bit barrier counter (zeroed): two grid barriers a
+    do not fit shared memory, each CTA's maxima at a substep's two grid
+    barriers, and one 64-bit barrier counter (zeroed): two grid barriers a
     substep would wrap 32 bits after about 16 million substeps on 132 CTAs."""
     plan = swe2d_plan(nx, ny)
-    ux, bands, maxes, count = swe2d_grid_scratch(nx, ny, plan, "cpu")
+    ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, "cpu")
     assert ux.dtype == torch.float32 and ux.numel() == 2 * 3 * (nx - 1) * ny
     if plan.smem:
         assert bands is None
     else:
         assert bands.dtype == torch.float32 and bands.numel() == plan.ctas * swe2d_band_floats(plan.rows, ny)
-    assert maxes.dtype == torch.int32 and maxes.numel() == 12 and not maxes.any()
+    assert words.dtype == torch.int32 and words.numel() == 2 * plan.ctas
     assert count.dtype == torch.int64 and count.numel() == 1 and not count.any()
 
 
