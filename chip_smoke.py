@@ -71,9 +71,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tokens, bit-identical prefill logits) and f32 (the logits' rel-L2), each
    then timed warm (a prefill and decode steps one by one), then K6 and K7
    timed at the path's shapes beside their bounds, plain versions and
-   cuBLAS SGEMM (K6 on each launch shape of ``quantize_plan`` too; K7 by
-   replayed CUDA graphs, split and unsplit, with its launch shape: the K
-   blocks split S over CTAs, the CTA count).
+   cuBLAS SGEMM, both by replayed CUDA graphs (and by CUDA events around
+   the wrapper's calls): K6 on each launch shape of ``quantize_plan`` too,
+   K7 split and unsplit, with its launch shape (the K blocks split S over
+   CTAs, the CTA count).
 
 ``--heat1d-sizes`` times heat1d's K2 and K4 as phase 5 does and runs
 heat1d's ladder rows, nothing else; ``--swe2d-times`` times K4 swe2d as
@@ -2116,7 +2117,7 @@ def time_contract_kernels(device, launches, errs, card):
     rows, recs = [], []
     for m, n in ((1024, 1024), (LM_D, LM_FF)):
         x = torch.randn(m, n, generator=g).to(device) * LM_D**-0.5
-        ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 50, warmup=5)
+        call_ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 50, warmup=5)
         plain_ms, (yp, kp) = cuda_time_ms(lambda: r2f2_quantize_plain(x, fmt=fmt), 3)
         require(same_bits(y, yp) and torch.equal(k, kp), f"r2f2_quantize disagrees with its plain version at ({m},{n})")
         b_ms, b_by = bound(8 * m * n + 4 * k.numel(), 0)
@@ -2132,8 +2133,11 @@ def time_contract_kernels(device, launches, errs, card):
             graph_ms = graph_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=plan), 20)
             by_shape[label] = dict(ms=t, graph_ms=graph_ms, launch=k6_launch_shape(plan))
         launch = "; ".join(f"{k} [{v['launch']}] {v['ms']:.4f} ms (graphs {v['graph_ms']:.4f})" for k, v in by_shape.items())
-        rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, sgemm_ms=None, launch=launch, by_shape=by_shape))
+        # the kernel's device time: CUDA events around the calls also time the
+        # host's wrapper, which at these sizes can take as long as the kernel
+        rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=by_shape["plan"]["graph_ms"],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, sgemm_ms=None, launch=launch,
+                         by_shape=by_shape, call_ms=call_ms))
     k7_shapes = [
         ("router prefill", LM_PREFILL_ROWS, LM_D, LM_E), ("router decode", LM_DECODE_ROWS, LM_D, LM_E),
         ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
