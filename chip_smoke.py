@@ -72,7 +72,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    then timed warm (a prefill and decode steps one by one), then K6 and K7
    timed at the path's shapes beside their bounds, plain versions and
    cuBLAS SGEMM, both by replayed CUDA graphs (and by CUDA events around
-   the wrapper's calls): K6 on each launch shape of ``quantize_plan`` too,
+   the wrapper's calls): K6 also on its two-pass shape (its kernel before the cluster shape),
    K7 split and unsplit, with its launch shape (the K blocks split S over
    CTAs, the CTA count).
 
@@ -85,7 +85,7 @@ two trees compare on one card.
 
 Phase 2 also holds K6 (``r2f2_quantize``) against its plain version bit for
 bit, on each launch shape of ``quantize_plan`` (the cluster at (256, 256),
-(128, 256) and (256, 128) and forced onto clusters of 8 and 1; the
+(128, 256), (256, 128), (512, 256) (8 CTAs) and (128, 128) (one CTA); the
 two-pass shape at (8, 128), (512, 512) and (1024, 6); a block taller than
 the matrix; the special tiles at four blocks), and K7 (``r2f2_matmul``) within the spread of two f32 summation orders
 (:func:`k7_order_bound`), bit for bit on dyadic operands, also on dyadic
@@ -204,7 +204,10 @@ def measure(out, ref, judge):
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1):
     """Mean ms per call over ``reps`` calls after ``warmup`` calls, and the
-    last call's result."""
+    last call's result. Every call but the last drops its result at once,
+    so no timed call allocates an output the warm-up left uncached (a call
+    that held the previous result while the next one allocated would put a
+    cudaMalloc in the timed span)."""
     import torch
 
     for _ in range(warmup):
@@ -212,8 +215,9 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        out = fn()
+    for _ in range(reps - 1):
+        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
@@ -560,7 +564,7 @@ def mega_cases(device):
 
     swe_shapes = [
         ("on a forced grid of 8 CTAs", 128, 128, swe2d_plan(128, 128, ctas=8), None),
-        ("on two-row bands of 512 threads", 128, 128, swe2d_plan(128, 128, band_rows=2, threads=512), None),
+        ("on two-row bands of 512 threads", 128, 128, swe2d_plan(128, 128, ctas=64)._replace(threads=512), None),
         ("on one CTA", 128, 128, swe2d_plan(128, 128, ctas=1), None),
         ("(127,128)", 127, 128, None, None),
         ("(130,64)", 130, 64, None, None),
@@ -1125,13 +1129,13 @@ def check_contract_kernels(device):
     x = spread_data((1024, 1024), g, device)
     k6 = [(f"fmt <{e},{m},{f}> (1024,1024) block (256,256)", x, FlexFormat(e, m, f), (256, 256), None) for e, m, f in K6_FMTS]
     # each launch shape of quantize_plan: the cluster at (256, 256), (128, 256)
-    # and (256, 128), and forced onto clusters of 8 and 1; the two-pass shape
-    # at (8, 128) (a small tile), (512, 512) (more than the cluster holds)
-    # and (1024, 6) (no 16-byte vectors); a block larger than the matrix
+    # and (256, 128), on 8 CTAs at (512, 256) and on one at (128, 128); the
+    # two-pass shape at (8, 128) (a small tile), (512, 512) (more than the
+    # cluster holds) and (1024, 6) (no 16-byte vectors); a block larger than
+    # the matrix
     k6 += [(f"(1024,1024) block {blk}", x, fmt, blk, None) for blk in ((128, 256), (256, 128), (8, 128), (512, 512))]
     k6 += [("(1024,1026) block (1024,6)", spread_data((1024, 1026), g, device), fmt, (1024, 6), None)]
-    k6 += [("(1024,1024) block (256,256) on clusters of 8", x, fmt, (256, 256), quantize_plan(1024, 1024, 256, 256, cta_bytes=32768))]
-    k6 += [("(1024,1024) block (128,128) on clusters of 1", x, fmt, (128, 128), None)]
+    k6 += [(f"(1024,1024) block {blk} on clusters of {c}", x, fmt, blk, None) for blk, c in (((512, 256), 8), ((128, 128), 1))]
     k6 += [("(96,512) block (256,256): bm = m", spread_data((96, 512), g, device), fmt, (256, 256), None)]
     k6 += [(f"special tiles (256,1024): zero, subnormal, inf/NaN, 1e6 block {blk}", special_tiles(device), fmt, blk, None)
            for blk in ((256, 256), (128, 256), (8, 128), (256, 1024))]
@@ -1878,10 +1882,8 @@ def time_swe2d(device, card, explore=False):
     100) in r2f2_16, by replayed CUDA graphs and by CUDA events (which hold
     the wrapper's host work too), each with its launch shape: the plan's
     grid at 128x128, 200x200 and 400x400, and the latency floor, a (32, 3)
-    state on one CTA. With ``explore``, on the band kernel also the band
-    heights and CTA sizes the plan chose among. A tree without the
-    band kernel (copied into it, this script times that tree's kernel) runs
-    the shapes its plan gives. Returns the rows."""
+    state on one CTA. With ``explore``, also the band heights and CTA sizes
+    the plan chose among. Returns the rows."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import mega
     from repro_torch.pde.swe2d import initial_state
@@ -1890,23 +1892,18 @@ def time_swe2d(device, card, explore=False):
     scfg = workload_config("swe2d")[0]
     mk = dict(steps=MAIN_STEPS["swe2d"], every=SWE_EVERY, sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"),
               site_ops=("mul", "mul", "mul", "div"), prec=L["r2f2_16"])
-    bands = hasattr(mega, "swe2d_bands")
-    sms = _cuda.sm_count(device)
-    shapes = [("", 128, 128, None), ("", 200, 200, None), ("", 400, 400, None)]
-    if bands:
-        plan = functools.partial(mega.swe2d_plan, sms=sms)
-        shapes += [("latency floor", 32, 3, plan(32, 3, ctas=1))]
-        if explore:
-            for rows, threads in ((1, 384), (2, 256), (2, 384), (2, 512), (4, 512)):
-                shapes.append((f"{rows}-row bands, {threads} threads", 128, 128,
-                               plan(128, 128, band_rows=rows, threads=threads)))
-            shapes += [
-                ("256 threads", 200, 200, plan(200, 200, threads=256)),
-                ("256 threads", 400, 400, plan(400, 400, threads=256)),
-                ("(32,3) on its plan", 32, 3, None),
-            ]
-    else:
-        shapes += [("latency floor", 32, 3, None)]
+    plan = functools.partial(mega.swe2d_plan, sms=_cuda.sm_count(device))
+    shapes = [("", 128, 128, None), ("", 200, 200, None), ("", 400, 400, None),
+              ("latency floor", 32, 3, plan(32, 3, ctas=1))]
+    if explore:
+        for rows, threads in ((1, 384), (2, 256), (2, 384), (2, 512), (4, 512)):
+            shapes.append((f"{rows}-row bands, {threads} threads", 128, 128,
+                           plan(128, 128, ctas=-(-128 // rows))._replace(threads=threads)))
+        shapes += [
+            ("256 threads", 200, 200, plan(200, 200)._replace(threads=256)),
+            ("256 threads", 400, 400, plan(400, 400)._replace(threads=256)),
+            ("(32,3) on its plan", 32, 3, None),
+        ]
     rows = []
     for label, nx, ny, plan in shapes:
         cfg = dataclasses.replace(scfg, nx=nx, ny=ny)
@@ -1923,7 +1920,7 @@ def time_swe2d(device, card, explore=False):
             log(f"time swe2d_mega (3,{nx},{ny}) {label}: {exc}")
             continue
         steps = mk["steps"]
-        shape = swe2d_launch_shape(nx, ny, plan) if bands else f"[cooperative grid of up to {mega.swe2d_plan(nx, ny).ctas} CTAs]"
+        shape = swe2d_launch_shape(nx, ny, plan)
         rows.append(dict(kernel="swe2d_mega", case=f"(3,{nx},{ny}) {label}".strip(), shape=shape, ms=ms, events_ms=ev_ms,
                          substeps=steps, us_per_substep=ms * 1e3 / steps))
         log(f"time swe2d_mega (3,{nx},{ny}) {label} {shape}: {ms:.4f} ms per {steps} substeps by graphs "
@@ -2114,30 +2111,51 @@ def time_contract_kernels(device, launches, errs, card):
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
+    def segments():
+        return torch.cuda.memory_stats()["segment.all.allocated"]  # cudaMalloc calls so far
+
     rows, recs = [], []
     for m, n in ((1024, 1024), (LM_D, LM_FF)):
         x = torch.randn(m, n, generator=g).to(device) * LM_D**-0.5
-        call_ms, (y, k) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt), 50, warmup=5)
+        call = functools.partial(r2f2_quantize, x, fmt=fmt)
+        # the default call by CUDA events as this script's loop once timed
+        # it: from an empty cache, a warm-up that dropped its results, then
+        # calls that each held the last result while the next allocated, so
+        # one call allocated a second output inside the timed span (the
+        # cudaMalloc calls counted)
+        torch.cuda.empty_cache()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        seg0, start, end = segments(), torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = None
+        for _ in range(50):
+            out = call()
+        end.record()
+        torch.cuda.synchronize()
+        held_ms, held_mallocs = start.elapsed_time(end) / 50, segments() - seg0
+        del out
+        # then as every other timing here: no timed call allocates
+        seg0 = segments()
+        call_ms, (y, k) = cuda_time_ms(call, 50, warmup=5)
+        require(segments() == seg0, f"r2f2_quantize allocated inside its timed calls at ({m},{n})")
+        ms = graph_time_ms(call, 20)
         plain_ms, (yp, kp) = cuda_time_ms(lambda: r2f2_quantize_plain(x, fmt=fmt), 3)
         require(same_bits(y, yp) and torch.equal(k, kp), f"r2f2_quantize disagrees with its plain version at ({m},{n})")
         b_ms, b_by = bound(8 * m * n + 4 * k.numel(), 0)
-        # the other launch shapes on the same matrix: the cluster on 2 and 8
-        # CTAs a tile, and the two-pass shape (the parent's kernel)
-        shapes = {"plan": quantize_plan(m, n, 256, 256)}
-        shapes.update({f"{c} CTAs a tile": quantize_plan(m, n, 256, 256, cta_bytes=256 * 1024 // c) for c in (2, 8)})
-        shapes["two-pass"] = QuantizePlan("two_pass", 0, 256, 0, (m // 256) * (n // 256))
-        by_shape = {}
-        for label, plan in shapes.items():
-            t, (ys, ks) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=plan), 50, warmup=5)
-            require(same_bits(ys, yp) and torch.equal(ks, kp), f"r2f2_quantize on {label} disagrees at ({m},{n})")
-            graph_ms = graph_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=plan), 20)
-            by_shape[label] = dict(ms=t, graph_ms=graph_ms, launch=k6_launch_shape(plan))
-        launch = "; ".join(f"{k} [{v['launch']}] {v['ms']:.4f} ms (graphs {v['graph_ms']:.4f})" for k, v in by_shape.items())
-        # the kernel's device time: CUDA events around the calls also time the
-        # host's wrapper, which at these sizes can take as long as the kernel
-        rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=by_shape["plan"]["graph_ms"],
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, sgemm_ms=None, launch=launch,
-                         by_shape=by_shape, call_ms=call_ms))
+        # the two-pass shape (the kernel before the cluster shape) on the same matrix
+        two = QuantizePlan("two_pass", 0, 256, 0, (m // 256) * (n // 256))
+        two_ms, (ys, ks) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=two), 50, warmup=5)
+        require(same_bits(ys, yp) and torch.equal(ks, kp), f"r2f2_quantize's two-pass shape disagrees at ({m},{n})")
+        two_graph_ms = graph_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=two), 20)
+        launch = (f"{k6_launch_shape(quantize_plan(m, n, 256, 256))}; timed holding each result {held_ms:.4f} ms "
+                  f"by CUDA events, {held_mallocs} cudaMalloc in the timed calls; the two-pass shape "
+                  f"[{k6_launch_shape(two)}] {two_graph_ms:.4f} ms by graphs, {two_ms:.4f} by CUDA events")
+        rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, sgemm_ms=None, launch=launch, call_ms=call_ms,
+                         held_ms=held_ms, held_mallocs=held_mallocs, two_pass_ms=two_graph_ms,
+                         two_pass_call_ms=two_ms))
     k7_shapes = [
         ("router prefill", LM_PREFILL_ROWS, LM_D, LM_E), ("router decode", LM_DECODE_ROWS, LM_D, LM_E),
         ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
@@ -2177,7 +2195,7 @@ def time_contract_kernels(device, launches, errs, card):
                          splits=plan.splits, ctas=plan.ctas, cold_ms=cold_ms, call_ms=call_ms))
     for r in rows:
         sg = "" if r["sgemm_ms"] is None else f", cuBLAS SGEMM {r['sgemm_ms']:.4f} ms (not the same function)"
-        dev = "" if r.get("call_ms") is None else f" (device time, CUDA graph; {r['call_ms']:.4f} ms per call with the host's wrapper)"
+        dev = "" if r.get("call_ms") is None else f" (device time, CUDA graph; {r['call_ms']:.4f} ms per call by CUDA events, the host's wrapper too)"
         cold = "" if r.get("cold_ms") is None else f", L2 flushed before each call {r['cold_ms']:.4f} ms"
         launch = f" [{r['launch']}]" if "launch" in r else ""
         log(f"time {r['name']} {r['shape']} r2f2_16: kernel {r['ms']:.4f} ms{dev}{cold}, plain {r['plain_ms']:.4f} ms, "

@@ -67,7 +67,6 @@ __all__ = [
     "HEAT1D_MEGA",
     "SWE2D_MEGA",
     "Swe2DPlan",
-    "SWE2D_BAND_ROWS",
     "swe2d_plan",
     "swe2d_bands",
     "swe2d_band_floats",
@@ -290,9 +289,6 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
 #: threads of a CTA of swe2d's grid (csrc/mega_pde.cu): at least, and at most
 _SWE2D_THREADS = 256
 _SWE2D_MAX_THREADS = 512
-#: rows of a band on swe2d_plan's grid (the fastest of one, two and four
-#: timed on the card at the main path's 128x128, PERF.md)
-SWE2D_BAND_ROWS = 1
 #: a CTA keeps its band arrays in shared memory up to this size, else in a
 #: slice of device memory
 SWE2D_SMEM_LIMIT = _cuda.SMEM_LIMIT
@@ -322,24 +318,21 @@ def swe2d_bands(nx: int, ctas: int):
     return [(b * nx // ctas, (b + 1) * nx // ctas) for b in range(ctas)]
 
 
-def swe2d_plan(nx: int, ny: int, *, sms: int = 132, band_rows: int = SWE2D_BAND_ROWS, ctas: Optional[int] = None,
-               threads: Optional[int] = None) -> Swe2DPlan:
+def swe2d_plan(nx: int, ny: int, *, sms: int = 132, ctas: Optional[int] = None) -> Swe2DPlan:
     """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one
-    CTA per band of ``band_rows`` rows, at most one CTA per SM (``sms``) and
-    at most ``nx - 1`` CTAs, so the last band holds both wall rows ``nx - 2``
-    and ``nx - 1`` (the main path's 128x128 runs 127 CTAs, the last band two
-    rows); fields with more rows take taller bands. A CTA has a thread per
-    point of its tallest band's rows, rounded up to 128, from 256 to 512.
-    ``ctas`` and ``threads`` ask for another grid (the chip checks and
-    timings). Any ``nx, ny >= 3``."""
+    CTA per row (one-row bands were the fastest of one, two and four rows
+    timed on the card at the main path's 128x128, PERF.md), at most one CTA
+    per SM (``sms``) and at most ``nx - 1`` CTAs, so the last band holds
+    both wall rows ``nx - 2`` and ``nx - 1`` (the main path's 128x128 runs
+    127 CTAs, the last band two rows); fields with more rows take taller
+    bands. A CTA has a thread per point of its tallest band's rows, rounded
+    up to 128, from 256 to 512. ``ctas`` asks for another grid (the chip
+    checks and timings). Any ``nx, ny >= 3``."""
     if min(nx, ny) < 3:
         raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
-    if ctas is None:
-        ctas = min(-(-nx // band_rows), sms)
-    ctas = max(1, min(ctas, nx - 1))
+    ctas = max(1, min(min(nx, sms) if ctas is None else ctas, nx - 1))
     rows = -(-nx // ctas)
-    if threads is None:
-        threads = min(max(-(-rows * ny // 128) * 128, _SWE2D_THREADS), _SWE2D_MAX_THREADS)
+    threads = min(max(-(-rows * ny // 128) * 128, _SWE2D_THREADS), _SWE2D_MAX_THREADS)
     nbytes = 4 * swe2d_band_floats(rows, ny)
     return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0)
 

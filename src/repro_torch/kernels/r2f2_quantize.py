@@ -55,19 +55,18 @@ class QuantizePlan(NamedTuple):
     ctas: int  # CTAs of the launch
 
 
-def quantize_plan(m: int, n: int, bm: int, bn: int, *, aligned: bool = True,
-                  cta_bytes: int = CTA_TILE_BYTES) -> QuantizePlan:
+def quantize_plan(m: int, n: int, bm: int, bn: int, *, aligned: bool = True) -> QuantizePlan:
     """How K6 runs an ``(m, n)`` matrix in ``(bm, bn)`` tiles (a block that
     divides the shape): the cluster shape splits a tile over the fewest CTAs
     (a power of two, at most :data:`MAX_CLUSTER`) whose rows fit
-    ``cta_bytes`` each, where ``bn`` allows 16-byte vectors, the matrix is
+    :data:`CTA_TILE_BYTES` each, where ``bn`` allows 16-byte vectors, the matrix is
     16-byte ``aligned``, the cluster divides ``bm`` and the tile is at
     least :data:`MIN_CLUSTER_TILE_BYTES`; every other tile takes the
     two-pass shape, one CTA each."""
     tiles = (m // bm) * (n // bn)
     tile_bytes = 4 * bm * bn
     cluster = 1
-    while cluster * cta_bytes < tile_bytes:
+    while cluster * CTA_TILE_BYTES < tile_bytes:
         cluster *= 2
     if (not aligned or bn % 4 or tile_bytes < MIN_CLUSTER_TILE_BYTES or cluster > MAX_CLUSTER
             or bm % cluster):

@@ -484,16 +484,17 @@ def test_swe2d_plan_covers_every_field():
     """Every row is owned by exactly one band; each band's halo row (the row
     below it) lies inside the field; the last band holds both wall rows
     nx - 2 and nx - 1 (and the first band holds row 1 or has it as its
-    halo); the grid fits one CTA per SM; rows beyond that take taller bands;
-    a CTA has a thread per point of its tallest band, 256 to 512; the band
-    arrays fit shared memory or go to device memory."""
+    halo); the plan's grid fits one CTA per SM, and rows beyond that take
+    taller bands; an asked-for grid (bands of two and four rows) keeps its
+    CTAs up to nx - 1; a CTA has a thread per point of its tallest band,
+    256 to 512; the band arrays fit shared memory or go to device memory."""
     sms = H100_SMS
     for nx in list(range(3, 140)) + [255, 256, 257, 263, 264, 265, 400, 1000, 4097]:
         for ny in (3, 4, 64, 128, 5000):
-            for band_rows in (1, 2, 4):
-                plan = swe2d_plan(nx, ny, sms=sms, band_rows=band_rows)
+            for ctas in (None, -(-nx // 2), -(-nx // 4)):
+                plan = swe2d_plan(nx, ny, sms=sms, ctas=ctas)
                 bands = swe2d_bands(nx, plan.ctas)
-                assert 1 <= plan.ctas <= min(sms, nx - 1), (nx, ny, plan)
+                assert 1 <= plan.ctas <= nx - 1, (nx, ny, plan)
                 assert bands[0][0] == 0 and bands[-1][1] == nx
                 assert all(a[1] == b[0] for a, b in zip(bands, bands[1:])), (nx, bands)
                 heights = [r1 - r0 for r0, r1 in bands]
@@ -501,10 +502,11 @@ def test_swe2d_plan_covers_every_field():
                 assert all(r1 < nx for _, r1 in bands[:-1])  # every halo row is in the field
                 assert heights[-1] >= 2  # the wall pair nx-2, nx-1 in one band
                 assert bands[0][1] >= 1  # row 0 mirrors row 1: CTA 0 holds it (own or halo)
-                if -(-nx // band_rows) <= min(sms, nx - 1):
-                    assert plan.ctas == -(-nx // band_rows)
+                if ctas is None:
+                    assert plan.ctas == min(sms, nx - 1)
+                    assert plan.rows == (2 if nx <= sms + 1 else -(-nx // sms))  # taller bands past the SMs
                 else:
-                    assert plan.ctas == min(sms, nx - 1) and plan.rows >= band_rows
+                    assert plan.ctas == max(1, min(ctas, nx - 1))
                 assert plan.threads % 128 == 0 and 256 <= plan.threads <= 512
                 assert plan.threads == 512 or plan.threads >= plan.rows * ny
                 nbytes = 4 * swe2d_band_floats(plan.rows, ny)
@@ -517,13 +519,13 @@ def test_swe2d_plan_covers_every_field():
     (128, 128, dict(ctas=1), (1, 512, 128)),  # one CTA owns every row
     (128, 128, dict(ctas=8), (8, 512, 16)),
     (128, 128, dict(ctas=500), (127, 256, 2)),
-    (128, 128, dict(band_rows=2, threads=512), (64, 512, 2)),
-    (9, 7, dict(ctas=3, threads=64), (3, 64, 3)),
+    (128, 128, dict(ctas=64), (64, 256, 2)),  # two-row bands
+    (9, 7, dict(ctas=3), (3, 256, 3)),
 ])
 def test_swe2d_plan_forced_grids(nx, ny, kw, want):
-    """An asked-for grid keeps its CTA count up to nx - 1 bands, and its CTA
-    size; a CTA that owns every row takes the whole field, its band arrays
-    in device memory when they do not fit shared memory."""
+    """An asked-for grid keeps its CTA count up to nx - 1 bands; a CTA that
+    owns every row takes the whole field, its band arrays in device memory
+    when they do not fit shared memory."""
     plan = swe2d_plan(nx, ny, **kw)
     assert (plan.ctas, plan.threads, plan.rows) == want
     assert (plan.smem == 0) == (4 * swe2d_band_floats(want[2], ny) > SWE2D_SMEM_LIMIT)
@@ -557,6 +559,7 @@ def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
     (1024, 1024, (128, 256), ("cluster", 2, 64, 65536, 64)),
     (1024, 1024, (256, 128), ("cluster", 2, 128, 65536, 64)),
     (1024, 1024, (128, 128), ("cluster", 1, 128, 65536, 64)),
+    (1024, 1024, (512, 256), ("cluster", 8, 64, 65536, 64)),  # 512 KB: the largest cluster
     (96, 512, (96, 256), ("cluster", 2, 48, 49152, 4)),  # a block as tall as the matrix
     (1024, 1024, (512, 512), ("two_pass", 0, 512, 0, 4)),  # 1 MB: more than 8 CTAs of 64 KB
     (1024, 1024, (8, 128), ("two_pass", 0, 8, 0, 1024)),  # 4 KB: its second read hits L1
@@ -592,9 +595,6 @@ def test_quantize_plan_cluster_shapes():
                         or bm % -(-tile // CTA_TILE_BYTES)), (bm, bn, plan)
                 assert plan == ("two_pass", 0, bm, 0, 8)
             assert quantize_plan(m, n, bm, bn, aligned=False) == ("two_pass", 0, bm, 0, 8)
-    # asked-for CTA sizes: 32 KB puts a (256, 256) tile on 8 CTAs, 128 KB on 2
-    assert quantize_plan(5120, 8192, 256, 256, cta_bytes=32 * 1024)[:3] == ("cluster", 8, 32)
-    assert quantize_plan(5120, 8192, 256, 256, cta_bytes=128 * 1024)[:3] == ("cluster", 2, 128)
 
 
 def test_r2f2_quantize_cpu_runs_the_plain_version():
