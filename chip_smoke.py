@@ -2093,9 +2093,10 @@ def _leaves(tree):
 
 
 def time_contract_kernels(device, launches, errs, card):
-    """K6 and K7 (CUDA events after warm-up) at the main path's shapes,
-    beside their bounds, their plain versions and, for K7, cuBLAS SGEMM on
-    the same shapes (a yardstick only: not the same function)."""
+    """K6 and K7 at the main path's shapes by replayed CUDA graphs and by
+    CUDA events after warm-up, beside their bounds, their plain versions
+    and, for K7, cuBLAS SGEMM on the same shapes (a yardstick only: not the
+    same function)."""
     import torch
 
     from repro_torch.core.flexformat import FlexFormat
@@ -2111,35 +2112,11 @@ def time_contract_kernels(device, launches, errs, card):
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
-    def segments():
-        return torch.cuda.memory_stats()["segment.all.allocated"]  # cudaMalloc calls so far
-
     rows, recs = [], []
     for m, n in ((1024, 1024), (LM_D, LM_FF)):
         x = torch.randn(m, n, generator=g).to(device) * LM_D**-0.5
         call = functools.partial(r2f2_quantize, x, fmt=fmt)
-        # the default call by CUDA events as this script's loop once timed
-        # it: from an empty cache, a warm-up that dropped its results, then
-        # calls that each held the last result while the next allocated, so
-        # one call allocated a second output inside the timed span (the
-        # cudaMalloc calls counted)
-        torch.cuda.empty_cache()
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
-        seg0, start, end = segments(), torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = None
-        for _ in range(50):
-            out = call()
-        end.record()
-        torch.cuda.synchronize()
-        held_ms, held_mallocs = start.elapsed_time(end) / 50, segments() - seg0
-        del out
-        # then as every other timing here: no timed call allocates
-        seg0 = segments()
         call_ms, (y, k) = cuda_time_ms(call, 50, warmup=5)
-        require(segments() == seg0, f"r2f2_quantize allocated inside its timed calls at ({m},{n})")
         ms = graph_time_ms(call, 20)
         plain_ms, (yp, kp) = cuda_time_ms(lambda: r2f2_quantize_plain(x, fmt=fmt), 3)
         require(same_bits(y, yp) and torch.equal(k, kp), f"r2f2_quantize disagrees with its plain version at ({m},{n})")
@@ -2149,13 +2126,11 @@ def time_contract_kernels(device, launches, errs, card):
         two_ms, (ys, ks) = cuda_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=two), 50, warmup=5)
         require(same_bits(ys, yp) and torch.equal(ks, kp), f"r2f2_quantize's two-pass shape disagrees at ({m},{n})")
         two_graph_ms = graph_time_ms(lambda: r2f2_quantize(x, fmt=fmt, _plan=two), 20)
-        launch = (f"{k6_launch_shape(quantize_plan(m, n, 256, 256))}; timed holding each result {held_ms:.4f} ms "
-                  f"by CUDA events, {held_mallocs} cudaMalloc in the timed calls; the two-pass shape "
-                  f"[{k6_launch_shape(two)}] {two_graph_ms:.4f} ms by graphs, {two_ms:.4f} by CUDA events")
+        launch = (f"{k6_launch_shape(quantize_plan(m, n, 256, 256))}; the two-pass shape [{k6_launch_shape(two)}] "
+                  f"{two_graph_ms:.4f} ms by graphs, {two_ms:.4f} by CUDA events")
         rows.append(dict(name="r2f2_quantize", shape=f"({m},{n}) block (256,256)", ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, sgemm_ms=None, launch=launch, call_ms=call_ms,
-                         held_ms=held_ms, held_mallocs=held_mallocs, two_pass_ms=two_graph_ms,
-                         two_pass_call_ms=two_ms))
+                         two_pass_ms=two_graph_ms, two_pass_call_ms=two_ms))
     k7_shapes = [
         ("router prefill", LM_PREFILL_ROWS, LM_D, LM_E), ("router decode", LM_DECODE_ROWS, LM_D, LM_E),
         ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
