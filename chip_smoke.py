@@ -37,7 +37,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shape (:data:`ROD_SHAPES`: 3 cells, 256, the 2048 edge, 2049, a forced
    grid, 30,000 cells over 15 CTAs and in batches) and heat2d on the rod's
    grid (:data:`HEAT2D_GRID_SHAPES`: 359x359, 400x400, a forced
-   grid at 64x64);
+   grid at 64x64); packed storage: kernel K1's harness
+   (``r2f2_storage``: packs at every split, picked splits, unpacks of every
+   payload pattern, for every format of :data:`STORAGE_FMTS`) and every
+   storage-carrying kernel shape (:func:`storage_cases`: the rod's warp and
+   grid shapes, heat2d's cluster and a forced grid, K4 swe2d's bands and a
+   forced grid) with packed leaves, packed from f32 and quantized, payloads
+   and splits bit for bit;
 3. the paper's experiment on the fused plane, then on the megakernel plane
    and through ``execution="auto"``: heat1d (nx=128, 4000 steps), swe2d
    (128x128, 400 steps), heat2d (64x64, 1500 steps), advection1d (nx=256,
@@ -45,13 +51,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the paper's verdicts and each plane's launch counts asserted (counts
    zeroed right before each ladder), and swe2d, heat2d, advection1d and
    burgers1d at 60 steps against the rows of
-   ``artifacts/bench/BENCH_pde.json`` on both planes;
+   ``artifacts/bench/BENCH_pde.json`` on both planes; then the five
+   configurations uncut with carried storage (:func:`run_storage_ladder`:
+   packed on the fused and megakernel planes and ``auto``, quantized on
+   both planes, r2f2_16 and rr_tracked; counters zeroed before): the
+   verdicts, ``state_nbytes`` beside the f32 run's, packed = quantized and
+   megakernel = fused = auto bit for bit, each packed launch counted;
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons; then the card against ``repro``: every builtin stepper on
    every plane in the six modes at a small size (:func:`link_configs`),
    bit for bit against the port's plain run on the CPU under flush, which
-   the CPU tests hold equal to ``repro``;
+   the CPU tests hold equal to ``repro``, and each stepper on both kernel
+   planes with packed and quantized storage in r2f2_16 and rr_tracked;
 5. kernel times (CUDA events; for K2 and K3, whose launches take
    microseconds, a replayed CUDA graph of their calls) beside their bounds
    and the plain versions; K2 and K4 heat1d by rod size
@@ -62,7 +74,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    main path's horizon chunk by chunk; the new launch shapes by replayed
    CUDA graphs (:func:`time_shapes`: the 1-D K5 kernels by rod size,
    heat2d's grid, K4 swe2d at 128x128, 200x200, 400x400 and its latency
-   floor, also by CUDA events);
+   floor, also by CUDA events); the storage variants of K2, K4 and K5 in
+   f32, packed and quantized by replayed CUDA graphs at the main shapes
+   (:func:`time_storage`), with the packed variants and K1 in the kernels
+   line;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -284,7 +299,9 @@ def to_device(x, device):
     ``device``."""
     import torch
 
-    if isinstance(x, torch.Tensor):
+    from repro_torch.pack import PackedArray
+
+    if isinstance(x, (torch.Tensor, PackedArray)):
         return x.to(device)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_device(v, device) for v in x))
@@ -891,6 +908,258 @@ def check_k5(device, cases=None):
     return errs, records
 
 
+# ---------------------------------------------------------------------------
+# phase 2: packed storage (kernel K1's harness and the storage parts of the
+# rod, heat2d's cluster and K4 swe2d)
+# ---------------------------------------------------------------------------
+
+#: the storage formats K1's harness is held at: every preset's flexible
+#: format, the fixed baselines' (FX = 0) and one of 19 bits whose widest
+#: split is E8M10, so that its below-normal values are f32 subnormals
+STORAGE_FMTS = ((3, 9, 3), (3, 8, 4), (3, 8, 3), (3, 7, 3), (5, 10, 0), (5, 10, 3))
+
+
+def storage_values(fmt, k, n_random=4096, seed=0):
+    """Values at split ``k`` of ``fmt``: zeros, +-inf, NaNs, both ends of
+    the split's normal range and its below-normal values (the smallest,
+    twice it, the largest, half the smallest), values past its largest
+    (overflow), f32 subnormals, and a log-uniform spread over the range."""
+    import torch
+
+    e, m = fmt.em(k)
+    emax, emin = 2 ** (e - 1) - 1, 2 - 2 ** (e - 1)
+
+    def p2(n):
+        return 2.0 ** n
+
+    top = p2(emax) * (2.0 - p2(-m))
+    sub = p2(emin - m)
+    special = [0.0, -0.0, float("inf"), -float("inf"), float("nan"), -float("nan"), top, -top, p2(emin), -p2(emin),
+               sub, -sub, 2 * sub, p2(emin) - sub, 0.5 * sub, 0.75 * sub, 1.5 * sub, top * 1.0001, p2(emax + 1) * 1.5,
+               1e-40, -3e-39, p2(-126), p2(-127)]
+    g = torch.Generator().manual_seed(seed + 31 * k)
+    lo, hi = emin - m - 2, min(emax + 1, 127)
+    mag = torch.exp2(lo + (hi - lo) * torch.rand(n_random, generator=g, dtype=torch.float64))
+    sign = torch.where(torch.rand(n_random, generator=g) < 0.5, -1.0, 1.0).double()
+    vals = torch.cat([torch.tensor(special, dtype=torch.float64), mag * sign]).float()
+    return vals
+
+
+def payload_view(pa):
+    """A PackedArray's payload as int64 with every NaN's sign cleared (a NaN
+    keeps its sign when packed, and CUDA and x86 make NaNs of other signs),
+    and its splits."""
+    import torch
+
+    from repro_torch.pack import unpack_array
+
+    bits = pa.payload.cpu().to(torch.int64)
+    nan = torch.isnan(unpack_array(pa.to("cpu"), plain=True)).reshape(bits.shape)
+    sign = 1 << (pa.fmt.total_bits - 1)
+    return torch.where(nan, bits & ~sign, bits), pa.k.cpu()
+
+
+def same_packed(a, b) -> bool:
+    """Two PackedArrays: payloads (NaN signs cleared), splits and geometry."""
+    if a.shape != b.shape or a.block != b.block or a.fmt != b.fmt or a.payload.dtype != b.payload.dtype:
+        return False
+    (pa, ka), (pb, kb) = payload_view(a), payload_view(b)
+    return bool((pa == pb).all()) and bool((ka == kb).all())
+
+
+def same_state(a, b) -> bool:
+    """Two states, f32 or packed."""
+    from repro_torch.pack import PackedArray
+
+    if isinstance(a, PackedArray) or isinstance(b, PackedArray):
+        return isinstance(a, PackedArray) and isinstance(b, PackedArray) and same_packed(a, b)
+    return same_bits(a, b)
+
+
+def check_storage_k1(device):
+    """K1's harness against the plain pack/unpack on the CPU under flush, for
+    every format of :data:`STORAGE_FMTS`: packs at every split (one block a
+    split), packs whose splits the kernel picks (blocks of every scale, and
+    blocks of zeros and of non-finite values only), and unpacks of every
+    payload pattern at every split (a sample of 2**16 for the 19-bit
+    format), NaNs canonical. Returns the lines and the decoded values' max
+    abs error."""
+    import torch
+
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.kernels.storage import pack_blocks, unpack_blocks
+    from repro_torch.pack import pack_block, payload_dtype, unpack_block
+    from repro_torch.pack.packed import block_storage_k
+
+    lines, err = [], 0.0
+    for eb, mb, fx in STORAGE_FMTS:
+        fmt = FlexFormat(eb, mb, fx)
+        ks = torch.arange(fx + 1, dtype=torch.int32)
+        # every split, one block each
+        x = torch.stack([storage_values(fmt, k) for k in range(fx + 1)])
+        pay, kout = pack_blocks(x.to(device), fmt, 1, x.shape[1], k=ks.reshape(-1, 1).to(device))
+        with cpu_flushed():
+            want = pack_block(x, fmt, ks.reshape(-1, 1).long()).to(payload_dtype(fmt))
+        ok_fixed = bool((pay.cpu().to(torch.int64) == want.to(torch.int64)).all()) and bool((kout.cpu().reshape(-1) == ks).all())
+        # splits the kernel picks: blocks at scales across the format's range
+        scales = torch.tensor([2.0 ** s for s in range(-40, 40, 3)])
+        xs = torch.stack([storage_values(fmt, 0, 512, seed=int(i))[23:] * 2.0 ** -30 * sc for i, sc in enumerate(scales)])
+        xs = torch.cat([xs, torch.zeros(1, xs.shape[1]), torch.full((1, xs.shape[1]), float("nan"))])
+        xs[-1, ::2] = float("inf")
+        pay2, k2 = pack_blocks(xs.to(device), fmt, 1, xs.shape[1])
+        with cpu_flushed():
+            k2_want = torch.stack([block_storage_k(row, fmt) for row in xs])
+            want2 = pack_block(xs, fmt, k2_want.reshape(-1, 1).long()).to(payload_dtype(fmt))
+        ok_pick = bool((k2.cpu().reshape(-1) == k2_want).all()) and bool(
+            (pay2.cpu().to(torch.int64) == want2.to(torch.int64)).all())
+        # every payload pattern (a sample for the wide format), at every split
+        n = 1 << fmt.total_bits
+        pats = torch.arange(n, dtype=torch.int64) if n <= 1 << 16 else torch.randint(0, n, (1 << 16,),
+                                                                                      generator=torch.Generator().manual_seed(3))
+        pats = pats.reshape(1, -1).expand(fx + 1, -1).contiguous()
+        got = unpack_blocks(pats.to(payload_dtype(fmt)).to(device), ks.reshape(-1, 1), fmt, 1, pats.shape[1])
+        with cpu_flushed():
+            want3 = unpack_block(pats, fmt, ks.reshape(-1, 1).long())
+        ok_unpack = same_bits(got.cpu(), want3)
+        err = max(err, max_abs_err(got.cpu(), want3))
+        subnormal = int(((want3 != 0) & (want3.abs() < 2.0 ** -126)).sum())  # flushed: none may remain
+        line = (f"K1 r2f2_storage <{eb},{mb},{fx}> ({fmt.total_bits} bits): pack at every split {'bit-exact' if ok_fixed else 'MISMATCH'}, "
+                f"picked splits {'bit-exact' if ok_pick else 'MISMATCH'} (k {sorted(set(k2.cpu().reshape(-1).tolist()))}), "
+                f"unpack of {pats.shape[1]} patterns x {fx + 1} splits {'bit-exact' if ok_unpack else 'MISMATCH'}; "
+                f"f32-subnormal decoded values left {subnormal}")
+        log(line)
+        lines.append(line)
+        require(ok_fixed and ok_pick and ok_unpack and subnormal == 0, line)
+    return lines, err
+
+
+#: the storage runs phase 2 holds the storage-carrying kernels at: (substeps
+#: of a fused sweep, (substeps, every) of a megakernel with a remainder);
+#: swe2d's, whose plain version takes ~0.1 s a substep on the CPU, shorter
+STORAGE_CHECK_STEPS = (30, (35, 15))
+SWE_STORAGE_CHECK_STEPS = (12, 5)
+#: the modes they run in
+STORAGE_PRECS = ("r2f2_16", "rr_tracked")
+
+
+def storage_cases(device):
+    """(kernel, label, input, kwargs) on every storage-carrying launch shape:
+    K2 and K4 heat1d on the rod's warp shape (128 cells), a forced one-CTA
+    grid and the grid (4096 cells); K5b/c/e/f on 256 cells (warp), a forced
+    grid and 2049 cells (grid); heat2d's K5a/K5d on the 64x64 cluster and a
+    forced grid; K4 swe2d on its band plan at 128x128 and a forced grid of 8
+    CTAs. Sweeps take packed leaves; megakernels packed leaves, f32 leaves
+    under "packed" (the host-pack shape) and "quantized"."""
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.kernels.mega import swe2d_plan
+    from repro_torch.pack import pack_array
+    from repro_torch.pde import Heat2DConfig, get_stepper
+    from repro_torch.pde.swe2d import initial_state
+
+    L = ladder()
+    sweep_steps, (mega_steps, every) = STORAGE_CHECK_STEPS
+    cases = []
+
+    def add(kern, where, x, base, n_sites, sweep=True, mega_f32=True, depth=(mega_steps, every)):
+        for name in STORAGE_PRECS:
+            prec = L[name]
+            trk = tracker_init(n_sites, prec.fmt, device=device) if name == "rr_tracked" else None
+            with cpu_flushed():
+                packed = pack_array(x.cpu(), prec.fmt).to(device)
+            if sweep:
+                kw = dict(base, prec=prec, steps=sweep_steps, collect_evidence=True, storage="packed")
+                if name == "rr_tracked":
+                    import torch
+
+                    kw["k_floor"] = torch.tensor([2, 1], dtype=torch.int32, device=device)
+                cases.append((f"{kern}_sweep", f"{name} {where} packed", packed, kw))
+            mk = dict(base, prec=prec, steps=depth[0], every=depth[1], tracker=trk, collect_evidence=True)
+            cases.append((f"{kern}_mega", f"{name} {where} packed", packed, dict(mk, storage="packed")))
+            cases.append((f"{kern}_mega", f"{name} {where} quantized", x, dict(mk, storage="quantized")))
+            if mega_f32:
+                cases.append((f"{kern}_mega", f"{name} {where} packed from f32", x, dict(mk, storage="packed")))
+
+    for nx, force in ((128, None), (128, "grid"), (4096, None)):
+        u = rod(nx, device)[0]
+        plan = None if force is None else grid_on_one_cta(1, nx)
+        extra = {} if plan is None else dict(_plan=plan)
+        add("heat1d", f"({nx},) {heat1d_launch_shape(1, nx, plan)}", u, dict(heat_args(nx), sites=("heat.flux", "heat.update"), **extra), 2,
+            mega_f32=force is None and nx == 128)
+    for case in ("advection1d", "burgers1d"):
+        stepper = get_stepper(case)
+        for nx, force in ((256, None), (256, "grid"), (2049, None)):
+            cfg = dataclasses.replace(workload_config(case)[0], nx=nx)
+            u = stepper.init_state(cfg, device="cpu").to(device)
+            args = dict(speed=cfg.speed, dtodx=cfg.dtodx) if case == "advection1d" else dict(dt=cfg.dt, dx=cfg.dx)
+            plan = forced_plan(nx, force)
+            extra = {} if plan is None else dict(_plan=plan)
+            add(case, f"({nx},) {k5_launch_shape(1, nx, plan=plan, body=case)}", u, dict(args, sites=stepper.sites, **extra), 2,
+                mega_f32=False)
+    stepper = get_stepper("heat2d")
+    cfg = Heat2DConfig(nx=64, ny=64)
+    u = stepper.init_state(cfg, device="cpu").to(device)
+    for force in (None, "grid"):
+        plan = forced_plan(64 * 64, force)
+        extra = {} if plan is None else dict(_plan=plan)
+        add("heat2d", f"(64,64) {k5_launch_shape(64, 64, plan=plan)}", u,
+            dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, sites=stepper.sites, **extra), 2, mega_f32=False)
+    scfg = swe_cfg.CONFIG
+    U = initial_state(scfg, device="cpu").to(device)
+    swe = get_stepper("swe2d")
+    for plan in (None, swe2d_plan(scfg.nx, scfg.ny, ctas=8)):
+        extra = {} if plan is None else dict(_plan=plan)
+        add("swe2d", f"(3,128,128) {swe2d_launch_shape(scfg.nx, scfg.ny, plan)}", U,
+            dict(cfg=scfg, sites=swe.sites, site_ops=swe.site_ops, **extra), 4, sweep=False, mega_f32=plan is None,
+            depth=SWE_STORAGE_CHECK_STEPS)
+    return cases
+
+
+def check_storage(device, cases=None):
+    """Every storage case (:func:`storage_cases` unless ``cases`` are given) against its plain version
+    on the CPU under flush: the final state (payload with NaN signs
+    cleared, and splits; or f32 bits), snapshots, evidence and every
+    tracker field."""
+    from repro_torch.kernels import heat_stencil, mega, pde_steps
+    from repro_torch.pack import unpack_state
+
+    entries = {
+        "heat1d_sweep": (heat_stencil.heat1d_sweep, heat_stencil.heat1d_sweep_plain),
+        "heat1d_mega": (mega.heat1d_mega, None), "swe2d_mega": (mega.swe2d_mega, None),
+    }
+    for case in K5_CASES:
+        entries[f"{case}_sweep"] = (getattr(pde_steps, f"{case}_sweep"), getattr(pde_steps, f"{case}_sweep_plain"))
+        entries[f"{case}_mega"] = (getattr(mega, f"{case}_mega"), None)
+    records, errs = [], {}
+    for kern, label, x, kw in cases if cases is not None else storage_cases(device):
+        fn, plain = entries[kern]
+        plain_kw = {k: v for k, v in kw.items() if k not in ("_cluster", "_plan")}
+        if kern.endswith("_sweep"):
+            lead = x.with_view((1,) + tuple(x.shape)) if kern == "heat1d_sweep" else x
+            got, ev = fn(lead, **kw)
+            want, ev_want = plain_on_cpu(plain, lead, **plain_kw)
+            ok = same_state(got, want) and same_bits(ev, ev_want)
+            trk = ""
+        else:
+            got = fn(x, **kw)
+            want = plain_on_cpu(fn, x, plain=True, **plain_kw)
+            ok = same_state(got.state, want.state) and same_bits(got.snaps, want.snaps) and same_bits(got.evidence, want.evidence)
+            if want.tracker is not None:
+                ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker))
+            trk = "" if got.tracker is None else f" adj=+{int(got.tracker.overflow_steps.sum())}/-{int(got.tracker.shrink_steps.sum())}"
+            got = got.state
+            want = want.state
+        kst = f" k={got.k.reshape(-1).tolist()}" if hasattr(got, "k") else ""
+        every = f" every={kw['every']}" if "every" in kw else ""
+        err = max_abs_err(unpack_state(to_device(got, "cpu")), unpack_state(to_device(want, "cpu")))
+        log(f"storage {kern} {label} steps={kw['steps']}{every}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}{kst}{trk}")
+        records.append(dict(kernel=kern, case=label, ok=ok, max_abs_err=err))
+        name = f"{kern}+{kw['storage']}"
+        errs[name] = max(errs.get(name, 0.0), err)
+        require(ok, f"{kern} disagrees with its plain version under storage: {label}")
+    return errs, records
+
+
 #: the flexible formats of tests/test_kernels.py, as (eb, mb, fx)
 K6_FMTS = ((3, 9, 3), (3, 8, 4), (3, 7, 3), (5, 10, 0))
 #: llama4-scout at its published widths: d_model, the expert and shared-expert
@@ -1235,10 +1504,11 @@ def counters():
     from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
     from repro_torch.kernels.r2f2_matmul import R2F2_MATMUL
     from repro_torch.kernels.r2f2_quantize import R2F2_QUANTIZE
+    from repro_torch.kernels.storage import STORAGE
     from repro_torch.kernels.swe_flux import SWE_FLUX
 
     return {
-        "r2f2_quantize": R2F2_QUANTIZE, "r2f2_matmul": R2F2_MATMUL,
+        "r2f2_quantize": R2F2_QUANTIZE, "r2f2_matmul": R2F2_MATMUL, "r2f2_storage": STORAGE,
         "heat1d_sweep": HEAT1D_SWEEP, "swe_flux_fused": SWE_FLUX,
         "heat1d_mega": mega.HEAT1D_MEGA, "swe2d_mega": mega.SWE2D_MEGA,
         "heat2d_sweep": pde_steps.HEAT2D_SWEEP, "advection1d_sweep": pde_steps.ADVECTION1D_SWEEP,
@@ -1258,24 +1528,28 @@ def workload_config(case):
     return cfg, "rel", 0.0
 
 
-def run_ladder(device, steps_by_case, precs_by_case, execution="fused"):
-    """The ladder on one plane, ``steps_by_case[case]`` steps per run.
-    Returns rows and the launch totals read right after the loop (counters
-    zeroed right before it)."""
+def run_ladder(device, steps_by_case, precs_by_case, execution="fused", storage="f32", reset=True, refs=None):
+    """The ladder on one plane, ``steps_by_case[case]`` steps per run, with
+    ``storage`` carried. Returns rows and the launch totals read right after
+    the loop (counters zeroed right before it, unless ``reset`` is False).
+    ``refs`` keeps the f32 reference plane's observables by (case, steps)
+    for the next ladders."""
     import numpy as np
     import torch
 
+    from repro_torch.pack import state_nbytes, unpack_state
     from repro_torch.pde import Simulation
 
     L = ladder()
     plan = {case: (*workload_config(case), steps_by_case[case]) for case in precs_by_case}
-    refs = {}
+    refs = {} if refs is None else refs
     for case, (cfg, _, offset, steps) in plan.items():
-        sim = Simulation(case, cfg, L["f32"], device=device)
-        refs[case] = np.asarray(sim.stepper.observables(sim.run(steps).state, cfg).cpu()) - offset
+        if (case, steps) not in refs:
+            sim = Simulation(case, cfg, L["f32"], device=device)
+            refs[case, steps] = np.asarray(sim.stepper.observables(sim.run(steps).state, cfg).cpu()) - offset
     rows = []
     ctr = counters()
-    for c in ctr.values():
+    for c in ctr.values() if reset else ():
         c.reset()
     for case, (cfg, judge, offset, steps) in plan.items():
         for prec_name in precs_by_case[case]:
@@ -1283,11 +1557,14 @@ def run_ladder(device, steps_by_case, precs_by_case, execution="fused"):
             before = {k: (c.launches, c.plain_calls) for k, c in ctr.items()}
             torch.cuda.synchronize() if device != "cpu" else None
             t0 = time.perf_counter()
-            res = sim.run(steps, execution=execution)
+            res = sim.run(steps, execution=execution, storage=storage)
             torch.cuda.synchronize() if device != "cpu" else None
             us = (time.perf_counter() - t0) * 1e6 / steps
-            out = np.asarray(sim.stepper.observables(res.state, cfg).cpu()) - offset
-            row = dict(case=case, prec=prec_name, execution=execution, us_per_step=us, steps=steps, **measure(out, refs[case], judge))
+            out = np.asarray(sim.stepper.observables(unpack_state(res.state), cfg).cpu()) - offset
+            row = dict(case=case, prec=prec_name, execution=execution, us_per_step=us, steps=steps,
+                       **measure(out, refs[case, steps], judge))
+            if storage != "f32":
+                row.update(storage=storage, state_nbytes=state_nbytes(res.state), result=res)
             row["launches"] = {k: c.launches - before[k][0] for k, c in ctr.items()}
             row["plain_calls"] = {k: c.plain_calls - before[k][1] for k, c in ctr.items()}
             if res.tracker is not None:
@@ -1327,7 +1604,11 @@ def format_row(r) -> str:
     derived = f"rel={r['rel']:.4f};corr={r['corr']:.4f};{r['status']};launches={r['launches'][kern]}"
     if "adj" in r:
         derived += f";adj=+{r['adj'][0]}/-{r['adj'][1]}"
-    return f"pde/{r['case']}/{r['prec']}/{r['execution']},{r['us_per_step']:.1f},{derived}"
+    storage = ""
+    if "storage" in r:
+        storage = f"+{r['storage']}"
+        derived += f";state_nbytes={r['state_nbytes']} (f32 {F32_STATE_NBYTES[r['case']]});K1={r['launches']['r2f2_storage']}"
+    return f"pde/{r['case']}/{r['prec']}{storage}/{r['execution']},{r['us_per_step']:.1f},{derived}"
 
 
 def check_ladder(rows):
@@ -1356,6 +1637,83 @@ def check_ladder(rows):
         require(not any(others.values()), f"{r['case']}/{r['prec']}/{r['execution']}: other kernels launched: {others}")
         require(sum(r["plain_calls"].values()) == 0, f"{r['case']}/{r['prec']}/{r['execution']}: plain versions ran on the card")
 
+
+#: carried-state bytes at the main configurations: f32, and packed at r2f2_16 (uint16 payloads and one int32 split)
+F32_STATE_NBYTES = {"heat1d": 512, "swe2d": 196_608, "heat2d": 16_384, "advection1d": 1024, "burgers1d": 1024}
+PACKED_STATE_NBYTES = {"heat1d": 260, "swe2d": 98_308, "heat2d": 8196, "advection1d": 516, "burgers1d": 516}
+#: the storage ladder: (storage, plane) runs of each configuration, in r2f2_16 and rr_tracked
+STORAGE_RUNS = (("packed", "fused"), ("packed", "megakernel"), ("packed", "auto"), ("quantized", "fused"),
+                ("quantized", "megakernel"))
+
+
+def run_storage_ladder(device, refs=None):
+    """Phase 3's storage rows: the five configurations uncut in r2f2_16 and
+    rr_tracked, for each of :data:`STORAGE_RUNS` (counters zeroed before
+    the first). Returns the rows and the launch totals, each kernel's
+    packed launches under ``name+packed``."""
+    precs = {case: ("r2f2_16", "rr_tracked") for case in MAIN_STEPS}
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    rows = []
+    for storage, execution in STORAGE_RUNS:
+        got, _ = run_ladder(device, MAIN_STEPS, precs, execution, storage=storage, reset=False, refs=refs)
+        for r in got:
+            log(format_row(r))
+        rows += got
+    totals = {k: (c.launches, c.plain_calls) for k, c in ctr.items()}
+    totals.update({f"{k}+packed": (c.storage["packed"], 0) for k, c in ctr.items()})
+    return rows, totals
+
+
+def check_storage_ladder(rows):
+    """The storage rows: the verdicts of :func:`check_ladder` for r2f2_16
+    (swe2d CORRECT on every plane), the packed state's bytes, packed =
+    quantized and megakernel = fused = auto bit for bit (state, snapshots,
+    tracker), the planes' launches (each packed run's kernel launches its
+    packed variant) and no plain version on the card."""
+    from repro_torch.pack import PackedArray, unpack_state
+
+    by = {(r["case"], r["prec"], r["storage"], r["execution"]): r for r in rows}
+    for (case, prec, storage, execution), r in by.items():
+        label = f"{case}/{prec}+{storage}/{execution}"
+        if prec == "r2f2_16":
+            if case == "swe2d":
+                require(r["status"] == "CORRECT" and r["corr"] > 0.98, f"{label} is not correct")
+            else:
+                require(r["status"] == "CORRECT" and r["rel"] < (0.1 if case == "heat1d" else 0.05), f"{label}: rel {r['rel']}")
+        if storage == "packed":
+            require(isinstance(r["result"].state, PackedArray), f"{label}: the state is not packed")
+            require(r["state_nbytes"] == PACKED_STATE_NBYTES[case], f"{label}: state_nbytes {r['state_nbytes']}")
+        kern = plane_kernel(case, "megakernel" if execution == "auto" else execution)
+        want = fused_launches(case, r["steps"]) if execution == "fused" else 1
+        require(r["launches"][kern] == want, f"{label}: {r['launches'][kern]} {kern} launches, want {want}")
+        require(sum(r["plain_calls"].values()) == 0, f"{label}: plain versions ran on the card")
+        require(r["launches"]["r2f2_storage"] > 0, f"{label}: K1 never launched")
+
+    def same_run(a, b):
+        ra, rb = a["result"], b["result"]
+        ok = same_bits(unpack_state(ra.state), unpack_state(rb.state)) and same_bits(ra.snapshots, rb.snapshots)
+        if isinstance(ra.state, PackedArray) and isinstance(rb.state, PackedArray):
+            ok = ok and same_packed(ra.state, rb.state)
+        if ra.tracker is not None:
+            ok = ok and all(same_bits(x.float(), y.float()) for x, y in zip(ra.tracker.state, rb.tracker.state))
+        return ok
+
+    lines = []
+    for case in MAIN_STEPS:
+        for prec in ("r2f2_16", "rr_tracked"):
+            pairs = [
+                (("packed", "megakernel"), ("packed", "fused")), (("packed", "auto"), ("packed", "megakernel")),
+                (("packed", "fused"), ("quantized", "fused")), (("packed", "megakernel"), ("quantized", "megakernel")),
+            ]
+            for a, b in pairs:
+                ok = same_run(by[(case, prec) + a], by[(case, prec) + b])
+                line = f"storage {case} {prec}: {a[0]} {a[1]} = {b[0]} {b[1]} bit for bit: {'ok' if ok else 'MISMATCH'}"
+                log(line)
+                lines.append(line)
+                require(ok, line)
+    return lines
 
 def bench_rows():
     """The 60-step rows of the committed CPU smoke run, by (case, prec, plane)."""
@@ -1513,6 +1871,36 @@ def check_card_vs_cpu(device, cases=None):
     return out, kept_differs
 
 
+def check_card_vs_cpu_storage(device, cases=None):
+    """The link under storage: each stepper of ``cases`` (default: those of
+    :func:`link_configs`) on the fused and megakernel planes, packed and
+    quantized, in r2f2_16 and rr_tracked, against the port's run on the CPU
+    under flush: the state (payload with NaN signs cleared, and splits; or
+    f32 bits), snapshots and every tracker field."""
+    from repro_torch.pde import Simulation
+
+    L, cfgs = ladder(), link_configs()
+    out = []
+    for case in cases or cfgs:
+        cfg = cfgs[case]
+        state0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+        for name in STORAGE_PRECS:
+            for execution in ("fused", "megakernel"):
+                for storage in ("packed", "quantized"):
+                    kw = dict(snapshot_every=LINK_EVERY, state0=state0, execution=execution, storage=storage)
+                    card = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, **kw)
+                    with cpu_flushed():
+                        cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
+                    ok = same_state(to_device(card.state, "cpu"), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
+                    if cpu.tracker is not None:
+                        ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in zip(card.tracker.state, cpu.tracker.state))
+                    line = (f"card vs CPU under flush {case} {name}+{storage} {execution} {LINK_STEPS} steps: state, snapshots"
+                            f"{', tracker' if cpu.tracker is not None else ''} bit-identical: {'ok' if ok else 'MISMATCH'}")
+                    log(line)
+                    out.append(line)
+                    require(ok, line)
+    return out
+
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
@@ -1625,13 +2013,14 @@ def time_kernels(device, main_launches, errs, card):
 
     # (name, source, replaces, kernel, (plain, args, kwargs), bound, kernel
     # reps, plain reps, plain warm-up calls, shape): the plain version is
-    # timed on the card (the plain K4 once, cold, at the full horizon: tens
-    # of seconds), and the kernel's result held against it on the CPU under
-    # flush
+    # timed on the card, the sweeps' and megakernels' once, cold (the plain
+    # K4 at the full horizon: tens of seconds; a host-bound plain time varies
+    # 1.1-1.5x between runs anyway), and the kernel's result held against it
+    # on the CPU under flush (a megakernel's over one snapshot interval)
     recs = []
     specs = [
         ("heat1d_sweep", "rod_warp.cu", "src/repro/kernels/heat_stencil.py:65",
-         lambda: heat1d_sweep(u, **hk), (heat1d_sweep_plain, (u,), hk), bound(heat_bytes, heat_flops), 20, 2, 1,
+         lambda: heat1d_sweep(u, **hk), (heat1d_sweep_plain, (u,), hk), bound(heat_bytes, heat_flops), 20, 1, 0,
          f"(1,128) r2f2_16, {HEAT_CHUNK} substeps per launch {heat1d_launch_shape(1, cfg.nx)}"),
         ("swe_flux_fused", "fused_pde.cu", "src/repro/kernels/swe_flux.py:51",
          lambda: swe_flux_fused(q1, q3, **sk), (swe_flux_fused_plain, (q1, q3), sk), bound(swe_bytes, swe_flops), 200, 5, 1,
@@ -1655,11 +2044,11 @@ def time_kernels(device, main_launches, errs, card):
         fk, mk5 = dict(kw, steps=every), dict(kw, steps=steps, every=every)
         shape = "x".join(map(str, x.shape))
         launch = k5_launch_shape(*((1,) + tuple(x.shape) if x.dim() == 1 else tuple(x.shape)), body=case)
-        src = "pde_steps.cu" if case == "heat2d" else "rod_warp.cu"
+        src = {"heat2d": "pde_steps.cu", "advection1d": "rod_warp_advection.cu", "burgers1d": "rod_warp_burgers.cu"}[case]
         specs += [
             (f"{case}_sweep", src, K5_REPLACES[f"{case}_sweep"],
              lambda w=w, x=x, fk=fk: w["sweep"](x, **fk), (w["plain"], (x,), fk),
-             bound(2 * n * 4, every * flops), 20, 1, 1, f"({shape}) r2f2_16, {every} substeps per launch {launch}"),
+             bound(2 * n * 4, every * flops), 20, 1, 0, f"({shape}) r2f2_16, {every} substeps per launch {launch}"),
             (f"{case}_mega", src, K5_REPLACES[f"{case}_mega"],
              lambda w=w, x=x, mk5=mk5: w["mega"](x, **mk5), (w["mega"], (x,), dict(mk5, plain=True)),
              bound((2 + steps // every) * n * 4, steps * flops), 5, 1, 0,
@@ -1669,7 +2058,17 @@ def time_kernels(device, main_launches, errs, card):
     for name, src, replaces, kern, (plain, args, kw), (bound_ms, bound_by), reps, plain_reps, plain_warmup, shape in specs:
         ms, got = cuda_time_ms(kern, reps)
         plain_ms, _ = cuda_time_ms(lambda: plain(*args, **kw), plain_reps, warmup=plain_warmup)
-        ok = same_result(got, plain_on_cpu(plain, *args, **kw))
+        if "every" in kw:
+            # a megakernel is held to its plain version on the CPU over the
+            # horizon's first snapshot interval, a launch of the same shapes
+            # (the plain horizons on the CPU took ~100 s; phase 2 holds the
+            # megakernels on every shape and tracker, phase 4 at full horizons
+            # against the fused plane)
+            one = dict(kw, steps=kw["every"])
+            got = plain(*args, **dict(one, plain=False))
+            ok = same_result(got, plain_on_cpu(plain, *args, **one))
+        else:
+            ok = same_result(got, plain_on_cpu(plain, *args, **kw))
         call = ""
         if name in ("swe_flux_fused", "heat1d_sweep", "advection1d_sweep", "burgers1d_sweep"):
             # microseconds: the kernel's device time, not the wrapper's call
@@ -1694,6 +2093,126 @@ def time_kernels(device, main_launches, errs, card):
         ms, _ = cuda_time_ms(lambda: fn(x, tracker=trk, **kw), 5)
         log(f"time {name} rr_tracked, one horizon: kernel {ms:.4f} ms [{card}]")
     return recs
+
+
+#: the packed variants phase 5 times beside their f32 runs at the main
+#: path's shapes (the kernels line lists them): the fused sweeps per chunk,
+#: the megakernels per horizon, and K1 packing the swe2d state
+STORAGE_TIMED = ("heat1d_sweep", "heat1d_mega", "swe2d_mega", "heat2d_sweep", "heat2d_mega", "advection1d_sweep",
+                 "advection1d_mega", "burgers1d_sweep", "burgers1d_mega")
+
+
+def time_storage(device, card, main_launches=None, errs=None):
+    """The storage variants by replayed CUDA graphs at the main path's
+    shapes: each storage-carrying kernel in f32, packed (payload in and out)
+    and, for the megakernels, quantized (boundary rounding, f32 in and out),
+    r2f2_16. Returns the times and the kernels-line records of the packed
+    variants and K1: for those, the kernel and its plain version on the
+    card are timed over one call of the same work, a fused chunk or one
+    snapshot interval of the megakernel's horizon (``every`` substeps, one
+    boundary rounding, the packed input and output); the plain versions of
+    whole horizons take tens of seconds each. Phase 2 holds these kernels
+    against their plain versions bit for bit."""
+    import torch
+
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
+    from repro_torch.kernels.storage import pack_blocks
+    from repro_torch.pack import pack_array, payload_dtype
+    from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
+
+    prec = ladder()["r2f2_16"]
+    fmt = prec.fmt
+
+    def packed(x):
+        with cpu_flushed():
+            return pack_array(x.cpu(), fmt).to(device)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    pay = torch.empty((), dtype=payload_dtype(fmt)).element_size()  # payload bytes an element
+    cfg = heat_cfg.CONFIG
+    u = initial_condition(cfg, device="cpu")
+    scfg = swe_cfg.CONFIG
+    U = initial_state(scfg, device="cpu")
+    swe_sites = dict(sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"), site_ops=("mul", "mul", "mul", "div"))
+    # (name, entry, plain, f32 input, kwargs, horizon substeps, every (megakernels), flops a substep, source, replaces)
+    specs = [
+        ("heat1d_sweep", lambda x, **kw: heat1d_sweep(x[None] if not hasattr(x, "payload") else x.with_view((1, cfg.nx)), **kw),
+         lambda x, **kw: heat1d_sweep_plain(x.with_view((1, cfg.nx)), **kw), u,
+         dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, block_rows=1), HEAT_CHUNK, None, (cfg.nx - 2) * 6,
+         "rod_warp.cu", "src/repro/kernels/heat_stencil.py:65"),
+        ("heat1d_mega", heat1d_mega, None, u, dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, sites=("heat.flux", "heat.update")),
+         4000, HEAT_CHUNK, (cfg.nx - 2) * 6, "rod_warp.cu", "src/repro/kernels/mega.py:503"),
+        ("swe2d_mega", swe2d_mega, None, U, dict(cfg=scfg, prec=prec, **swe_sites), 400, SWE_EVERY,
+         swe_flops_per_substep(scfg.nx, scfg.ny), "mega_pde.cu", "src/repro/kernels/mega.py:607"),
+    ]
+    for case in K5_CASES:
+        w = k5_workload(case, "cpu")
+        steps = MAIN_STEPS[case]
+        every = snapshot_every(case, steps)
+        flops = k5_flops_per_substep(case, tuple(w["state"].shape))
+        src = {"heat2d": "pde_steps.cu", "advection1d": "rod_warp_advection.cu", "burgers1d": "rod_warp_burgers.cu"}[case]
+        kw = dict(w["args"], prec=prec, sites=w["sites"])
+        specs += [
+            (f"{case}_sweep", w["sweep"], w["plain"], w["state"], kw, every, None, flops, src, K5_REPLACES[f"{case}_sweep"]),
+            (f"{case}_mega", w["mega"], None, w["state"], kw, steps, every, flops, src, K5_REPLACES[f"{case}_mega"]),
+        ]
+    times, recs = {}, []
+    for name, fn, plain, x, kw, steps, every, flops, src, replaces in specs:
+        xd, xp = x.to(device), packed(x)
+        n = x.numel()
+        if every is None:
+            call = dict(kw, steps=steps)
+            runs = {"f32": lambda: fn(xd, **call), "packed": lambda: fn(xp, **call, storage="packed")}
+        else:
+            call = dict(kw, steps=steps, every=every)
+            runs = {"f32": lambda: fn(xd, **call), "packed": lambda: fn(xp, **call, storage="packed"),
+                    "quantized": lambda: fn(xd, **call, storage="quantized")}
+        got = {variant: graph_time_ms(run, 5 if every else 20) for variant, run in runs.items()}
+        times[name] = dict(got, substeps=steps, every=every)
+        log(f"time {name} ({'x'.join(map(str, x.shape))}) r2f2_16, {steps} substeps"
+            f"{'' if every is None else f', every {every}'} by replayed graphs: "
+            + ", ".join(f"{v} {ms:.4f} ms" for v, ms in got.items()) + f" [{card}]")
+        # the record: the packed variant over one chunk or one snapshot interval, and its plain version
+        one = dict(kw, steps=steps if every is None else every, storage="packed")
+        if every is not None:
+            one["every"] = every
+        ms = graph_time_ms(lambda: fn(xp, **one), 5)
+        plain_fn = plain if plain is not None else functools.partial(fn, plain=True)
+        plain_ms, _ = cuda_time_ms(lambda: plain_fn(xp, **one), 1, warmup=0)
+        span = one["steps"]
+        nbytes = 2 * n * pay + 8 + (n * 4 if every is not None else 0)  # payloads and splits in and out, a snapshot
+        bound_ms, bound_by = bound(nbytes, span * flops)
+        log(f"time {name}+packed, {span} substeps{'' if every is None else ' (one snapshot interval)'}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), library call: none [{card}]")
+        recs.append(dict(
+            name=f"{name}+packed", route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
+            launches=(main_launches or {}).get(f"{name}+packed", 0), max_abs_err=(errs or {}).get(f"{name}+packed", 0.0),
+            ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
+    # K1: the swe2d state packed at one split, as its megakernel's host-pack shape does
+    Ud = U.to(device).reshape(3 * scfg.nx, scfg.ny)
+    k = torch.zeros(1, dtype=torch.int32, device=device)
+    ms = graph_time_ms(lambda: pack_blocks(Ud, fmt, *Ud.shape, k=k), 20)
+    plain_ms, _ = cuda_time_ms(lambda: pack_array(Ud, fmt, plain=True), 20)
+    bound_ms, bound_by = bound(Ud.numel() * (4 + pay), 0)
+    times["r2f2_storage"] = dict(pack=ms)
+    log(f"time r2f2_storage (3,128,128) pack: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}), library call: none [{card}]")
+    recs.append(dict(
+        name="r2f2_storage", route="cuda", source="src/repro_torch/csrc/r2f2_storage.cu",
+        replaces="src/repro/pack/packed.py:176", launches=(main_launches or {}).get("r2f2_storage", 0),
+        max_abs_err=(errs or {}).get("r2f2_storage", 0.0), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    ))
+    return times, recs
 
 
 #: heat1d rods phase 5 times K2 and K4 on (and ``--heat1d-sizes``): the
@@ -2245,10 +2764,12 @@ def main(argv) -> int:
     _cuda.library()
     log(f"build: {lib.name} in {build_s:.1f} s ({_cuda.nvcc_version()}; nvcc {' '.join(_cuda.NVCC_FLAGS)})")
     log_path = lib.with_suffix(".log")
+    report["build_sources"] = []
     if log_path.exists():
         for line in log_path.read_text().splitlines():
             if line.startswith("== "):
                 log(f"  nvcc: {line[3:]}")  # a source and its compile wall time
+                report["build_sources"].append(line[3:])
             elif any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
     report["build_s"] = build_s
@@ -2267,20 +2788,27 @@ def main(argv) -> int:
 
     t_phase = time.perf_counter()
 
+    report["phase_s"] = {}
+
     def phase_done(n):
         nonlocal t_phase
+        report["phase_s"][str(n)] = time.perf_counter() - t_phase
         log(f"phase {n} took {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
 
     def timed(label, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
+        report["phase_s"][label] = time.perf_counter() - t
         log(f"  {label} took {time.perf_counter() - t:.1f} s")
         return out
 
     errs, records = timed("K2/K3 checks", check_kernels, device, 100 if quick else HEAT_CHUNK)
     mega_errs, mega_records = timed("K4 checks", check_mega, device)
     k5_errs, k5_records = timed("K5 checks", check_k5, device)
+    report["storage_k1"], k1_err = timed("K1 storage checks", check_storage_k1, device)
+    st_errs, st_records = timed("storage checks", check_storage, device)
+    st_errs["r2f2_storage"] = k1_err
     c_errs, c_records = timed("K6/K7 checks", check_contract_kernels, device)
     flush_records = timed("K6/K7 flush checks", check_flush_contract, device)
     require(all(r["ok"] for r in flush_records), "K6 or K7 differs from its plain version on the CPU under flush")
@@ -2288,7 +2816,8 @@ def main(argv) -> int:
     errs.update(mega_errs)
     errs.update(k5_errs)
     errs.update(c_errs)
-    report["kernel_checks"] = records + mega_records + k5_records + c_records
+    errs.update(st_errs)
+    report["kernel_checks"] = records + mega_records + k5_records + st_records + c_records
     phase_done(2)
     if quick:
         log(card)
@@ -2300,9 +2829,10 @@ def main(argv) -> int:
     plan["swe2d"] = six + ("r2f2_16_384",)
     main_launches = {}
     report["ladder"] = []
+    refs = {}
     for execution in ("fused", "megakernel", "auto"):
         kernels = [plane_kernel(case, execution) for case in MAIN_STEPS]
-        rows, totals = run_ladder(device, MAIN_STEPS, plan, execution)
+        rows, totals = run_ladder(device, MAIN_STEPS, plan, execution, refs=refs)
         for r in rows:
             log(format_row(r))
         check_ladder(rows)
@@ -2313,13 +2843,20 @@ def main(argv) -> int:
         if execution != "auto":
             main_launches.update(launches)
         report["ladder"] += rows
+    st_rows, st_totals = timed("storage ladder", run_storage_ladder, device, refs)
+    log(f"storage path launches: { {k: v[0] for k, v in st_totals.items() if v[0]} }")
+    report["storage_ladder"] = [{k: v for k, v in r.items() if k != "result"} for r in st_rows]
+    report["storage_planes"] = check_storage_ladder(st_rows)
+    main_launches.update({k: v[0] for k, v in st_totals.items() if k.endswith("+packed") or k == "r2f2_storage"})
+    require(all(main_launches[f"{k}+packed"] > 0 for k in STORAGE_TIMED) and main_launches["r2f2_storage"] > 0,
+            "a storage variant of the storage path never launched")
     phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")
     bench_precs = {"swe2d": four + ("r2f2_16_384",), **{case: four for case in K5_CASES}}
     report["bench_compare"] = []
     for execution in ("fused", "megakernel"):
-        bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution)
+        bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution, refs=refs)
         report["bench_compare"] += check_bench(bench)
     # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
     # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
@@ -2331,6 +2868,7 @@ def main(argv) -> int:
         "on the CPU keeping subnormals")
     require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
     report["planes"] += link
+    report["planes"] += timed("card vs CPU under storage", check_card_vs_cpu_storage, device)
     phase_done("3 (60-step rows) and 4")
 
     t_lm = time.perf_counter()
@@ -2341,10 +2879,12 @@ def main(argv) -> int:
     log(f"contraction path phase: {time.perf_counter() - t_lm:.1f} s")
     phase_done("6 (the path)")
 
-    recs = time_kernels(device, main_launches, errs, card)
-    report["heat1d_times"] = time_heat1d(device, card)
-    report["heat2d_times"] = time_heat2d(device, card)
-    report["shape_times"] = time_shapes(device, card)
+    recs = timed("kernel times", time_kernels, device, main_launches, errs, card)
+    report["heat1d_times"] = timed("heat1d times", time_heat1d, device, card)
+    report["heat2d_times"] = timed("heat2d times", time_heat2d, device, card)
+    report["shape_times"] = timed("shape times", time_shapes, device, card)
+    report["storage_times"], storage_recs = timed("storage times", time_storage, device, card, main_launches, errs)
+    recs += storage_recs
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs

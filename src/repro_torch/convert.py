@@ -7,6 +7,8 @@ imports neither JAX nor ``repro``):
     tracker_from_numpy(names, k, hi_ema, lo_ema, overflow_steps, shrink_steps)
     precision_from_dict(dataclasses.asdict(jax_prec))
     params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), device="cpu")
+    packed_from_numpy(np.asarray(pa.payload), np.asarray(pa.k), (pa.fmt.eb, pa.fmt.mb, pa.fmt.fx), pa.shape, pa.block)
+    packed_to_numpy(packed)  # the same five fields back, for repro.pack.PackedArray
 """
 
 from __future__ import annotations
@@ -18,9 +20,13 @@ import torch
 
 from repro_torch.core.flexformat import FlexFormat
 from repro_torch.core.policy import PrecisionConfig, RangeTracker
+from repro_torch.pack import PackedArray, payload_dtype
 from repro_torch.precision.sites import SiteTracker
 
-__all__ = ["state_from_numpy", "tracker_from_numpy", "precision_from_dict", "params_from_numpy"]
+__all__ = [
+    "state_from_numpy", "tracker_from_numpy", "precision_from_dict", "params_from_numpy", "packed_from_numpy",
+    "packed_to_numpy",
+]
 
 
 def state_from_numpy(x, *, device="cpu") -> torch.Tensor:
@@ -74,3 +80,24 @@ def params_from_numpy(tree, *, device="cpu"):
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_from_numpy(v, device=device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def packed_from_numpy(payload, k, fmt, shape, block, *, device="cpu") -> PackedArray:
+    """A packed carry: the numpy children of a ``repro.pack.PackedArray``
+    (its payload and splits) and its static fields (the format as a
+    FlexFormat or ``(eb, mb, fx)``, the logical shape, the storage block),
+    with the payload in the format's payload dtype and the bits unchanged."""
+    fmt = fmt if isinstance(fmt, FlexFormat) else FlexFormat(*fmt)
+    pay = torch.from_numpy(np.array(payload, dtype=np.int64, copy=True)).to(payload_dtype(fmt))
+    splits = torch.from_numpy(np.array(k, dtype=np.int32, copy=True))
+    return PackedArray(pay.to(device), splits.to(device), fmt, tuple(shape), tuple(block))
+
+
+def packed_to_numpy(pa: PackedArray):
+    """The five fields ``repro.pack.PackedArray(payload, k, fmt, shape,
+    block)`` takes, as numpy arrays (payload in its unsigned dtype, k int32)
+    and tuples, the format as ``(eb, mb, fx)``."""
+    return (
+        pa.payload.cpu().numpy().copy(), pa.k.cpu().numpy().astype(np.int32), (pa.fmt.eb, pa.fmt.mb, pa.fmt.fx),
+        pa.shape, pa.block,
+    )

@@ -75,6 +75,13 @@ class PrecisionConfig:
                 "(register new modes via repro_torch.precision.register_engine)"
             )
 
+    @property
+    def is_emulated(self) -> bool:
+        """Whether the policy's engine is a bit-exact emulation engine."""
+        from repro_torch.precision.registry import get_engine  # lazy: no import cycle
+
+        return get_engine(self).emulated
+
 
 PRESETS = {
     "f32": PrecisionConfig(mode="f32"),

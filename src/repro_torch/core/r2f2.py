@@ -1,11 +1,16 @@
-"""R2F2, the paper's runtime-reconfigurable multiplier (§4), tile-wise form.
+"""R2F2, the paper's runtime-reconfigurable multiplier (§4), in two forms.
 
-A vector machine scans operand tiles before multiplying, so the hardware's
+``r2f2_multiply`` is the tile-wise form. A vector machine scans operand tiles before multiplying, so the hardware's
 "overflow -> grow exponent -> retry" loop collapses into one pre-pass that
 picks, per tile, the minimal exponent width ``k in [0, FX]`` covering the
 operands and their product. Products are rounded with the paper's
 flexible-region approximation: ``MB + 1 + k`` guard bits survive below the
 result mantissa before the final round-to-nearest-even.
+
+``r2f2_mul_sequential`` is the hardware-faithful state machine of Fig. 5:
+a stream of scalar products carrying the current split ``k``, growing the
+exponent and retrying on overflow or underflow, shrinking it when operands
+and result all show exponent redundancy, and counting both events (§5.3).
 
 Split widths are computed in integer logic (``_ceil_log2``), never with a
 floating ``log2``: a ``log2`` that is one ulp off at a power of two moves
@@ -18,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .flexformat import FlexFormat, _bits, quantize_em_with_flags, unbiased_exponent
+from .flexformat import FlexFormat, _bits, exponent_redundant, quantize_em_with_flags, unbiased_exponent
 
 __all__ = [
     "R2F2Stats",
@@ -29,6 +34,9 @@ __all__ = [
     "select_k_op",
     "select_k_operand",
     "r2f2_multiply",
+    "SequentialState",
+    "sequential_init",
+    "r2f2_mul_sequential",
 ]
 
 #: operations the adjust unit knows an exponent envelope for
@@ -183,3 +191,89 @@ def r2f2_multiply(a, b, fmt: FlexFormat, *, k=None, tile_shape=None, tail_approx
         underflow_count=(ua | ub | up).sum(),
     )
     return qp, stats
+
+
+# ---------------------------------------------------------------------------
+# Hardware-faithful sequential mode (paper Fig. 5 state machine).
+# ---------------------------------------------------------------------------
+
+
+class SequentialState(NamedTuple):
+    k: torch.Tensor  # current flexible split (int32 scalar)
+    overflow_adjusts: torch.Tensor  # times precision was increased (paper §5.3)
+    redundancy_adjusts: torch.Tensor  # times precision was decreased
+
+
+def sequential_init(fmt: FlexFormat, k0: int = 0, *, device="cpu") -> SequentialState:
+    del fmt
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return SequentialState(k=torch.tensor(int(k0), dtype=torch.int32, device=device), overflow_adjusts=zero,
+                           redundancy_adjusts=zero.clone())
+
+
+def _mul_at_k(a, b, fmt: FlexFormat, k, tail_approx: bool):
+    e_bits, m_bits = fmt.eb + k, fmt.mb + fmt.fx - k
+    qa, oa, ua = quantize_em_with_flags(a, e_bits, m_bits)
+    qb, ob, ub = quantize_em_with_flags(b, e_bits, m_bits)
+    guard = product_guard_bits(fmt, k) if tail_approx else None
+    qp, op_, up = quantize_em_with_flags(qa * qb, e_bits, m_bits, tail_trunc_bits=guard)
+    return qp, oa | ob | op_ | ua | ub | up
+
+
+def r2f2_mul_sequential(a_stream, b_stream, fmt: FlexFormat, *, k0: int = 0, tail_approx: bool = True):
+    """Run a stream of scalar multiplications through the paper's adjustment
+    unit (Fig. 5), element by element:
+
+      1. multiply at the current split ``k``;
+      2. on overflow or underflow grow the exponent (``k += 1``) and retry,
+         up to the FX budget;
+      3. else, when both operands and the result show exponent redundancy
+         (the two-bits-after-MSB rule), shrink it (``k -= 1``) for the
+         products that follow.
+
+    The stream starts at split ``k0``. Returns ``(products,
+    SequentialState)`` with the adjustment counters the paper reports.
+
+    The splits are the whole stream's carried state, so the elements run one
+    after another; every retry is evaluated on the whole stream at once and
+    the state machine reads the flags per element.
+    """
+    a = torch.as_tensor(a_stream).to(torch.float32).reshape(-1)
+    b = torch.as_tensor(b_stream).to(torch.float32).reshape(-1)
+    dev = a.device
+    # faults and products at every split, for every element: k walks [0, fx]
+    faults, prods = [], []
+    for kk in range(fmt.fx + 1):
+        p, f = _mul_at_k(a, b, fmt, kk, tail_approx)
+        prods.append(p)
+        faults.append(f)
+    fault = torch.stack(faults).cpu().tolist()
+    red = [
+        (exponent_redundant(a, fmt.eb + kk) & exponent_redundant(b, fmt.eb + kk)
+         & exponent_redundant(prods[kk], fmt.eb + kk)).cpu().tolist()
+        for kk in range(fmt.fx + 1)
+    ]
+    k, n_up_total, n_red_total = int(k0), 0, 0
+    ks = []
+    for i in range(a.numel()):
+        n_up = 0
+        for _ in range(fmt.fx + 1):
+            if not fault[k][i]:
+                break
+            if k >= fmt.fx:
+                break
+            k += 1
+            n_up += 1
+        ks.append(k)
+        shrink = red[k][i] and k > 0 and n_up == 0
+        n_up_total += n_up
+        n_red_total += int(shrink)
+        k -= int(shrink)
+    idx = torch.tensor(ks, dtype=torch.int64, device=dev)
+    products = torch.stack(prods).gather(0, idx[None]).reshape(-1) if ks else a.new_empty((0,))
+    state = SequentialState(
+        k=torch.tensor(k, dtype=torch.int32, device=dev),
+        overflow_adjusts=torch.tensor(n_up_total, dtype=torch.int32, device=dev),
+        redundancy_adjusts=torch.tensor(n_red_total, dtype=torch.int32, device=dev),
+    )
+    return products, state

@@ -31,6 +31,14 @@
 //      other U buffer; the own rows go to the snapshot and the output. The
 //      halo row r1 is the next band's row r1, recomputed bit for bit from the
 //      same values, so the next A needs no barrier before it.
+// Storage rounding (r2f2::Storage.round, "quantized" and "packed"): at a
+// snapshot boundary D also takes the max of the finite magnitudes of its own
+// rows (all three components: the stacked leaf has one split), a third grid
+// barrier (its own row of words) gives the field's max and its split kst,
+// and each CTA rounds the band's rows, the halo row included (the next
+// band rounds the same values at the same split), before the snapshot and
+// the output; once more after a remainder. The state stays f32: the host
+// packs it at kst (kernel K1).
 // Every value comes from the device functions and operation order of the
 // four-phase grid it replaces; Fx's halo rows and row r1 are recomputed, not
 // exchanged. The policy products run as r2f2::PairMul / ConstMul of one kind
@@ -84,7 +92,7 @@ struct SweArgs {
   float* ev;        // (steps, 4, 2) or null
   float* ux;        // Ux in a ring of two substeps, (2, 3, nx-1, ny)
   float* bands;     // the CTAs' band arrays in device memory, or null: in shared memory
-  uint32_t* words;  // (2, CTAs): each CTA's maxima at a substep's two grid barriers
+  uint32_t* words;  // (3, CTAs): each CTA's maxima at a substep's two grid barriers and the storage max
   unsigned long long* count;  // the launch's barrier counter, zeroed
   const int* ka;    // the datapath floor (4) the run starts from, null when untracked
   int* trk_k;
@@ -97,6 +105,7 @@ struct SweArgs {
   int nx, ny, steps, every;
   int rows;  // the tallest band's rows
   float cx2, cy2, cx, cy, c;  // dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, each rounded once to f32
+  r2f2::Storage st;           // the storage rounding and the carried split out (f32 in and out)
 };
 
 // Floats of one CTA's band arrays for bands of up to `rows` rows (mega.py::swe2d_band_floats).
@@ -263,6 +272,7 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
   if (a.steps == 0) {
     for (int c = 0; c < 3; ++c)
       for (int q = tid; q < own * ny; q += T) a.u_out[c * n + r0 * ny + q] = a.u_in[c * n + r0 * ny + q];
+    if (lead && a.st.k_out != nullptr) a.st.k_out[0] = 0;
     return;
   }
   for (int c = 0; c < 3; ++c)
@@ -274,6 +284,30 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
   __syncthreads();
 
   unsigned long long passed = 0ull;  // grid barriers behind
+  int kst = 0;                       // the carried storage split
+  // The storage rounding of the band's rows [r0, r0 + held) of `v` (each
+  // thread its own elements; `mx` its max of their finite magnitudes)
+  // behind the third grid barrier; rows below `own` go to the snapshot and
+  // the output where given.
+  auto round_band = [&](float* v, uint32_t mx, int held, float* snap, float* out) {
+    grid_arrive(mx, 0u, a.words + 2 * C, red, a.count);
+    const int2 w = grid_wait(a.words + 2 * C, seen, a.count, ++passed * C);
+    kst = r2f2::storage_k(static_cast<uint32_t>(w.x + 127) << 23, p.eb, p.fx);
+    const r2f2::Codec at(kst, p);
+    for (int q = tid; q < held * ny; q += T) {
+      const int l = q / ny;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float r = at.round(v[c * up + q]);
+        v[c * up + q] = r;
+        if (l < own) {
+          const size_t g = static_cast<size_t>(c) * n + r0 * ny + q;
+          if (snap != nullptr) snap[g] = r;
+          if (out != nullptr) out[g] = r;
+        }
+      }
+    }
+  };
   for (int s = 0; s < a.steps; ++s) {
     const float* u = ub + (s & 1) * 3 * up;
     float* un = ub + ((s + 1) & 1) * 3 * up;
@@ -394,8 +428,10 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
 
     // D: the update of rows r0..r1; each wall cell takes the interior value it mirrors
     const bool boundary = (s + 1) % a.every == 0;
+    const bool rounding = boundary && a.st.round;
     float* snap = boundary ? a.snaps + static_cast<size_t>((s + 1) / a.every - 1) * 3 * n : nullptr;
     float* out = s == a.steps - 1 ? a.u_out : nullptr;
+    uint32_t ms = 0u;  // the storage max of the own rows, at a rounding boundary
     for (int q = tid; q < ur * ny; q += T) {
       const int l = q / ny, j = q - l * ny, i = r0 + l;
       const int ci = min(max(i, 1), nx - 2), cj = min(max(j, 1), ny - 2);
@@ -408,17 +444,27 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
         if (wall_flips(c, i, j, nx, ny)) v = -v;
         un[c * up + q] = v;
         if (l < own) {
+          ms = max(ms, r2f2::finite_mag_bits(v));
           const size_t g = static_cast<size_t>(c) * n + r0 * ny + q;
-          if (snap != nullptr) snap[g] = v;
-          if (out != nullptr) out[g] = v;
+          if (snap != nullptr && !rounding) snap[g] = v;
+          if (out != nullptr && !rounding) out[g] = v;
         }
       }
     }
+    if (rounding) round_band(un, ms, ur, snap, out);
     if (boundary && a.evolve && tid == 0) {  // read again only behind the next barrier
       for (int j = 0; j < 4; ++j) floor_k[j] = st[j].k;
     }
     __syncthreads();
   }
+  if (a.st.round && a.steps % a.every != 0) {  // the remainder's rounding of the final state
+    float* u = ub + (a.steps & 1) * 3 * up;
+    uint32_t ms = 0u;
+    for (int q = tid; q < own * ny; q += T)
+      for (int c = 0; c < 3; ++c) ms = max(ms, r2f2::finite_mag_bits(u[c * up + q]));
+    round_band(u, ms, own, nullptr, a.u_out);
+  }
+  if (lead && a.st.k_out != nullptr) a.st.k_out[0] = kst;
   if (a.evolve && lead) store_rows(st, 4, a.trk_k, a.trk_hi, a.trk_lo, a.trk_ov, a.trk_sh);
 }
 
@@ -449,7 +495,11 @@ extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, fl
                                int evolve, int nx, int ny, int steps, int every, int ctas, int threads, int rows,
                                int smem, float cx2, float cy2, float cx, float cy, float c, float ema, float one_minus,
                                int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
-                               int pinned, void* stream) {
+                               int pinned, const void* pay_in, const int* k_in, void* pay_out, int* k_out, int bytes,
+                               int round, void* stream) {
+  // storage: rounding and the carried split only; the state comes and goes in f32
+  if (pay_in != nullptr || k_in != nullptr || pay_out != nullptr || (bytes != 1 && bytes != 2 && bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nx < 3 || ny < 3 || every < 1 || ux == nullptr || words == nullptr || count == nullptr || ctas < 1 ||
       ctas > nx - 1 || ctas > 32 * kMaxWordsPerLane || rows < (nx + ctas - 1) / ctas || threads < 32 ||
       threads > kSweMaxThreads ||
@@ -457,7 +507,8 @@ extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, fl
       (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
   const SweArgs a{u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh,
-                  site_cfg, evolve, nx, ny, steps, every, rows, cx2, cy2, cx, cy, c};
+                  site_cfg, evolve, nx, ny, steps, every, rows, cx2, cy2, cx, cy, c,
+                  r2f2::Storage{nullptr, nullptr, nullptr, k_out, bytes, round}};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

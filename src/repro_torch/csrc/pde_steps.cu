@@ -33,6 +33,17 @@
 // is cluster-wide, so every CTA's thread 0 ticks its own copy of the rows and
 // latches its own `ka`; rank 0 writes the rows.
 //
+// Packed storage (r2f2::Storage): a packed input is decoded into the bands
+// at its split as they load; a packed output is encoded from the cells after
+// the last substep, at a split from the field's finite max (K5a: one more
+// cluster-wide max) or at the carried split kst (K5d). K5d's storage rounding
+// takes, at each snapshot boundary after the update, the field's finite max
+// over every cell (the pinned boundary too) through a third word of the
+// cluster, its split kst, and rounds each CTA's cells (its interior in
+// registers, shared memory and the neighbours' halos; its boundary cells in
+// shared memory) before the snapshot and the next substep; and once more
+// after a remainder.
+//
 // Rounding follows the compiled reference (pde/heat2d.py says where): in the
 // f32 family the update is fma(lap, alpha*dtodx2, u). At the main path's 64x64
 // a substep moves no bytes from device memory and does a few thousand f32
@@ -89,14 +100,20 @@ struct Heat2DBand {
   int at[P];
   float u[P], v[P];
 
-  __device__ Heat2DBand(const float* u_in, float* smem, const Consts& c, int band_, const cg::cluster_group& cluster)
+  __device__ Heat2DBand(const float* u_in, const r2f2::Storage& st, const Policy& p, float* smem, const Consts& c,
+                        int band_, const cg::cluster_group& cluster)
       : ny(c.ny), band(band_), s(smem) {
     rank = static_cast<int>(cluster.block_rank());
     n_ctas = static_cast<int>(cluster.num_blocks());
     rows = min(band, c.nx - 2 - rank * band);
     base = static_cast<size_t>(rank) * band * ny;
     const int n = (rows + 2) * ny;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = u_in[base + i];
+    if (st.pay_in != nullptr) {
+      const r2f2::Codec in(st.k_in[0], p);
+      for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = in.decode(r2f2::load_payload(st.pay_in, base + i, st.bytes));
+    } else {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = u_in[base + i];
+    }
     const int mi = ny - 2, cells = rows * mi, T = blockDim.x;
     const int dr = T / mi, dc = T % mi;
     int r = threadIdx.x / mi, col = threadIdx.x % mi;
@@ -178,23 +195,72 @@ struct Heat2DBand {
     return Evidence{{e_alpha, e_lap, e_flux, e_dtodx2}};
   }
 
+  // fn(offset) over this CTA's pinned boundary cells (columns 0 and ny - 1
+  // of its rows, the first CTA's row 0, the last CTA's row nx - 1), offsets
+  // in `s`; each thread always visits the same cells.
+  template <typename Fn>
+  __device__ void each_boundary(Fn&& fn) const {
+    for (int j = 1 + threadIdx.x; j <= rows; j += blockDim.x) {
+      fn(j * ny);
+      fn(j * ny + ny - 1);
+    }
+    if (rank == 0)
+      for (int i = threadIdx.x; i < ny; i += blockDim.x) fn(i);
+    if (rank == n_ctas - 1)
+      for (int i = threadIdx.x; i < ny; i += blockDim.x) fn((rows + 1) * ny + i);
+  }
+
   // This CTA's rows of the field into dst: its cells from registers, the
-  // pinned boundary (columns 0 and ny - 1, the first CTA's row 0, the last
-  // CTA's row nx - 1) from shared memory, where nothing writes it after the
-  // load. So no barrier is needed before a store.
+  // pinned boundary from shared memory, where only this thread writes it
+  // after the load (the storage rounding). So no barrier is needed before a
+  // store.
   __device__ void store(float* dst) const {
     dst += base;
 #pragma unroll
     for (int k = 0; k < P; ++k)
       if (k < n_own) dst[at[k]] = u[k];
-    for (int j = 1 + threadIdx.x; j <= rows; j += blockDim.x) {
-      dst[j * ny] = s[j * ny];
-      dst[j * ny + ny - 1] = s[j * ny + ny - 1];
+    each_boundary([&](int i) { dst[i] = s[i]; });
+  }
+
+  // The same cells encoded at one split into the payload.
+  __device__ void store_packed(const r2f2::Storage& st, const r2f2::Codec& out) const {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (k < n_own) r2f2::store_payload(st.pay_out, base + at[k], st.bytes, out.pack(u[k]));
+    each_boundary([&](int i) { r2f2::store_payload(st.pay_out, base + i, st.bytes, out.pack(s[i])); });
+  }
+
+  // The field's storage split: the finite max over this CTA's cells, then
+  // over the cluster (`word` is this CTA's third word).
+  __device__ int storage_split(const Policy& p, uint32_t* word, const cg::cluster_group& cluster) const {
+    uint32_t mx = 0u;
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (k < n_own) mx = max(mx, r2f2::finite_mag_bits(u[k]));
+    each_boundary([&](int i) { mx = max(mx, r2f2::finite_mag_bits(s[i])); });
+    return r2f2::storage_k(cluster_max(mx, word, cluster), p.eb, p.fx);
+  }
+
+  // The storage rounding at the field's split (returned): the interior cells
+  // in registers, shared memory and the neighbours' halos, the boundary
+  // cells in shared memory. The next cluster barrier publishes the halos.
+  __device__ int round_all(const Policy& p, uint32_t* word, const cg::cluster_group& cluster) {
+    const int k = storage_split(p, word, cluster);
+    const r2f2::Codec at_k(k, p);
+    float* up = rank > 0 ? cluster.map_shared_rank(s, rank - 1) : nullptr;
+    float* down = rank + 1 < n_ctas ? cluster.map_shared_rank(s, rank + 1) : nullptr;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (j < n_own) {
+        const int a = at[j];
+        u[j] = at_k.round(u[j]);
+        s[a] = u[j];
+        if (up != nullptr && a < 2 * ny) up[a + band * ny] = u[j];
+        if (down != nullptr && a >= rows * ny) down[a - rows * ny] = u[j];
+      }
     }
-    if (rank == 0)
-      for (int i = threadIdx.x; i < ny; i += blockDim.x) dst[i] = s[i];
-    if (rank == n_ctas - 1)
-      for (int i = threadIdx.x; i < ny; i += blockDim.x) dst[(rows + 1) * ny + i] = s[(rows + 1) * ny + i];
+    each_boundary([&](int i) { s[i] = at_k.round(s[i]); });
+    return k;
   }
 };
 
@@ -214,12 +280,12 @@ using r2f2::cluster_wait;
 template <int P>
 __global__ void __launch_bounds__(kHeat2DMaxThreads)
 heat2d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ ev,
-                    const int* __restrict__ k_floor, Consts c, int band, int steps, Policy p) {
+                    const int* __restrict__ k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage io) {
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
-  __shared__ uint32_t pub[2];  // the CTA's lap and flux maxima, read by the cluster
-  if (threadIdx.x == 0) pub[0] = pub[1] = 0u;
-  Heat2DBand<P> b(u_in, smem, c, band, cluster);
+  __shared__ uint32_t pub[3];  // the CTA's lap, flux and storage maxima, read by the cluster
+  if (threadIdx.x == 0) pub[0] = pub[1] = pub[2] = 0u;
+  Heat2DBand<P> b(u_in, io, p, smem, c, band, cluster);
   const r2f2::TileQuant fixed = r2f2::tile_quant(p.fe, p.fm, -1);
   for (int s = 0; s < steps; ++s) {
     if (s > 0) {
@@ -229,9 +295,16 @@ heat2d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, f
     const Evidence e = b.substep(c.c0, c.c1, k_floor, p, fixed, pub, cluster);
     if (ev != nullptr && b.rank == 0 && threadIdx.x == 0) write_evidence(ev, s, e);
   }
-  cluster_arrive();
-  b.store(u_out);
-  cluster_wait();  // a neighbour may still write this CTA's halo
+  if (io.pay_out != nullptr) {  // a split picked afresh from the advanced field, then its payload
+    const int k = b.storage_split(p, &pub[2], cluster);
+    cluster_arrive();
+    b.store_packed(io, r2f2::Codec(k, p));
+    if (io.k_out != nullptr && b.rank == 0 && threadIdx.x == 0) io.k_out[0] = k;
+  } else {
+    cluster_arrive();
+    b.store(u_out);
+  }
+  cluster_wait();  // a neighbour may still write this CTA's halo or read its words
 }
 
 // K5d: the whole horizon of the field with the adjust unit. trk_k is the
@@ -242,27 +315,28 @@ __global__ void __launch_bounds__(kHeat2DMaxThreads)
 heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ snaps,
                    float* __restrict__ ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                    const int* __restrict__ site_cfg, int evolve, Consts c, int band, int steps, int every,
-                   AdjustLaw law, Policy p) {
+                   AdjustLaw law, Policy p, r2f2::Storage io) {
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
-  __shared__ uint32_t pub[2];
+  __shared__ uint32_t pub[3];
   __shared__ int ka[2];  // the datapath floor, latched at snapshot boundaries
-  if (threadIdx.x == 0) pub[0] = pub[1] = 0u;
+  if (threadIdx.x == 0) pub[0] = pub[1] = pub[2] = 0u;
   if (trk_k != nullptr && threadIdx.x < 2) ka[threadIdx.x] = trk_k[threadIdx.x];
   const int* floor = trk_k != nullptr ? ka : nullptr;
   SiteState st[2];  // this CTA's copy of the rows, ticked by its thread 0
   if (evolve && threadIdx.x == 0) {
     for (int j = 0; j < 2; ++j) st[j] = SiteState{trk_k[j], trk_hi[j], trk_lo[j], trk_ov[j], trk_sh[j]};
   }
-  Heat2DBand<P> b(u_in, smem, c, band, cluster);
+  Heat2DBand<P> b(u_in, io, p, smem, c, band, cluster);
   const r2f2::TileQuant fixed = r2f2::tile_quant(p.fe, p.fm, -1);
   const size_t n = static_cast<size_t>(c.nx) * c.ny;
   bool latch = false;
+  int kst = 0;  // the carried storage split
   for (int s = 0, until = every; s < steps; ++s) {
     if (s > 0) {
       cluster.sync();  // halos in; every thread has read ka for the last substep
       if (threadIdx.x == 0) {
-        pub[1] = 0u;
+        pub[1] = pub[2] = 0u;
         if (latch) {
           ka[0] = st[0].k;
           ka[1] = st[1].k;
@@ -283,12 +357,21 @@ heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
       }
     }
     if (boundary) {
+      if (io.round) kst = b.round_all(p, &pub[2], cluster);
       b.store(snaps + static_cast<size_t>((s + 1) / every - 1) * n);
       until = every;
     }
   }
+  // the remainder's rounding (its word zeroed at the top of the substep after
+  // the last boundary; its halo writes reach CTAs that only store now)
+  if (io.round && steps % every != 0) kst = b.round_all(p, &pub[2], cluster);
   cluster_arrive();
-  b.store(u_out);
+  if (io.pay_out != nullptr) {
+    b.store_packed(io, r2f2::Codec(kst, p));
+  } else {
+    b.store(u_out);
+  }
+  if (io.k_out != nullptr && b.rank == 0 && threadIdx.x == 0) io.k_out[0] = kst;
   if (evolve && b.rank == 0 && threadIdx.x == 0) {
     for (int j = 0; j < 2; ++j) {
       trk_k[j] = st[j].k;
@@ -312,23 +395,23 @@ void heat2d_shape(int cells, int& per_thread, int& threads) {
 
 template <int P>
 cudaError_t heat2d_sweep(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
-                         float* ev, const int* k_floor, Consts c, int band, int steps, Policy p) {
+                         float* ev, const int* k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage st) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
   return r2f2::launch_cluster(heat2d_sweep_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
-                              u_in, u_out, ev, k_floor, c, band, steps, p);
+                              u_in, u_out, ev, k_floor, c, band, steps, p, st);
 }
 
 template <int P>
 cudaError_t heat2d_mega(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
                         float* snaps, float* ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                         const int* site_cfg, int evolve, Consts c, int band, int steps, int every, AdjustLaw law,
-                        Policy p) {
+                        Policy p, r2f2::Storage st) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
   return r2f2::launch_cluster(heat2d_mega_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
                               u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve, c, band,
-                              steps, every, law, p);
+                              steps, every, law, p, st);
 }
 
 // Validate a heat2d plan and give its launch shape: `cluster` CTAs of `band`
@@ -357,28 +440,49 @@ bool heat2d_plan(int nx, int ny, int cluster, int band, int& per_thread, int& th
 
 #define R2F2_POLICY_ARGS int family, int eb, int mb, int fx, int fe, int fm, int tail_approx, int pinned
 #define R2F2_POLICY Policy{family, eb, mb, fx, fe, fm, tail_approx, pinned}
+#define R2F2_STORAGE_ARGS const void *pay_in, const int *k_in, void *pay_out, int *k_out, int bytes, int round
+#define R2F2_STORAGE r2f2::Storage{pay_in, k_in, pay_out, k_out, bytes, round}
+
+namespace {
+
+// Storage arguments a launch can run: the payloads' width holds the format,
+// a packed input has its split, an input and an output each f32 or packed,
+// rounding only in a megakernel.
+bool storage_ok(const void* u_in, const float* u_out, R2F2_STORAGE_ARGS, int eb, int mb, int fx, bool mega) {
+  return (bytes == 1 || bytes == 2 || bytes == 4) && 1 + eb + mb + fx <= 8 * bytes &&
+         (pay_in == nullptr || k_in != nullptr) && ((pay_in != nullptr) != (u_in != nullptr)) &&
+         ((pay_out != nullptr) != (u_out != nullptr)) && (mega || !round);
+}
+
+}  // namespace
 
 // heat2d (K5a, K5d): one cluster of `cluster` CTAs of `band` interior rows
 // (kernels/pde_steps.py::heat2d_cluster_plan).
 extern "C" int r2f2_heat2d_sweep(const float* u_in, float* u_out, float* ev, const int* k_floor, int nx, int ny,
                                  int steps, float c0, float c1, int cluster, int band, R2F2_POLICY_ARGS,
-                                 void* stream) {
+                                 R2F2_STORAGE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) ||
+      !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, false))
+    return static_cast<int>(cudaErrorInvalidValue);
   R2F2_HEAT2D_DISPATCH(heat2d_sweep, cluster, threads, smem, stream, u_in, u_out, ev, k_floor, Consts{nx, ny, c0, c1},
-                       band, steps, R2F2_POLICY)
+                       band, steps, R2F2_POLICY, R2F2_STORAGE)
 }
 
 extern "C" int r2f2_heat2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, int* trk_k, float* trk_hi,
                                 float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
                                 int ny, int steps, int every, float c0, float c1, int cluster, int band, float ema,
-                                float one_minus, int headroom, R2F2_POLICY_ARGS, void* stream) {
+                                float one_minus, int headroom, R2F2_POLICY_ARGS, R2F2_STORAGE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || every < 1 ||
+      !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, true) ||
+      (pay_out != nullptr && !round))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Policy p = R2F2_POLICY;
   const AdjustLaw law{ema, one_minus, headroom, p.eb, p.fx};
   R2F2_HEAT2D_DISPATCH(heat2d_mega, cluster, threads, smem, stream, u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo,
-                       trk_ov, trk_sh, site_cfg, evolve, Consts{nx, ny, c0, c1}, band, steps, every, law, p)
+                       trk_ov, trk_sh, site_cfg, evolve, Consts{nx, ny, c0, c1}, band, steps, every, law, p,
+                       R2F2_STORAGE)
 }

@@ -10,6 +10,9 @@
 //   grid_barrier, cluster_publish/collect: barriers over a cooperative grid
 //                      and maxima over a thread-block cluster
 //   adjust_tick        core/policy.py::adjust_step (one site's tick)
+//   storage_k, Codec   pack/packed.py::block_storage_k, pack_block and
+//                      unpack_block (core/flexformat.py::pack_r2f2 and
+//                      unpack_r2f2): the packed storage format
 //
 // Build with --fmad=false -prec-div=true, so that nvcc contracts nothing on
 // its own, and -ftz=true (every kernel, K2-K7): f32 subnormal inputs and
@@ -415,6 +418,105 @@ __device__ __forceinline__ void with_kinds(const MulA& a, const MulB& b, Fn&& fn
     default: fn(MulKind<3>{}); break;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Packed storage (pack/packed.py): a block's storage split, and the payload
+// encode and decode at a split. A payload is 1, 2 or 4 bytes an element
+// (pack/packed.py::payload_dtype by the format's total bits); the kernels
+// take the width as a launch argument, one uniform branch per load or
+// store, rather than as a template parameter that would triple the rod
+// kernels' instances and their build time.
+
+// The storage split of a block whose largest finite magnitude has the bit
+// pattern `max_mag` (block_storage_k: select_k_operand of its exponent,
+// clipped to [k_min, fx]; a block of zeros gives exponent -127).
+__device__ __forceinline__ int storage_k(uint32_t max_mag, int eb, int fx, int k_min = 0) {
+  const int me = mag_exponent(max_mag);
+  const int e = max(needed_e_bits(me, eb, fx), needed_e_bits_lo(me, eb, fx));
+  return min(max(e - eb, k_min), fx);
+}
+
+__device__ __forceinline__ uint32_t load_payload(const void* p, size_t i, int bytes) {
+  if (bytes == 1) return static_cast<const uint8_t*>(p)[i];
+  if (bytes == 2) return static_cast<const uint16_t*>(p)[i];
+  return static_cast<const uint32_t*>(p)[i];
+}
+
+__device__ __forceinline__ void store_payload(void* p, size_t i, int bytes, uint32_t v) {
+  if (bytes == 1) {
+    static_cast<uint8_t*>(p)[i] = static_cast<uint8_t>(v);
+  } else if (bytes == 2) {
+    static_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(v);
+  } else {
+    static_cast<uint32_t*>(p)[i] = v;
+  }
+}
+
+// The storage format E(eb + k) M(mb + fx - k) at one split: its rounding
+// (quantize_em without tail truncation) and its payload fields.
+struct Codec {
+  int e, m;
+  TileQuant q;
+
+  Codec() = default;
+  __device__ Codec(int k, const Policy& p) : e(p.eb + k), m(p.mb + p.fx - k), q(tile_quant(p.eb + k, p.mb + p.fx - k, -1)) {}
+
+  __device__ float round(float x) const { return quantize_tile(x, q); }
+
+  // pack_r2f2 of a value already rounded to this format: sign | exponent
+  // field | mantissa field; a NaN keeps its sign and takes the mantissa
+  // 1 << (m - 1).
+  __device__ uint32_t encode(float v) const {
+    const uint32_t u = bits(v), ua = u & 0x7FFFFFFFu;
+    const int half = 1 << (e - 1), emin = 2 - half, unb = static_cast<int>(ua >> 23) - 127;
+    const uint32_t all = (1u << e) - 1u;
+    uint32_t ef = 0u, mf = 0u;
+    if (ua > 0x7F800000u) {
+      ef = all, mf = 1u << (m - 1);
+    } else if (ua == 0x7F800000u) {
+      ef = all;
+    } else if (ua != 0u && unb < emin) {  // below normal: round(|v| / 2**(emin - m)), half to even
+      mf = static_cast<uint32_t>(rintf(scale_pow2(from_bits(ua), m - emin)));
+    } else if (ua != 0u) {
+      ef = static_cast<uint32_t>(unb + half - 1), mf = (ua & 0x7FFFFFu) >> (23 - m);
+    }
+    return (u >> 31) << (e + m) | ef << m | mf;
+  }
+
+  __device__ uint32_t pack(float x) const { return encode(round(x)); }
+
+  // unpack_r2f2: the magnitude from the fields in f32 multiplies, as the
+  // reference builds it (a value below 2**-126 flushes to a zero of its
+  // sign under -ftz=true, as XLA flushes it).
+  __device__ float decode(uint32_t pay) const {
+    const uint32_t mbits = pay & ((1u << m) - 1u);
+    const uint32_t ef = (pay >> m) & ((1u << e) - 1u);
+    const float mant = static_cast<float>(mbits);
+    const int half = 1 << (e - 1);
+    float mag;
+    if (ef == (1u << e) - 1u) {
+      mag = mbits == 0u ? from_bits(0x7F800000u) : from_bits(0x7FC00000u);
+    } else if (ef == 0u) {
+      mag = scale_pow2(mant, 2 - half - m);
+    } else {
+      mag = scale_pow2(__fadd_rn(1.0f, __fmul_rn(mant, pow2(-m))), static_cast<int>(ef) - (half - 1));
+    }
+    return ((pay >> (e + m)) & 1u) ? -mag : mag;
+  }
+};
+
+// A kernel's storage I/O: a packed input (payload and its split, one per
+// block) instead of f32, a packed output, the megakernels' storage rounding
+// at snapshot boundaries, and the output split (a packed output's, or a
+// megakernel's carried split kst where its state stays f32).
+struct Storage {
+  const void* pay_in;  // null: f32 input
+  const int* k_in;
+  void* pay_out;       // null: f32 output
+  int* k_out;          // null: no split out
+  int bytes;           // payload bytes an element
+  int round;           // quantize the state at every snapshot boundary and after the remainder
+};
 
 // ---------------------------------------------------------------------------
 // The adjust unit (core/policy.py::adjust_step), one site's tick in f32 and

@@ -1,8 +1,9 @@
 // The explicit stencil kernels of repro_torch on a rod, for sm_90a (file
 // heat1d_rod.cu before the 1-D K5 bodies and heat2d's grid joined it; now
-// this header and two translation units, rod_warp.cu for the warp shape and
-// rod_grid.cu for the grid shape and the C entry, which nvcc compiles side by
-// side): one substep body per workload, each on the launch shape that
+// this header, rod_warp.cuh for the warp shape and rod_grid.cuh for the grid
+// shape, and a translation unit for each body's launcher of each shape,
+// which nvcc compiles side by side; rod_grid.cu holds the C entry): one
+// substep body per workload, each on the launch shape that
 // kernels/rod.py::rod_plan gives its field, flattened to a rod of n cells:
 //
 //   K2   replaces repro/kernels/fused.py::fused_sweep with heat_stencil.py::_heat1d_body
@@ -73,6 +74,19 @@
 // adjust unit ticks in every thread on the uniform evidence, so the floor
 // each thread reads needs no broadcast. The C entry point (rod_grid.cu)
 // returns the launch's cudaError_t.
+//
+// Packed storage (r2f2::Storage, one block): a packed input is decoded at
+// its split where the cells are first loaded (the grid shape: into a third
+// buffer, behind one more grid barrier); a packed output is encoded from the
+// cells after the last substep, at a split picked from their finite max (a
+// fused sweep; the warp shape one more reduction, the grid shape one more
+// grid barrier) or at the carried split kst (a megakernel). A megakernel
+// with storage rounding takes, at each snapshot boundary after the update,
+// the block's finite max over every cell (the pinned ends too), its split
+// kst, and rounds the cells there before the snapshot and the next substep
+// (the warp shape: a reduction and a republish of the edges, two CTA
+// barriers; the grid shape: one grid barrier and a pass over its cells),
+// and does so once more after a remainder.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,16 +115,30 @@ struct RodArgs {
   int evolve;           // tick the tracker rows and latch the floor at boundaries
   int blocks, n, row, steps, every;  // row: cells a row (heat1d nx, heat2d ny, a periodic rod n); every = 0: no snapshots
   float c0, c1;  // heat alpha, dtodx2; advection1d speed, dtodx; burgers1d dt/(2dx), 0.5
+  r2f2::Storage st;  // packed input and output, storage rounding, the output split (one block)
 };
 
-// The warp shape's launch (rod_warp.cu): `threads` / 32 warps of one CTA a
-// block, `cells` cells a lane.
-cudaError_t launch_warp_shape(int body, const RodArgs& a, int threads, int cells, const r2f2::AdjustLaw& law,
-                              const r2f2::Policy& p, cudaStream_t stream);
+// The warp shape's launchers (rod_warp.cuh, one translation unit a body):
+// `threads` / 32 warps of one CTA a block, `cells` cells a lane.
+#define ROD_DECLARE_WARP(NAME)                                                                             \
+  cudaError_t NAME(const RodArgs& a, int threads, int cells, const r2f2::AdjustLaw& law, const r2f2::Policy& p, \
+                   cudaStream_t stream);
+ROD_DECLARE_WARP(launch_warp_heat1d)
+ROD_DECLARE_WARP(launch_warp_advection1d)
+ROD_DECLARE_WARP(launch_warp_burgers1d)
+
+// The grid shape's launchers (rod_grid.cuh): `ctas` CTAs a block, `cells` a thread.
+#define ROD_DECLARE_GRID(NAME)                                                                            \
+  cudaError_t NAME(const RodArgs& a, int cells, int ctas, const r2f2::AdjustLaw& law, const r2f2::Policy& p, \
+                   cudaStream_t stream);
+ROD_DECLARE_GRID(launch_grid_heat1d)
+ROD_DECLARE_GRID(launch_grid_heat2d)
+ROD_DECLARE_GRID(launch_grid_advection1d)
+ROD_DECLARE_GRID(launch_grid_burgers1d)
 
 }  // namespace rod
 
-// What both translation units use, each its own copy (the product table is a
+// What every translation unit uses, each its own copy (the product table is a
 // CTA's shared memory).
 namespace {
 

@@ -18,21 +18,23 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = [
-    "KernelCounter", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
+    "KernelCounter", "StorageIO", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
     "NVCC_FLAGS", "SMEM_LIMIT",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = (
-    "fused_pde.cu", "mega_pde.cu", "rod_warp.cu", "rod_grid.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu",
+    "fused_pde.cu", "mega_pde.cu", "rod_warp.cu", "rod_warp_advection.cu", "rod_warp_burgers.cu", "rod_grid.cu",
+    "rod_grid_heat2d.cu", "rod_grid_periodic.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu",
+    "r2f2_storage.cu",
 )
-HEADERS = ("r2f2_device.cuh", "rod.cuh")
+HEADERS = ("r2f2_device.cuh", "rod.cuh", "rod_warp.cuh", "rod_grid.cuh")
 #: the one target, for the compile and the link
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: IEEE arithmetic as the reference runs it: no fma contraction, IEEE
@@ -54,8 +56,8 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
     # the rod bodies (K2, K4 heat1d, K5b/c/e/f, K5a/d's grid): body, u_in, u_out, snaps, ev, work,
     # maxes, count, trk k/hi/lo/ov/sh, site_cfg, evolve, blocks, n, row, steps, every, shape,
-    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), stream
-    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P],
+    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), storage(6), stream
+    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P] * 4 + [_I] * 2 + [_P],
     # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
     "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
     # u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx,
@@ -69,11 +71,18 @@ _SIGNATURES = {
     "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
 # heat2d's cluster kernels (csrc/pde_steps.cu): sweep u_in, u_out, ev, k_floor, nx, ny, steps,
-# c0, c1, the cluster's CTAs and band rows, policy(8), stream; mega u_in, u_out, snaps, ev,
-# trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band, ema, 1 - ema,
-# headroom, policy(8), stream
-_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + [_P]
-_SIGNATURES["r2f2_heat2d_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + [_P]
+# c0, c1, the cluster's CTAs and band rows, policy(8), storage(6), stream; mega u_in, u_out,
+# snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band, ema,
+# 1 - ema, headroom, policy(8), storage(6), stream; swe2d's megakernel takes storage(6) before
+# its stream too
+_STORAGE = [_P] * 4 + [_I] * 2  # StorageIO.args()
+_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + _STORAGE + [_P]
+_SIGNATURES["r2f2_heat2d_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + _STORAGE + [_P]
+_SIGNATURES["r2f2_swe2d_mega"] = _SIGNATURES["r2f2_swe2d_mega"][:-1] + _STORAGE + [_P]
+
+# K1's storage harness (csrc/r2f2_storage.cu): mode, x, payload, k_in, k_out, y, rows, width, br,
+# bw, k_min, payload bytes, eb, mb, fx, stream
+_SIGNATURES["r2f2_storage"] = [_I] + [_P] * 5 + [_I] * 9 + [_P]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -83,16 +92,42 @@ FAMILY_CODES = {"f32": 0, "bf16": 1, "fixed": 2, "rr": 3}
 
 class KernelCounter:
     """Launch accounting beside one kernel: ``launches`` counts kernel
-    launches, ``plain_calls`` counts runs of the plain PyTorch version."""
+    launches, ``plain_calls`` counts runs of the plain PyTorch version, and
+    ``storage`` the launches of each storage variant among the launches."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.storage = {"packed": 0, "quantized": 0}
+
+    def count(self, storage: str = "f32") -> None:
+        """One launch, of the storage variant ``storage``."""
+        self.launches += 1
+        if storage in self.storage:
+            self.storage[storage] += 1
+
+
+class StorageIO(NamedTuple):
+    """A launch's storage arguments (``csrc/r2f2_device.cuh::Storage``): a
+    packed input (payload and its split) in place of f32, a packed output,
+    the megakernels' rounding at snapshot boundaries, and the output split
+    (a packed output's, or a megakernel's carried split ``kst``)."""
+
+    pay_in: Optional[torch.Tensor] = None
+    k_in: Optional[torch.Tensor] = None
+    pay_out: Optional[torch.Tensor] = None
+    k_out: Optional[torch.Tensor] = None
+    round: bool = False
+
+    def args(self):
+        """The six C arguments: the four pointers, payload bytes, round."""
+        pay = self.pay_in if self.pay_in is not None else self.pay_out
+        width = 4 if pay is None else pay.element_size()
+        return (ptr(self.pay_in), ptr(self.k_in), ptr(self.pay_out), ptr(self.k_out), width, int(self.round))
 
 
 def _nvcc() -> str:

@@ -12,6 +12,11 @@ per-block evidence across blocks, and crops. The split block is part of the
 numerics: pad lanes keep their pad constants and take part in every block
 max, whatever shape a CUDA block has.
 
+With ``storage="packed"`` the leaves are :class:`repro_torch.pack.PackedArray`
+payloads: the kernel decodes each leaf at its carried split in its prologue
+and re-encodes the advanced leaf at a split picked afresh from it in its
+epilogue, so the chunk moves ``fmt.total_bits`` an element, not 32.
+
 The plain version runs ``body(state_blocks, ops)`` per block and substep,
 where ``ops`` is a :class:`FusedOps`: ``ops.mul(a, b, site)`` applies the
 policy's arithmetic family (``rr`` per-block split / ``bf16`` / ``fixed`` /
@@ -29,12 +34,12 @@ import torch.nn.functional as F
 from repro_torch.core.fma import fma
 from repro_torch.core.flexformat import quantize_em
 from repro_torch.kernels.blockops import block_max_exp, rr_add_block, rr_div_block, rr_mul_block, rr_rsqrt_block
+from repro_torch.pack.packed import PackedArray, block_storage_k, pack_block, payload_dtype, unpack_block
 from repro_torch.precision.engines import bf16_round
 from repro_torch.precision.fusion import fused_family
 
-__all__ = ["FusedOps", "fused_sweep", "STORAGE_PENDING", "CAPTURE_PENDING"]
+__all__ = ["FusedOps", "fused_sweep", "CAPTURE_PENDING"]
 
-STORAGE_PENDING = "storage other than 'f32' is not ported yet: ROADMAP.md queue 1 item 6 (pack/)"
 CAPTURE_PENDING = "range capture and policies are not ported yet: ROADMAP.md queue 1 item 7 (profile/)"
 
 
@@ -162,9 +167,26 @@ def _sweep_plain(body, leaves, *, prec, sites, site_ops, steps, br, bw, gi, gj, 
     return outs, ev
 
 
+def _packed_leaves(state, prec):
+    """The payloads of packed leaves, with the reference's refusals."""
+    pas = list(state)
+    for pa in pas:
+        if not isinstance(pa, PackedArray):
+            raise TypeError(f"storage='packed' takes repro_torch.pack.PackedArray leaves; got {type(pa).__name__}")
+        if pa.fmt != prec.fmt:
+            raise ValueError(f"packed leaf format {pa.fmt} disagrees with the policy format {prec.fmt}")
+    return pas
+
+
+def _single_block(pas, what: str):
+    for pa in pas:
+        if tuple(pa.k.shape[-2:]) != (1, 1):
+            raise ValueError(f"{what} takes single-block PackedArrays (one split per leaf); got k of shape {tuple(pa.k.shape)}")
+
+
 def fused_sweep(
     body: Callable,
-    state: Sequence[torch.Tensor],
+    state: Sequence,
     *,
     prec,
     sites: Tuple[str, ...],
@@ -188,22 +210,36 @@ def fused_sweep(
     0.0); ``k_floor`` is the ``(n_sites,)`` carried split that floors (or,
     under ``prec.pinned``, fixes) the rr family's per-block split.
 
-    ``kernel(leaves, br=, bw=, gi=, gj=, k_floor=, collect=)`` launches the
-    CUDA kernel on the padded leaves and returns ``(outs, block_evidence)``.
-    It runs for CUDA tensors unless ``plain``; CPU tensors (or ``plain``)
-    take the plain version, counted in ``counter.plain_calls``.
+    ``storage="packed"`` takes PackedArray leaves instead and returns them:
+    each leaf is decoded at its split before the first substep and encoded
+    after the last at a split picked from the advanced leaf. As in the
+    reference, it needs the block to cover the whole field (one storage
+    block per leaf), ``n_out == n_state`` and the policy's format.
+
+    ``kernel(leaves, br=, bw=, gi=, gj=, k_floor=, collect=, k_in=)``
+    launches the CUDA kernel on the padded leaves and returns ``(outs,
+    block_evidence)``; with ``k_in`` (the leaves' splits, packed storage)
+    the leaves and outs are payloads and it returns ``(outs,
+    block_evidence, k_outs)``. It runs for CUDA tensors unless ``plain``;
+    CPU tensors (or ``plain``) take the plain version, counted in
+    ``counter.plain_calls``.
 
     Returns ``(out_leaves, evidence)`` with evidence ``(steps, n_sites, 2)``
     (max over blocks) or None.
     """
-    if storage != "f32":
-        raise NotImplementedError(STORAGE_PENDING)
+    if storage not in ("f32", "packed"):
+        raise ValueError(f"unknown fused storage {storage!r}; 'f32' | 'packed'")
     if capture is not None:
         raise NotImplementedError(CAPTURE_PENDING)
+    packed = storage == "packed"
     n_sites = len(sites)
     if site_ops is not None and len(site_ops) != n_sites:
         raise ValueError(f"site_ops covers {len(site_ops)} entries for {n_sites} sites")
-    leaves = [x.to(torch.float32) for x in state]
+    if packed:
+        pas = _packed_leaves(state, prec)
+        leaves = [pa.payload for pa in pas]
+    else:
+        leaves = [x.to(torch.float32) for x in state]
     rows, width = leaves[0].shape
     for x in leaves[1:]:
         if tuple(x.shape) != (rows, width):
@@ -217,6 +253,15 @@ def fused_sweep(
 
     br, bw = min(block[0], rows), min(block[1], width)
     pr, pw = -rows % br, -width % bw
+    if packed:
+        if (br, bw) != (rows, width):
+            raise ValueError(
+                "in-kernel packed storage requires the sweep block to cover the whole field: "
+                f"block {(br, bw)} vs state {(rows, width)} (one storage block per leaf)"
+            )
+        if n_out != n_state:
+            raise ValueError(f"in-kernel packed storage needs body in/out leaf counts to match ({n_state} != {n_out})")
+        _single_block(pas, "in-kernel packed storage")
     if pr or pw:
         pv = tuple(pad_values) if pad_values is not None else (0.0,) * n_state
         leaves = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(leaves, pv)]
@@ -225,18 +270,35 @@ def fused_sweep(
     if k_floor is not None:
         k_floor = torch.as_tensor(k_floor).to(device=leaves[0].device, dtype=torch.int32)
 
+    k_outs = None
     if leaves[0].is_cuda and not plain:
         if kernel is None:
             raise RuntimeError("this fused body has no CUDA kernel; pass CPU tensors to run its plain version")
-        outs, block_ev = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect)
+        if packed:
+            outs, block_ev, k_outs = kernel(
+                leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect,
+                k_in=[pa.k.reshape(1).to(torch.int32) for pa in pas],
+            )
+        else:
+            outs, block_ev = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect)
     else:
         if counter is not None:
             counter.plain_calls += 1
+        if packed:  # the prologue: each leaf decoded at its carried split
+            leaves = [unpack_block(pa.payload.to(torch.int64), prec.fmt, pa.k.reshape(())) for pa in pas]
         outs, block_ev = _sweep_plain(
             body, leaves, prec=prec, sites=tuple(sites), site_ops=site_ops, steps=steps,
             br=br, bw=bw, gi=gi, gj=gj, n_out=n_out, k_floor=k_floor, collect=collect,
         )
+        if packed:  # the epilogue: a split picked afresh from each advanced leaf
+            k_outs = [block_storage_k(v, prec.fmt) for v in outs]
+            outs = [pack_block(v, prec.fmt, k).to(payload_dtype(prec.fmt)) for v, k in zip(outs, k_outs)]
     evidence = block_ev.amax(dim=(0, 1)) if collect else None
-    if pr or pw:
+    if packed:
+        outs = [
+            PackedArray(p, k.reshape(pa.k.shape).to(torch.int32), pa.fmt, pa.shape, pa.block)
+            for p, k, pa in zip(outs, k_outs, pas)
+        ]
+    elif pr or pw:
         outs = [o[:rows, :width] for o in outs]
     return tuple(outs), evidence

@@ -18,7 +18,10 @@ rounding of every product. So ``kernels/rod.py::rod_plan`` gives a block of
 at most 2048 cells the warp shape, up to eight warps of one CTA with the
 cells in registers and each maximum a warp reduction and one over the warps
 (three CTA barriers a substep); a larger block runs on a cooperative grid
-over the block, which has no size limit.
+over the block, which has no size limit. Under packed storage the kernel
+decodes the payload into its cells before the first substep and encodes
+them after the last at a split taken from their finite max (the warp shape:
+one more reduction; the grid: one more grid barrier).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import fused_sweep
-from repro_torch.kernels.rod import launch_rod, rod_plan
+from repro_torch.kernels.rod import launch_rod, rod_plan, sweep_storage
 from repro_torch.kernels.updates import heat1d_update
 
 __all__ = ["HEAT1D_SITES", "HEAT1D_SWEEP", "heat1d_sweep", "heat1d_sweep_plain", "heat_stencil_pallas"]
@@ -51,18 +54,21 @@ def _heat1d_body(alpha, dtodx2, sites):
     return body
 
 
-def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, steps, n_sites, plan):
+def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, steps, n_sites, plan, k_in=None):
     (u,) = leaves
     u = u.contiguous()
     if n_sites != 2:
         raise ValueError(f"heat1d_sweep has two sites (flux, update); got {n_sites}")
     plan = plan or rod_plan(br, u.shape[1], _cuda.sm_count(u.device))
-    out = torch.empty_like(u)
     ev = torch.empty((gi, gj, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
-    err = launch_rod("heat1d", u, out, plan, br=br, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k_floor)
+    u_in, u_out, out, storage = sweep_storage(u, k_in)
+    err = launch_rod(
+        "heat1d", u_in, u_out, plan, br=br, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k_floor,
+        storage=storage,
+    )
     _cuda.check(err, "heat1d_sweep")
-    HEAT1D_SWEEP.launches += 1
-    return [out], ev
+    HEAT1D_SWEEP.count("f32" if k_in is None else "packed")
+    return ([out], ev) if k_in is None else ([out], ev, [storage.k_out])
 
 
 def _sweep(u0, *, alpha, dtodx2, prec, steps, block_rows, sites, k_floor, collect_evidence, capture, storage, plain,
@@ -93,11 +99,12 @@ def heat1d_sweep(
 
 def heat1d_sweep_plain(
     u0, *, alpha, dtodx2, prec, steps=1, block_rows=8, sites=HEAT1D_SITES, k_floor=None, collect_evidence=False,
+    storage="f32",
 ):
     """The plain PyTorch version of :func:`heat1d_sweep`, on any device."""
     return _sweep(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, block_rows=block_rows, sites=sites,
-        k_floor=k_floor, collect_evidence=collect_evidence, capture=None, storage="f32", plain=True,
+        k_floor=k_floor, collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
     )
 
 

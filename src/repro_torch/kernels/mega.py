@@ -8,8 +8,7 @@ and folds the chunk's evidence on the host, here the carried tracker rows
 ``(k, hi_ema, lo_ema, overflow_steps, shrink_steps)`` stay in the kernel
 and evolve through :func:`repro_torch.core.policy.adjust_step`'s law.
 
-The semantics are those of ``repro/kernels/mega.py`` for ``storage="f32"``
-without capture:
+The semantics are those of ``repro/kernels/mega.py`` without capture:
 
 * the body runs at one block per state leaf (the whole field, no padding);
 * a non-pinned policy with a tracker (``evolve``) ticks the tracker every
@@ -19,7 +18,16 @@ without capture:
 * a pinned policy with a tracker (``has_floor``) runs at the tracker's
   fixed splits and leaves the tracker as it is;
 * the remainder substeps after the last boundary run in the same launch;
-* per-substep evidence ``(steps, n_sites, 2)`` comes back on request.
+* per-substep evidence ``(steps, n_sites, 2)`` comes back on request;
+* ``storage="quantized"|"packed"`` rounds the state at every snapshot
+  boundary, after the update and before the snapshot and the next substep:
+  one leaf-wide finite max, its storage split, the leaf quantized there
+  (the carried split ``kst``), and once more after the remainder substeps.
+  PackedArray leaves are decoded in the kernel's prologue and encoded at
+  ``kst`` in its epilogue (the state is already quantized there, so the
+  encode is the chunked plane's pack bit for bit); f32 leaves under
+  ``"packed"`` come back f32 with ``kst``, and :func:`mega_sweep` packs
+  them at it (swe2d's shape: kernel K1 on the card).
 
 :func:`mega_sweep` launches a stepper's CUDA kernel for CUDA tensors and
 runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
@@ -51,15 +59,19 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch._device import f32_scalar
+from repro_torch.core.flexformat import quantize_em
 from repro_torch.core.policy import RangeTracker, adjust_step
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING, FusedOps
+from repro_torch.kernels.fused import CAPTURE_PENDING, FusedOps, _packed_leaves, _single_block
 from repro_torch.kernels.heat_stencil import _heat1d_body
 from repro_torch.kernels.pde_steps import (
     ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
     k5_plan, launch_k5,
 )
-from repro_torch.kernels.rod import launch_rod, rod_plan
+from repro_torch.kernels.rod import launch_rod, mega_storage, rod_plan
+from repro_torch.pack.packed import (
+    PackedArray, _view2d, block_storage_k, pack_block, payload_dtype, unpack_array, unpack_block,
+)
 from repro_torch.precision.fusion import fused_family
 
 __all__ = [
@@ -97,6 +109,7 @@ class MegaResult(NamedTuple):
     snaps: Tuple[torch.Tensor, ...]  # per leaf, (n_out, *leaf.shape) boundary snapshots
     tracker: Optional[RangeTracker]  # the evolved tracker (the input one when pinned)
     evidence: Optional[torch.Tensor]  # (steps, n_sites, 2) f32, when requested
+    kst: Optional[torch.Tensor] = None  # (n_state,) int32 carried storage splits, under storage rounding
 
 
 def _site_ops(sites, site_ops):
@@ -117,13 +130,30 @@ def mega_sweep_plain(
     every: int,
     tracker: Optional[RangeTracker] = None,
     collect_evidence: bool = False,
+    storage: str = "f32",
+    k_in=None,
 ) -> MegaResult:
     """The plain PyTorch version of :func:`mega_sweep`, on any device:
     ``body(leaves, ops)`` once per substep over the whole leaves, with
-    :class:`FusedOps` at the latched floor and :func:`adjust_step` per site."""
+    :class:`FusedOps` at the latched floor and :func:`adjust_step` per site.
+    With ``k_in`` (the leaves' splits) the leaves are payloads, decoded
+    first and encoded at ``kst`` last."""
     sites = tuple(sites)
     ops_of = _site_ops(sites, site_ops)
-    st = tuple(x.to(torch.float32) for x in state)
+    fmt = prec.fmt
+    if k_in is not None:
+        st = tuple(unpack_block(x.to(torch.int64), fmt, k.reshape(())) for x, k in zip(state, k_in))
+    else:
+        st = tuple(x.to(torch.float32) for x in state)
+    rounding = storage != "f32"
+
+    def round_all(leaves):
+        """The boundary rounding: each leaf at its storage split."""
+        ks = [block_storage_k(v, fmt) for v in leaves]
+        qs = tuple(quantize_em(v, fmt.eb + k, fmt.mb + fmt.fx - k) for v, k in zip(leaves, ks))
+        return qs, torch.stack(ks)
+
+    kst = torch.zeros(len(st), dtype=torch.int32, device=st[0].device)
     evolve = tracker is not None and not prec.pinned
     has_floor = tracker is not None and prec.pinned
     collect = evolve or bool(collect_evidence)
@@ -156,16 +186,22 @@ def mega_sweep_plain(
             k, hi, lo, ov, sh = (torch.stack(col) for col in zip(*rows))
             trk = (hi, lo, k.to(torch.int32), ov.to(torch.int32), sh.to(torch.int32))
         if (s + 1) % every == 0:
+            if rounding:
+                new, kst = round_all(new)
             if evolve:
                 floor = trk[2]
             for snap, v in zip(snaps, new):
                 snap[(s + 1) // every - 1] = v
         st = new
+    if rounding and steps % every:  # the remainder epilogue: the same law
+        st, kst = round_all(st)
+    if k_in is not None:
+        st = tuple(pack_block(v, fmt, k).to(payload_dtype(fmt)) for v, k in zip(st, kst))
     out_tracker = RangeTracker(*trk) if evolve else tracker
     evidence = None
     if collect_evidence:
-        evidence = torch.stack(evs) if evs else st[0].new_empty((0, len(sites), 2))
-    return MegaResult(st, snaps, out_tracker, evidence)
+        evidence = torch.stack(evs) if evs else snaps[0].new_empty((0, len(sites), 2))
+    return MegaResult(st, snaps, out_tracker, evidence, kst if rounding else None)
 
 
 def mega_sweep(
@@ -188,14 +224,19 @@ def mega_sweep(
     """Run a whole horizon, ``steps`` substeps with a snapshot every
     ``every``, in one launch.
 
-    ``kernel(leaves, steps=, every=, tracker=, evolve=, collect=)`` launches
-    the stepper's CUDA kernel and returns a :class:`MegaResult`; it runs for
-    CUDA tensors unless ``plain`` and counts its own launch. CPU tensors (or
-    ``plain``) take :func:`mega_sweep_plain`, counted on ``counter``.
-    Storage other than f32 and capture raise with their ROADMAP items.
+    ``storage`` is ``"f32"``, ``"quantized"`` or ``"packed"`` (the module
+    docstring says what each does); PackedArray leaves take ``"packed"``.
+
+    ``kernel(leaves, steps=, every=, tracker=, evolve=, collect=, storage=,
+    k_in=)`` launches the stepper's CUDA kernel and returns a
+    :class:`MegaResult` whose state holds payloads where ``k_in`` (the
+    leaves' splits) is given; it runs for CUDA tensors unless ``plain`` and
+    counts its own launch. CPU tensors (or ``plain``) take
+    :func:`mega_sweep_plain`, counted on ``counter``. Capture raises with its
+    ROADMAP item.
     """
-    if storage != "f32":
-        raise NotImplementedError(STORAGE_PENDING)
+    if storage not in ("f32", "quantized", "packed"):
+        raise ValueError(f"unknown mega storage {storage!r}")
     if capture is not None:
         raise NotImplementedError(CAPTURE_PENDING)
     if every < 1:
@@ -207,20 +248,54 @@ def mega_sweep(
         raise ValueError(f"tracker has {len(tracker.k)} rows for {len(sites)} sites")
     if prec.k_bounds is not None and len(prec.k_bounds) != len(sites):
         raise ValueError(f"k_bounds covers {len(prec.k_bounds)} sites; the body has {len(sites)}")
-    leaves = [x.to(torch.float32) for x in state]
-    if leaves[0].is_cuda and not plain:
+    packed_io = any(isinstance(x, PackedArray) for x in state)
+    pas = k_in = None
+    if packed_io:
+        if storage != "packed":
+            raise ValueError("PackedArray leaves require storage='packed'")
+        if not all(isinstance(x, PackedArray) for x in state):
+            raise TypeError("mixed packed/f32 state leaves")
+        pas = _packed_leaves(state, prec)
+        _single_block(pas, "megakernel packed io")
+        leaves = [pa.payload for pa in pas]
+        k_in = [pa.k.reshape(1).to(torch.int32) for pa in pas]
+    else:
+        leaves = [x.to(torch.float32) for x in state]
+    on_card = leaves[0].is_cuda and not plain
+    if on_card:
         if kernel is None:
             raise RuntimeError("this mega body has no CUDA kernel; pass CPU tensors to run its plain version")
-        return kernel(
+        res = kernel(
             leaves, steps=steps, every=every, tracker=tracker,
-            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence),
+            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence), storage=storage, k_in=k_in,
         )
-    if counter is not None:
-        counter.plain_calls += 1
-    return mega_sweep_plain(
-        body, leaves, prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
-        tracker=tracker, collect_evidence=collect_evidence,
-    )
+    else:
+        if counter is not None:
+            counter.plain_calls += 1
+        res = mega_sweep_plain(
+            body, leaves, prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
+            tracker=tracker, collect_evidence=collect_evidence, storage=storage, k_in=k_in,
+        )
+    if packed_io:
+        final = tuple(
+            PackedArray(p, k.reshape(pa.k.shape), pa.fmt, pa.shape, pa.block) for p, k, pa in zip(res.state, res.kst, pas)
+        )
+        return res._replace(state=final)
+    if storage == "packed":  # f32 leaves: packed here at the kernel's carried split
+        return res._replace(state=tuple(_pack_at(q, prec.fmt, k, plain=not on_card) for q, k in zip(res.state, res.kst)))
+    return res
+
+
+def _pack_at(q, fmt, k, *, plain):
+    """Pack one leaf as a single block at split ``k`` (kernel K1 on the card)."""
+    view = _view2d(tuple(q.shape))
+    if plain:
+        payload = pack_block(q.reshape(view), fmt, k).to(payload_dtype(fmt))
+    else:
+        from repro_torch.kernels.storage import pack_blocks
+
+        payload, _ = pack_blocks(q.reshape(view), fmt, *view, k=k.reshape(1))
+    return PackedArray(payload, k.reshape(1, 1).to(torch.int32), fmt, tuple(q.shape), view)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +335,8 @@ def _tracker_buffers(tracker, evolve, device):
     return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
 
 
-def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites, plan=None):
+def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites, plan=None,
+                   storage="f32", k_in=None):
     (u,) = leaves
     u = u.contiguous()
     if u.dim() != 2 or u.shape[0] != 1:
@@ -270,20 +346,20 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
     dev = u.device
-    out = torch.empty_like(u)
+    u_in, u_out, out, sio = mega_storage(u, storage, k_in)
     snaps = torch.empty((steps // every, 1, nx), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
     err = launch_rod(
-        "heat1d", u, out, plan, br=1, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k,
+        "heat1d", u_in, u_out, plan, br=1, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
-        law=(ema, one_minus, headroom),
+        law=(ema, one_minus, headroom), storage=sio,
     )
     _cuda.check(err, "heat1d_mega")
-    HEAT1D_MEGA.launches += 1
-    return MegaResult((out,), (snaps,), tracker_out, ev)
+    HEAT1D_MEGA.count(storage)
+    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
 
 
 #: threads of a CTA of swe2d's grid (csrc/mega_pde.cu): at least, and at most
@@ -341,17 +417,19 @@ def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device):
     """The grid's scratch, whatever the number of substeps: Ux in a ring of
     two substeps (f32, ``(2, 3, nx-1, ny)``), the band arrays of every CTA
     when they do not fit shared memory (else None), each CTA's maxima at a
-    substep's two grid barriers (int32, ``(2, ctas)``, written before they
-    are read) and the 64-bit barrier counter (zeroed)."""
+    substep's two grid barriers and at the storage rounding's (int32,
+    ``(3, ctas)``, written before they are read) and the 64-bit barrier
+    counter (zeroed)."""
     ux = torch.empty(2 * 3 * (nx - 1) * ny, dtype=torch.float32, device=device)
     bands = None if plan.smem else torch.empty(plan.ctas * swe2d_band_floats(plan.rows, ny), dtype=torch.float32,
                                                device=device)
-    words = torch.empty(2 * plan.ctas, dtype=torch.int32, device=device)
+    words = torch.empty(3 * plan.ctas, dtype=torch.int32, device=device)
     count = torch.zeros(1, dtype=torch.int64, device=device)
     return ux, bands, words, count
 
 
-def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None):
+def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None,
+                  storage="f32", k_in=None):
     (U,) = leaves
     U = U.contiguous()
     if U.dim() != 3 or U.shape[0] != 3 or min(U.shape[1:]) < 3:
@@ -362,7 +440,9 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     plan = plan or swe2d_plan(nx, ny, sms=_cuda.sm_count(U.device))
     dev = U.device
     n_out = steps // every
-    out = torch.empty_like(U)
+    if k_in is not None:
+        raise ValueError("swe2d's megakernel takes f32 state: swe2d_mega decodes a packed carry first")
+    _, _, out, sio = mega_storage(U, storage, None)
     snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
     if plan.threads % 32 or not 32 <= plan.threads <= _SWE2D_MAX_THREADS:
@@ -381,16 +461,17 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
         err = lib.r2f2_swe2d_mega(
             _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(ux), _cuda.ptr(bands),
             _cuda.ptr(words), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
-            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows, plan.smem, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
-            _cuda.stream_of(U),
+            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows,
+            plan.smem, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
+            *sio.args(), _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")
-    SWE2D_MEGA.launches += 1
-    return MegaResult((out,), (snaps,), tracker_out, ev)
+    SWE2D_MEGA.count(storage)
+    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
 
 
 def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None,
-               plan=None):
+               plan=None, storage="f32", k_in=None):
     """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf
     (``pde_steps.k5_plan``'s shape)."""
     (u,) = leaves
@@ -399,20 +480,20 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
         raise ValueError(f"{body}_mega takes one (1, {nx * ny}) leaf and two sites; got {tuple(u.shape)}, {len(sites)} sites")
     plan = k5_plan(body, nx, ny, u.device, cluster, plan)
     dev = u.device
-    out = torch.empty_like(u)
+    u_in, u_out, out, sio = mega_storage(u, storage, k_in)
     snaps = torch.empty((steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
     ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
     err = launch_k5(
-        body, u, out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k,
+        body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
-        law=(ema, one_minus, headroom),
+        law=(ema, one_minus, headroom), storage=sio,
     )
     _cuda.check(err, f"{body}_mega")
-    BODIES[body].mega.launches += 1
-    return MegaResult((out,), (snaps,), tracker_out, ev)
+    BODIES[body].mega.count(storage)
+    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
 
 
 # ---------------------------------------------------------------------------
@@ -420,22 +501,32 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
 # ---------------------------------------------------------------------------
 
 
+def _lead(u0, view):
+    """A stepper's leaf as the kernel's one 2-D leaf, and a result back (a
+    packed one too: f32 leaves under packed storage come back packed)."""
+    shape = tuple(u0.shape)
+    lead = u0.with_view(view) if isinstance(u0, PackedArray) else u0.reshape(view)
+    return lead, lambda o: o.with_view(shape) if isinstance(o, PackedArray) else o.reshape(shape)
+
+
 def heat1d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
     capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon 1-D heat run of the ``(nx,)`` rod; snapshots come back
-    as ``(n_out, nx)``. ``_plan`` asks the kernel for another launch shape
-    than ``rod.rod_plan``'s (the chip checks and timings)."""
+    """Whole-horizon 1-D heat run of the ``(nx,)`` rod (a PackedArray under
+    packed storage); snapshots come back as ``(n_out, nx)``. ``_plan`` asks
+    the kernel for another launch shape than ``rod.rod_plan``'s (the chip
+    checks and timings)."""
     nx = u0.shape[-1]
+    lead, unwrap = _lead(u0, (1, nx))
     kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites), plan=_plan)
     res = mega_sweep(
-        _heat1d_body(float(alpha), float(dtodx2), sites), (u0.reshape(1, nx),), prec=prec, sites=sites,
+        _heat1d_body(float(alpha), float(dtodx2), sites), (lead,), prec=prec, sites=sites,
         steps=steps, every=every, tracker=tracker, collect_evidence=collect_evidence, kernel=kernel,
         counter=HEAT1D_MEGA, plain=plain, capture=capture, storage=storage,
     )
     (out,), (snaps,) = res.state, res.snaps
-    return res._replace(state=out.reshape(nx), snaps=snaps.reshape(snaps.shape[0], nx))
+    return res._replace(state=unwrap(out), snaps=snaps.reshape(snaps.shape[0], nx))
 
 
 def _swe2d_body(cfg, sites):
@@ -455,8 +546,13 @@ def swe2d_mega(
     capture=None, storage="f32", plain=False, _plan=None,
 ) -> MegaResult:
     """Whole-horizon shallow-water run of the stacked ``(3, nx, ny)`` state.
+    Packed storage takes the reference's host-pack shape: a packed carry is
+    decoded here, the kernel rounds at boundaries and gives the carried
+    split back, and :func:`mega_sweep` packs the final state at it.
     ``_plan`` asks the kernel for another launch shape than
     :func:`swe2d_plan`'s (the chip checks and timings)."""
+    if isinstance(U0, PackedArray):
+        U0 = unpack_array(U0, plain=plain)
     kernel = functools.partial(
         _launch_swe2d, cfg=cfg, prec=prec, sites=tuple(sites), site_ops=tuple(site_ops), plan=_plan,
     )
@@ -474,13 +570,14 @@ def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker
     kernel = functools.partial(
         _launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites), cluster=cluster, plan=plan,
     )
+    lead, unwrap = _lead(u0, (1, nx * ny))
     res = mega_sweep(
-        fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
+        fn, (lead,), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
         collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].mega, plain=plain,
         capture=capture, storage=storage,
     )
     (out,), (snaps,) = res.state, res.snaps
-    return res._replace(state=out.reshape(u0.shape), snaps=snaps.reshape((snaps.shape[0],) + tuple(u0.shape)))
+    return res._replace(state=unwrap(out), snaps=snaps.reshape((snaps.shape[0],) + tuple(u0.shape)))
 
 
 def heat2d_mega(

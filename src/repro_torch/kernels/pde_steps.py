@@ -39,8 +39,9 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import fused_sweep
-from repro_torch.kernels.rod import RodPlan, launch_rod, rod_plan
+from repro_torch.kernels.rod import RodPlan, launch_rod, rod_plan, sweep_storage
 from repro_torch.kernels.updates import advection1d_update, burgers1d_update, heat2d_update
+from repro_torch.pack.packed import PackedArray
 from repro_torch.precision.fusion import fused_family
 
 __all__ = [
@@ -194,45 +195,55 @@ def k5_plan(body, nx, ny, device, cluster=None, plan=None):
     return rod_plan(1, nx * ny, _cuda.sm_count(device), periodic=True)
 
 
-def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, **kw):
+def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.StorageIO(), **kw):
     """Launch a K5 kernel on the ``(1, nx*ny)`` leaf ``u`` into ``out``:
     heat2d's cluster (``csrc/pde_steps.cu``, its own entries) or a rod shape
-    (``csrc/rod.cuh``, :func:`rod.launch_rod` with its keywords). Returns the
-    CUDA error code."""
+    (``csrc/rod.cuh``, :func:`rod.launch_rod` with its keywords). ``u`` or
+    ``out`` is None where ``storage`` gives a packed input or output.
+    Returns the CUDA error code."""
     if isinstance(plan, RodPlan):
-        field = u.view(nx, ny) if body == "heat2d" else u
-        return launch_rod(body, field, out.view(field.shape), plan, br=field.shape[0], steps=steps, consts=consts,
-                          prec=prec, **kw)
+        shape = (nx, ny) if body == "heat2d" else (1, nx * ny)
+
+        def view(t):
+            return None if t is None else t.view(shape)
+
+        storage = storage._replace(pay_in=view(storage.pay_in), pay_out=view(storage.pay_out))
+        return launch_rod(body, view(u), view(out), plan, br=shape[0], steps=steps, consts=consts, prec=prec,
+                          storage=storage, **kw)
     lib = _cuda.library()
     policy = _cuda.policy_args(prec, fused_family(prec.mode))
     ptrs = [_cuda.ptr(kw.get(name)) for name in ("snaps", "ev")]
-    with torch.cuda.device(u.device):
+    field = u if u is not None else storage.pay_in
+    with torch.cuda.device(field.device):
         if kw.get("every", 0) == 0:  # the fused sweep
             return lib.r2f2_heat2d_sweep(
                 _cuda.ptr(u), _cuda.ptr(out), ptrs[1], _cuda.ptr(kw.get("k")), nx, ny, steps, *consts, *plan, *policy,
-                _cuda.stream_of(u),
+                *storage.args(), _cuda.stream_of(field),
             )
         hi, lo, ov, sh = kw["tracker_rows"]
         return lib.r2f2_heat2d_mega(
             _cuda.ptr(u), _cuda.ptr(out), *ptrs, _cuda.ptr(kw.get("k")), *map(_cuda.ptr, (hi, lo, ov, sh)),
             _cuda.ptr(kw.get("table")), int(kw["evolve"]), nx, ny, steps, kw["every"], *consts, *plan, *kw["law"],
-            *policy, _cuda.stream_of(u),
+            *policy, *storage.args(), _cuda.stream_of(field),
         )
 
 
-def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster, plan):
-    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf (:func:`k5_plan`'s shape)."""
+def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster, plan,
+            k_in=None):
+    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf (:func:`k5_plan`'s
+    shape); with ``k_in`` the leaf and the output are payloads."""
     (u,) = leaves
     u = u.contiguous()
     if n_sites != 2 or (gi, gj) != (1, 1) or u.shape != (1, nx * ny):
         raise ValueError(f"{body}_sweep takes one (1, {nx * ny}) block and two sites; got {tuple(u.shape)}, {n_sites} sites")
     plan = k5_plan(body, nx, ny, u.device, cluster, plan)
-    out = torch.empty_like(u)
     ev = torch.empty((1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
-    err = launch_k5(body, u, out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k_floor)
+    u_in, u_out, out, storage = sweep_storage(u, k_in)
+    err = launch_k5(body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k_floor,
+                    storage=storage)
     _cuda.check(err, f"{body}_sweep")
-    BODIES[body].sweep.launches += 1
-    return [out], ev
+    BODIES[body].sweep.count("f32" if k_in is None else "packed")
+    return ([out], ev) if k_in is None else ([out], ev, [storage.k_out])
 
 
 def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
@@ -241,12 +252,13 @@ def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect
         _launch, body=body, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, n_sites=len(sites), cluster=cluster,
         plan=plan,
     )
+    packed = isinstance(u0, PackedArray)
     (out,), ev = fused_sweep(
-        fn, (u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps, block=(1, nx * ny),
-        k_floor=k_floor, collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].sweep,
-        plain=plain, capture=capture, storage=storage,
+        fn, (u0.with_view((1, nx * ny)) if packed else u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps,
+        block=(1, nx * ny), k_floor=k_floor, collect_evidence=collect_evidence, kernel=kernel,
+        counter=BODIES[body].sweep, plain=plain, capture=capture, storage=storage,
     )
-    return out.reshape(u0.shape), ev
+    return (out.with_view(u0.shape) if packed else out.reshape(u0.shape)), ev
 
 
 def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None,
@@ -275,11 +287,12 @@ def heat2d_sweep(
     )
 
 
-def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False):
+def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False,
+                       storage="f32"):
     """The plain PyTorch version of :func:`heat2d_sweep`, on any device."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage="f32", plain=True,
+        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
     )
 
 
@@ -308,12 +321,12 @@ def advection1d_sweep(
 
 
 def advection1d_sweep_plain(
-    u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False,
+    u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False, storage="f32",
 ):
     """The plain PyTorch version of :func:`advection1d_sweep`, on any device."""
     return _advection1d(
         u0, speed=speed, dtodx=dtodx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage="f32", plain=True,
+        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
     )
 
 
@@ -340,9 +353,10 @@ def burgers1d_sweep(
     )
 
 
-def burgers1d_sweep_plain(u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False):
+def burgers1d_sweep_plain(u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False,
+                          storage="f32"):
     """The plain PyTorch version of :func:`burgers1d_sweep`, on any device."""
     return _burgers1d(
         u0, dt=dt, dx=dx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage="f32", plain=True,
+        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
     )

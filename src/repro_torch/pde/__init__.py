@@ -3,15 +3,22 @@ heat2d, advection1d and burgers1d.
 
     from repro_torch.pde import Simulation
     res = Simulation("swe2d", None, PRESETS["r2f2_16"]).run(400, execution="fused")
+
+The per-workload entry points (``simulate_heat``/``simulate_swe``,
+``heat_step``/``swe_step``) are shims over the framework, as in the
+reference.
 """
 
 from .registry import get_stepper, known_steppers, register_stepper
 from .solver import SimResult, Simulation, StepOps, Stepper
 from .advection1d import AdvectionConfig
 from .burgers1d import BurgersConfig
-from .heat1d import HeatConfig
+from .heat1d import HeatConfig, heat_step
+from .heat1d import simulate as simulate_heat
 from .heat2d import Heat2DConfig
-from .swe2d import SWEConfig
+from .precision_ops import padd, pdiv, pmul, pstore
+from .swe2d import SWEConfig, swe_step
+from .swe2d import simulate as simulate_swe
 
 __all__ = [
     "Stepper",
@@ -26,4 +33,12 @@ __all__ = [
     "Heat2DConfig",
     "AdvectionConfig",
     "BurgersConfig",
+    "heat_step",
+    "simulate_heat",
+    "swe_step",
+    "simulate_swe",
+    "pmul",
+    "pstore",
+    "pdiv",
+    "padd",
 ]

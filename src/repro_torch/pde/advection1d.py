@@ -63,6 +63,7 @@ class Advection1DStepper(Stepper):
     failure_mode = "overflow"
     story = "flux operand is the 1e5-peak field itself; E5M10 infs the flux"
     snapshots_default = 8
+    fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: AdvectionConfig) -> bool:
         """Kernels K5b and K5e take a rod of any length (``kernels/rod.py::rod_plan``)."""
@@ -77,20 +78,21 @@ class Advection1DStepper(Stepper):
     def step(self, u, cfg: AdvectionConfig, ops: StepOps):
         return advection1d_update(u, cfg.speed, cfg.dtodx, ops, self.sites)
 
-    def fused_step(self, u, cfg: AdvectionConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
+    def fused_step(self, u, cfg: AdvectionConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
+                   storage: str = "f32"):
         """``steps`` substeps in one launch of kernel K5b (the rod as one block)."""
         from repro_torch.kernels.pde_steps import advection1d_sweep
 
         return advection1d_sweep(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
         )
 
-    def mega_step(self, u, cfg: AdvectionConfig, prec, steps: int, every: int, *, tracker=None):
+    def mega_step(self, u, cfg: AdvectionConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
         """The whole horizon in one launch of kernel K5e (``advection1d_mega``)."""
         from repro_torch.kernels.mega import advection1d_mega
 
         return advection1d_mega(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker,
+            tracker=tracker, storage=storage,
         )

@@ -60,6 +60,7 @@ class Burgers1DStepper(Stepper):
     failure_mode = "nonlinear-drift"
     story = "u*u squares the range, overflows E5M10, then decays ~1/t post-shock"
     snapshots_default = 8
+    fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: BurgersConfig) -> bool:
         """Kernels K5c and K5f take a rod of any length (``kernels/rod.py::rod_plan``)."""
@@ -74,20 +75,21 @@ class Burgers1DStepper(Stepper):
     def step(self, u, cfg: BurgersConfig, ops: StepOps):
         return burgers1d_update(u, cfg.dt, cfg.dx, ops, self.sites)
 
-    def fused_step(self, u, cfg: BurgersConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
+    def fused_step(self, u, cfg: BurgersConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
+                   storage: str = "f32"):
         """``steps`` substeps in one launch of kernel K5c (the rod as one block)."""
         from repro_torch.kernels.pde_steps import burgers1d_sweep
 
         return burgers1d_sweep(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
         )
 
-    def mega_step(self, u, cfg: BurgersConfig, prec, steps: int, every: int, *, tracker=None):
+    def mega_step(self, u, cfg: BurgersConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
         """The whole horizon in one launch of kernel K5f (``burgers1d_mega``)."""
         from repro_torch.kernels.mega import burgers1d_mega
 
         return burgers1d_mega(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker,
+            tracker=tracker, storage=storage,
         )

@@ -13,16 +13,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch._device import f32_scalar as _f32
+from repro_torch.core.policy import PrecisionConfig
 from repro_torch.kernels.updates import heat1d_update
 
 from .registry import register_stepper
-from .solver import StepOps, Stepper
+from .solver import Simulation, StepOps, Stepper
 
-__all__ = ["HeatConfig", "Heat1DStepper", "initial_condition"]
+__all__ = ["HeatConfig", "Heat1DStepper", "initial_condition", "heat_step", "simulate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +73,7 @@ class Heat1DStepper(Stepper):
     failure_mode = "underflow"
     story = "alpha*lap falls below E5M10's subnormal floor late in the run"
     snapshots_default = 8
+    fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: HeatConfig) -> bool:
         """Kernels K2 and K4 take a rod of any length
@@ -86,21 +89,40 @@ class Heat1DStepper(Stepper):
     def step(self, u, cfg: HeatConfig, ops: StepOps):
         return heat1d_update(u[None, :], cfg.alpha, cfg.dtodx2, ops, self.sites)[0]
 
-    def fused_step(self, u, cfg: HeatConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
+    def fused_step(self, u, cfg: HeatConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
+                   storage: str = "f32"):
         """``steps`` substeps in one launch of kernel K2 (one row, one block)."""
         from repro_torch.kernels.heat_stencil import heat1d_sweep
 
+        packed = storage == "packed"
         out, ev = heat1d_sweep(
-            u[None, :], alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, block_rows=1,
-            sites=self.sites, k_floor=k_floor, collect_evidence=collect_evidence,
+            u.with_view((1, cfg.nx)) if packed else u[None, :], alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec,
+            steps=steps, block_rows=1, sites=self.sites, k_floor=k_floor, collect_evidence=collect_evidence,
+            storage=storage,
         )
-        return out[0], ev
+        return (out.with_view((cfg.nx,)) if packed else out[0]), ev
 
-    def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None):
+    def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
         """The whole horizon in one launch of kernel K4 (``heat1d_mega``)."""
         from repro_torch.kernels.mega import heat1d_mega
 
         return heat1d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker,
+            tracker=tracker, storage=storage,
         )
+
+
+_STEPPER = Heat1DStepper()
+
+
+def heat_step(u, cfg: HeatConfig, prec: PrecisionConfig):
+    """One explicit-FD step (untracked shim over the registered stepper)."""
+    return _STEPPER.step(u, cfg, StepOps(prec))
+
+
+def simulate(cfg: HeatConfig, prec: PrecisionConfig, steps: int, snapshot_every: Optional[int] = None, u0=None, *,
+             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``steps`` updates on ``device`` (None: the card). Returns
+    ``(final_state, snapshots)``."""
+    res = Simulation("heat1d", cfg, prec, device=device).run(steps, snapshot_every=snapshot_every, state0=u0)
+    return res.state, res.snapshots

@@ -101,6 +101,7 @@ class Heat2DStepper(Stepper):
     failure_mode = "underflow"
     story = "2D decay drives alpha*lap below E5M10's floor; 2D locality tiles"
     snapshots_default = 8
+    fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: Heat2DConfig) -> bool:
         """Kernels K5a and K5d take a field of any size: heat2d's cluster,
@@ -116,20 +117,21 @@ class Heat2DStepper(Stepper):
     def step(self, u, cfg: Heat2DConfig, ops: StepOps):
         return heat2d_update(u, cfg.alpha, cfg.dtodx2, ops, self.sites)
 
-    def fused_step(self, u, cfg: Heat2DConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
+    def fused_step(self, u, cfg: Heat2DConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
+                   storage: str = "f32"):
         """``steps`` substeps in one launch of kernel K5a (the field as one block)."""
         from repro_torch.kernels.pde_steps import heat2d_sweep
 
         return heat2d_sweep(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
         )
 
-    def mega_step(self, u, cfg: Heat2DConfig, prec, steps: int, every: int, *, tracker=None):
+    def mega_step(self, u, cfg: Heat2DConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
         """The whole horizon in one launch of kernel K5d (``heat2d_mega``)."""
         from repro_torch.kernels.mega import heat2d_mega
 
         return heat2d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker,
+            tracker=tracker, storage=storage,
         )

@@ -13,6 +13,15 @@
   the stepper's ``mega_step`` hook. ``"auto"`` picks the megakernel where
   it is eligible, else the fused plane, else the reference.
 
+``storage`` selects the carried state between chunk boundaries (snapshot
+intervals): ``"f32"``; ``"quantized"``, rounded through the packed format
+at every boundary but carried f32; or ``"packed"``, carried as
+:class:`repro_torch.pack.PackedArray` payloads, the same values as
+``"quantized"`` bit for bit at ``fmt.total_bits`` an element. Steppers with
+``fused_packed`` take the packed carry into their fused kernel, which
+decodes and re-encodes it; the others are packed around their f32 chunk.
+The megakernels round at the boundaries inside their one launch.
+
 The loops issue no host synchronisation per step: trackers stay on the
 state's device, and the fused plane copies one chunk's evidence to the host
 to fold it. On a CUDA device a run flushes f32 subnormals, as the reference
@@ -30,14 +39,19 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.ftz import card_flush
 from repro_torch.core.policy import PrecisionConfig
-from repro_torch.kernels.fused import CAPTURE_PENDING, STORAGE_PENDING
+from repro_torch.kernels.fused import CAPTURE_PENDING
+from repro_torch.pack import PackedArray, is_packed, pack_state, storage_quantize, unpack_state
 from repro_torch.pde.registry import get_stepper
 from repro_torch.precision import fold_evidence, fused_eligible, get_engine, mega_eligible, site_tracker_init
 from repro_torch.precision.sites import rewrap
 
-__all__ = ["Stepper", "StepOps", "Simulation", "SimResult", "EXECUTIONS"]
+__all__ = ["Stepper", "StepOps", "Simulation", "SimResult", "EXECUTIONS", "STORAGE_MODES"]
 
 EXECUTIONS = ("reference", "fused", "megakernel", "auto")
+#: carried-state storage formats: f32; "quantized", rounded through the
+#: packed format at every chunk boundary but carried f32; "packed", carried
+#: as PackedArray payloads (the same values as "quantized", bit for bit)
+STORAGE_MODES = ("f32", "quantized", "packed")
 ENSEMBLE_PENDING = "run_ensemble is not ported to repro_torch yet: ROADMAP.md queue 1 item 9"
 
 
@@ -89,7 +103,11 @@ class Stepper:
     hook ``fused_step(state, cfg, prec, steps, *, k_floor=None,
     collect_evidence=False) -> (state, evidence)``, and ``mega_step`` the
     optional megakernel hook ``mega_step(state, cfg, prec, steps, every, *,
-    tracker=None) -> repro_torch.kernels.mega.MegaResult``.
+    tracker=None) -> repro_torch.kernels.mega.MegaResult``, which takes
+    ``storage=`` too for runs with storage other than f32. A stepper with
+    ``fused_packed`` also takes ``storage="packed"`` on ``fused_step``, and
+    then a PackedArray state that its kernel decodes and re-encodes; the
+    Simulation packs around the others' f32 chunks.
 
     ``kernels_hold(cfg)`` says whether the hooks' CUDA kernels hold the
     config's field; on a CUDA device ``auto`` takes a kernel plane only
@@ -107,6 +125,7 @@ class Stepper:
     story: str = ""
     snapshots_default: int = 8
     fused_step = None
+    fused_packed = False
     mega_step = None
 
     def fused_supported(self, cfg, prec: PrecisionConfig) -> bool:
@@ -203,35 +222,39 @@ class Simulation:
 
         ``execution`` is ``"reference"``, ``"fused"``, ``"megakernel"`` or
         ``"auto"``. Pass ``tracker`` to resume tracked modes from saved
-        adjust-unit state.
+        adjust-unit state. ``storage`` is one of :data:`STORAGE_MODES`;
+        under ``"packed"`` the result's state is a PackedArray, and a
+        packed ``state0`` (a resumed carry) is taken as it is.
         """
         execution = self._resolve_execution(execution)
-        if storage != "f32":
-            raise NotImplementedError(STORAGE_PENDING)
+        storage = self._resolve_storage(storage)
         if capture is not None or policy is not None:
             raise NotImplementedError(CAPTURE_PENDING)
         stepper, cfg = self.stepper, self.cfg
         with card_flush(self.device):
             if state0 is None:
                 state = stepper.init_state(cfg, device=self.device)
+            elif isinstance(state0, PackedArray):
+                state = state0.to(self.device)
             else:
                 state = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
+            state = self._storage_in(state, storage)
         if tracker is None:
             tracker = self.init_tracker()
         else:
             tracker = tracker.to(self.device)
         every = snapshot_every or max(1, steps // stepper.snapshots_default)
         if execution == "megakernel":
-            return self._run_mega(state, tracker, steps, every)
+            return self._run_mega(state, tracker, steps, every, storage)
         n_out, rem = divmod(steps, every)
         advance = self._chunk_fused if execution == "fused" else self._chunk_reference
 
         snaps = []
         for _ in range(n_out):
-            state, tracker = advance(state, tracker, every)
+            state, tracker = advance(state, tracker, every, storage)
             snaps.append(self._observe(state))
         if rem:
-            state, tracker = advance(state, tracker, rem)
+            state, tracker = advance(state, tracker, rem, storage)
         if snaps:
             snapshots = torch.stack(snaps)
         else:
@@ -239,37 +262,80 @@ class Simulation:
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(state, snapshots, tracker)
 
+    @staticmethod
+    def _resolve_storage(storage: str) -> str:
+        if storage not in STORAGE_MODES:
+            raise ValueError(f"unknown storage mode {storage!r}; expected one of {STORAGE_MODES}")
+        return storage
+
+    def _storage_in(self, state0, storage: str):
+        """The initial state in the run's storage format: a packed run packs
+        f32 leaves (the boundary's one pack) and takes a packed carry as it
+        is; the others decode a packed carry, and ``"quantized"`` rounds."""
+        fmt = self.prec.fmt
+        if storage == "packed":
+            return state0 if is_packed(state0) else pack_state(state0, fmt)
+        if is_packed(state0):
+            state0 = unpack_state(state0)
+        return storage_quantize(state0, fmt) if storage == "quantized" else state0
+
+    def _storage_out(self, state, storage: str):
+        """A chunk's f32 result in the run's storage format."""
+        if storage == "f32":
+            return state
+        with card_flush(self.device):
+            if storage == "quantized":
+                return storage_quantize(state, self.prec.fmt)
+            return pack_state(state, self.prec.fmt)
+
+    def _unpacked(self, state):
+        if not is_packed(state):
+            return state
+        with card_flush(self.device):
+            return unpack_state(state)
+
     def _observe(self, state):
+        state = self._unpacked(state)
         with card_flush(self.device):
             return self.stepper.observables(state, self.cfg)
 
-    def _chunk_reference(self, state, tracker, n: int):
+    def _chunk_reference(self, state, tracker, n: int, storage: str = "f32"):
+        state = self._unpacked(state)
         with card_flush(self.device):
             for _ in range(n):
                 ops = StepOps(self.prec, tracker)
                 state = self.stepper.step(state, self.cfg, ops)
                 tracker = ops.tracker
-        return state, tracker
+        return self._storage_out(state, storage), tracker
 
-    def _chunk_fused(self, state, tracker, n: int):
+    def _chunk_fused(self, state, tracker, n: int, storage: str = "f32"):
         """One fused chunk: the carried splits enter as the rr family's
-        floor, and the chunk's evidence replays through the adjust law."""
+        floor, and the chunk's evidence replays through the adjust law. A
+        ``fused_packed`` stepper takes a packed carry into its kernel."""
         prec = self.prec
+        in_kernel = storage == "packed" and self.stepper.fused_packed
+        if not in_kernel:
+            state = self._unpacked(state)
         state, ev = self.stepper.fused_step(
             state, self.cfg, prec, n,
             k_floor=None if tracker is None else tracker.state.k,
             collect_evidence=tracker is not None and not prec.pinned,
+            **({"storage": "packed"} if in_kernel else {}),
         )
+        if not in_kernel:
+            state = self._storage_out(state, storage)
         if tracker is not None:
             tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
         return state, tracker
 
-    def _run_mega(self, state, tracker, steps: int, every: int) -> SimResult:
+    def _run_mega(self, state, tracker, steps: int, every: int, storage: str = "f32") -> SimResult:
         """The whole horizon in one launch: tracker rows tick every substep
         in the kernel, the datapath floor latches at the snapshot boundaries,
-        and the observables are taken from the kernel's state snapshots."""
+        the state rounds to storage there, and the observables are taken
+        from the kernel's state snapshots."""
         res = self.stepper.mega_step(
-            state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state
+            state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state,
+            **({"storage": storage} if storage != "f32" else {}),
         )
         if res.snaps.shape[0]:
             snapshots = torch.stack([self._observe(s) for s in res.snaps])

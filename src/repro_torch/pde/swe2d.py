@@ -11,6 +11,7 @@ policy: three multiplier sites and the tracked flexible divider
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,9 +21,9 @@ from repro_torch.core.ftz import card_flush
 from repro_torch.precision import PrecisionConfig
 
 from .registry import register_stepper
-from .solver import StepOps, Stepper
+from .solver import Simulation, StepOps, Stepper
 
-__all__ = ["SWEConfig", "SWE2DStepper", "initial_state"]
+__all__ = ["SWEConfig", "SWE2DStepper", "initial_state", "swe_step", "simulate"]
 
 G = 9.81
 
@@ -172,14 +173,14 @@ class SWE2DStepper(Stepper):
         block, so it equals the fused plane only where K3's grid is one tile."""
         return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]
 
-    def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None):
+    def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
         """The whole horizon, the entire Lax-Wendroff update included, in one
         launch of kernel K4 (``swe2d_mega``)."""
         from repro_torch.kernels.mega import swe2d_mega
 
         return swe2d_mega(
             U, cfg=cfg, prec=prec, steps=steps, every=every, sites=self.sites, site_ops=self.site_ops,
-            tracker=tracker,
+            tracker=tracker, storage=storage,
         )
 
     def observables(self, U, cfg: SWEConfig):
@@ -187,3 +188,19 @@ class SWE2DStepper(Stepper):
 
     def metric_offset(self, cfg: SWEConfig) -> float:
         return cfg.depth
+
+
+_STEPPER = SWE2DStepper()
+
+
+def swe_step(U, cfg: SWEConfig, prec: PrecisionConfig):
+    """One Lax-Wendroff update (untracked shim over the registered stepper)."""
+    return _STEPPER.step(U, cfg, StepOps(prec))
+
+
+def simulate(cfg: SWEConfig, prec: PrecisionConfig, steps: int, snapshot_every: Optional[int] = None, U0=None, *,
+             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``steps`` updates on ``device`` (None: the card). Returns
+    ``(final_state, snapshots)`` (snapshots of h)."""
+    res = Simulation("swe2d", cfg, prec, device=device).run(steps, snapshot_every=snapshot_every, state0=U0)
+    return res.state, res.snapshots

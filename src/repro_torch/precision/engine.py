@@ -20,7 +20,21 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["PrecisionEngine", "bf16_round", "bf16_pair", "tile_shape_for", "ste"]
+__all__ = ["PrecisionEngine", "native_bf16", "bf16_round", "bf16_pair", "tile_shape_for", "ste"]
+
+
+def native_bf16() -> bool:
+    """Whether a contraction keeps its bf16-rounded operands in bf16.
+
+    False on every device the port runs on, the H100 included: the engines
+    round each operand to bf16 and contract the rounded values as f32
+    (:func:`bf16_pair`). A bf16 x bf16 product is exact in f32, so the
+    products equal a bf16 tensor-core contraction's, and the sums stay f32
+    in a fixed order; a bf16 matmul of cuBLAS would choose its own
+    accumulation order and split-K and give other sums. The reference
+    keeps bf16 operands only on the TPU's MXU.
+    """
+    return False
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -30,8 +44,8 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 def bf16_pair(a, b):
     """Both operands rounded to bf16 and cast back to f32, as the reference
-    runs a bf16 contraction off the TPU (its ``native_bf16()`` is False
-    there): the products and sums stay f32."""
+    runs a bf16 contraction off the TPU and the port everywhere
+    (:func:`native_bf16`): the products and sums stay f32."""
     return bf16_round(a), bf16_round(b)
 
 

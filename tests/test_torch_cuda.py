@@ -3,8 +3,10 @@ the default device, execution="auto" on the megakernel (K4 for heat1d and
 swe2d, K5 for heat2d, advection1d and burgers1d), the contraction path
 through K6 and K7, K7's split launches against unsplit ones, K3's and
 heat2d's (K5a, K5d) thread-block clusters against the plain version, the
-card against repro through the port's CPU run under flush, and auto where
-a kernel cannot hold the field or a stepper has none. These tests skip
+card against repro through the port's CPU run under flush, auto where a
+kernel cannot hold the field or a stepper has none, and packed storage
+(kernel K1's harness, every storage-carrying launch shape, every stepper's
+packed and quantized runs, auto beyond heat2d's cluster). These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -600,3 +602,71 @@ def test_heat2d_cluster_matches_plain(shape, cluster):
     errs, records = chip_smoke.check_k5("cuda", cases)
     assert len(records) == 12 and all(r["ok"] for r in records)
     assert errs["heat2d_sweep"] == 0.0 and errs["heat2d_mega"] == 0.0
+
+
+@pytest.mark.cuda
+def test_storage_k1_harness_matches_plain():
+    """Kernel K1's harness (pack at every split, picked splits, unpack of
+    every payload pattern) against the plain pack/unpack on the CPU under
+    flush, for every preset's format, the fixed baselines' and a 19-bit one."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    lines, err = chip_smoke.check_storage_k1("cuda")
+    assert len(lines) == len(chip_smoke.STORAGE_FMTS) and err == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["heat1d", "advection1d", "burgers1d", "heat2d", "swe2d"])
+def test_storage_kernels_match_plain(family):
+    """Every storage-carrying launch shape (the rod's warp shape, a forced
+    one-CTA grid and the grid; heat2d's cluster and a forced grid; K4
+    swe2d's bands and a forced grid of 8 CTAs) with packed leaves, packed
+    from f32 (the host-pack shape) and quantized, against the plain version
+    on the CPU under flush: payloads and splits, snapshots, evidence and
+    trackers bit for bit."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.storage_cases("cuda") if c[0].startswith(family)]
+    errs, records = chip_smoke.check_storage("cuda", cases)
+    assert records and all(r["ok"] for r in records) and max(errs.values()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_card_storage_equals_the_cpu_under_flush(name):
+    """Each builtin stepper on the fused and megakernel planes, packed and
+    quantized, r2f2_16 and rr_tracked, equals the port's run on the CPU
+    under flush bit for bit (payload and splits, snapshots, tracker)."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert len(chip_smoke.check_card_vs_cpu_storage("cuda", (name,))) == 8
+
+
+@pytest.mark.cuda
+def test_auto_packed_beyond_the_heat2d_cluster():
+    """heat2d at 400x400, beyond its cluster, with packed storage through
+    auto: one launch of K5d's packed variant on the rod's grid, equal to the
+    CPU run under flush."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.mega import HEAT2D_MEGA
+    from repro_torch.pack import PackedArray
+    from repro_torch.pde import Heat2DConfig, Simulation
+
+    cfg = Heat2DConfig(nx=400, ny=400)
+    state0 = Simulation("heat2d", cfg, PRESETS["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    kw = dict(snapshot_every=5, execution="auto", state0=state0, storage="packed")
+    packed, launches = HEAT2D_MEGA.storage["packed"], HEAT2D_MEGA.launches
+    got = Simulation("heat2d", cfg, PRESETS["r2f2_16"]).run(12, **kw)
+    assert (HEAT2D_MEGA.storage["packed"] - packed, HEAT2D_MEGA.launches - launches) == (1, 1)
+    want = _on_cpu_flushed(lambda: Simulation("heat2d", cfg, PRESETS["r2f2_16"], device="cpu").run(12, **kw))
+    assert isinstance(got.state, PackedArray) and got.state.payload.is_cuda
+    assert torch.equal(got.state.payload.cpu().to(torch.int64), want.state.payload.to(torch.int64))
+    assert torch.equal(got.state.k.cpu(), want.state.k)
+    assert torch.equal(_bits(got.snapshots.cpu()), _bits(want.snapshots))

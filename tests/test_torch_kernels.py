@@ -198,10 +198,24 @@ def test_swe_flux_legacy_wrapper():
 
 
 def test_fused_sweep_refusals():
+    """The reference's refusals: packed storage takes PackedArray leaves of
+    the policy's format, one storage block per leaf covering the sweep's
+    block; capture is a later slice."""
+    from repro_torch.core.flexformat import FlexFormat
+    from repro_torch.pack import pack_array
+
     tp = tpol.PRESETS["r2f2_16"]
     u = t(heat_input(2, 16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(TypeError, match="PackedArray leaves"):
         theat.heat1d_sweep(u, alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed")
+    with pytest.raises(ValueError, match="unknown fused storage"):
+        theat.heat1d_sweep(u, alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="quantized")
+    with pytest.raises(ValueError, match="whole field"):
+        theat.heat1d_sweep(pack_array(u, tp.fmt), alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed", block_rows=1)
+    with pytest.raises(ValueError, match="disagrees with the policy format"):
+        theat.heat1d_sweep(pack_array(u, FlexFormat(3, 8, 4)), alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed")
+    with pytest.raises(ValueError, match="single-block"):
+        theat.heat1d_sweep(pack_array(u, tp.fmt, block=(1, 16)), alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         theat.heat1d_sweep(u, alpha=ALPHA, dtodx2=DTODX2, prec=tp, capture=True)
     with pytest.raises(ValueError):

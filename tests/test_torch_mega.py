@@ -264,3 +264,36 @@ def test_resumed_reference_tracker_runs_on_the_megakernel(state0s):
         execution="megakernel",
     )
     assert_run_equal(jres, tres)
+
+
+def test_storage_host_pack_and_refusals(state0s):
+    """K4 swe2d's host-pack shape against repro's swe2d_mega: f32 leaves
+    under "packed" come back packed at the kernel's carried split kst (the
+    boundary's and the remainder's rounding), "quantized" f32 at the same
+    values; the megakernel refuses what the reference refuses."""
+    from repro.kernels.mega import swe2d_mega as j_swe2d_mega
+    from repro_torch.pack import pack_array, unpack_state
+
+    jc, tc = SMALL["swe2d"]
+    jp, tp = preset(jpol.PRESETS, "r2f2_16"), preset(tpol.PRESETS, "r2f2_16")
+    sites, ops = SITES["swe2d"], ("mul", "mul", "mul", "div")
+    U0 = state0s["swe2d"]
+    kw = dict(steps=STEPS, every=EVERY, sites=sites, site_ops=ops)
+    want = j_swe2d_mega(U0, cfg=jc, prec=jp, interpret=True, storage="packed", **kw)
+    got = tmega.swe2d_mega(state_from_numpy(U0), cfg=tc, prec=tp, storage="packed", **kw)
+    np.testing.assert_array_equal(np.asarray(want.state.payload), got.state.payload.numpy())
+    np.testing.assert_array_equal(np.asarray(want.state.k), got.state.k.numpy())
+    assert (got.state.shape, got.state.block) == (want.state.shape, want.state.block)
+    np.testing.assert_array_equal(raw(want.snaps), raw(got.snaps))
+    quant = tmega.swe2d_mega(state_from_numpy(U0), cfg=tc, prec=tp, storage="quantized", **kw)
+    np.testing.assert_array_equal(raw(unpack_state(got.state)), raw(quant.state))
+    assert int(quant.kst[0]) == int(np.asarray(want.state.k).reshape(-1)[0])
+    u = torch.ones(1, 16)
+    packed = pack_array(u, tp.fmt)
+    body = tmega._heat1d_body(1.0, 0.1, SITES["heat1d"])
+    with pytest.raises(ValueError, match="require storage='packed'"):
+        tmega.mega_sweep(body, (packed,), prec=tp, sites=SITES["heat1d"], steps=2, every=1, storage="quantized")
+    with pytest.raises(TypeError, match="mixed"):
+        tmega.mega_sweep(body, (packed, u), prec=tp, sites=SITES["heat1d"], steps=2, every=1, storage="packed")
+    with pytest.raises(ValueError, match="unknown mega storage"):
+        tmega.mega_sweep(body, (u,), prec=tp, sites=SITES["heat1d"], steps=2, every=1, storage="bf16")

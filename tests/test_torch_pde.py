@@ -1,6 +1,7 @@
 """The slice end to end: repro_torch.pde.Simulation against repro.pde.Simulation
 for heat1d and swe2d, six modes, reference and fused planes (the megakernel
-plane is held in test_torch_mega.py).
+plane is held in test_torch_mega.py), and every builtin stepper with packed
+and quantized storage on all three planes against repro's packed runs.
 
 Both packages start from repro's initial state (the libraries' linspace/
 sin/exp differ in the last ulp). States, snapshots and every tracker field
@@ -219,13 +220,18 @@ def test_snapshot_cadence_and_remainder():
 
 
 def test_out_of_slice_paths_raise_with_roadmap_items():
+    """Capture, policies and ensembles raise with their ROADMAP items;
+    storage, ported since, runs on every plane and refuses what the
+    reference refuses."""
+    from repro_torch.pack import PackedArray
+
     sim = Simulation("heat1d", HeatConfig(nx=16), tpol.PRESETS["r2f2_16"], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        sim.run(2, execution="megakernel", storage="packed")
+    assert isinstance(sim.run(2, execution="megakernel", storage="packed").state, PackedArray)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         sim.run(2, execution="megakernel", capture=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        sim.run(2, storage="packed")
+    assert isinstance(sim.run(2, storage="packed").state, PackedArray)
+    with pytest.raises(ValueError, match="unknown storage mode"):
+        sim.run(2, storage="bf16")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         sim.run(2, capture=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
@@ -236,8 +242,7 @@ def test_out_of_slice_paths_raise_with_roadmap_items():
         assert get_stepper(name).name == name  # ported: queue 1 item 8 landed
         small = Simulation(name, None, tpol.PRESETS["r2f2_16"], device="cpu")
         for execution in ("reference", "fused", "megakernel"):
-            with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-                small.run(2, execution=execution, storage="packed")
+            assert isinstance(small.run(2, execution=execution, storage="packed").state, PackedArray)
             with pytest.raises(NotImplementedError, match="queue 1 item 7"):
                 small.run(2, execution=execution, capture=True)
     with pytest.raises(KeyError):
@@ -269,3 +274,95 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# ---------------------------------------------------------------------------
+# carried storage: packed and quantized on every plane, every builtin stepper
+# ---------------------------------------------------------------------------
+
+#: the five builtin steppers at small sizes, 16 steps with a snapshot every 6
+#: (two boundaries and a 4-step remainder)
+STORAGE_CFGS = {
+    "heat1d": ({"nx": 64}, {"nx": 64}), "swe2d": ({"nx": 24, "ny": 24}, {"nx": 24, "ny": 24}),
+    "heat2d": ({"nx": 16, "ny": 12}, {"nx": 16, "ny": 12}), "advection1d": ({"nx": 96}, {"nx": 96}),
+    "burgers1d": ({"nx": 96}, {"nx": 96}),
+}
+STORAGE_STEPS, STORAGE_EVERY = 16, 6
+#: (stepper, mode, repro's plane): r2f2_16 on repro's reference plane (its
+#: planes agree bit for bit); rr_tracked on repro's fused plane (the
+#: megakernel's, which latches the floor per chunk) and, for heat1d, also on
+#: its reference plane
+STORAGE_RUNS = [(name, "r2f2_16", "reference") for name in STORAGE_CFGS] + [
+    ("heat1d", "rr_tracked", "reference"), ("heat1d", "rr_tracked", "fused"), ("swe2d", "rr_tracked", "fused"),
+]
+
+
+#: the port's planes held to each of repro's (see STORAGE_RUNS)
+STORAGE_CASES = [
+    (run, execution)
+    for run in STORAGE_RUNS
+    for execution in (("reference", "fused", "megakernel") if run[1] == "r2f2_16" else
+                      ("reference",) if run[2] == "reference" else ("fused", "megakernel"))
+]
+CONFIG_CLASS = {"heat1d": "HeatConfig", "swe2d": "SWEConfig", "heat2d": "Heat2DConfig", "advection1d": "AdvectionConfig",
+                "burgers1d": "BurgersConfig"}
+
+
+def _storage_cfgs(name):
+    import importlib
+
+    jcls = getattr(importlib.import_module(f"repro.pde.{name}"), CONFIG_CLASS[name])
+    tcls = getattr(importlib.import_module(f"repro_torch.pde.{name}"), CONFIG_CLASS[name])
+    jkw, tkw = STORAGE_CFGS[name]
+    return jcls(**jkw), tcls(**tkw)
+
+
+@pytest.fixture(scope="module")
+def storage_reference():
+    """repro's packed runs of :data:`STORAGE_RUNS` (its packed run equals its
+    quantized run, tests/test_pack.py), from repro's initial states."""
+    out = {}
+    for name, mode, plane in STORAGE_RUNS:
+        jc, _ = _storage_cfgs(name)
+        jsim = JSim(name, jc, preset(jpol.PRESETS, mode))
+        s0 = np.asarray(jsim.stepper.init_state(jc))
+        out[name, mode, plane] = (s0, jsim.run(STORAGE_STEPS, snapshot_every=STORAGE_EVERY, state0=s0, execution=plane,
+                                               storage="packed"))
+    return out
+
+
+def _payload_canon(payload, k, total_bits, values):
+    p = np.asarray(payload).astype(np.int64)
+    v = np.asarray(values, np.float32).reshape(p.shape)
+    return np.where(np.isnan(v), p & ~(1 << (total_bits - 1)), p), np.asarray(k)
+
+
+@pytest.mark.parametrize("run,execution", STORAGE_CASES, ids=["-".join(r) + f"-{e}" for r, e in STORAGE_CASES])
+def test_storage_bit_exact(run, execution, storage_reference):
+    """The port's packed and quantized runs on a plane against repro's
+    packed run: the final state unpacked, the payload (NaN signs cleared)
+    and splits, snapshots and every tracker field; packed = quantized."""
+    from repro.pack import unpack_array as j_unpack
+    from repro_torch.pack import PackedArray, unpack_state
+
+    name, mode, _ = run
+    _, tc = _storage_cfgs(name)
+    s0, jres = storage_reference[run]
+    jstate = np.asarray(j_unpack(jres.state))
+    runs = {}
+    for storage in ("packed", "quantized"):
+        runs[storage] = Simulation(name, tc, preset(tpol.PRESETS, mode), device="cpu").run(
+            STORAGE_STEPS, snapshot_every=STORAGE_EVERY, state0=state_from_numpy(s0), execution=execution, storage=storage
+        )
+    packed, quantized = runs["packed"], runs["quantized"]
+    assert isinstance(packed.state, PackedArray) and packed.state.payload.dtype == torch.uint16
+    bits_total = packed.state.fmt.total_bits
+    want = _payload_canon(jres.state.payload, jres.state.k, bits_total, jstate)
+    got = _payload_canon(packed.state.payload.numpy(), packed.state.k.numpy(), bits_total, jstate)
+    np.testing.assert_array_equal(want[0], got[0])
+    np.testing.assert_array_equal(want[1], got[1])
+    assert (packed.state.shape, packed.state.block, packed.state.nbytes) == (jres.state.shape, jres.state.block, jres.state.nbytes)
+    for res in (packed, quantized):
+        state = unpack_state(res.state)
+        assert_run_equal(jres._replace(state=jstate), res._replace(state=state), nan_canonical=True)
+    np.testing.assert_array_equal(canon(unpack_state(packed.state).numpy()), canon(quantized.state.numpy()))

@@ -350,16 +350,18 @@ def test_heat1d_plan_refuses_nothing_from_three_cells():
 @pytest.mark.parametrize("rows,nx,br", [(1, 30_000, 1), (1, 10**6, 1), (12, 4096, 3)])
 def test_heat1d_grid_scratch_does_not_grow_with_the_horizon(rows, nx, br):
     """The grid shape's scratch is the same for any number of substeps: two
-    field buffers of the field's size, a ring of two substeps' lap and flux
-    maxima a block and one barrier counter a block, both zeroed. The counter
-    is 64-bit: three barriers a substep over 132 CTAs would wrap 32 bits
-    after about 11 million substeps, and a wrapped target lets CTAs past
-    the barrier early."""
-    work, maxes, count = grid_scratch(rows, nx, br, "cpu")
+    field buffers of the field's size (a third one to decode a packed input
+    into), a ring of two substeps' lap and flux maxima a block and the two
+    storage maxima' slots, and one barrier counter a block, both zeroed.
+    The counter is 64-bit: three barriers a substep over 132 CTAs would wrap
+    32 bits after about 11 million substeps, and a wrapped target lets CTAs
+    past the barrier early."""
     blocks = rows // br
-    assert work.dtype == torch.float32 and work.numel() == 2 * rows * nx
-    assert maxes.dtype == torch.int32 and maxes.numel() == 4 * blocks and not maxes.any()
-    assert count.dtype == torch.int64 and count.numel() == blocks and not count.any()
+    for staged in (False, True):
+        work, maxes, count = grid_scratch(rows, nx, br, "cpu", staged=staged)
+        assert work.dtype == torch.float32 and work.numel() == (3 if staged else 2) * rows * nx
+        assert maxes.dtype == torch.int32 and maxes.numel() == 4 * blocks + 2 and not maxes.any()
+        assert count.dtype == torch.int64 and count.numel() == blocks and not count.any()
 
 
 # ---------------------------------------------------------------------------
@@ -536,8 +538,9 @@ def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
     """The grid's scratch is the same for any number of substeps: Ux in a
     ring of two substeps, the band arrays in device memory only where they
     do not fit shared memory, each CTA's maxima at a substep's two grid
-    barriers, and one 64-bit barrier counter (zeroed): two grid barriers a
-    substep would wrap 32 bits after about 16 million substeps on 132 CTAs."""
+    barriers and at the storage rounding's, and one 64-bit barrier counter
+    (zeroed): two grid barriers a substep would wrap 32 bits after about 16
+    million substeps on 132 CTAs."""
     plan = swe2d_plan(nx, ny)
     ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, "cpu")
     assert ux.dtype == torch.float32 and ux.numel() == 2 * 3 * (nx - 1) * ny
@@ -545,7 +548,7 @@ def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
         assert bands is None
     else:
         assert bands.dtype == torch.float32 and bands.numel() == plan.ctas * swe2d_band_floats(plan.rows, ny)
-    assert words.dtype == torch.int32 and words.numel() == 2 * plan.ctas
+    assert words.dtype == torch.int32 and words.numel() == 3 * plan.ctas
     assert count.dtype == torch.int64 and count.numel() == 1 and not count.any()
 
 
