@@ -43,7 +43,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    storage-carrying kernel shape (:func:`storage_cases`: the rod's warp and
    grid shapes, heat2d's cluster and a forced grid, K4 swe2d's bands and a
    forced grid) with packed leaves, packed from f32 and quantized, payloads
-   and splits bit for bit;
+   and splits bit for bit; range capture (:func:`capture_cases`): every
+   capturing kernel's counts exactly (a megakernel's per interval and in
+   total) and its evidence, state and tracker bit for bit against the plain
+   version on the CPU under flush, on every launch shape class (the rod's
+   warp and grid shapes, K3 on one tile, 8 tiles, an unaligned and padded
+   tiles, heat2d's cluster and the rod's grid, K4 swe2d's bands, a forced
+   grid and one CTA);
 3. the paper's experiment on the fused plane, then on the megakernel plane
    and through ``execution="auto"``: heat1d (nx=128, 4000 steps), swe2d
    (128x128, 400 steps), heat2d (64x64, 1500 steps), advection1d (nx=256,
@@ -57,13 +63,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    both planes, r2f2_16 and rr_tracked; counters zeroed before): the
    verdicts, ``state_nbytes`` beside the f32 run's, packed = quantized and
    megakernel = fused = auto bit for bit, each packed launch counted;
+   then the profile path (:func:`run_profile_path`): ``capture_profile`` in
+   f32 of the five configurations uncut on the fused and megakernel planes
+   (counts zeroed before: every capturing kernel launched with capture; the
+   two planes' profiles equal), and for heat1d and swe2d ``tune_policy`` on
+   each plane to an accepted policy and the pinned deploy run at its
+   splits, ``CORRECT``;
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons; then the card against ``repro``: every builtin stepper on
    every plane in the six modes at a small size (:func:`link_configs`),
    bit for bit against the port's plain run on the CPU under flush, which
-   the CPU tests hold equal to ``repro``, and each stepper on both kernel
-   planes with packed and quantized storage in r2f2_16 and rr_tracked;
+   the CPU tests hold equal to ``repro``, in r2f2_16 and rr_tracked also
+   with capture (the profile's evidence bit for bit, its counts exactly),
+   and each stepper on both kernel planes with packed and quantized
+   storage in r2f2_16 and rr_tracked; these checks run in worker
+   processes that share the card (:func:`run_checks_in_workers`);
 5. kernel times (CUDA events; for K2 and K3, whose launches take
    microseconds, a replayed CUDA graph of their calls) beside their bounds
    and the plain versions; K2 and K4 heat1d by rod size
@@ -77,7 +92,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    floor, also by CUDA events); the storage variants of K2, K4 and K5 in
    f32, packed and quantized by replayed CUDA graphs at the main shapes
    (:func:`time_storage`), with the packed variants and K1 in the kernels
-   line;
+   line; every capturing kernel with capture off and on by replayed CUDA
+   graphs at the main shapes (:func:`time_capture`), the capture variants
+   in the kernels line;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
    to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
@@ -115,10 +132,13 @@ to ``chiprun_out/chip_smoke.json``. It imports nothing of JAX or ``repro``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -1160,6 +1180,158 @@ def check_storage(device, cases=None):
     return errs, records
 
 
+# ---------------------------------------------------------------------------
+# phase 2: range capture (the exponent histograms of the rod, K3, heat2d's
+# cluster and K4 swe2d)
+# ---------------------------------------------------------------------------
+
+#: the capture runs phase 2 holds the capturing kernels at: (substeps of a
+#: fused sweep, (substeps, every) of a megakernel with a remainder); swe2d's
+#: megakernel, whose plain version takes ~0.1 s a substep on the CPU, shorter
+CAPTURE_CHECK_STEPS = (30, (35, 15))
+SWE_CAPTURE_CHECK_STEPS = (12, 5)
+#: the modes: the f32 family's folded update (flux computed for the bins), the
+#: bf16 and rr families' roundings after the bins, and an evolving tracker
+CAPTURE_PRECS = ("f32", "bf16", "r2f2_16", "rr_tracked")
+#: the modes of the other launch shapes
+CAPTURE_SHAPE_PRECS = ("f32", "r2f2_16")
+
+
+def capture_cases(device):
+    """(kernel, label, input, kwargs) on every capturing launch shape class:
+    the rod's warp shape (heat1d one row and eight rows a block, K5b/c/e/f
+    at 256 cells) and grid shape (heat1d on a forced one-CTA grid and at
+    4096 cells, the periodic rods at 2049 cells, heat2d on a forced grid at
+    64x64); K3 on one tile (127,128), on 8 tiles ((255,256) in (64,128)),
+    on an unaligned tile (61,30) and on padded tiles ((139,32) under the
+    default block, (100,96) in (64,64)); heat2d's cluster (64x64, C=16); K4
+    swe2d on its bands (128x128), a forced grid of 8 CTAs and one CTA."""
+    import torch
+
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.kernels.mega import swe2d_plan
+    from repro_torch.pde import Heat2DConfig, get_stepper
+    from repro_torch.pde.swe2d import initial_state
+
+    L = ladder()
+    sweep_steps, (mega_steps, every) = CAPTURE_CHECK_STEPS
+    cases = []
+
+    def add(kern, where, x, base, n_sites, precs, sweep=True, depth=(mega_steps, every)):
+        for name in precs:
+            prec = L[name]
+            trk = tracker_init(n_sites, prec.fmt, device=device) if name == "rr_tracked" else None
+            if sweep:
+                kw = dict(base, prec=prec, steps=sweep_steps)
+                if name == "rr_tracked":
+                    kw["k_floor"] = torch.tensor([2, 1], dtype=torch.int32, device=device)
+                cases.append((f"{kern}_sweep", f"{name} {where}", x, kw))
+            cases.append((f"{kern}_mega", f"{name} {where}", x, dict(base, prec=prec, steps=depth[0], every=depth[1], tracker=trk)))
+
+    heat_sites = ("heat.flux", "heat.update")
+    for nx, force, precs in ((128, None, CAPTURE_PRECS), (128, "grid", CAPTURE_SHAPE_PRECS), (4096, None, CAPTURE_SHAPE_PRECS)):
+        plan = None if force is None else grid_on_one_cta(1, nx)
+        extra = {} if plan is None else dict(_plan=plan)
+        add("heat1d", f"({nx},) {heat1d_launch_shape(1, nx, plan)}", rod(nx, device)[0],
+            dict(heat_args(nx), sites=heat_sites, **extra), 2, precs)
+    rows8 = torch.cat([rod(128, device)] * 8) * torch.arange(1, 9, device=device)[:, None]
+    for name in CAPTURE_SHAPE_PRECS:
+        cases.append(("heat1d_sweep", f"{name} (8,128) block_rows=8 {heat1d_launch_shape(8, 128)}", rows8,
+                      dict(heat_args(128), sites=heat_sites, prec=L[name], steps=sweep_steps, block_rows=8)))
+    for case in ("advection1d", "burgers1d"):
+        stepper = get_stepper(case)
+        for nx, force in ((256, None), (2049, None)):
+            cfg = dataclasses.replace(workload_config(case)[0], nx=nx)
+            u = stepper.init_state(cfg, device="cpu").to(device)
+            args = dict(speed=cfg.speed, dtodx=cfg.dtodx) if case == "advection1d" else dict(dt=cfg.dt, dx=cfg.dx)
+            add(case, f"({nx},) {k5_launch_shape(1, nx, body=case)}", u, dict(args, sites=stepper.sites), 2,
+                CAPTURE_PRECS if nx == 256 else CAPTURE_SHAPE_PRECS)
+    stepper = get_stepper("heat2d")
+    cfg = Heat2DConfig(nx=64, ny=64)
+    u = stepper.init_state(cfg, device="cpu").to(device)
+    for force, precs in ((None, CAPTURE_PRECS), ("grid", CAPTURE_SHAPE_PRECS)):
+        plan = forced_plan(64 * 64, force)
+        extra = {} if plan is None else dict(_plan=plan)
+        add("heat2d", f"(64,64) {k5_launch_shape(64, 64, plan=plan)}", u,
+            dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, sites=stepper.sites, **extra), 2, precs)
+    # K3: swe_cases' fields (one tile, 8 tiles, unaligned, padded) and swe2d 140x32's padded tile
+    g = torch.Generator().manual_seed(1)
+    q3 = (500.0 + 100.0 * torch.rand(255, 256, generator=g)).to(device)
+    q1 = (40.0 * torch.randn(255, 256, generator=g)).to(device)
+    k3 = [("(127,128) one tile", q1[:127, :128], q3[:127, :128], {}),
+          ("(255,256) block (64,128), 8 tiles", q1, q3, dict(block=(64, 128))),
+          ("(61,30) unaligned", q1[:61, :30], q3[:61, :30], {}),
+          ("(139,32) padded rows", q1[:139, :32], q3[:139, :32], {}),
+          ("(100,96) block (64,64) padded", q1[:100, :96], q3[:100, :96], dict(block=(64, 64)))]
+    for label, a, b, extra in k3:
+        for name in CAPTURE_PRECS:
+            kw = dict(extra, prec=L[name])
+            if name == "rr_tracked":
+                kw["k_floor"] = torch.tensor([3, 2, 1, 3], dtype=torch.int32, device=device)
+            cases.append(("swe_flux_fused", f"{name} {label} {k3_launch_shape(a, kw)}", (a, b), kw))
+    scfg = swe_cfg.CONFIG
+    U = initial_state(scfg, device="cpu").to(device)
+    swe = get_stepper("swe2d")
+    for plan, precs in ((None, ("f32", "r2f2_16", "rr_tracked")), (swe2d_plan(scfg.nx, scfg.ny, ctas=8), ("r2f2_16",)),
+                        (swe2d_plan(scfg.nx, scfg.ny, ctas=1), ("r2f2_16",))):
+        extra = {} if plan is None else dict(_plan=plan)
+        add("swe2d", f"(3,128,128) {swe2d_launch_shape(scfg.nx, scfg.ny, plan)}", U,
+            dict(cfg=scfg, sites=swe.sites, site_ops=swe.site_ops, **extra), 4, precs, sweep=False,
+            depth=SWE_CAPTURE_CHECK_STEPS)
+    return cases
+
+
+def check_capture(device, cases=None):
+    """Every capture case (:func:`capture_cases` unless ``cases`` are given)
+    against its plain version on the CPU under flush, the default
+    CaptureSpec: the counts exactly (a sweep's, a megakernel's ``exp_time``
+    and ``exp_total``), the evidence, the state, the snapshots and every
+    tracker field bit for bit. Returns per-kernel max abs errors of the
+    state and the records."""
+    import torch
+
+    from repro_torch.kernels import heat_stencil, mega, pde_steps, swe_flux
+    from repro_torch.profile import CaptureSpec
+
+    spec = CaptureSpec()
+    entries = {
+        "heat1d_sweep": (heat_stencil.heat1d_sweep, heat_stencil.heat1d_sweep_plain),
+        "swe_flux_fused": (swe_flux.swe_flux_fused, swe_flux.swe_flux_fused_plain),
+        "heat1d_mega": (mega.heat1d_mega, None), "swe2d_mega": (mega.swe2d_mega, None),
+    }
+    for case in K5_CASES:
+        entries[f"{case}_sweep"] = (getattr(pde_steps, f"{case}_sweep"), getattr(pde_steps, f"{case}_sweep_plain"))
+        entries[f"{case}_mega"] = (getattr(mega, f"{case}_mega"), None)
+    records, errs = [], {}
+    for kern, label, x, kw in cases if cases is not None else capture_cases(device):
+        fn, plain = entries[kern]
+        args = x if isinstance(x, tuple) else (x[None] if kern == "heat1d_sweep" and x.dim() == 1 else x,)
+        kw = dict(kw, capture=spec)
+        plain_kw = {k: v for k, v in kw.items() if k not in ("_cluster", "_plan")}
+        if plain is not None:
+            got, ev, counts = fn(*args, **kw)
+            want, ev_want, counts_want = plain_on_cpu(plain, *args, **plain_kw)
+            ok = same_bits(got, want) and same_bits(ev, ev_want) and torch.equal(counts, counts_want)
+            n, err, trk = int(counts.sum()), max_abs_err(got, want), ""
+        else:
+            got, want = fn(*args, **kw), plain_on_cpu(fn, *args, plain=True, **plain_kw)
+            ok = same_bits(got.state, want.state) and same_bits(got.snaps, want.snaps) and same_bits(got.evidence, want.evidence)
+            ok = ok and torch.equal(got.exp_time, want.exp_time) and torch.equal(got.exp_total, want.exp_total)
+            if want.tracker is not None:
+                ok = ok and all(same_bits(a.float(), b.float()) for a, b in zip(got.tracker, want.tracker))
+            n, err = int(got.exp_total.sum()), max(max_abs_err(got.state, want.state), max_abs_err(got.snaps, want.snaps))
+            trk = f" intervals={got.exp_time.shape[0]}"
+        errs[kern] = max(errs.get(kern, 0.0), err)
+        every = f" every={kw['every']}" if "every" in kw else ""
+        steps = f" steps={kw['steps']}" if "steps" in kw else ""
+        log(f"capture {kern} {label}{steps}{every}: {'exact' if ok else 'MISMATCH'} ({n} operands counted){trk}")
+        records.append(dict(kernel=kern, case=label, ok=ok, counted=n, max_abs_err=err))
+        require(ok, f"{kern}'s capture disagrees with its plain version: {label}")
+        require(n > 0, f"{kern}'s capture counted nothing: {label}")
+    return errs, records
+
+
 #: the flexible formats of tests/test_kernels.py, as (eb, mb, fx)
 K6_FMTS = ((3, 9, 3), (3, 8, 4), (3, 7, 3), (5, 10, 0))
 #: llama4-scout at its published widths: d_model, the expert and shared-expert
@@ -1728,9 +1900,9 @@ def bench_rows():
 
 
 #: 60-step rows whose rel-L2 sits at a rounding edge of the 4th decimal: the
-#: port starts from its own initial state, which differs from repro's in the
-#: last ulps (ROADMAP queue 3), and heat2d rr_tracked gives rel 4.988e-05 from
-#: the port's state, 5.037e-05 from repro's (on the CPU, both planes), printed
+#: port starts from its own initial state, which differs from the reference's
+#: in the last ulps (ROADMAP queue 3), and heat2d rr_tracked gives rel 4.988e-05
+#: from the port's state, 5.037e-05 from the reference's (on the CPU, both planes), printed
 #: 0.0000 against BENCH_pde.json's 0.0001
 REL_EDGE_ROWS = {("heat2d", "rr_tracked")}
 
@@ -1766,17 +1938,17 @@ def check_bench(rows):
 SIX = ("f32", "bf16", "e5m10", "r2f2_16", "deploy", "rr_tracked")
 
 
-def check_planes(device, steps_by_case):
-    """The fused plane against the reference plane, six modes: state,
-    snapshots and tracker bit-identical (rr_tracked, whose fused plane
-    latches its floor per chunk: the same final k)."""
+def check_planes(device, steps_by_case, modes=SIX):
+    """The fused plane against the reference plane in ``modes`` (the six by
+    default): state, snapshots and tracker bit-identical (rr_tracked, whose
+    fused plane latches its floor per chunk: the same final k)."""
     from repro_torch.pde import Simulation
 
     L = ladder()
     out = []
     for case, steps in steps_by_case.items():
         cfg = workload_config(case)[0]
-        for name in SIX:
+        for name in modes:
             ref = Simulation(case, cfg, L[name], device=device).run(steps)
             fus = Simulation(case, cfg, L[name], device=device).run(steps, execution="fused")
             if name == "rr_tracked":
@@ -1834,40 +2006,66 @@ def link_configs():
     }
 
 
-def check_card_vs_cpu(device, cases=None):
+#: the modes in which the link also runs with capture
+LINK_CAPTURE_MODES = ("r2f2_16", "rr_tracked")
+
+
+def check_card_vs_cpu(device, cases=None, modes=SIX):
     """The card against repro: each stepper of ``cases`` (default: those of
     :func:`link_configs`) on the reference, fused and megakernel planes in
-    the six modes, state, snapshots and every tracker field bit for bit
-    (NaNs canonical) against the same run of the port on the CPU under
-    flush (the plain versions, which the CPU tests hold equal to repro),
-    from the same initial state. The same CPU run keeping subnormals is
-    counted too: where it differs, the flush is what the check saw."""
+    ``modes`` (the six by default), state, snapshots and every tracker field
+    bit for bit (NaNs canonical) against the same run of the port on the
+    CPU under flush (the plain versions, which the CPU tests hold equal to
+    repro), from the same initial state. The same CPU run keeping
+    subnormals is counted too: where it differs, the flush is what the check
+    saw. In :data:`LINK_CAPTURE_MODES` the CPU run captures (capture changes
+    no bit of a run, as the CPU tests hold) and the card runs once more with
+    capture: its state, snapshots and tracker bit for bit, and its profile's
+    evidence bit for bit and counts exactly, against that CPU run. Returns
+    the lines and the count of runs whose CPU run keeping subnormals
+    differs."""
+    import torch
+
     from repro_torch.pde import Simulation
+
+    def same_run(card, cpu):
+        ok = same_bits(card.state.cpu(), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
+        if cpu.tracker is not None:
+            ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in zip(card.tracker.state, cpu.tracker.state))
+        return ok
 
     L, cfgs = ladder(), link_configs()
     out, kept_differs = [], 0
     for case in cases or cfgs:
         cfg = cfgs[case]
         state0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
-        for name in SIX:
+        for name in modes:
+            capture = name in LINK_CAPTURE_MODES
             for execution in ("reference", "fused", "megakernel"):
                 kw = dict(snapshot_every=LINK_EVERY, state0=state0, execution=execution)
                 card = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, **kw)
                 with cpu_flushed():
-                    cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
+                    cpu = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, capture=capture, **kw)
                 kept = Simulation(case, cfg, L[name], device="cpu").run(LINK_STEPS, **kw)
-                ok = same_bits(card.state.cpu(), cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
-                if cpu.tracker is not None:
-                    pairs = zip(card.tracker.state, cpu.tracker.state)
-                    ok = ok and all(same_bits(a.float().cpu(), b.float()) for a, b in pairs)
+                ok = same_run(card, cpu)
                 differs = not same_bits(kept.state, cpu.state)
                 kept_differs += differs
-                line = (f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps: state, snapshots"
-                        f"{', tracker' if cpu.tracker is not None else ''} bit-identical: {'ok' if ok else 'MISMATCH'}"
-                        f"{' (the CPU keeping subnormals differs)' if differs else ''}")
-                log(line)
-                out.append(line)
-                require(ok, line)
+                tracker = ", tracker" if cpu.tracker is not None else ""
+                lines = [(ok, f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps: state, snapshots"
+                              f"{tracker} bit-identical: {'ok' if ok else 'MISMATCH'}"
+                              f"{' (the CPU keeping subnormals differs)' if differs else ''}")]
+                if capture:
+                    cap = Simulation(case, cfg, L[name], device=device).run(LINK_STEPS, capture=True, **kw)
+                    cp, pp = cap.profile, cpu.profile
+                    ok = (same_run(cap, cpu) and same_bits(cp.evidence.cpu(), pp.evidence)
+                          and torch.equal(cp.exp_time.cpu(), pp.exp_time) and torch.equal(cp.exp_total.cpu(), pp.exp_total))
+                    lines.append((ok, f"card vs CPU under flush {case} {name} {execution} {LINK_STEPS} steps, capture: "
+                                      f"state, snapshots{tracker}, evidence and counts exact: {'ok' if ok else 'MISMATCH'} "
+                                      f"({int(pp.exp_total.sum())} counted, {int(pp.exp_total[..., 0].sum())} in the low edge bin)"))
+                for ok, line in lines:
+                    log(line)
+                    out.append(line)
+                    require(ok, line)
     return out, kept_differs
 
 
@@ -1900,6 +2098,174 @@ def check_card_vs_cpu_storage(device, cases=None):
                     out.append(line)
                     require(ok, line)
     return out
+
+#: the workloads phase 3's profile path tunes and deploys a policy for
+PROFILE_TUNED = ("heat1d", "swe2d")
+#: the capturing kernels of the profile path: each must launch with capture
+CAPTURE_KERNELS = ("heat1d_sweep", "swe_flux_fused", "heat1d_mega", "swe2d_mega", "heat2d_sweep", "heat2d_mega",
+                   "advection1d_sweep", "advection1d_mega", "burgers1d_sweep", "burgers1d_mega")
+
+
+def same_profile(a, b) -> bool:
+    """Two hosted RangeProfiles: evidence bits, and the counts exactly."""
+    import numpy as np
+
+    return (np.array_equal(a.evidence.view(np.uint32), b.evidence.view(np.uint32))
+            and np.array_equal(a.exp_time, b.exp_time) and np.array_equal(a.exp_total, b.exp_total))
+
+
+def run_profile_path(device, refs):
+    """The profile path at full width: ``capture_profile`` in f32 of every
+    workload at its main horizon on the fused and the megakernel plane,
+    counts zeroed right before and read right after (every capturing kernel
+    launched with capture, no plain version ran), the two planes' profiles
+    equal; then heat1d and swe2d on each plane through ``tune_policy``
+    (capture, synthesis, validation on that plane) to an accepted policy,
+    and the pinned deploy run under it: its splits are the synthesized k,
+    and its verdict against the f32 reference is the paper's (CORRECT).
+    Returns the rows and the capturing launches."""
+    import numpy as np
+
+    from repro_torch.core.policy import PrecisionConfig
+    from repro_torch.pde import Simulation
+    from repro_torch.profile import capture_profile, tune_policy
+
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    rows = []
+    for case, steps in MAIN_STEPS.items():
+        cfg = workload_config(case)[0]
+        prof = {ex: capture_profile(case, cfg, steps=steps, execution=ex, device=device)[0] for ex in ("fused", "megakernel")}
+        same = same_profile(prof["fused"], prof["megakernel"])
+        p = prof["megakernel"]
+        spans = {n: s["exp_span"] for n, s in p.report().sites.items()}
+        log(f"profile {case} f32 {steps} steps: fused and megakernel profiles {'equal' if same else 'DIFFER'}; "
+            f"{int(p.exp_total.sum())} operands counted over {p.exp_time.shape[0]} intervals; exponent spans {spans}")
+        require(same, f"{case}: the fused and megakernel planes captured different profiles")
+        require(p.exp_total.sum() > 0 and p.evidence.shape[0] == steps, f"{case}: an empty profile")
+        rows.append(dict(case=case, steps=steps, planes_equal=same, counted=int(p.exp_total.sum()), spans=spans))
+    captured = {k: c.captured for k, c in ctr.items()}
+    log(f"profile path capturing launches: { {k: v for k, v in captured.items() if v} }; plain-version calls: "
+        f"{sum(c.plain_calls for c in ctr.values())}")
+    require(all(captured[k] > 0 for k in CAPTURE_KERNELS), "a capturing kernel never launched with capture on the profile path")
+    require(sum(c.plain_calls for c in ctr.values()) == 0, "plain versions ran on the profile path")
+    for case in PROFILE_TUNED:
+        cfg, judge, offset = workload_config(case)
+        steps = MAIN_STEPS[case]
+        for execution in ("fused", "megakernel"):
+            _, _, policy = tune_policy(case, cfg, steps=steps, execution=execution, device=device)
+            stamp = policy.validation
+            deploy = PrecisionConfig(mode="deploy", fmt=policy.fmt, ema=policy.ema, headroom=policy.headroom, pinned=True)
+            sim = Simulation(case, cfg, deploy, device=device)
+            res = sim.run(steps, execution=execution, policy=policy)
+            splits = res.tracker.state.k.tolist()
+            want = policy.k_array(sim.stepper.sites).tolist()
+            out = np.asarray(sim.stepper.observables(res.state, cfg).cpu()) - offset
+            verdict = measure(out, refs[case, steps], judge)
+            line = (f"tune {case} {execution} {steps} steps: policy {policy.sites}; validation rr_tracked rel-L2 "
+                    f"{stamp['rel_l2_tracked']:.4e}, static {stamp['rel_l2_static']:.4e}, deploy {stamp['rel_l2_deploy']:.4e}: "
+                    f"{'ACCEPTED' if policy.accepted else 'REJECTED'}; deploy run at splits {splits} (synthesized {want}): "
+                    f"rel={verdict['rel']:.4e} corr={verdict['corr']:.4f} {verdict['status']}")
+            log(line)
+            require(policy.accepted, f"{case} {execution}: the tuned policy was not accepted")
+            require(splits == want, f"{case} {execution}: the deploy run's splits {splits} are not the synthesized {want}")
+            require(verdict["status"] == "CORRECT", f"{case} {execution}: the deploy run under the policy is {verdict['status']}")
+            rows.append(dict(case=case, execution=execution, policy=policy.sites, validation=stamp, deploy_splits=splits,
+                             **verdict))
+    return rows, captured
+
+
+# ---------------------------------------------------------------------------
+# phase 4's checks in worker processes
+# ---------------------------------------------------------------------------
+
+#: worker processes that run phase 4's checks side by side on the card (each
+#: check is bound by its host: PyTorch's op-by-op reference plane on the
+#: card, the plain versions on the CPU)
+CHECK_WORKERS = 6
+
+
+def _check_worker_init():
+    """A worker's set-up: PyTorch on one CPU thread (the workers share the
+    host's cores; each loads the built library at its first launch)."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _run_check(task):
+    """One check of this file in a worker: ``task`` is (function name,
+    args, kwargs). Returns its result, what it logged, its failure as text
+    (this file's exception classes are the worker's own) or None, and its
+    seconds."""
+    name, args, kw = task
+    buf = io.StringIO()
+    t = time.perf_counter()
+    out, error = None, None
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = globals()[name](*args, **kw)
+    except Exception as exc:  # noqa: BLE001 - every failure goes back to the parent
+        error = f"{type(exc).__name__}: {exc}"
+    return out, buf.getvalue(), error, time.perf_counter() - t
+
+
+def run_checks_in_workers(tasks):
+    """Run ``tasks``, each (label, function name, args, kwargs), in
+    :data:`CHECK_WORKERS` spawned processes that share the card, handed out
+    in the order listed (list the longest first); log each task's lines in
+    that order, and raise after the last task if any failed. Every worker
+    has ended when this returns. Returns each task's result in order and
+    the seconds by label, summed over the workers."""
+    ctx = multiprocessing.get_context("spawn")
+    results, seconds, errors = [], {}, []
+    with concurrent.futures.ProcessPoolExecutor(CHECK_WORKERS, mp_context=ctx, initializer=_check_worker_init) as pool:
+        futures = [pool.submit(_run_check, (name, args, kw)) for _, name, args, kw in tasks]
+        for (label, *_), fut in zip(tasks, futures):
+            out, text, error, s = fut.result()
+            print(text, end="", flush=True)
+            seconds[label] = seconds.get(label, 0.0) + s
+            if error is not None:
+                errors.append(f"{label}: {error}")
+            results.append(out)
+    require(not errors, f"{len(errors)} of phase 4's checks failed: " + "; ".join(errors))
+    return results, seconds
+
+
+#: phase 4's reference plane at a cut depth (heat1d 1000 of 4000 steps,
+#: heat2d 300 of 1500, burgers1d 600 of 1200)
+REFERENCE_STEPS = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
+
+
+def check_planes_and_link(device):
+    """Phase 4's checks in worker processes (:func:`run_checks_in_workers`),
+    each task a case (and a mode) of a check, the longest first: the fused
+    plane against the reference plane at :data:`REFERENCE_STEPS`, the card
+    against the CPU under flush (:func:`check_card_vs_cpu`), the megakernel
+    plane against the fused plane at the full horizons, and the link under
+    storage. Returns their lines and the seconds by check, summed over the
+    workers."""
+    tasks = [("fused vs reference", "check_planes", (device, {case: steps}), dict(modes=(name,)))
+             for case, steps in REFERENCE_STEPS.items() for name in SIX]
+    tasks += [("card vs CPU", "check_card_vs_cpu", (device,), dict(cases=[case], modes=(name,)))
+              for case in link_configs() for name in SIX]
+    tasks += [("megakernel vs fused", "check_mega_planes", (device, {case: steps}), {}) for case, steps in MAIN_STEPS.items()]
+    tasks += [("card vs CPU under storage", "check_card_vs_cpu_storage", (device,), dict(cases=[case]))
+              for case in link_configs()]
+    results, seconds = run_checks_in_workers(tasks)
+    lines, link, kept_differs = [], [], 0
+    for (label, *_), out in zip(tasks, results):
+        if label == "card vs CPU":
+            link += out[0]
+            kept_differs += out[1]
+        else:
+            lines += out
+    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "
+        "on the CPU keeping subnormals")
+    require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
+    return lines + link, seconds
+
 
 # ---------------------------------------------------------------------------
 # phase 5: times
@@ -2212,6 +2578,99 @@ def time_storage(device, card, main_launches=None, errs=None):
         max_abs_err=(errs or {}).get("r2f2_storage", 0.0), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
     ))
+    return times, recs
+
+
+def time_capture(device, card, main_launches, errs):
+    """Each capturing kernel at the main path's shapes with capture off and
+    on, both by replayed CUDA graphs in this call (r2f2_16; a fused sweep's
+    chunk, a megakernel's horizon; K3 one tile), and the capture records of
+    the kernels line over one call of the same work for the kernel and its
+    plain version on the card (a fused chunk, K3's tile, or one snapshot
+    interval of a megakernel's horizon, as :func:`time_storage` does), with
+    its bound (the f32 call's bytes plus the histogram written once) and the
+    profile path's capturing launches. Phase 2 holds every capture against
+    its plain version exactly."""
+    import torch
+
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
+    from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
+    from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
+    from repro_torch.profile import CaptureSpec
+
+    spec = CaptureSpec()
+    prec = ladder()["r2f2_16"]
+    cfg = heat_cfg.CONFIG
+    u = initial_condition(cfg, device="cpu").to(device)
+    scfg = swe_cfg.CONFIG
+    U = initial_state(scfg, device="cpu").to(device)
+    g = torch.Generator().manual_seed(1)
+    q3 = (500.0 + 100.0 * torch.rand(127, 128, generator=g)).to(device)
+    q1 = (40.0 * torch.randn(127, 128, generator=g)).to(device)
+    swe_sites = dict(sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"), site_ops=("mul", "mul", "mul", "div"))
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    hk = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec)
+    mk = dict(hk, sites=("heat.flux", "heat.update"))
+    sk = dict(cfg=scfg, prec=prec, **swe_sites)
+    # (name, run(capture, steps, every, plain): every None for a fused sweep, the f32 bytes in and out,
+    # a snapshot's bytes, flops a substep, sites, the main path's (steps, every), source, replaces);
+    # K3 is one substep of one tile
+    specs = [
+        ("heat1d_sweep", lambda c, n, e, p: (heat1d_sweep_plain if p else heat1d_sweep)(u[None], steps=n, block_rows=1,
+                                                                                          capture=c, **hk),
+         2 * u.numel() * 4, 0, (cfg.nx - 2) * 6, 2, (HEAT_CHUNK, None), "rod_warp.cu", "src/repro/kernels/heat_stencil.py:65"),
+        ("swe_flux_fused", lambda c, n, e, p: (swe_flux_fused_plain if p else swe_flux_fused)(q1, q3, prec=prec, capture=c),
+         3 * q1.numel() * 4, 0, q1.numel() * 5, 4, (1, None), "fused_pde.cu", "src/repro/kernels/swe_flux.py:51"),
+        ("heat1d_mega", lambda c, n, e, p: heat1d_mega(u, steps=n, every=e, capture=c, plain=p, **mk),
+         2 * u.numel() * 4, u.numel() * 4, (cfg.nx - 2) * 6, 2, (4000, HEAT_CHUNK), "rod_warp.cu",
+         "src/repro/kernels/mega.py:503"),
+        ("swe2d_mega", lambda c, n, e, p: swe2d_mega(U, steps=n, every=e, capture=c, plain=p, **sk),
+         2 * U.numel() * 4, U.numel() * 4, swe_flops_per_substep(scfg.nx, scfg.ny), 4, (400, SWE_EVERY), "mega_pde.cu",
+         "src/repro/kernels/mega.py:607"),
+    ]
+    for case in K5_CASES:
+        w = k5_workload(case, device)
+        x, steps = w["state"], MAIN_STEPS[case]
+        every = snapshot_every(case, steps)
+        kw = dict(w["args"], prec=prec, sites=w["sites"])
+        src = {"heat2d": "pde_steps.cu", "advection1d": "rod_warp_advection.cu", "burgers1d": "rod_warp_burgers.cu"}[case]
+        flops = k5_flops_per_substep(case, tuple(x.shape))
+        specs += [
+            (f"{case}_sweep", lambda c, n, e, p, w=w, x=x, kw=kw: (w["plain"] if p else w["sweep"])(x, steps=n, capture=c, **kw),
+             2 * x.numel() * 4, 0, flops, 2, (every, None), src, K5_REPLACES[f"{case}_sweep"]),
+            (f"{case}_mega", lambda c, n, e, p, w=w, x=x, kw=kw: w["mega"](x, steps=n, every=e, capture=c, plain=p, **kw),
+             2 * x.numel() * 4, x.numel() * 4, flops, 2, (steps, every), src, K5_REPLACES[f"{case}_mega"]),
+        ]
+    times, recs = {}, []
+    for name, run, io_bytes, snap_bytes, flops, n_sites, (steps, every), src, replaces in specs:
+        reps = 2 if every else 20
+        off = graph_time_ms(lambda: run(None, steps, every, False), reps)
+        on = graph_time_ms(lambda: run(spec, steps, every, False), reps)
+        # the record: one call of the same work for the kernel and its plain version
+        span = every or steps
+        ms = graph_time_ms(lambda: run(spec, span, every and span, False), 5 if every else 20)
+        plain_ms, _ = cuda_time_ms(lambda: run(spec, span, every and span, True), 1, warmup=0)
+        slots = 2 if every else 1  # an interval's slot and the (empty) remainder's
+        nbytes = io_bytes + snap_bytes + slots * n_sites * 2 * spec.n_bins * 4  # in, out, a snapshot, the counts
+        bound_ms, bound_by = bound(nbytes, span * flops)
+        times[name] = dict(off=off, on=on, substeps=steps, every=every, one_ms=ms)
+        log(f"time {name} capture off {off:.4f} ms, on {on:.4f} ms (+{100 * (on / off - 1):.1f}%) by replayed graphs, "
+            f"{steps} substeps{'' if every is None else f', every {every}'}; the record over "
+            f"{'one snapshot interval' if every else 'one call'}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        recs.append(dict(
+            name=f"{name}+capture", route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
+            launches=main_launches.get(f"{name}+capture", 0), max_abs_err=errs.get(f"{name}+capture", 0.0), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
     return times, recs
 
 
@@ -2809,6 +3268,7 @@ def main(argv) -> int:
     report["storage_k1"], k1_err = timed("K1 storage checks", check_storage_k1, device)
     st_errs, st_records = timed("storage checks", check_storage, device)
     st_errs["r2f2_storage"] = k1_err
+    cap_errs, cap_records = timed("capture checks", check_capture, device)
     c_errs, c_records = timed("K6/K7 checks", check_contract_kernels, device)
     flush_records = timed("K6/K7 flush checks", check_flush_contract, device)
     require(all(r["ok"] for r in flush_records), "K6 or K7 differs from its plain version on the CPU under flush")
@@ -2817,7 +3277,8 @@ def main(argv) -> int:
     errs.update(k5_errs)
     errs.update(c_errs)
     errs.update(st_errs)
-    report["kernel_checks"] = records + mega_records + k5_records + st_records + c_records
+    errs.update({f"{k}+capture": v for k, v in cap_errs.items()})
+    report["kernel_checks"] = records + mega_records + k5_records + st_records + cap_records + c_records
     phase_done(2)
     if quick:
         log(card)
@@ -2850,6 +3311,8 @@ def main(argv) -> int:
     main_launches.update({k: v[0] for k, v in st_totals.items() if k.endswith("+packed") or k == "r2f2_storage"})
     require(all(main_launches[f"{k}+packed"] > 0 for k in STORAGE_TIMED) and main_launches["r2f2_storage"] > 0,
             "a storage variant of the storage path never launched")
+    report["profile_path"], captured = timed("profile path", run_profile_path, device, refs)
+    main_launches.update({f"{k}+capture": captured[k] for k in CAPTURE_KERNELS})
     phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")
@@ -2858,17 +3321,8 @@ def main(argv) -> int:
     for execution in ("fused", "megakernel"):
         bench, _ = run_ladder(device, {case: 60 for case in bench_precs}, bench_precs, execution, refs=refs)
         report["bench_compare"] += check_bench(bench)
-    # the reference plane at a cut depth (heat1d 1000 of 4000 steps, heat2d
-    # 300 of 1500, burgers1d 600 of 1200), the megakernel at the full horizons
-    cut = {"heat1d": 1000, "swe2d": 400, "heat2d": 300, "advection1d": 256, "burgers1d": 600}
-    report["planes"] = timed("fused vs reference", check_planes, device, cut)
-    report["planes"] += timed("megakernel vs fused", check_mega_planes, device, MAIN_STEPS)
-    link, kept_differs = timed("card vs CPU", check_card_vs_cpu, device)
-    log(f"card vs repro (the CPU under flush): {len(link)} runs bit-identical; {kept_differs} of them differ "
-        "on the CPU keeping subnormals")
-    require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
-    report["planes"] += link
-    report["planes"] += timed("card vs CPU under storage", check_card_vs_cpu_storage, device)
+    report["planes"], seconds = timed(f"phase 4 checks ({CHECK_WORKERS} workers)", check_planes_and_link, device)
+    report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
     phase_done("3 (60-step rows) and 4")
 
     t_lm = time.perf_counter()
@@ -2885,6 +3339,8 @@ def main(argv) -> int:
     report["shape_times"] = timed("shape times", time_shapes, device, card)
     report["storage_times"], storage_recs = timed("storage times", time_storage, device, card, main_launches, errs)
     recs += storage_recs
+    report["capture_times"], capture_recs = timed("capture times", time_capture, device, card, main_launches, errs)
+    recs += capture_recs
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs

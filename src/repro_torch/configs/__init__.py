@@ -29,7 +29,8 @@ ARCHS = tuple(_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in _PENDING:
         raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md queue 1 item 13); available: {ARCHS}"
+            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: "
+            f"the other configs); available: {ARCHS}"
         )
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")

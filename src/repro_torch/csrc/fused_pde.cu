@@ -8,7 +8,11 @@
 // K3 gives one split tile to one thread-block cluster, so every block max
 // spans exactly the reference's block, pad lanes included. Evidence is
 // written per block as (gi, gj, steps, n_sites, 2) floats and max-reduced
-// across blocks on the host. The C entry point returns cudaGetLastError().
+// across blocks on the host. With capture (r2f2::Capture) each CTA bins its
+// band's operands, the lanes inside the field's valid extent only (a padded
+// q3 lane holds 1.0, which must never count), into a shared-memory histogram
+// after its band arrays, and adds it to the launch's one slot. The C entry
+// point returns cudaGetLastError().
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -57,12 +61,14 @@ __device__ __forceinline__ void store(float* dst, const float (&v)[G]) {
 // derive the same splits. The products t1 and t3 stay in shared
 // memory between the rounds; each CTA writes its out band once, and rank 0
 // writes the tile's evidence. Elements are walked by row and column, with no
-// per-element division.
+// per-element division. Capture bins, per site, q1 (q1*q1: both operands), q3
+// (q3*q3 both, and the quotient's divisor), t3 and t1, and the constant c over
+// the valid lanes.
 template <int G>
 __global__ void __launch_bounds__(kSweThreads)
 swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, float* __restrict__ out,
                 float* __restrict__ ev, const int* __restrict__ k_floor, int width, int br, int bw, int band, float c,
-                Policy p) {
+                Policy p, r2f2::Capture cap) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float band_smem[];
@@ -79,14 +85,25 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
   float* t1s = hs + band * bw;    // q1, then t1
   float* t3s = t1s + band * bw;   // t3
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const r2f2::Hist hist(cap, reinterpret_cast<int*>(t3s + band * bw), 4);  // after the band arrays
+  if (hist.on()) {
+    hist.zero();
+    __syncthreads();  // the words zeroed before any lane adds
+  }
 
-  // this thread's items: G floats at (r, col) for r, col walked without division
+  // this thread's items: G floats at (r, col) for r, col walked without division;
+  // fn(shared offset, global offset, the items' lanes inside the valid extent as bits)
   const int per_row = bw / G, items = rows * per_row;
   const int dr = kSweThreads / per_row, dc = kSweThreads % per_row;
   auto for_items = [&](auto fn) {
     int r = threadIdx.x / per_row, col = threadIdx.x % per_row;
     for (int i = threadIdx.x; i < items; i += kSweThreads) {
-      fn(r * bw + col * G, (row0 + r) * width + col0 + col * G);
+      uint32_t valid = 0u;
+      if (hist.on() && static_cast<int>(row0) + r < cap.rows) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) valid |= static_cast<uint32_t>(col0 + col * G + g < cap.cols) << g;
+      }
+      fn(r * bw + col * G, (row0 + r) * width + col0 + col * G, valid);
       r += dr;
       col += dc;
       if (col >= per_row) {
@@ -131,7 +148,7 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
   };
 
   uint32_t m1 = 0u, m3 = 0u;
-  for_items([&](int at, size_t gi) {
+  for_items([&](int at, size_t gi, uint32_t) {
     float a[G], h[G];
     load<G>(q1 + gi, a);
     load<G>(q3 + gi, h);
@@ -143,6 +160,23 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
       m3 = max(m3, r2f2::finite_mag_bits(h[i]));
     }
   });
+  if (hist.on()) {  // q1q1 (q1, q1), q3q3 (q3, q3), div's divisor q3, from the band in shared memory
+    const r2f2::Hist& h = hist;
+    for_items([&](int at, size_t, uint32_t valid) {
+      float a[G], q[G];
+      load<G>(t1s + at, a);
+      load<G>(hs + at, q);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const bool in = (valid >> i) & 1u;
+        h.add(0, a[i], in);
+        h.add(1, a[i], in);
+        h.add(2, q[i], in);
+        h.add(3, q[i], in);
+        h.add(7, q[i], in);
+      }
+    });
+  }
   const int2 e13 = cluster_max(m1, m3, 0);
   const int e1 = e13.x, e3 = e13.y;
   const int k11 = r2f2::site_k(r2f2::select_k_mul(e1, e1, p), k_floor, 0, p);
@@ -152,7 +186,7 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
   const r2f2::SplitQuant f11 = r2f2::split_quant(k11, p), f33 = r2f2::split_quant(k33, p);
 
   uint32_t mt1 = 0u, mt3 = 0u;
-  for_items([&](int at, size_t) {
+  for_items([&](int at, size_t, uint32_t) {
     float a[G], h[G], t1[G], t3[G];
     load<G>(t1s + at, a);
     load<G>(hs + at, h);
@@ -166,6 +200,19 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
     store<G>(t1s + at, t1);
     store<G>(t3s + at, t3);
   });
+  if (hist.on()) {  // gq3's t3 and div's dividend t1, each thread its own items
+    const r2f2::Hist& h = hist;
+    for_items([&](int at, size_t, uint32_t valid) {
+      float t1[G], t3[G];
+      load<G>(t1s + at, t1);
+      load<G>(t3s + at, t3);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        h.add(5, t3[i], (valid >> i) & 1u);
+        h.add(6, t1[i], (valid >> i) & 1u);
+      }
+    });
+  }
   const int2 et13 = cluster_max(mt1, mt3, 1);
   // this CTA has read the cluster's maxima: arrive at the exit barrier now,
   // wait for the others only before leaving
@@ -176,7 +223,7 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
   const int k_div = r2f2::site_k(r2f2::select_k_div(et1, e3, p), k_floor, 3, p);
   const r2f2::SplitQuant fgq3 = r2f2::split_quant(k_gq3, p), fdiv = r2f2::split_quant(k_div, p);
 
-  for_items([&](int at, size_t gi) {
+  for_items([&](int at, size_t gi, uint32_t) {
     float t1[G], t3[G], h[G], f[G];
     load<G>(t1s + at, t1);
     load<G>(t3s + at, t3);
@@ -198,6 +245,13 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
     e[6] = static_cast<float>(et1);
     e[7] = static_cast<float>(e3);
   }
+  if (hist.on()) {  // gq3's constant c over this thread's valid lanes, then the CTA's words
+    int n_valid = 0;
+    for_items([&](int, size_t, uint32_t valid) { n_valid += __popc(valid); });
+    const r2f2::Hist& h = hist;
+    h.add_n(4, c, n_valid);
+    h.flush(0);
+  }
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");  // no CTA leaves while another may read it
 }
 
@@ -208,16 +262,21 @@ Policy make_policy(int family, int eb, int mb, int fx, int fe, int fm, int tail_
 }  // namespace
 
 // One cluster of `cluster` CTAs per (br, bw) tile, each owning `band` rows
-// (cluster * band >= br > (cluster - 1) * band).
+// (cluster * band >= br > (cluster - 1) * band). cap_out (null: capture off)
+// takes the four sites' operand histograms, (4, 2, cap_bins) int32 zeroed,
+// over the lanes of the unpadded (cap_rows, cap_cols) field.
 extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float* ev, const int* k_floor, int rows,
                              int width, int br, int bw, int cluster, int band, float c, int family, int eb, int mb,
-                             int fx, int fe, int fm, int tail_approx, int pinned, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || band < 1 || cluster * band < br || (cluster - 1) * band >= br)
+                             int fx, int fe, int fm, int tail_approx, int pinned, int* cap_out, int cap_e_lo,
+                             int cap_bins, int cap_rows, int cap_cols, void* stream) {
+  const r2f2::Capture cap{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols};
+  if (cluster < 1 || cluster > kMaxCluster || band < 1 || cluster * band < br || (cluster - 1) * band >= br ||
+      !r2f2::capture_ok(cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const bool vec = bw % 4 == 0 && width % 4 == 0 && aligned(q1) && aligned(q3) && aligned(out);
   const auto kernel = vec ? &swe_flux_kernel<4> : &swe_flux_kernel<1>;
-  const size_t smem = 3 * static_cast<size_t>(band) * bw * sizeof(float);
+  const size_t smem = 3 * static_cast<size_t>(band) * bw * sizeof(float) + r2f2::hist_bytes(cap, 4);
   static size_t smem_allowed[2][r2f2::kMaxDevices] = {};  // per kernel: scalar, vector
   static bool clusters_allowed[2][r2f2::kMaxDevices] = {};
   cudaError_t err = r2f2::allow_dynamic_smem(kernel, smem, smem_allowed[vec]);
@@ -236,7 +295,7 @@ extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, q1, q3, out, ev, k_floor, width, br, bw, band, c,
-                           make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned));
+                           make_policy(family, eb, mb, fx, fe, fm, tail_approx, pinned), cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,14 @@
 // band rounds the same values at the same split), before the snapshot and
 // the output; once more after a remainder. The state stays f32: the host
 // packs it at kst (kernel K1).
+// Capture (r2f2::Capture): each product is binned once, by the band that owns
+// its Ux row (rows r0 .. r0 + xr - 1; a band recomputes the halo row below
+// it, and that row's products are the next band's to count): B bins q1 (q1q1,
+// both operands) and q3 (q3q3 both, the quotient's divisor), C bins t3 (gq3)
+// and t1 (the dividend) and counts the constant g/2 a product. The CTA's
+// shared-memory histogram (after its band arrays, or alone where the bands
+// live in device memory) goes to slot i of the launch's at the end of
+// interval i, and to the last slot after a remainder.
 // Every value comes from the device functions and operation order of the
 // four-phase grid it replaces; Fx's halo rows and row r1 are recomputed, not
 // exchanged. The policy products run as r2f2::PairMul / ConstMul of one kind
@@ -106,6 +114,7 @@ struct SweArgs {
   int rows;  // the tallest band's rows
   float cx2, cy2, cx, cy, c;  // dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, each rounded once to f32
   r2f2::Storage st;           // the storage rounding and the carried split out (f32 in and out)
+  r2f2::Capture cap;          // the operand histograms, (slots, 4, 2, n_bins); cap.out null: capture off
 };
 
 // Floats of one CTA's band arrays for bands of up to `rows` rows (mega.py::swe2d_band_floats).
@@ -268,6 +277,18 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
   const r2f2::TileQuant fixed = p.family == r2f2::kFixed ? r2f2::tile_quant(p.fe, p.fm, -1) : r2f2::TileQuant{};
   const bool has_floor = a.ka != nullptr;
   const int* fk = has_floor ? floor_k : nullptr;
+  // capture's histogram after the band arrays (alone where they live in device
+  // memory), a view built where capture is on; zeroed before the CTA barrier below
+  auto hist = [&] {
+    return r2f2::Hist(a.cap, reinterpret_cast<int*>(band_smem + (a.bands != nullptr ? 0 : band_floats(R, ny))), 4);
+  };
+  if (a.cap.out != nullptr) hist().zero();
+  // the constant g/2 over this thread's products of `n_sub` substeps, then the CTA's words into slot `slot`
+  auto flush_hist = [&](int slot, int n_sub) {
+    const r2f2::Hist h = hist();
+    h.add_n(4, a.c, r2f2::strided_count(tid, xr * ny, T) * n_sub);
+    h.flush(slot);
+  };
 
   if (a.steps == 0) {
     for (int c = 0; c < 3; ++c)
@@ -378,6 +399,17 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
       }
     });
     grid_arrive(mt1, mt3, a.words + C, red, a.count);
+    if (a.cap.out != nullptr) {  // while barrier 2 completes: q1q1 (q1, q1), q3q3 (q3, q3), div's divisor q3 on the own rows
+      const r2f2::Hist h = hist();
+      for (int q = tid; q < xr * ny; q += T) {
+        const float q1 = fx[ny + q], q3 = fx[fp + ny + q];
+        h.add(0, q1, true);
+        h.add(1, q1, true);
+        h.add(2, q3, true);
+        h.add(3, q3, true);
+        h.add(7, q3, true);
+      }
+    }
     // while barrier 2 completes: the same on the halo Fx rows r0-1 and r1,
     // their Ux from the neighbours' slots of the ring
     const int halo_top = r0 > 0 ? 1 : 0, halo_bot = r1 <= nx - 2 ? 1 : 0;
@@ -424,6 +456,13 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
         fx[fp + at] = mg.template mul_add<K>(tt[fp + at], md.template div<K>(tt[at], fx[fp + at]));
       }
     });
+    if (a.cap.out != nullptr) {  // gq3's t3 and div's t1 on the own rows (tt holds them until the next B)
+      const r2f2::Hist h = hist();
+      for (int q = tid; q < xr * ny; q += T) {
+        h.add(5, tt[fp + ny + q], true);
+        h.add(6, tt[ny + q], true);
+      }
+    }
     __syncthreads();
 
     // D: the update of rows r0..r1; each wall cell takes the interior value it mirrors
@@ -456,7 +495,9 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
       for (int j = 0; j < 4; ++j) floor_k[j] = st[j].k;
     }
     __syncthreads();
+    if (boundary && a.cap.out != nullptr) flush_hist((s + 1) / a.every - 1, a.every);
   }
+  if (a.cap.out != nullptr && a.steps % a.every != 0) flush_hist(a.steps / a.every, a.steps % a.every);
   if (a.st.round && a.steps % a.every != 0) {  // the remainder's rounding of the final state
     float* u = ub + (a.steps & 1) * 3 * up;
     uint32_t ms = 0u;
@@ -472,10 +513,10 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
 // keeps up to 255 registers a thread, the 384-thread one 170, the
 // 512-thread one 128.
 template <int kMaxThreads>
-cudaError_t launch_bands(int ctas, int threads, int smem, cudaStream_t stream, const SweArgs& a, const AdjustLaw& law,
-                         const Policy& p) {
+cudaError_t launch_bands(int ctas, int threads, size_t smem, cudaStream_t stream, const SweArgs& a,
+                         const AdjustLaw& law, const Policy& p) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
-  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel<kMaxThreads>, static_cast<size_t>(smem), smem_allowed);
+  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel<kMaxThreads>, smem, smem_allowed);
   int capacity = 0;
   if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel<kMaxThreads>, threads, smem, capacity);
   if (err != cudaSuccess) return err;
@@ -496,7 +537,9 @@ extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, fl
                                int smem, float cx2, float cy2, float cx, float cy, float c, float ema, float one_minus,
                                int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
                                int pinned, const void* pay_in, const int* k_in, void* pay_out, int* k_out, int bytes,
-                               int round, void* stream) {
+                               int round, int* cap_out, int cap_e_lo, int cap_bins, int cap_rows, int cap_cols,
+                               void* stream) {
+  const r2f2::Capture cap{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols};
   // storage: rounding and the carried split only; the state comes and goes in f32
   if (pay_in != nullptr || k_in != nullptr || pay_out != nullptr || (bytes != 1 && bytes != 2 && bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -504,15 +547,16 @@ extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, fl
       ctas > nx - 1 || ctas > 32 * kMaxWordsPerLane || rows < (nx + ctas - 1) / ctas || threads < 32 ||
       threads > kSweMaxThreads ||
       threads % 32 != 0 || (smem == 0) != (bands != nullptr) ||
-      (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)))
+      (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)) || !r2f2::capture_ok(cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const SweArgs a{u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh,
                   site_cfg, evolve, nx, ny, steps, every, rows, cx2, cy2, cx, cy, c,
-                  r2f2::Storage{nullptr, nullptr, nullptr, k_out, bytes, round}};
+                  r2f2::Storage{nullptr, nullptr, nullptr, k_out, bytes, round}, cap};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(threads <= 256   ? launch_bands<256>(ctas, threads, smem, s, a, law, p)
-                          : threads <= 384 ? launch_bands<384>(ctas, threads, smem, s, a, law, p)
-                                           : launch_bands<kSweMaxThreads>(ctas, threads, smem, s, a, law, p));
+  const size_t total = static_cast<size_t>(smem) + r2f2::hist_bytes(cap, 4);  // the histogram after the bands
+  return static_cast<int>(threads <= 256   ? launch_bands<256>(ctas, threads, total, s, a, law, p)
+                          : threads <= 384 ? launch_bands<384>(ctas, threads, total, s, a, law, p)
+                                           : launch_bands<kSweMaxThreads>(ctas, threads, total, s, a, law, p));
 }

@@ -44,6 +44,15 @@
 // shared memory) before the snapshot and the next substep; and once more
 // after a remainder.
 //
+// Capture (r2f2::Capture): each CTA bins every substep's lap (site 0's second
+// operand) and flux (site 1's first) over its own interior cells, and the
+// constants alpha and dtodx2 once a cell, into a shared-memory histogram
+// after its band rows (a halo cell is its owner's, so no cell counts twice);
+// K5a adds it to the launch's one slot after the last substep, K5d to slot i
+// at the end of interval i and to the last slot after a remainder. The f32
+// family's fused update never forms flux, so the flux pass computes it
+// (it does anyway, for the flux max).
+//
 // Rounding follows the compiled reference (pde/heat2d.py says where): in the
 // f32 family the update is fma(lap, alpha*dtodx2, u). At the main path's 64x64
 // a substep moves no bytes from device memory and does a few thousand f32
@@ -150,7 +159,8 @@ struct Heat2DBand {
   // alpha*dtodx2, u); the band's edge rows into the neighbours' halos. The
   // caller's cluster barrier makes them visible before the next substep.
   __device__ Evidence substep(float alpha, float dtodx2, const int* floor, const Policy& p,
-                              const r2f2::TileQuant& fixed, uint32_t* pub, const cg::cluster_group& cluster) {
+                              const r2f2::TileQuant& fixed, uint32_t* pub, const cg::cluster_group& cluster,
+                              const r2f2::Hist& hist) {
     uint32_t mx = 0u;
 #pragma unroll
     for (int k = 0; k < P; ++k) {
@@ -161,18 +171,29 @@ struct Heat2DBand {
         mx = max(mx, r2f2::finite_mag_bits(v[k]));
       }
     }
+    if (hist.on()) {  // site 0's lap
+#pragma unroll
+      for (int k = 0; k < P; ++k) hist.add(1, k < n_own ? v[k] : 0.0f, k < n_own);
+    }
     const int e_alpha = scalar_exp(alpha), e_lap = r2f2::mag_exponent(cluster_max(mx, &pub[0], cluster));
     const int k_flux = r2f2::site_k(r2f2::select_k_mul(e_alpha, e_lap, p), floor, 0, p);
     const bool fold = p.family == r2f2::kF32;  // v keeps lap for the fused update
     const r2f2::ConstMul flux_of(alpha, k_flux, p, fixed);
     mx = 0u;
+    float fl[P];
 #pragma unroll
     for (int k = 0; k < P; ++k) {
+      fl[k] = 0.0f;
       if (k < n_own) {
         const float flux = flux_of(v[k]);
         if (!fold) v[k] = flux;
+        fl[k] = flux;
         mx = max(mx, r2f2::finite_mag_bits(flux));
       }
+    }
+    if (hist.on()) {  // site 1's flux
+#pragma unroll
+      for (int k = 0; k < P; ++k) hist.add(2, fl[k], k < n_own);
     }
     const uint32_t m_flux = cluster_max(mx, &pub[1], cluster);
     if (threadIdx.x == 0) pub[0] = 0u;  // every CTA read it before the barrier above
@@ -264,6 +285,14 @@ struct Heat2DBand {
   }
 };
 
+// Capture: the constants alpha (site 0's first operand) and dtodx2 (site 1's
+// second) over `cells` lanes, then the CTA's words into slot `slot`.
+__device__ __forceinline__ void flush_hist(const r2f2::Hist& hist, const Consts& c, int cells, int slot) {
+  hist.add_n(0, c.c0, cells);
+  hist.add_n(3, c.c1, cells);
+  hist.flush(slot);
+}
+
 __device__ __forceinline__ void write_evidence(float* ev, int s, const Evidence& e) {
   float* d = ev + static_cast<size_t>(s) * 4;
   for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(e.e[j]);
@@ -280,11 +309,15 @@ using r2f2::cluster_wait;
 template <int P>
 __global__ void __launch_bounds__(kHeat2DMaxThreads)
 heat2d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ ev,
-                    const int* __restrict__ k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage io) {
+                    const int* __restrict__ k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage io,
+                    r2f2::Capture cap) {
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
   __shared__ uint32_t pub[3];  // the CTA's lap, flux and storage maxima, read by the cluster
   if (threadIdx.x == 0) pub[0] = pub[1] = pub[2] = 0u;
+  // after the band rows, zeroed before the band's CTA barrier
+  const r2f2::Hist hist(cap, reinterpret_cast<int*>(smem + static_cast<size_t>(band + 2) * c.ny), 2);
+  if (hist.on()) hist.zero();
   Heat2DBand<P> b(u_in, io, p, smem, c, band, cluster);
   const r2f2::TileQuant fixed = r2f2::tile_quant(p.fe, p.fm, -1);
   for (int s = 0; s < steps; ++s) {
@@ -292,9 +325,10 @@ heat2d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, f
       cluster.sync();  // the neighbours' halo writes of the last substep are in
       if (threadIdx.x == 0) pub[1] = 0u;
     }
-    const Evidence e = b.substep(c.c0, c.c1, k_floor, p, fixed, pub, cluster);
+    const Evidence e = b.substep(c.c0, c.c1, k_floor, p, fixed, pub, cluster, hist);
     if (ev != nullptr && b.rank == 0 && threadIdx.x == 0) write_evidence(ev, s, e);
   }
+  if (hist.on()) flush_hist(hist, c, steps * b.n_own, 0);
   if (io.pay_out != nullptr) {  // a split picked afresh from the advanced field, then its payload
     const int k = b.storage_split(p, &pub[2], cluster);
     cluster_arrive();
@@ -315,11 +349,13 @@ __global__ void __launch_bounds__(kHeat2DMaxThreads)
 heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ snaps,
                    float* __restrict__ ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                    const int* __restrict__ site_cfg, int evolve, Consts c, int band, int steps, int every,
-                   AdjustLaw law, Policy p, r2f2::Storage io) {
+                   AdjustLaw law, Policy p, r2f2::Storage io, r2f2::Capture cap) {
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
   __shared__ uint32_t pub[3];
   __shared__ int ka[2];  // the datapath floor, latched at snapshot boundaries
+  const r2f2::Hist hist(cap, reinterpret_cast<int*>(smem + static_cast<size_t>(band + 2) * c.ny), 2);
+  if (hist.on()) hist.zero();
   if (threadIdx.x == 0) pub[0] = pub[1] = pub[2] = 0u;
   if (trk_k != nullptr && threadIdx.x < 2) ka[threadIdx.x] = trk_k[threadIdx.x];
   const int* floor = trk_k != nullptr ? ka : nullptr;
@@ -343,7 +379,7 @@ heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
         }
       }
     }
-    const Evidence e = b.substep(c.c0, c.c1, floor, p, fixed, pub, cluster);
+    const Evidence e = b.substep(c.c0, c.c1, floor, p, fixed, pub, cluster, hist);
     const bool boundary = --until == 0;
     if (threadIdx.x == 0) {
       if (ev != nullptr && b.rank == 0) write_evidence(ev, s, e);
@@ -359,9 +395,11 @@ heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
     if (boundary) {
       if (io.round) kst = b.round_all(p, &pub[2], cluster);
       b.store(snaps + static_cast<size_t>((s + 1) / every - 1) * n);
+      if (hist.on()) flush_hist(hist, c, every * b.n_own, (s + 1) / every - 1);
       until = every;
     }
   }
+  if (hist.on() && steps % every != 0) flush_hist(hist, c, (steps % every) * b.n_own, steps / every);
   // the remainder's rounding (its word zeroed at the top of the substep after
   // the last boundary; its halo writes reach CTAs that only store now)
   if (io.round && steps % every != 0) kst = b.round_all(p, &pub[2], cluster);
@@ -395,23 +433,24 @@ void heat2d_shape(int cells, int& per_thread, int& threads) {
 
 template <int P>
 cudaError_t heat2d_sweep(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
-                         float* ev, const int* k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage st) {
+                         float* ev, const int* k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage st,
+                         r2f2::Capture cap) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
   return r2f2::launch_cluster(heat2d_sweep_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
-                              u_in, u_out, ev, k_floor, c, band, steps, p, st);
+                              u_in, u_out, ev, k_floor, c, band, steps, p, st, cap);
 }
 
 template <int P>
 cudaError_t heat2d_mega(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
                         float* snaps, float* ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                         const int* site_cfg, int evolve, Consts c, int band, int steps, int every, AdjustLaw law,
-                        Policy p, r2f2::Storage st) {
+                        Policy p, r2f2::Storage st, r2f2::Capture cap) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
   return r2f2::launch_cluster(heat2d_mega_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
                               u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve, c, band,
-                              steps, every, law, p, st);
+                              steps, every, law, p, st, cap);
 }
 
 // Validate a heat2d plan and give its launch shape: `cluster` CTAs of `band`
@@ -442,6 +481,8 @@ bool heat2d_plan(int nx, int ny, int cluster, int band, int& per_thread, int& th
 #define R2F2_POLICY Policy{family, eb, mb, fx, fe, fm, tail_approx, pinned}
 #define R2F2_STORAGE_ARGS const void *pay_in, const int *k_in, void *pay_out, int *k_out, int bytes, int round
 #define R2F2_STORAGE r2f2::Storage{pay_in, k_in, pay_out, k_out, bytes, round}
+#define R2F2_CAPTURE_ARGS int *cap_out, int cap_e_lo, int cap_bins, int cap_rows, int cap_cols
+#define R2F2_CAPTURE r2f2::Capture{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols}
 
 namespace {
 
@@ -460,29 +501,34 @@ bool storage_ok(const void* u_in, const float* u_out, R2F2_STORAGE_ARGS, int eb,
 // (kernels/pde_steps.py::heat2d_cluster_plan).
 extern "C" int r2f2_heat2d_sweep(const float* u_in, float* u_out, float* ev, const int* k_floor, int nx, int ny,
                                  int steps, float c0, float c1, int cluster, int band, R2F2_POLICY_ARGS,
-                                 R2F2_STORAGE_ARGS, void* stream) {
+                                 R2F2_STORAGE_ARGS, R2F2_CAPTURE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) ||
+  const r2f2::Capture cap = R2F2_CAPTURE;
+  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || !r2f2::capture_ok(cap) ||
       !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, false))
     return static_cast<int>(cudaErrorInvalidValue);
+  smem += r2f2::hist_bytes(cap, 2);
   R2F2_HEAT2D_DISPATCH(heat2d_sweep, cluster, threads, smem, stream, u_in, u_out, ev, k_floor, Consts{nx, ny, c0, c1},
-                       band, steps, R2F2_POLICY, R2F2_STORAGE)
+                       band, steps, R2F2_POLICY, R2F2_STORAGE, cap)
 }
 
 extern "C" int r2f2_heat2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, int* trk_k, float* trk_hi,
                                 float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
                                 int ny, int steps, int every, float c0, float c1, int cluster, int band, float ema,
-                                float one_minus, int headroom, R2F2_POLICY_ARGS, R2F2_STORAGE_ARGS, void* stream) {
+                                float one_minus, int headroom, R2F2_POLICY_ARGS, R2F2_STORAGE_ARGS,
+                                R2F2_CAPTURE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || every < 1 ||
+  const r2f2::Capture cap = R2F2_CAPTURE;
+  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || every < 1 || !r2f2::capture_ok(cap) ||
       !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, true) ||
       (pay_out != nullptr && !round))
     return static_cast<int>(cudaErrorInvalidValue);
   const Policy p = R2F2_POLICY;
   const AdjustLaw law{ema, one_minus, headroom, p.eb, p.fx};
+  smem += r2f2::hist_bytes(cap, 2);
   R2F2_HEAT2D_DISPATCH(heat2d_mega, cluster, threads, smem, stream, u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo,
                        trk_ov, trk_sh, site_cfg, evolve, Consts{nx, ny, c0, c1}, band, steps, every, law, p,
-                       R2F2_STORAGE)
+                       R2F2_STORAGE, cap)
 }

@@ -13,6 +13,9 @@
 //   storage_k, Codec   pack/packed.py::block_storage_k, pack_block and
 //                      unpack_block (core/flexformat.py::pack_r2f2 and
 //                      unpack_r2f2): the packed storage format
+//   Capture, Hist      profile/capture.py::pair_exp_hist as FusedOps bins a
+//                      policy operation's operands: a CTA's exponent
+//                      histogram in shared memory
 //
 // Build with --fmad=false -prec-div=true, so that nvcc contracts nothing on
 // its own, and -ftz=true (every kernel, K2-K7): f32 subnormal inputs and
@@ -517,6 +520,102 @@ struct Storage {
   int bytes;           // payload bytes an element
   int round;           // quantize the state at every snapshot boundary and after the remainder
 };
+
+// ---------------------------------------------------------------------------
+// Range capture (profile/capture.py, kernels/fused.py::FusedOps): every policy
+// operation bins the unbiased exponents of its two operands, per site, into
+// width-1 bins. A kernel's capture arguments (null `out`: capture off, which
+// the kernels test as a uniform branch; no template instance depends on it):
+struct Capture {
+  int* out;         // (slots, n_sites, 2, n_bins) int32, zeroed by the host; null: capture off
+  int e_lo, n_bins;  // bin b counts exponent e_lo + b; exponents outside clamp into the edge bins
+  int rows, cols;    // the valid extent of a padded field (K3): lanes beyond it never count
+};
+
+// Most bins a kernel takes (kernels/_cuda.py::MAX_BINS): every f32 exponent
+// field fits 256.
+constexpr int kMaxBins = 512;
+
+// A CTA's histogram of n_sites x 2 operand rows (row = 2 * site + operand) in
+// shared memory, n_bins int32 words a row. The bin of x is decided from its
+// bits, as profile/capture.py::exp_hist decides it: zero bits (either sign)
+// and a non-finite field (255) do not count, and the exponent is the biased
+// field minus 127, so a subnormal counts in the low edge bin (a float compare
+// would drop it under -ftz=true). add() is warp-aggregated: the calling lanes
+// that share a word make one shared-memory atomic between them. At the end of
+// a chunk or snapshot interval, flush() adds each nonzero word to the slot of
+// `out` with one global atomic and zeroes it. Counts are integers, so every
+// order of addition gives the same result. It is a view over the kernel's
+// capture arguments: the rod, K3 and heat2d's cluster keep one for the launch,
+// K4 swe2d builds it where capture is on (of the designs timed with capture
+// off, the fastest for each, PERF.md section 6).
+struct Hist {
+  int* h;
+  int* out;
+  int e_lo, n_bins, words;
+
+  __device__ Hist(const Capture& c, int* smem, int n_sites)
+      : h(smem), out(c.out), e_lo(c.e_lo), n_bins(c.n_bins), words(n_sites * 2 * c.n_bins) {}
+
+  __device__ bool on() const { return out != nullptr; }
+
+  // Every thread of the CTA, once before the first add; the caller's next CTA
+  // barrier orders the zeroing before any add.
+  __device__ void zero() const {
+    for (int w = threadIdx.x; w < words; w += blockDim.x) h[w] = 0;
+  }
+
+  // The word of x's bin in row `row`, or -1 where x does not count.
+  __device__ int word(int row, float x) const {
+    const uint32_t u = __float_as_uint(x) & 0x7fffffffu;
+    const int field = static_cast<int>(u >> 23);
+    if (u == 0u || field == 255) return -1;
+    return row * n_bins + min(max(field - 127 - e_lo, 0), n_bins - 1);
+  }
+
+  // One element x of row `row` from every calling lane (`valid`: a lane of
+  // the field; the others take part in the vote and count nothing).
+  __device__ void add(int row, float x, bool valid) const {
+    const int w = valid ? word(row, x) : -1;
+    const unsigned peers = __match_any_sync(__activemask(), w);
+    if (w >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(h + w, __popc(peers));
+  }
+
+  // `count` copies of x: a broadcast constant operand over `count` valid lanes.
+  __device__ void add_n(int row, float x, int count) const {
+    const int w = word(row, x);
+    if (w >= 0 && count > 0) atomicAdd(h + w, count);
+  }
+
+  // The CTA's words into slot `slot` of out, then zeroed; every thread of the
+  // CTA calls it (CTA barriers before and after).
+  __device__ void flush(int slot) const {
+    __syncthreads();
+    int* dst = out + static_cast<size_t>(slot) * words;
+    for (int w = threadIdx.x; w < words; w += blockDim.x) {
+      const int v = h[w];
+      if (v != 0) {
+        atomicAdd(dst + w, v);
+        h[w] = 0;
+      }
+    }
+    __syncthreads();
+  }
+};
+
+// The count of i = first, first + stride, ... below n: the loop
+// `for (i = first; i < n; i += stride)` runs that many times.
+__device__ __forceinline__ int strided_count(int first, int n, int stride) {
+  return first < n ? (n - 1 - first) / stride + 1 : 0;
+}
+
+// Host side: the shared-memory bytes of a histogram of n_sites sites (0: capture off).
+inline size_t hist_bytes(const Capture& c, int n_sites) {
+  return c.out != nullptr ? static_cast<size_t>(n_sites) * 2 * c.n_bins * sizeof(int) : 0;
+}
+
+// Host side: capture arguments a kernel can run.
+inline bool capture_ok(const Capture& c) { return c.out == nullptr || (c.n_bins >= 1 && c.n_bins <= kMaxBins); }
 
 // ---------------------------------------------------------------------------
 // The adjust unit (core/policy.py::adjust_step), one site's tick in f32 and

@@ -75,6 +75,17 @@
 // each thread reads needs no broadcast. The C entry point (rod_grid.cu)
 // returns the launch's cudaError_t.
 //
+// Capture (r2f2::Capture, RodHist): each CTA bins, every substep, the
+// operands the reference's body passes its two sites, over the cells it
+// updates (heat: lap and flux over the interior cells, the constants alpha
+// and dtodx2 once a cell; a periodic rod: every cell), into a shared-memory
+// histogram it adds to the launch's slot at each snapshot boundary (a
+// megakernel's interval i) and after the last substep (a fused sweep's one
+// slot, or a megakernel's remainder). The f32 family's folded update never
+// forms flux = alpha*lap, so both shapes compute it there for the bins
+// (the warp shape already does, for the flux max). With capture off the
+// histogram pointer is null and the branch around the binning is uniform.
+//
 // Packed storage (r2f2::Storage, one block): a packed input is decoded at
 // its split where the cells are first loaded (the grid shape: into a third
 // buffer, behind one more grid barrier); a packed output is encoded from the
@@ -116,6 +127,7 @@ struct RodArgs {
   int blocks, n, row, steps, every;  // row: cells a row (heat1d nx, heat2d ny, a periodic rod n); every = 0: no snapshots
   float c0, c1;  // heat alpha, dtodx2; advection1d speed, dtodx; burgers1d dt/(2dx), 0.5
   r2f2::Storage st;  // packed input and output, storage rounding, the output split (one block)
+  r2f2::Capture cap;  // the operand histograms, (slots, 2, 2, n_bins); cap.out null: capture off
 };
 
 // The warp shape's launchers (rod_warp.cuh, one translation unit a body):
@@ -206,6 +218,42 @@ struct Step {
     return k >= 0 && k < kTable ? mul_table.site[1][k] : ConstMul(const1(), k, p, fixed);
   }
   __device__ PairMul pair_at(int k) const { return k >= 0 && k < kTable ? mul_table.pair[k] : PairMul(k, p, fixed); }
+};
+
+// The capture histogram of a rod kernel's CTA (r2f2::Hist over the body's two
+// sites; rows 2 * site + operand) and each thread's count of the valid lanes
+// of the constant operands since the last flush: heat alpha (row 0) and
+// dtodx2 (row 3), advection1d speed (row 0) and -dtodx (row 2, its exponent
+// is dtodx's), burgers1d 0.5 (row 2).
+template <int B>
+struct RodHist : r2f2::Hist {
+  int n_const = 0;
+
+  // Zeroed (capture on) before the CTA barrier of Step's constructor.
+  __device__ RodHist(const RodArgs& a, int* smem) : r2f2::Hist(a.cap, smem, 2) {
+    if (on()) zero();
+  }
+
+  // The constants' lanes, then the CTA's words into slot `slot` (every thread).
+  __device__ void flush_at(int slot, const Step<B>& c) {
+    if constexpr (B == kBurgers1D) {
+      add_n(2, c.const1(), n_const);
+    } else if constexpr (B == kAdvection1D) {
+      add_n(0, c.const0(), n_const);
+      add_n(2, c.const1(), n_const);
+    } else {
+      add_n(0, c.const0(), n_const);
+      add_n(3, c.const1(), n_const);
+    }
+    n_const = 0;
+    flush(slot);
+  }
+
+  // After the last substep: a fused sweep's one slot, or a megakernel's
+  // remainder (slot steps / every) where there is one.
+  __device__ void flush_end(const RodArgs& a, const Step<B>& c) {
+    if (on() && (a.every == 0 || a.steps % a.every != 0)) flush_at(a.every == 0 ? 0 : a.steps / a.every, c);
+  }
 };
 
 // The splits' floor in registers: r2f2::site_k's rule.

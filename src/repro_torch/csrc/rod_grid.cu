@@ -11,14 +11,17 @@ ROD_GRID_LAUNCHER(launch_grid_heat1d, kHeat1D)
 // warps with `cells` (G) cells a lane, shape 1 the grid shape with `ctas`
 // CTAs a block and `cells` a thread (kernels/rod.py::rod_plan). The fused
 // sweeps pass their k_floor as trk_k, evolve 0 and every 0; a megakernel one
-// block and its tracker rows.
+// block and its tracker rows. cap_out (null: capture off) takes the operand
+// histograms, (slots, 2, 2, cap_bins) int32 zeroed: slot 0 a fused sweep's,
+// slot i a megakernel's interval i and slot steps / every its remainder.
 extern "C" int r2f2_rod(int body, const float* u_in, float* u_out, float* snaps, float* ev, float* work,
                         unsigned int* maxes, unsigned long long* count, int* trk_k, float* trk_hi, float* trk_lo,
                         int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int blocks, int n, int row,
                         int steps, int every, int shape, int threads, int cells, int ctas, float c0, float c1,
                         float ema, float one_minus, int headroom, int family, int eb, int mb, int fx, int fe, int fm,
                         int tail_approx, int pinned, const void* pay_in, const int* k_in, void* pay_out, int* k_out,
-                        int bytes, int round, void* stream) {
+                        int bytes, int round, int* cap_out, int cap_e_lo, int cap_bins, int cap_rows,
+                        int cap_cols, void* stream) {
   const bool periodic = body == kAdvection1D || body == kBurgers1D;
   const bool storage = pay_in != nullptr || pay_out != nullptr || round != 0 || k_out != nullptr;
   bool ok = blocks >= 1 && row >= 1 && n >= row && n % row == 0 && every >= 0 && (every == 0 || snaps != nullptr);
@@ -30,10 +33,12 @@ extern "C" int r2f2_rod(int body, const float* u_in, float* u_out, float* snaps,
   ok = ok && (!storage || blocks == 1) && (bytes == 1 || bytes == 2 || bytes == 4) && 1 + eb + mb + fx <= 8 * bytes;
   ok = ok && (!round || every > 0) && (pay_in == nullptr || k_in != nullptr) && (pay_in != nullptr || u_in != nullptr);
   ok = ok && (u_out != nullptr || (pay_out != nullptr && shape == 0));
+  const r2f2::Capture cap{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols};
+  ok = ok && r2f2::capture_ok(cap);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const r2f2::Storage st{pay_in, k_in, pay_out, k_out, bytes, round};
   const RodArgs a{u_in, u_out, snaps, ev, work, maxes, count, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg,
-                  evolve, blocks, n, row, steps, every, c0, c1, st};
+                  evolve, blocks, n, row, steps, every, c0, c1, st, cap};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
   const auto s = static_cast<cudaStream_t>(stream);

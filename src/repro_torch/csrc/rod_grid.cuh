@@ -213,6 +213,8 @@ struct Grid {
 // a grid barrier.
 template <int B, int G>
 __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int ctas, AdjustLaw law, Policy p) {
+  extern __shared__ int rod_hist[];
+  RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
   Grid<G> grid(a, ctas);
   const size_t base = grid.base;
@@ -254,9 +256,16 @@ __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int 
         if (batches > 1) cells.load(src, lap, bi, first, stride, a.n, w, false);
         r2f2::with_kind(flux_of, [&](auto kind) {
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            mx = max(mx, r2f2::finite_mag_bits(flux_of.apply<decltype(kind)::value>(cells.v[g])) & cells.mask(g));
+          for (int g = 0; g < G; ++g) {
+            const float flux = flux_of.apply<decltype(kind)::value>(cells.v[g]);
+            mx = max(mx, r2f2::finite_mag_bits(flux) & cells.mask(g));
+            if (hist.on()) {  // site 0 (alpha, lap), site 1 (flux, dtodx2)
+              hist.add(1, cells.v[g], (cells.live >> g) & 1u);
+              hist.add(2, flux, (cells.live >> g) & 1u);
+            }
+          }
         });
+        hist.n_const += __popc(cells.live);
       }
     }
     grid.publish(mx, slot + 1);
@@ -306,6 +315,7 @@ __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int 
     }
     e[0] = c.e0, e[1] = e_lap, e[2] = e_flux, e[3] = c.e1;
     grid.end_substep(a, s, e, boundary, trk, f, law);
+    if (boundary && hist.on()) hist.flush_at(snap, c);
     if (boundary) until = a.every, ++snap;
     // the next substep's slots, beside the field's stores: every read of them
     // (substep s - 1) is behind the barriers passed, every write (substep
@@ -314,6 +324,7 @@ __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int 
     grid.sync();  // the next laplacian reads the neighbours written above
     src = dst;
   }
+  hist.flush_end(a, c);
   grid.finish(a, src, kst, c.p);
   if (a.evolve && blockIdx.x == 0 && threadIdx.x == 0) trk.store(a);
 }
@@ -323,6 +334,8 @@ __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int 
 // in the update of the substep before (once from the load), into the ring.
 template <int B, int G>
 __global__ void __launch_bounds__(kGridThreads) periodic_grid_kernel(RodArgs a, int ctas, AdjustLaw law, Policy p) {
+  extern __shared__ int rod_hist[];
+  RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
   Grid<G> grid(a, ctas);
   const int n = a.n, first = grid.first, stride = grid.stride, batches = grid.batches;
@@ -366,17 +379,31 @@ __global__ void __launch_bounds__(kGridThreads) periodic_grid_kernel(RodArgs a, 
         r2f2::with_kind(flux_of, [&](auto kind) {
           constexpr int J = decltype(kind)::value;
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            mx = max(mx, r2f2::finite_mag_bits(upwind<J>(flux_of, cells.u[g], flux_of.apply<J>(cells.l[g]))) & cells.mask(g));
+          for (int g = 0; g < G; ++g) {
+            const float df = upwind<J>(flux_of, cells.u[g], flux_of.apply<J>(cells.l[g]));
+            mx = max(mx, r2f2::finite_mag_bits(df) & cells.mask(g));
+            if (hist.on()) {  // site 0 (speed, u), site 1 (-dtodx, df)
+              hist.add(1, cells.u[g], (cells.live >> g) & 1u);
+              hist.add(3, df, (cells.live >> g) & 1u);
+            }
+          }
         });
       } else {
         r2f2::with_kind(square_of, [&](auto kind) {
           constexpr int J = decltype(kind)::value;
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            mx = max(mx, r2f2::finite_mag_bits(square_of.mul<J>(cells.u[g], cells.u[g])) & cells.mask(g));
+          for (int g = 0; g < G; ++g) {
+            const float uu = square_of.mul<J>(cells.u[g], cells.u[g]);
+            mx = max(mx, r2f2::finite_mag_bits(uu) & cells.mask(g));
+            if (hist.on()) {  // site 0 (u, u), site 1 (0.5, uu)
+              hist.add(0, cells.u[g], (cells.live >> g) & 1u);
+              hist.add(1, cells.u[g], (cells.live >> g) & 1u);
+              hist.add(3, uu, (cells.live >> g) & 1u);
+            }
+          }
         });
       }
+      hist.n_const += __popc(cells.live);
     }
     grid.publish(mx, slot + 1);
     grid.sync();
@@ -443,10 +470,12 @@ __global__ void __launch_bounds__(kGridThreads) periodic_grid_kernel(RodArgs a, 
       e[0] = e_u, e[1] = e_u, e[2] = c.e1, e[3] = e2;
     }
     grid.end_substep(a, s, e, boundary, trk, f, law);
+    if (boundary && hist.on()) hist.flush_at(snap, c);
     if (boundary) until = a.every, ++snap;
     grid.sync();  // the next substep reads the neighbours written above
     src = dst;
   }
+  hist.flush_end(a, c);
   grid.finish(a, src, kst, c.p);
   if (a.evolve && blockIdx.x == 0 && threadIdx.x == 0) trk.store(a);
 }
@@ -463,8 +492,9 @@ cudaError_t launch_grid(RodArgs a, int ctas, const AdjustLaw& law, const Policy&
       return heat_grid_kernel<B, G>;
     }
   }();
+  const size_t smem = r2f2::hist_bytes(a.cap, 2);
   int capacity = 0;
-  cudaError_t err = r2f2::cooperative_capacity(kernel, kGridThreads, 0, capacity);
+  cudaError_t err = r2f2::cooperative_capacity(kernel, kGridThreads, smem, capacity);
   if (err != cudaSuccess) return err;
   if (ctas < 1 || ctas > capacity) return cudaErrorCooperativeLaunchTooLarge;
   const int group = capacity / ctas, blocks = a.blocks;
@@ -478,7 +508,7 @@ cudaError_t launch_grid(RodArgs a, int ctas, const AdjustLaw& law, const Policy&
     g.maxes = a.maxes + static_cast<size_t>(b0) * 4;
     g.count = a.count + b0;
     if (a.ev != nullptr) g.ev = a.ev + static_cast<size_t>(b0) * a.steps * 4;
-    err = r2f2::launch_cooperative(kernel, dim3(g.blocks * ctas), dim3(kGridThreads), 0, stream, g, ctas, law, p);
+    err = r2f2::launch_cooperative(kernel, dim3(g.blocks * ctas), dim3(kGridThreads), smem, stream, g, ctas, law, p);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -187,17 +187,23 @@ struct Rod {
   }
 
   // One substep; every lane returns the same evidence.
-  __device__ void substep(const Step<B>& c, const Floor& f, int (&e)[4]) {
+  __device__ void substep(const Step<B>& c, const Floor& f, int (&e)[4], RodHist<B>& h) {
     if constexpr (B == kHeat1D) {
-      heat(c, f, e);
+      heat(c, f, e, h);
     } else if constexpr (B == kAdvection1D) {
-      advection(c, f, e);
+      advection(c, f, e, h);
     } else {
-      burgers(c, f, e);
+      burgers(c, f, e, h);
     }
   }
 
-  __device__ void heat(const Step<B>& c, const Floor& f, int (&e)[4]) {
+  // Capture: x of the lane's live cells into row `row`.
+  __device__ void bin(const r2f2::Hist& h, int row, const float (&x)[G]) const {
+#pragma unroll
+    for (int g = 0; g < G; ++g) h.add(row, x[g], (live >> g) & 1u);
+  }
+
+  __device__ void heat(const Step<B>& c, const Floor& f, int (&e)[4], RodHist<B>& h) {
     float left, right;
     neighbours(left, right);
     float v[G], w[G], next[G];  // lap, flux, the updated cells
@@ -215,6 +221,11 @@ struct Rod {
       mx = g0.fast ? products<K>(g0.mul, v, w) : products<3>(g0.mul, v, w);
     }
     const int e_flux = r2f2::mag_exponent(block_max(mx, warps.max1));
+    if (h.on()) {  // site 0 (alpha, lap), site 1 (flux, dtodx2)
+      bin(h, 1, v);
+      bin(h, 2, w);
+      h.n_const += __popc(live);
+    }
     if constexpr (K == 0) {
 #pragma unroll
       for (int g = 0; g < G; ++g) next[g] = __fmaf_rn(v[g], c.folded, u[g]);
@@ -259,7 +270,7 @@ struct Rod {
     for (int g = 0; g < G; ++g) next[g] = m.mul_add<J>(df[g], u[g]);
   }
 
-  __device__ void advection(const Step<B>& c, const Floor& f, int (&e)[4]) {
+  __device__ void advection(const Step<B>& c, const Floor& f, int (&e)[4], RodHist<B>& h) {
     float left, right;
     neighbours(left, right);
     const int e_u = r2f2::mag_exponent(gather(warps.umax));
@@ -280,6 +291,11 @@ struct Rod {
       } else {
         mul_adds<3>(g1.mul, df, next);
       }
+    }
+    if (h.on()) {  // site 0 (speed, u), site 1 (-dtodx, df)
+      bin(h, 1, u);
+      bin(h, 3, df);
+      h.n_const += __popc(live);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) u[g] = pick(cell_mask(live, g), next[g], u[g]);
@@ -307,7 +323,7 @@ struct Rod {
     for (int g = 0; g < G + 3; ++g) fx[g] = m.apply<J>(uu[g]);
   }
 
-  __device__ void burgers(const Step<B>& c, const Floor& f, int (&e)[4]) {
+  __device__ void burgers(const Step<B>& c, const Floor& f, int (&e)[4], RodHist<B>& h) {
     // x: the lane's left neighbour, its cells, its right neighbour, the wrap
     float x[G + 3], uu[G + 3], fx[G + 3];
     neighbours(x[0], x[G + 1]);
@@ -332,6 +348,13 @@ struct Rod {
         fluxes<3>(g1.mul, uu, fx);
       }
     }
+    if (h.on()) {  // site 0 (u, u), site 1 (0.5, uu)
+      bin(h, 0, u);
+      bin(h, 1, u);
+#pragma unroll
+      for (int g = 0; g < G; ++g) h.add(3, uu[g + 1], (live >> g) & 1u);
+      h.n_const += __popc(live);
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const uint32_t wraps = cell_mask(last, g);  // cell n - 1: its right is cell 0
@@ -346,6 +369,8 @@ struct Rod {
 // One CTA of `threads` / 32 warps a block.
 template <int B, int G, int K>
 __global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs a, AdjustLaw law, Policy p) {
+  extern __shared__ int rod_hist[];
+  RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
   const int b = blockIdx.x;
   const size_t base = static_cast<size_t>(b) * a.n;
@@ -356,16 +381,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs a, Adj
   int e[4];
   int kst = 0;  // the carried storage split
   for (int s = 0, until = a.every, snap = 0; s < a.steps; ++s) {
-    rod.substep(c, f, e);
+    rod.substep(c, f, e, hist);
     if (a.ev != nullptr && lead) write_evidence(a.ev + (static_cast<size_t>(b) * a.steps + s) * 4, e);
     if (a.evolve) trk.tick(e, law);
     if (--until == 0) {  // a snapshot boundary
       until = a.every;
       if (a.st.round) kst = rod.round_all(c.p);
       if (a.evolve) f.k[0] = trk.st[0].k, f.k[1] = trk.st[1].k;
+      if (hist.on()) hist.flush_at(snap, c);
       rod.store(a.snaps + static_cast<size_t>(snap++) * a.n);
     }
   }
+  hist.flush_end(a, c);
   if (a.st.round && a.every > 0 && a.steps % a.every != 0) kst = rod.round_all(c.p);  // the remainder's
   if (a.st.pay_out != nullptr) {
     if (!a.st.round) kst = rod.storage_split(c.p);  // a fused sweep picks its split afresh
@@ -380,7 +407,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs a, Adj
 
 template <int B, int G, int K>
 cudaError_t launch_warp(const RodArgs& a, int threads, const AdjustLaw& law, const Policy& p, cudaStream_t stream) {
-  rod_warp_kernel<B, G, K><<<a.blocks, threads, 0, stream>>>(a, law, p);
+  rod_warp_kernel<B, G, K><<<a.blocks, threads, r2f2::hist_bytes(a.cap, 2), stream>>>(a, law, p);
   return cudaGetLastError();
 }
 

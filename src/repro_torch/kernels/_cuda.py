@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = [
-    "KernelCounter", "StorageIO", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
+    "KernelCounter", "StorageIO", "CaptureIO", "capture_io", "MAX_BINS", "build", "library", "nvcc_version", "policy_args", "check", "ptr", "stream_of", "sm_count",
     "NVCC_FLAGS", "SMEM_LIMIT",
 ]
 
@@ -53,13 +53,14 @@ SMEM_LIMIT = 200 * 1024
 
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_CAPTURE = [_P] + [_I] * 4  # CaptureIO.args()
 _SIGNATURES = {
     # the rod bodies (K2, K4 heat1d, K5b/c/e/f, K5a/d's grid): body, u_in, u_out, snaps, ev, work,
     # maxes, count, trk k/hi/lo/ov/sh, site_cfg, evolve, blocks, n, row, steps, every, shape,
-    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), storage(6), stream
-    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P] * 4 + [_I] * 2 + [_P],
-    # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), stream
-    "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
+    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), storage(6), capture(5), stream
+    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P] * 4 + [_I] * 2 + _CAPTURE + [_P],
+    # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), capture(5), stream
+    "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + _CAPTURE + [_P],
     # u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx,
     # ny, steps, every, ctas, threads, rows, smem, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema,
     # 1 - ema, headroom, policy(8), stream
@@ -71,14 +72,16 @@ _SIGNATURES = {
     "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
 # heat2d's cluster kernels (csrc/pde_steps.cu): sweep u_in, u_out, ev, k_floor, nx, ny, steps,
-# c0, c1, the cluster's CTAs and band rows, policy(8), storage(6), stream; mega u_in, u_out,
-# snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band, ema,
-# 1 - ema, headroom, policy(8), storage(6), stream; swe2d's megakernel takes storage(6) before
-# its stream too
+# c0, c1, the cluster's CTAs and band rows, policy(8), storage(6), capture(5), stream; mega u_in,
+# u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band,
+# ema, 1 - ema, headroom, policy(8), storage(6), capture(5), stream; swe2d's megakernel takes
+# storage(6) and capture(5) before its stream too
 _STORAGE = [_P] * 4 + [_I] * 2  # StorageIO.args()
-_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + _STORAGE + [_P]
-_SIGNATURES["r2f2_heat2d_mega"] = [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + _STORAGE + [_P]
-_SIGNATURES["r2f2_swe2d_mega"] = _SIGNATURES["r2f2_swe2d_mega"][:-1] + _STORAGE + [_P]
+_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
+_SIGNATURES["r2f2_heat2d_mega"] = (
+    [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
+)
+_SIGNATURES["r2f2_swe2d_mega"] = _SIGNATURES["r2f2_swe2d_mega"][:-1] + _STORAGE + _CAPTURE + [_P]
 
 # K1's storage harness (csrc/r2f2_storage.cu): mode, x, payload, k_in, k_out, y, rows, width, br,
 # bw, k_min, payload bytes, eb, mb, fx, stream
@@ -92,8 +95,9 @@ FAMILY_CODES = {"f32": 0, "bf16": 1, "fixed": 2, "rr": 3}
 
 class KernelCounter:
     """Launch accounting beside one kernel: ``launches`` counts kernel
-    launches, ``plain_calls`` counts runs of the plain PyTorch version, and
-    ``storage`` the launches of each storage variant among the launches."""
+    launches, ``plain_calls`` counts runs of the plain PyTorch version,
+    ``storage`` the launches of each storage variant among the launches, and
+    ``captured`` the launches that binned their operands."""
 
     def __init__(self, name: str):
         self.name = name
@@ -103,12 +107,14 @@ class KernelCounter:
         self.launches = 0
         self.plain_calls = 0
         self.storage = {"packed": 0, "quantized": 0}
+        self.captured = 0
 
-    def count(self, storage: str = "f32") -> None:
-        """One launch, of the storage variant ``storage``."""
+    def count(self, storage: str = "f32", capture: bool = False) -> None:
+        """One launch, of the storage variant ``storage``, capturing or not."""
         self.launches += 1
         if storage in self.storage:
             self.storage[storage] += 1
+        self.captured += bool(capture)
 
 
 class StorageIO(NamedTuple):
@@ -128,6 +134,39 @@ class StorageIO(NamedTuple):
         pay = self.pay_in if self.pay_in is not None else self.pay_out
         width = 4 if pay is None else pay.element_size()
         return (ptr(self.pay_in), ptr(self.k_in), ptr(self.pay_out), ptr(self.k_out), width, int(self.round))
+
+
+#: most exponent bins a kernel's histogram takes (csrc/r2f2_device.cuh::kMaxBins)
+MAX_BINS = 512
+
+
+class CaptureIO(NamedTuple):
+    """A launch's capture arguments (``csrc/r2f2_device.cuh::Capture``): the
+    zeroed ``(slots, n_sites, 2, n_bins)`` int32 histogram buffer (None:
+    capture off), the spec's low exponent, and the valid extent of a padded
+    field (K3; the others take the field whole)."""
+
+    out: Optional[torch.Tensor] = None
+    e_lo: int = 0
+    rows: int = 0
+    cols: int = 0
+
+    def args(self):
+        """The five C arguments: the buffer, e_lo, n_bins, rows, cols."""
+        n_bins = 0 if self.out is None else int(self.out.shape[-1])
+        return (ptr(self.out), int(self.e_lo), n_bins, int(self.rows), int(self.cols))
+
+
+def capture_io(spec, slots: int, n_sites: int, device, rows: int = 0, cols: int = 0) -> CaptureIO:
+    """A zeroed histogram buffer of ``slots`` slots for a CaptureSpec (an
+    empty CaptureIO for None). Raises where the spec has more bins than the
+    kernels' histograms take."""
+    if spec is None:
+        return CaptureIO()
+    if spec.n_bins > MAX_BINS:
+        raise ValueError(f"the kernels' histograms take at most {MAX_BINS} bins; the spec has {spec.n_bins}")
+    out = torch.zeros((slots, n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
+    return CaptureIO(out, spec.e_lo, rows, cols)
 
 
 def _nvcc() -> str:

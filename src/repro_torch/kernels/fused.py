@@ -17,6 +17,11 @@ payloads: the kernel decodes each leaf at its carried split in its prologue
 and re-encodes the advanced leaf at a split picked afresh from it in its
 epilogue, so the chunk moves ``fmt.total_bits`` an element, not 32.
 
+With ``capture`` (a :class:`repro_torch.profile.CaptureSpec`) every
+policy operation also bins its operands' exponents per site, over the valid
+lanes only (pad lanes never count), summed over substeps and blocks into
+``(n_sites, 2, n_bins)`` int32 counts; capture turns the evidence on.
+
 The plain version runs ``body(state_blocks, ops)`` per block and substep,
 where ``ops`` is a :class:`FusedOps`: ``ops.mul(a, b, site)`` applies the
 policy's arithmetic family (``rr`` per-block split / ``bf16`` / ``fixed`` /
@@ -37,19 +42,22 @@ from repro_torch.kernels.blockops import block_max_exp, rr_add_block, rr_div_blo
 from repro_torch.pack.packed import PackedArray, block_storage_k, pack_block, payload_dtype, unpack_block
 from repro_torch.precision.engines import bf16_round
 from repro_torch.precision.fusion import fused_family
+from repro_torch.profile.capture import pair_exp_hist
 
-__all__ = ["FusedOps", "fused_sweep", "CAPTURE_PENDING"]
-
-CAPTURE_PENDING = "range capture and policies are not ported yet: ROADMAP.md queue 1 item 7 (profile/)"
+__all__ = ["FusedOps", "fused_sweep"]
 
 
 class FusedOps:
     """Per-substep policy arithmetic inside a fused body (the plain
-    version's mirror of ``pde.solver.StepOps``)."""
+    version's mirror of ``pde.solver.StepOps``). With ``capture`` it bins
+    each operation's broadcast operands into ``counts`` (site -> ``(2,
+    n_bins)``), masked to the block's valid lanes ``valid`` (see
+    :func:`_valid_lanes`) on a padded grid."""
 
-    __slots__ = ("prec", "sites", "site_ops", "family", "k_floor", "collect", "evidence")
+    __slots__ = ("prec", "sites", "site_ops", "family", "k_floor", "collect", "capture", "valid", "evidence", "counts")
 
-    def __init__(self, prec, sites: Tuple[str, ...], k_floor=None, collect=False, site_ops=None):
+    def __init__(self, prec, sites: Tuple[str, ...], k_floor=None, collect=False, site_ops=None, capture=None,
+                 valid=None):
         self.prec = prec
         self.sites = tuple(sites)
         self.site_ops = None if site_ops is None else tuple(site_ops)
@@ -58,7 +66,31 @@ class FusedOps:
             raise ValueError(f"mode {prec.mode!r} has no fused arithmetic family; run it on the reference plane")
         self.k_floor = k_floor
         self.collect = collect
+        self.capture = capture
+        self.valid = valid
         self.evidence = {}  # site -> (a_max_exp, b_max_exp) f32 scalars
+        self.counts = {}  # site -> (2, n_bins) int32 operand exponent counts
+
+    def _valid_mask(self, shape):
+        """The valid-lane mask broadcast to an operand's shape (None: all
+        valid). Row padding needs operands that keep the block's rows,
+        column padding operands that keep its width; anything else cannot
+        be attributed to lanes and is refused."""
+        if self.valid is None:
+            return None
+        row_ok, col_ok, br, bw = self.valid
+        m = None
+        if row_ok is not None:
+            if len(shape) != 2 or shape[0] != br:
+                raise ValueError(f"capture on a row-padded grid needs body operands to keep the block row extent {br}; "
+                                 f"got shape {tuple(shape)}")
+            m = row_ok.expand(shape)
+        if col_ok is not None:
+            if len(shape) != 2 or shape[1] != bw:
+                raise ValueError(f"capture on a width-padded grid needs body operands to keep the block width {bw}; "
+                                 f"got shape {tuple(shape)}")
+            m = col_ok.expand(shape) if m is None else m & col_ok.expand(shape)
+        return m
 
     def _record(self, a, b, site: str, op: str):
         a, b = torch.broadcast_tensors(a.to(torch.float32), b.to(torch.float32))
@@ -73,6 +105,8 @@ class FusedOps:
             if site in self.evidence:
                 raise ValueError(f"fused body hit site {site!r} twice in one substep")
             self.evidence[site] = tuple(e.to(torch.float32) for e in exps)
+        if self.capture is not None:  # the operands as the body passes them, before any rounding
+            self.counts[site] = pair_exp_hist(a, b, self.capture, self._valid_mask(a.shape))
         return a, b, exps
 
     def _k_floor_at(self, site: str):
@@ -137,19 +171,39 @@ class FusedOps:
         )
 
 
-def _sweep_plain(body, leaves, *, prec, sites, site_ops, steps, br, bw, gi, gj, n_out, k_floor, collect):
+def _valid_lanes(i, j, br, bw, extent, device):
+    """Block ``(i, j)``'s valid-lane masks on a padded grid, ``(row_ok (br,
+    1) | None, col_ok (1, bw) | None, br, bw)``, or None where the grid is
+    not padded; ``extent`` holds the unpadded rows and width (None where
+    that axis has no padding)."""
+    if extent is None:
+        return None
+    rows, width = extent
+    row_ok = None if rows is None else (i * br + torch.arange(br, device=device) < rows)[:, None]
+    col_ok = None if width is None else (j * bw + torch.arange(bw, device=device) < width)[None, :]
+    return row_ok, col_ok, br, bw
+
+
+def _sweep_plain(body, leaves, *, prec, sites, site_ops, steps, br, bw, gi, gj, n_out, k_floor, collect, capture=None,
+                 extent=None):
     """The plain version: every split block advanced on its own, substep by
-    substep. Returns padded outputs and ``(gi, gj, steps, n_sites, 2)``
-    evidence (or None)."""
+    substep. Returns padded outputs, ``(gi, gj, steps, n_sites, 2)``
+    evidence (or None) and, with ``capture``, the ``(n_sites, 2, n_bins)``
+    counts summed over blocks and substeps (or None)."""
     outs = [torch.empty_like(leaves[0]) for _ in range(n_out)]
     block_ev = []
+    counts = None
+    if capture is not None:
+        counts = torch.zeros((len(sites), 2, capture.n_bins), dtype=torch.int32, device=leaves[0].device)
     for i in range(gi):
         for j in range(gj):
             rows, cols = slice(i * br, (i + 1) * br), slice(j * bw, (j + 1) * bw)
             st = tuple(x[rows, cols] for x in leaves)
+            valid = None if capture is None else _valid_lanes(i, j, br, bw, extent, leaves[0].device)
             step_ev = []
             for _ in range(steps):
-                ops = FusedOps(prec, sites, k_floor=k_floor, collect=collect, site_ops=site_ops)
+                ops = FusedOps(prec, sites, k_floor=k_floor, collect=collect, site_ops=site_ops, capture=capture,
+                               valid=valid)
                 new = body(st, ops)
                 if len(new) != n_out:
                     raise ValueError(f"fused body returned {len(new)} leaves but the sweep was declared with n_out={n_out}")
@@ -158,13 +212,15 @@ def _sweep_plain(body, leaves, *, prec, sites, site_ops, steps, br, bw, gi, gj, 
                     if missing:
                         raise ValueError(f"fused body never reached sites {missing}")
                     step_ev.append(torch.stack([torch.stack(ops.evidence[n]) for n in sites]))
+                if capture is not None:
+                    counts += torch.stack([ops.counts[n] for n in sites])
                 st = new
             for o, v in zip(outs, st):
                 o[rows, cols] = v
             if collect:
                 block_ev.append(torch.stack(step_ev))
     ev = torch.stack(block_ev).reshape(gi, gj, steps, len(sites), 2) if collect else None
-    return outs, ev
+    return outs, ev, counts
 
 
 def _packed_leaves(state, prec):
@@ -216,21 +272,26 @@ def fused_sweep(
     reference, it needs the block to cover the whole field (one storage
     block per leaf), ``n_out == n_state`` and the policy's format.
 
+    ``capture`` (a CaptureSpec) bins every policy operation's operands
+    over the valid lanes, summed over substeps and blocks, and turns the
+    evidence on; the result then has a third element, the ``(n_sites, 2,
+    n_bins)`` int32 counts.
+
     ``kernel(leaves, br=, bw=, gi=, gj=, k_floor=, collect=, k_in=)``
     launches the CUDA kernel on the padded leaves and returns ``(outs,
     block_evidence)``; with ``k_in`` (the leaves' splits, packed storage)
     the leaves and outs are payloads and it returns ``(outs,
-    block_evidence, k_outs)``. It runs for CUDA tensors unless ``plain``;
-    CPU tensors (or ``plain``) take the plain version, counted in
-    ``counter.plain_calls``.
+    block_evidence, k_outs)``. Under capture it is also given ``capture=``
+    and ``extent=`` (the unpadded rows and width, each None where that
+    axis has no padding) and returns the counts last. It runs for CUDA
+    tensors unless ``plain``; CPU tensors (or ``plain``) take the plain
+    version, counted in ``counter.plain_calls``.
 
     Returns ``(out_leaves, evidence)`` with evidence ``(steps, n_sites, 2)``
-    (max over blocks) or None.
+    (max over blocks) or None, and the counts under capture.
     """
     if storage not in ("f32", "packed"):
         raise ValueError(f"unknown fused storage {storage!r}; 'f32' | 'packed'")
-    if capture is not None:
-        raise NotImplementedError(CAPTURE_PENDING)
     packed = storage == "packed"
     n_sites = len(sites)
     if site_ops is not None and len(site_ops) != n_sites:
@@ -266,29 +327,35 @@ def fused_sweep(
         pv = tuple(pad_values) if pad_values is not None else (0.0,) * n_state
         leaves = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(leaves, pv)]
     gi, gj = (rows + pr) // br, (width + pw) // bw
-    collect = bool(collect_evidence)
+    collect = bool(collect_evidence) or capture is not None
+    extent = (rows if pr else None, width if pw else None) if (pr or pw) else None
+    cap_kw = {} if capture is None else {"capture": capture, "extent": extent}
     if k_floor is not None:
         k_floor = torch.as_tensor(k_floor).to(device=leaves[0].device, dtype=torch.int32)
 
-    k_outs = None
+    k_outs = counts = None
     if leaves[0].is_cuda and not plain:
         if kernel is None:
             raise RuntimeError("this fused body has no CUDA kernel; pass CPU tensors to run its plain version")
         if packed:
-            outs, block_ev, k_outs = kernel(
+            res = kernel(
                 leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect,
-                k_in=[pa.k.reshape(1).to(torch.int32) for pa in pas],
+                k_in=[pa.k.reshape(1).to(torch.int32) for pa in pas], **cap_kw,
             )
+            outs, block_ev, k_outs = res[:3]
         else:
-            outs, block_ev = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect)
+            res = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect, **cap_kw)
+            outs, block_ev = res[:2]
+        if capture is not None:
+            counts = res[-1]
     else:
         if counter is not None:
             counter.plain_calls += 1
         if packed:  # the prologue: each leaf decoded at its carried split
             leaves = [unpack_block(pa.payload.to(torch.int64), prec.fmt, pa.k.reshape(())) for pa in pas]
-        outs, block_ev = _sweep_plain(
+        outs, block_ev, counts = _sweep_plain(
             body, leaves, prec=prec, sites=tuple(sites), site_ops=site_ops, steps=steps,
-            br=br, bw=bw, gi=gi, gj=gj, n_out=n_out, k_floor=k_floor, collect=collect,
+            br=br, bw=bw, gi=gi, gj=gj, n_out=n_out, k_floor=k_floor, collect=collect, capture=capture, extent=extent,
         )
         if packed:  # the epilogue: a split picked afresh from each advanced leaf
             k_outs = [block_storage_k(v, prec.fmt) for v in outs]
@@ -301,4 +368,6 @@ def fused_sweep(
         ]
     elif pr or pw:
         outs = [o[:rows, :width] for o in outs]
+    if capture is not None:
+        return tuple(outs), evidence, counts
     return tuple(outs), evidence

@@ -8,7 +8,7 @@ and folds the chunk's evidence on the host, here the carried tracker rows
 ``(k, hi_ema, lo_ema, overflow_steps, shrink_steps)`` stay in the kernel
 and evolve through :func:`repro_torch.core.policy.adjust_step`'s law.
 
-The semantics are those of ``repro/kernels/mega.py`` without capture:
+The semantics are those of ``repro/kernels/mega.py``:
 
 * the body runs at one block per state leaf (the whole field, no padding);
 * a non-pinned policy with a tracker (``evolve``) ticks the tracker every
@@ -19,6 +19,10 @@ The semantics are those of ``repro/kernels/mega.py`` without capture:
   fixed splits and leaves the tracker as it is;
 * the remainder substeps after the last boundary run in the same launch;
 * per-substep evidence ``(steps, n_sites, 2)`` comes back on request;
+* ``capture`` (a CaptureSpec) bins every policy operation's operands per
+  site: ``exp_time`` holds each whole snapshot interval's counts ``(n_out,
+  n_sites, 2, n_bins)``, ``exp_total`` the run's, the remainder substeps
+  after the last boundary in it only; capture turns the evidence on;
 * ``storage="quantized"|"packed"`` rounds the state at every snapshot
   boundary, after the update and before the snapshot and the next substep:
   one leaf-wide finite max, its storage split, the leaf quantized there
@@ -62,7 +66,7 @@ from repro_torch._device import f32_scalar
 from repro_torch.core.flexformat import quantize_em
 from repro_torch.core.policy import RangeTracker, adjust_step
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.fused import CAPTURE_PENDING, FusedOps, _packed_leaves, _single_block
+from repro_torch.kernels.fused import FusedOps, _packed_leaves, _single_block
 from repro_torch.kernels.heat_stencil import _heat1d_body
 from repro_torch.kernels.pde_steps import (
     ADVECTION1D_MEGA, BODIES, BURGERS1D_MEGA, HEAT2D_MEGA, _advection1d_body, _burgers1d_body, _heat2d_body,
@@ -110,6 +114,8 @@ class MegaResult(NamedTuple):
     tracker: Optional[RangeTracker]  # the evolved tracker (the input one when pinned)
     evidence: Optional[torch.Tensor]  # (steps, n_sites, 2) f32, when requested
     kst: Optional[torch.Tensor] = None  # (n_state,) int32 carried storage splits, under storage rounding
+    exp_time: Optional[torch.Tensor] = None  # (n_out, n_sites, 2, n_bins) int32 per-interval counts, capture
+    exp_total: Optional[torch.Tensor] = None  # (n_sites, 2, n_bins) int32 whole-run counts, capture
 
 
 def _site_ops(sites, site_ops):
@@ -132,12 +138,14 @@ def mega_sweep_plain(
     collect_evidence: bool = False,
     storage: str = "f32",
     k_in=None,
+    capture=None,
 ) -> MegaResult:
     """The plain PyTorch version of :func:`mega_sweep`, on any device:
     ``body(leaves, ops)`` once per substep over the whole leaves, with
     :class:`FusedOps` at the latched floor and :func:`adjust_step` per site.
     With ``k_in`` (the leaves' splits) the leaves are payloads, decoded
-    first and encoded at ``kst`` last."""
+    first and encoded at ``kst`` last; with ``capture`` the operand counts
+    come back per interval and in total."""
     sites = tuple(sites)
     ops_of = _site_ops(sites, site_ops)
     fmt = prec.fmt
@@ -156,14 +164,18 @@ def mega_sweep_plain(
     kst = torch.zeros(len(st), dtype=torch.int32, device=st[0].device)
     evolve = tracker is not None and not prec.pinned
     has_floor = tracker is not None and prec.pinned
-    collect = evolve or bool(collect_evidence)
+    collect_evidence = bool(collect_evidence) or capture is not None
+    collect = evolve or collect_evidence
     n_out = steps // every
     snaps = tuple(x.new_empty((n_out,) + tuple(x.shape)) for x in st)
+    if capture is not None:
+        cnt = torch.zeros((len(sites), 2, capture.n_bins), dtype=torch.int32, device=st[0].device)
+        cnt_last, exp_time = cnt, []
     trk = tuple(tracker) if evolve else None  # (hi_ema, lo_ema, k, overflow_steps, shrink_steps)
     floor = tracker.k if has_floor else (tracker.k.clone() if evolve else None)
     evs = []
     for s in range(steps):
-        ops = FusedOps(prec, sites, k_floor=floor, collect=collect, site_ops=site_ops)
+        ops = FusedOps(prec, sites, k_floor=floor, collect=collect, site_ops=site_ops, capture=capture)
         new = tuple(body(st, ops))
         if len(new) != len(st):
             raise ValueError(f"mega body returned {len(new)} leaves for {len(st)} state leaves")
@@ -174,6 +186,8 @@ def mega_sweep_plain(
             ev = torch.stack([torch.stack(ops.evidence[n]) for n in sites])
             if collect_evidence:
                 evs.append(ev)
+        if capture is not None:
+            cnt = cnt + torch.stack([ops.counts[n] for n in sites])
         if evolve:
             hi, lo, k, ov, sh = trk
             rows = [
@@ -192,6 +206,9 @@ def mega_sweep_plain(
                 floor = trk[2]
             for snap, v in zip(snaps, new):
                 snap[(s + 1) // every - 1] = v
+            if capture is not None:
+                exp_time.append(cnt - cnt_last)
+                cnt_last = cnt
         st = new
     if rounding and steps % every:  # the remainder epilogue: the same law
         st, kst = round_all(st)
@@ -201,7 +218,11 @@ def mega_sweep_plain(
     evidence = None
     if collect_evidence:
         evidence = torch.stack(evs) if evs else snaps[0].new_empty((0, len(sites), 2))
-    return MegaResult(st, snaps, out_tracker, evidence, kst if rounding else None)
+    res = MegaResult(st, snaps, out_tracker, evidence, kst if rounding else None)
+    if capture is not None:
+        times = torch.stack(exp_time) if exp_time else cnt.new_zeros((0,) + tuple(cnt.shape))
+        res = res._replace(exp_time=times, exp_total=cnt)
+    return res
 
 
 def mega_sweep(
@@ -231,14 +252,13 @@ def mega_sweep(
     k_in=)`` launches the stepper's CUDA kernel and returns a
     :class:`MegaResult` whose state holds payloads where ``k_in`` (the
     leaves' splits) is given; it runs for CUDA tensors unless ``plain`` and
-    counts its own launch. CPU tensors (or ``plain``) take
-    :func:`mega_sweep_plain`, counted on ``counter``. Capture raises with its
-    ROADMAP item.
+    counts its own launch. Under ``capture`` (a CaptureSpec) it is also
+    given ``capture=`` and fills ``exp_time`` and ``exp_total``; capture
+    turns the evidence on. CPU tensors (or ``plain``) take
+    :func:`mega_sweep_plain`, counted on ``counter``.
     """
     if storage not in ("f32", "quantized", "packed"):
         raise ValueError(f"unknown mega storage {storage!r}")
-    if capture is not None:
-        raise NotImplementedError(CAPTURE_PENDING)
     if every < 1:
         raise ValueError(f"snapshot cadence must be positive; got every={every}")
     if fused_family(prec.mode) is None:
@@ -267,14 +287,15 @@ def mega_sweep(
             raise RuntimeError("this mega body has no CUDA kernel; pass CPU tensors to run its plain version")
         res = kernel(
             leaves, steps=steps, every=every, tracker=tracker,
-            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence), storage=storage, k_in=k_in,
+            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence) or capture is not None,
+            storage=storage, k_in=k_in, **({} if capture is None else {"capture": capture}),
         )
     else:
         if counter is not None:
             counter.plain_calls += 1
         res = mega_sweep_plain(
             body, leaves, prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
-            tracker=tracker, collect_evidence=collect_evidence, storage=storage, k_in=k_in,
+            tracker=tracker, collect_evidence=collect_evidence, storage=storage, k_in=k_in, capture=capture,
         )
     if packed_io:
         final = tuple(
@@ -335,8 +356,22 @@ def _tracker_buffers(tracker, evolve, device):
     return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
 
 
+def _mega_capture(capture, steps, every, n_sites, device):
+    """A megakernel's histogram buffer: a slot for each of the ``steps //
+    every`` intervals and one for the remainder."""
+    return _cuda.capture_io(capture, steps // every + 1, n_sites, device)
+
+
+def _with_counts(res: MegaResult, cap: _cuda.CaptureIO, n_out: int) -> MegaResult:
+    """A launch's result with the counts of its histogram buffer: each
+    interval's slot, and their sum with the remainder's."""
+    if cap.out is None:
+        return res
+    return res._replace(exp_time=cap.out[:n_out], exp_total=cap.out.sum(dim=0, dtype=torch.int32))
+
+
 def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites, plan=None,
-                   storage="f32", k_in=None):
+                   storage="f32", k_in=None, capture=None):
     (u,) = leaves
     u = u.contiguous()
     if u.dim() != 2 or u.shape[0] != 1:
@@ -352,14 +387,15 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
+    cap = _mega_capture(capture, steps, every, 2, dev)
     err = launch_rod(
         "heat1d", u_in, u_out, plan, br=1, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
-        law=(ema, one_minus, headroom), storage=sio,
+        law=(ema, one_minus, headroom), storage=sio, capture=cap,
     )
     _cuda.check(err, "heat1d_mega")
-    HEAT1D_MEGA.count(storage)
-    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
+    HEAT1D_MEGA.count(storage, capture=capture is not None)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, steps // every)
 
 
 #: threads of a CTA of swe2d's grid (csrc/mega_pde.cu): at least, and at most
@@ -429,7 +465,7 @@ def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device):
 
 
 def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, sites, site_ops, plan=None,
-                  storage="f32", k_in=None):
+                  storage="f32", k_in=None, capture=None):
     (U,) = leaves
     U = U.contiguous()
     if U.dim() != 3 or U.shape[0] != 3 or min(U.shape[1:]) < 3:
@@ -454,6 +490,7 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
     consts = [float(f32_scalar(v, "cpu")) for v in (
         cfg.dt / (2 * cfg.dx), cfg.dt / (2 * cfg.dy), cfg.dt / cfg.dx, cfg.dt / cfg.dy, 0.5 * 9.81,
     )]
+    cap = _mega_capture(capture, steps, every, 4, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         # k is the floor the run starts from; the kernel latches it per CTA
@@ -463,15 +500,15 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
             _cuda.ptr(words), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
             _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows,
             plan.smem, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
-            *sio.args(), _cuda.stream_of(U),
+            *sio.args(), *cap.args(), _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")
-    SWE2D_MEGA.count(storage)
-    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
+    SWE2D_MEGA.count(storage, capture=capture is not None)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, n_out)
 
 
 def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None,
-               plan=None, storage="f32", k_in=None):
+               plan=None, storage="f32", k_in=None, capture=None):
     """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf
     (``pde_steps.k5_plan``'s shape)."""
     (u,) = leaves
@@ -486,14 +523,15 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
+    cap = _mega_capture(capture, steps, every, 2, dev)
     err = launch_k5(
         body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
-        law=(ema, one_minus, headroom), storage=sio,
+        law=(ema, one_minus, headroom), storage=sio, capture=cap,
     )
     _cuda.check(err, f"{body}_mega")
-    BODIES[body].mega.count(storage)
-    return MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out)
+    BODIES[body].mega.count(storage, capture=capture is not None)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, steps // every)
 
 
 # ---------------------------------------------------------------------------

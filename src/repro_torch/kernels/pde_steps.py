@@ -195,12 +195,13 @@ def k5_plan(body, nx, ny, device, cluster=None, plan=None):
     return rod_plan(1, nx * ny, _cuda.sm_count(device), periodic=True)
 
 
-def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.StorageIO(), **kw):
+def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.StorageIO(), capture=_cuda.CaptureIO(),
+              **kw):
     """Launch a K5 kernel on the ``(1, nx*ny)`` leaf ``u`` into ``out``:
     heat2d's cluster (``csrc/pde_steps.cu``, its own entries) or a rod shape
     (``csrc/rod.cuh``, :func:`rod.launch_rod` with its keywords). ``u`` or
-    ``out`` is None where ``storage`` gives a packed input or output.
-    Returns the CUDA error code."""
+    ``out`` is None where ``storage`` gives a packed input or output;
+    ``capture`` is the histogram buffer. Returns the CUDA error code."""
     if isinstance(plan, RodPlan):
         shape = (nx, ny) if body == "heat2d" else (1, nx * ny)
 
@@ -209,7 +210,7 @@ def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.
 
         storage = storage._replace(pay_in=view(storage.pay_in), pay_out=view(storage.pay_out))
         return launch_rod(body, view(u), view(out), plan, br=shape[0], steps=steps, consts=consts, prec=prec,
-                          storage=storage, **kw)
+                          storage=storage, capture=capture, **kw)
     lib = _cuda.library()
     policy = _cuda.policy_args(prec, fused_family(prec.mode))
     ptrs = [_cuda.ptr(kw.get(name)) for name in ("snaps", "ev")]
@@ -218,20 +219,21 @@ def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.
         if kw.get("every", 0) == 0:  # the fused sweep
             return lib.r2f2_heat2d_sweep(
                 _cuda.ptr(u), _cuda.ptr(out), ptrs[1], _cuda.ptr(kw.get("k")), nx, ny, steps, *consts, *plan, *policy,
-                *storage.args(), _cuda.stream_of(field),
+                *storage.args(), *capture.args(), _cuda.stream_of(field),
             )
         hi, lo, ov, sh = kw["tracker_rows"]
         return lib.r2f2_heat2d_mega(
             _cuda.ptr(u), _cuda.ptr(out), *ptrs, _cuda.ptr(kw.get("k")), *map(_cuda.ptr, (hi, lo, ov, sh)),
             _cuda.ptr(kw.get("table")), int(kw["evolve"]), nx, ny, steps, kw["every"], *consts, *plan, *kw["law"],
-            *policy, *storage.args(), _cuda.stream_of(field),
+            *policy, *storage.args(), *capture.args(), _cuda.stream_of(field),
         )
 
 
 def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster, plan,
-            k_in=None):
+            k_in=None, capture=None, extent=None):
     """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf (:func:`k5_plan`'s
-    shape); with ``k_in`` the leaf and the output are payloads."""
+    shape); with ``k_in`` the leaf and the output are payloads, with
+    ``capture`` the counts come back last (the leaf is one block: no pad)."""
     (u,) = leaves
     u = u.contiguous()
     if n_sites != 2 or (gi, gj) != (1, 1) or u.shape != (1, nx * ny):
@@ -239,11 +241,13 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, p
     plan = k5_plan(body, nx, ny, u.device, cluster, plan)
     ev = torch.empty((1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     u_in, u_out, out, storage = sweep_storage(u, k_in)
+    cap = _cuda.capture_io(capture, 1, n_sites, u.device)
     err = launch_k5(body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k_floor,
-                    storage=storage)
+                    storage=storage, capture=cap)
     _cuda.check(err, f"{body}_sweep")
-    BODIES[body].sweep.count("f32" if k_in is None else "packed")
-    return ([out], ev) if k_in is None else ([out], ev, [storage.k_out])
+    BODIES[body].sweep.count("f32" if k_in is None else "packed", capture=capture is not None)
+    res = [[out], ev] if k_in is None else [[out], ev, [storage.k_out]]
+    return tuple(res) if capture is None else (*res, cap.out[0])
 
 
 def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
@@ -253,12 +257,12 @@ def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect
         plan=plan,
     )
     packed = isinstance(u0, PackedArray)
-    (out,), ev = fused_sweep(
+    (out,), *rest = fused_sweep(
         fn, (u0.with_view((1, nx * ny)) if packed else u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps,
         block=(1, nx * ny), k_floor=k_floor, collect_evidence=collect_evidence, kernel=kernel,
         counter=BODIES[body].sweep, plain=plain, capture=capture, storage=storage,
     )
-    return (out.with_view(u0.shape) if packed else out.reshape(u0.shape)), ev
+    return ((out.with_view(u0.shape) if packed else out.reshape(u0.shape)), *rest)
 
 
 def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None,
@@ -277,7 +281,8 @@ def heat2d_sweep(
     capture=None, storage="f32", _cluster=None, _plan=None,
 ):
     """Advance an ``(nx, ny)`` field ``steps`` 5-point substeps in one
-    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
+    launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None,
+    and with ``capture`` the ``(2, 2, n_bins)`` operand counts last.
     ``_cluster`` asks the kernel for a cluster size other than the plan's,
     ``_plan`` for a grid shape (``rod.RodPlan``): the chip checks and
     timings go through each."""
@@ -287,12 +292,12 @@ def heat2d_sweep(
     )
 
 
-def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False,
+def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False, capture=None,
                        storage="f32"):
     """The plain PyTorch version of :func:`heat2d_sweep`, on any device."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
     )
 
 
@@ -321,12 +326,12 @@ def advection1d_sweep(
 
 
 def advection1d_sweep_plain(
-    u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False, storage="f32",
+    u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False, capture=None, storage="f32",
 ):
     """The plain PyTorch version of :func:`advection1d_sweep`, on any device."""
     return _advection1d(
         u0, speed=speed, dtodx=dtodx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
     )
 
 
@@ -353,10 +358,10 @@ def burgers1d_sweep(
     )
 
 
-def burgers1d_sweep_plain(u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False,
+def burgers1d_sweep_plain(u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False, capture=None,
                           storage="f32"):
     """The plain PyTorch version of :func:`burgers1d_sweep`, on any device."""
     return _burgers1d(
         u0, dt=dt, dx=dx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
     )

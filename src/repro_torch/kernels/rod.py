@@ -92,7 +92,8 @@ def grid_scratch(rows, nx, br, device, *, staged=False):
 
 
 def launch_rod(body, u, out, plan, *, br, steps, consts, prec, ev=None, k=None, tracker_rows=(None,) * 4, table=None,
-               evolve=False, every=0, snaps=None, law=(0.0, 0.0, 0), storage=_cuda.StorageIO()):
+               evolve=False, every=0, snaps=None, law=(0.0, 0.0, 0), storage=_cuda.StorageIO(),
+               capture=_cuda.CaptureIO()):
     """Launch ``body`` of the rod kernels on the ``(rows, nx)`` f32 field
     ``u`` (contiguous, ``rows`` a multiple of ``br``; heat2d's field is one
     ``(nx, ny)`` block) into ``out`` on the launch shape ``plan`` of one
@@ -103,7 +104,9 @@ def launch_rod(body, u, out, plan, *, br, steps, consts, prec, ev=None, k=None, 
     ema, headroom), and ``snaps`` at every ``every``-th substep. ``storage``
     (one block) gives a packed input in place of ``u`` (None), a packed
     output in place of ``out`` (None), the megakernels' boundary rounding
-    and the output split. Returns the launch's CUDA error code."""
+    and the output split; ``capture`` the histogram buffer (slot 0 a fused
+    sweep's, slot i a megakernel's interval i, the last its remainder).
+    Returns the launch's CUDA error code."""
     field = u if u is not None else storage.pay_in
     rows, nx = field.shape
     blocks, n = rows // br, br * nx
@@ -119,7 +122,7 @@ def launch_rod(body, u, out, plan, *, br, steps, consts, prec, ev=None, k=None, 
             _cuda.ptr(maxes), _cuda.ptr(count), _cuda.ptr(k), *map(_cuda.ptr, tracker_rows), _cuda.ptr(table),
             int(evolve), blocks, n, nx, steps, every, int(plan.shape == "grid"), plan.threads, plan.cells, plan.ctas,
             *map(float, consts), *law, *_cuda.policy_args(prec, fused_family(prec.mode)), *storage.args(),
-            _cuda.stream_of(field),
+            *capture.args(), _cuda.stream_of(field),
         )
 
 

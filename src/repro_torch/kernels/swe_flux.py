@@ -70,7 +70,7 @@ def _swe_flux_body(sites):
     return body
 
 
-def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites):
+def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites, capture=None, extent=None):
     q1, q3 = (x.contiguous() for x in leaves)
     rows, width = q1.shape
     if n_sites != 4:
@@ -79,6 +79,8 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites):
     if 3 * band * bw * 4 > _cuda.SMEM_LIMIT:
         raise ValueError(f"a ({br}, {bw}) tile needs {3 * band * bw * 4} B of shared memory per CTA; "
                          f"the kernel takes at most {_cuda.SMEM_LIMIT} B")
+    valid_rows, valid_cols = (rows, width) if extent is None else (extent[0] or rows, extent[1] or width)
+    cap = _cuda.capture_io(capture, 1, n_sites, q1.device, valid_rows, valid_cols)
     out = torch.empty_like(q1)
     ev = torch.empty((gi, gj, 1, n_sites, 2), dtype=torch.float32, device=q1.device) if collect else None
     lib = _cuda.library()
@@ -86,11 +88,11 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites):
         err = lib.r2f2_swe_flux(
             _cuda.ptr(q1), _cuda.ptr(q3), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor),
             rows, width, br, bw, cluster, band, 0.5 * G_GRAV,
-            *_cuda.policy_args(prec, fused_family(prec.mode)), _cuda.stream_of(q1),
+            *_cuda.policy_args(prec, fused_family(prec.mode)), *cap.args(), _cuda.stream_of(q1),
         )
     _cuda.check(err, "swe_flux_fused")
-    SWE_FLUX.launches += 1
-    return [out], ev
+    SWE_FLUX.count(capture=capture is not None)
+    return ([out], ev) if capture is None else ([out], ev, cap.out[0])
 
 
 def _flux(q1, q3, *, prec, block, sites, site_ops, k_floor, collect_evidence, capture, plain):
@@ -98,12 +100,12 @@ def _flux(q1, q3, *, prec, block, sites, site_ops, k_floor, collect_evidence, ca
         raise ValueError(f"swe_flux_fused's sites are {SWE_OPS} ops; got {tuple(site_ops)}")
     block = tuple(prec.kernel_blocks[:2]) if block is None else tuple(block)
     kernel = functools.partial(_launch, prec=prec, n_sites=len(sites))
-    (out,), ev = fused_sweep(
+    (out,), *rest = fused_sweep(
         _swe_flux_body(sites), (q1, q3), prec=prec, sites=sites, site_ops=site_ops, steps=1,
         block=block, n_out=1, pad_values=(0.0, 1.0), k_floor=k_floor,
         collect_evidence=collect_evidence, kernel=kernel, counter=SWE_FLUX, plain=plain, capture=capture,
     )
-    return out, ev
+    return (out, *rest)
 
 
 def swe_flux_fused(
@@ -112,7 +114,8 @@ def swe_flux_fused(
 ):
     """Momentum flux over 2-D fields ``q1 = hu``, ``q3 = h``; ``block``
     defaults to ``prec.kernel_blocks[:2]``. Returns ``(flux, evidence)``
-    with evidence ``(1, 4, 2)`` or None."""
+    with evidence ``(1, 4, 2)`` or None, and with ``capture`` the ``(4, 2,
+    n_bins)`` counts of the valid midpoints (pad lanes never count) last."""
     return _flux(
         q1, q3, prec=prec, block=block, sites=sites, site_ops=site_ops, k_floor=k_floor,
         collect_evidence=collect_evidence, capture=capture, plain=False,
@@ -120,12 +123,12 @@ def swe_flux_fused(
 
 
 def swe_flux_fused_plain(
-    q1, q3, *, prec, block=None, sites=SWE_SITES, site_ops=SWE_OPS, k_floor=None, collect_evidence=False,
+    q1, q3, *, prec, block=None, sites=SWE_SITES, site_ops=SWE_OPS, k_floor=None, collect_evidence=False, capture=None,
 ):
     """The plain PyTorch version of :func:`swe_flux_fused`, on any device."""
     return _flux(
         q1, q3, prec=prec, block=block, sites=sites, site_ops=site_ops, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=None, plain=True,
+        collect_evidence=collect_evidence, capture=capture, plain=True,
     )
 
 

@@ -69,7 +69,7 @@ def _dense_attention(q, k, v, causal, window, prec):
 def _chunked_attention(q, k, v, causal, window, prec):
     raise NotImplementedError(
         f"sequences longer than {FLASH_THRESHOLD} take the chunked attention path, which is not "
-        "ported to repro_torch yet (ROADMAP.md queue 1 item 13)"
+        "ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: chunked attention)"
     )
 
 

@@ -29,14 +29,15 @@ def _check_entry(entry: str):
     mixer, ffn = parse_entry(entry)
     if mixer != "attn":
         raise NotImplementedError(
-            f"pattern entry {entry!r}: the {mixer} mixer is not ported to repro_torch yet (ROADMAP.md queue 1 item 13)"
+            f"pattern entry {entry!r}: the {mixer} mixer is not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: "
+            "models/ssm.py and models/xlstm.py)"
         )
     return mixer, ffn
 
 
 def _check_inputs(cfg: ModelConfig, embeds):
     if embeds is not None or cfg.frontend is not None:
-        raise NotImplementedError("modality frontends are not ported to repro_torch yet (ROADMAP.md queue 1 item 13)")
+        raise NotImplementedError("modality frontends are not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: frontends)")
 
 
 def _block_init(generator, entry: str, cfg: ModelConfig, *, lead, device):

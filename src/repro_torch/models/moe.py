@@ -54,7 +54,8 @@ def moe_apply(p, x, cfg: ModelConfig, prec: PrecisionConfig):
     """x: (B, S, d) -> (out, aux_loss)."""
     if DISPATCH_MODE != "scatter":
         raise NotImplementedError(
-            f"MoE dispatch {DISPATCH_MODE!r} is not ported to repro_torch yet (ROADMAP.md queue 1 item 13); "
+            f"MoE dispatch {DISPATCH_MODE!r} is not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: "
+            "the einsum MoE dispatch); "
             "the scatter dispatch is"
         )
     B, S, d = x.shape

@@ -11,11 +11,11 @@ reference.
 
 from .registry import get_stepper, known_steppers, register_stepper
 from .solver import SimResult, Simulation, StepOps, Stepper
-from .advection1d import AdvectionConfig
-from .burgers1d import BurgersConfig
+from .advection1d import AdvectionConfig, initial_profile
+from .burgers1d import BurgersConfig, initial_wave
 from .heat1d import HeatConfig, heat_step
 from .heat1d import simulate as simulate_heat
-from .heat2d import Heat2DConfig
+from .heat2d import Heat2DConfig, initial_condition_2d
 from .precision_ops import padd, pdiv, pmul, pstore
 from .swe2d import SWEConfig, swe_step
 from .swe2d import simulate as simulate_swe
@@ -33,6 +33,9 @@ __all__ = [
     "Heat2DConfig",
     "AdvectionConfig",
     "BurgersConfig",
+    "initial_condition_2d",
+    "initial_profile",
+    "initial_wave",
     "heat_step",
     "simulate_heat",
     "swe_step",

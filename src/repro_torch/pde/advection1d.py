@@ -79,20 +79,21 @@ class Advection1DStepper(Stepper):
         return advection1d_update(u, cfg.speed, cfg.dtodx, ops, self.sites)
 
     def fused_step(self, u, cfg: AdvectionConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32"):
+                   storage: str = "f32", capture=None):
         """``steps`` substeps in one launch of kernel K5b (the rod as one block)."""
         from repro_torch.kernels.pde_steps import advection1d_sweep
 
         return advection1d_sweep(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
         )
 
-    def mega_step(self, u, cfg: AdvectionConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
+    def mega_step(self, u, cfg: AdvectionConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
+                  capture=None):
         """The whole horizon in one launch of kernel K5e (``advection1d_mega``)."""
         from repro_torch.kernels.mega import advection1d_mega
 
         return advection1d_mega(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage,
+            tracker=tracker, storage=storage, capture=capture,
         )

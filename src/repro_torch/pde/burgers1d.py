@@ -76,20 +76,21 @@ class Burgers1DStepper(Stepper):
         return burgers1d_update(u, cfg.dt, cfg.dx, ops, self.sites)
 
     def fused_step(self, u, cfg: BurgersConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32"):
+                   storage: str = "f32", capture=None):
         """``steps`` substeps in one launch of kernel K5c (the rod as one block)."""
         from repro_torch.kernels.pde_steps import burgers1d_sweep
 
         return burgers1d_sweep(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
         )
 
-    def mega_step(self, u, cfg: BurgersConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
+    def mega_step(self, u, cfg: BurgersConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
+                  capture=None):
         """The whole horizon in one launch of kernel K5f (``burgers1d_mega``)."""
         from repro_torch.kernels.mega import burgers1d_mega
 
         return burgers1d_mega(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage,
+            tracker=tracker, storage=storage, capture=capture,
         )

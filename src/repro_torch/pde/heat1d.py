@@ -90,25 +90,26 @@ class Heat1DStepper(Stepper):
         return heat1d_update(u[None, :], cfg.alpha, cfg.dtodx2, ops, self.sites)[0]
 
     def fused_step(self, u, cfg: HeatConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32"):
+                   storage: str = "f32", capture=None):
         """``steps`` substeps in one launch of kernel K2 (one row, one block)."""
         from repro_torch.kernels.heat_stencil import heat1d_sweep
 
         packed = storage == "packed"
-        out, ev = heat1d_sweep(
+        out, *rest = heat1d_sweep(
             u.with_view((1, cfg.nx)) if packed else u[None, :], alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec,
             steps=steps, block_rows=1, sites=self.sites, k_floor=k_floor, collect_evidence=collect_evidence,
-            storage=storage,
+            storage=storage, capture=capture,
         )
-        return (out.with_view((cfg.nx,)) if packed else out[0]), ev
+        return ((out.with_view((cfg.nx,)) if packed else out[0]), *rest)
 
-    def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
+    def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
+                  capture=None):
         """The whole horizon in one launch of kernel K4 (``heat1d_mega``)."""
         from repro_torch.kernels.mega import heat1d_mega
 
         return heat1d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage,
+            tracker=tracker, storage=storage, capture=capture,
         )
 
 

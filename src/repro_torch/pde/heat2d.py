@@ -118,20 +118,21 @@ class Heat2DStepper(Stepper):
         return heat2d_update(u, cfg.alpha, cfg.dtodx2, ops, self.sites)
 
     def fused_step(self, u, cfg: Heat2DConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32"):
+                   storage: str = "f32", capture=None):
         """``steps`` substeps in one launch of kernel K5a (the field as one block)."""
         from repro_torch.kernels.pde_steps import heat2d_sweep
 
         return heat2d_sweep(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, sites=self.sites,
-            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage,
+            k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
         )
 
-    def mega_step(self, u, cfg: Heat2DConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
+    def mega_step(self, u, cfg: Heat2DConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
+                  capture=None):
         """The whole horizon in one launch of kernel K5d (``heat2d_mega``)."""
         from repro_torch.kernels.mega import heat2d_mega
 
         return heat2d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage,
+            tracker=tracker, storage=storage, capture=capture,
         )

@@ -28,6 +28,13 @@ to fold it. On a CUDA device a run flushes f32 subnormals, as the reference
 does: the kernels build with ``-ftz=true``, and the PyTorch arithmetic of
 the initial state, the reference plane and the observables runs under
 ``core/ftz.py::card_flush``.
+
+``capture`` (True or a :class:`repro_torch.profile.CaptureSpec`) records
+the run's range profile on every plane: per-step site evidence and
+per-site operand exponent histograms, per snapshot interval and in total
+(``SimResult.profile``). ``policy`` loads a
+:class:`repro_torch.profile.PrecisionPolicy`: a tracked run starts at its
+per-site splits and clamps re-picks to its hints.
 """
 
 from __future__ import annotations
@@ -39,11 +46,11 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.ftz import card_flush
 from repro_torch.core.policy import PrecisionConfig
-from repro_torch.kernels.fused import CAPTURE_PENDING
 from repro_torch.pack import PackedArray, is_packed, pack_state, storage_quantize, unpack_state
 from repro_torch.pde.registry import get_stepper
 from repro_torch.precision import fold_evidence, fused_eligible, get_engine, mega_eligible, site_tracker_init
 from repro_torch.precision.sites import rewrap
+from repro_torch.profile.capture import CaptureResult, CaptureSpec, pair_exp_hist, site_evidence
 
 __all__ = ["Stepper", "StepOps", "Simulation", "SimResult", "EXECUTIONS", "STORAGE_MODES"]
 
@@ -52,31 +59,55 @@ EXECUTIONS = ("reference", "fused", "megakernel", "auto")
 #: packed format at every chunk boundary but carried f32; "packed", carried
 #: as PackedArray payloads (the same values as "quantized", bit for bit)
 STORAGE_MODES = ("f32", "quantized", "packed")
-ENSEMBLE_PENDING = "run_ensemble is not ported to repro_torch yet: ROADMAP.md queue 1 item 9"
+ENSEMBLE_PENDING = "run_ensemble is not ported to repro_torch yet: ROADMAP.md queue 1, ensembles (`run_ensemble`)"
 
 
 class StepOps:
     """Per-step policy arithmetic for stepper code: ``ops.mul(a, b, site)``
-    calls the engine and carries the updated tracker in ``self.tracker``."""
+    calls the engine and carries the updated tracker in ``self.tracker``.
+    With ``capture`` (a ``(CaptureSpec, sites, counts)`` triple) every named
+    operation also bins its broadcast operands into ``cap_counts`` and
+    records the step's site evidence in ``cap_evidence``."""
 
-    __slots__ = ("prec", "tracker", "_engine")
+    __slots__ = ("prec", "tracker", "_engine", "_cap_spec", "_cap_sites", "cap_counts", "cap_evidence")
 
-    def __init__(self, prec: PrecisionConfig, tracker=None):
+    def __init__(self, prec: PrecisionConfig, tracker=None, capture=None):
         self.prec = prec
         self.tracker = tracker
         self._engine = get_engine(prec)
+        self._cap_spec = None
+        if capture is not None:
+            self._cap_spec, self._cap_sites, self.cap_counts = capture
+            # per-step site evidence; -127 is the zero-operand floor
+            self.cap_evidence = torch.full((len(self._cap_sites), 2), -127.0, device=self.cap_counts.device)
+
+    def _capture(self, a, b, site: str):
+        """Bin the broadcast operands' exponents and take the site evidence
+        (``repro_torch.profile.capture``), as the fused plane's FusedOps does."""
+        j = self._cap_sites.index(site)
+        dev = self.cap_counts.device
+        a, b = torch.broadcast_tensors(torch.as_tensor(a, device=dev).to(torch.float32),
+                                       torch.as_tensor(b, device=dev).to(torch.float32))
+        self.cap_counts[j] += pair_exp_hist(a, b, self._cap_spec)
+        self.cap_evidence[j] = torch.maximum(self.cap_evidence[j], site_evidence(a, b))
 
     def mul(self, a, b, site: str):
+        if self._cap_spec is not None:
+            self._capture(a, b, site)
         out, self.tracker = self._engine.multiply(a, b, self.prec, tracker=self.tracker, site=site)
         return out
 
     def mul_add(self, a, b, c, site: str):
         """``a * b + c`` with the product on the policy's multiplier at a
         named site (one rounding where the compiled reference fuses it)."""
+        if self._cap_spec is not None:
+            self._capture(a, b, site)
         out, self.tracker = self._engine.multiply_add(a, b, c, self.prec, tracker=self.tracker, site=site)
         return out
 
     def add(self, a, b, site: str):
+        if self._cap_spec is not None:
+            self._capture(a, b, site)
         out, self.tracker = self._engine.add(a, b, self.prec, tracker=self.tracker, site=site)
         return out
 
@@ -84,12 +115,16 @@ class StepOps:
         """Quotient; with a named site this is the tracked flexible divider."""
         if site is None:
             return self._engine.divide(a, b, self.prec)[0]
+        if self._cap_spec is not None:
+            self._capture(a, b, site)
         out, self.tracker = self._engine.divide(a, b, self.prec, tracker=self.tracker, site=site)
         return out
 
     def rsqrt(self, x, site: Optional[str] = None):
         if site is None:
             return self._engine.rsqrt(x, self.prec)[0]
+        if self._cap_spec is not None:
+            self._capture(x, x, site)
         out, self.tracker = self._engine.rsqrt(x, self.prec, tracker=self.tracker, site=site)
         return out
 
@@ -104,7 +139,10 @@ class Stepper:
     collect_evidence=False) -> (state, evidence)``, and ``mega_step`` the
     optional megakernel hook ``mega_step(state, cfg, prec, steps, every, *,
     tracker=None) -> repro_torch.kernels.mega.MegaResult``, which takes
-    ``storage=`` too for runs with storage other than f32. A stepper with
+    ``storage=`` too for runs with storage other than f32. Both take
+    ``capture=`` (a CaptureSpec): ``fused_step`` then returns ``(state,
+    evidence, counts)`` with the chunk's ``(n_sites, 2, n_bins)`` counts, and
+    ``mega_step``'s result carries ``exp_time`` and ``exp_total``. A stepper with
     ``fused_packed`` also takes ``storage="packed"`` on ``fused_step``, and
     then a PackedArray state that its kernel decodes and re-encodes; the
     Simulation packs around the others' f32 chunks.
@@ -155,12 +193,38 @@ class Stepper:
 
 
 class SimResult(NamedTuple):
-    """What a run returns; ``tracker`` is None for untracked modes."""
+    """What a run returns; ``tracker`` is None for untracked modes and
+    ``profile`` (a CaptureResult) None unless the run captured."""
 
     state: Any
     snapshots: Any
     tracker: Optional[Any]
     profile: Optional[Any] = None
+
+
+class _Profile:
+    """A captured chunked run's accumulators: the per-step evidence, each
+    whole interval's counts (the time axis) and the total, the remainder's
+    included (the fused and reference planes' shared epilogue)."""
+
+    def __init__(self, spec: CaptureSpec, n_sites: int, device):
+        self.spec, self.n_sites = spec, n_sites
+        self.evidence, self.exp_time = [], []
+        self.total = torch.zeros((n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
+
+    def add(self, evidence, counts, *, whole: bool):
+        self.evidence.append(evidence.to(self.total.device))
+        counts = counts.to(self.total.device)
+        self.total = self.total + counts
+        if whole:
+            self.exp_time.append(counts)
+
+    def result(self) -> CaptureResult:
+        dev = self.total.device
+        ev = torch.cat(self.evidence) if self.evidence else torch.zeros((0, self.n_sites, 2), device=dev)
+        exp_time = (torch.stack(self.exp_time) if self.exp_time else
+                    torch.zeros((0, self.n_sites, 2, self.spec.n_bins), dtype=torch.int32, device=dev))
+        return CaptureResult(ev, exp_time, self.total)
 
 
 class Simulation:
@@ -224,43 +288,75 @@ class Simulation:
         ``"auto"``. Pass ``tracker`` to resume tracked modes from saved
         adjust-unit state. ``storage`` is one of :data:`STORAGE_MODES`;
         under ``"packed"`` the result's state is a PackedArray, and a
-        packed ``state0`` (a resumed carry) is taken as it is.
+        packed ``state0`` (a resumed carry) is taken as it is. ``capture``
+        (True or a CaptureSpec) fills ``SimResult.profile`` with a
+        :class:`repro_torch.profile.CaptureResult`; ``policy`` (a
+        PrecisionPolicy) installs its hints and seeds a fresh tracker at its
+        splits. Neither changes the run's arithmetic.
         """
         execution = self._resolve_execution(execution)
         storage = self._resolve_storage(storage)
-        if capture is not None or policy is not None:
-            raise NotImplementedError(CAPTURE_PENDING)
-        stepper, cfg = self.stepper, self.cfg
+        spec = self._resolve_capture(capture)
+        stepper, prec = self.stepper, self.prec
         with card_flush(self.device):
             if state0 is None:
-                state = stepper.init_state(cfg, device=self.device)
+                state = stepper.init_state(self.cfg, device=self.device)
             elif isinstance(state0, PackedArray):
                 state = state0.to(self.device)
             else:
                 state = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
             state = self._storage_in(state, storage)
+        if tracker is not None:
+            tracker = tracker.to(self.device)
+        if policy is not None:
+            prec, tracker = self._apply_policy(prec, tracker, policy)
         if tracker is None:
             tracker = self.init_tracker()
-        else:
-            tracker = tracker.to(self.device)
         every = snapshot_every or max(1, steps // stepper.snapshots_default)
         if execution == "megakernel":
-            return self._run_mega(state, tracker, steps, every, storage)
+            return self._run_mega(state, tracker, steps, every, storage, prec, spec)
         n_out, rem = divmod(steps, every)
         advance = self._chunk_fused if execution == "fused" else self._chunk_reference
+        profile = None if spec is None else _Profile(spec, len(stepper.sites), self.device)
 
         snaps = []
         for _ in range(n_out):
-            state, tracker = advance(state, tracker, every, storage)
+            state, tracker, cap = advance(state, tracker, every, storage, prec, spec)
             snaps.append(self._observe(state))
+            if profile is not None:
+                profile.add(*cap, whole=True)
         if rem:
-            state, tracker = advance(state, tracker, rem, storage)
+            state, tracker, cap = advance(state, tracker, rem, storage, prec, spec)
+            if profile is not None:
+                profile.add(*cap, whole=False)
         if snaps:
             snapshots = torch.stack(snaps)
         else:
             obs = self._observe(state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
-        return SimResult(state, snapshots, tracker)
+        return SimResult(state, snapshots, tracker, None if profile is None else profile.result())
+
+    def _resolve_capture(self, capture) -> Optional[CaptureSpec]:
+        """``capture`` may be None, a bool (True: the default spec) or a CaptureSpec."""
+        if capture is None or capture is False:
+            return None
+        if capture is True:
+            capture = CaptureSpec()
+        if not isinstance(capture, CaptureSpec):
+            raise TypeError(f"capture must be bool or CaptureSpec, got {capture!r}")
+        if not self.stepper.sites:
+            raise ValueError(f"stepper {self.stepper.name!r} declares no multiplication sites; nothing to capture")
+        return capture
+
+    def _apply_policy(self, prec, tracker, policy):
+        """A PrecisionPolicy's floor and ceiling hints as ``prec.k_bounds``
+        and, for a tracked mode without a tracker, one seeded at its splits
+        (both ordered by the stepper's sites)."""
+        sites = self.stepper.sites
+        prec = policy.apply(prec, sites)
+        if tracker is None and get_engine(prec).tracks and sites:
+            tracker = site_tracker_init(sites, prec.fmt, k0=torch.from_numpy(policy.k_array(sites)), device=self.device)
+        return prec, tracker
 
     @staticmethod
     def _resolve_storage(storage: str) -> str:
@@ -299,50 +395,65 @@ class Simulation:
         with card_flush(self.device):
             return self.stepper.observables(state, self.cfg)
 
-    def _chunk_reference(self, state, tracker, n: int, storage: str = "f32"):
+    def _chunk_reference(self, state, tracker, n: int, storage: str, prec, spec=None):
+        """``n`` reference steps; with ``spec`` also the chunk's per-step
+        evidence and operand counts."""
         state = self._unpacked(state)
+        sites = self.stepper.sites
+        counts = None if spec is None else torch.zeros((len(sites), 2, spec.n_bins), dtype=torch.int32,
+                                                       device=self.device)
+        evs = []
         with card_flush(self.device):
             for _ in range(n):
-                ops = StepOps(self.prec, tracker)
+                ops = StepOps(prec, tracker, None if spec is None else (spec, sites, counts))
                 state = self.stepper.step(state, self.cfg, ops)
                 tracker = ops.tracker
-        return self._storage_out(state, storage), tracker
+                if spec is not None:
+                    counts = ops.cap_counts
+                    evs.append(ops.cap_evidence)
+        cap = None if spec is None else (torch.stack(evs), counts)
+        return self._storage_out(state, storage), tracker, cap
 
-    def _chunk_fused(self, state, tracker, n: int, storage: str = "f32"):
+    def _chunk_fused(self, state, tracker, n: int, storage: str, prec, spec=None):
         """One fused chunk: the carried splits enter as the rr family's
         floor, and the chunk's evidence replays through the adjust law. A
-        ``fused_packed`` stepper takes a packed carry into its kernel."""
-        prec = self.prec
+        ``fused_packed`` stepper takes a packed carry into its kernel. With
+        ``spec`` the chunk's evidence and counts come back too."""
         in_kernel = storage == "packed" and self.stepper.fused_packed
         if not in_kernel:
             state = self._unpacked(state)
-        state, ev = self.stepper.fused_step(
+        res = self.stepper.fused_step(
             state, self.cfg, prec, n,
             k_floor=None if tracker is None else tracker.state.k,
-            collect_evidence=tracker is not None and not prec.pinned,
+            collect_evidence=spec is not None or (tracker is not None and not prec.pinned),
             **({"storage": "packed"} if in_kernel else {}),
+            **({"capture": spec} if spec is not None else {}),
         )
+        state, ev = res[:2]
         if not in_kernel:
             state = self._storage_out(state, storage)
         if tracker is not None:
             tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
-        return state, tracker
+        return state, tracker, (None if spec is None else (ev, res[2]))
 
-    def _run_mega(self, state, tracker, steps: int, every: int, storage: str = "f32") -> SimResult:
+    def _run_mega(self, state, tracker, steps: int, every: int, storage: str, prec, spec=None) -> SimResult:
         """The whole horizon in one launch: tracker rows tick every substep
         in the kernel, the datapath floor latches at the snapshot boundaries,
         the state rounds to storage there, and the observables are taken
-        from the kernel's state snapshots."""
+        from the kernel's state snapshots. With ``spec`` the kernel bins
+        every interval's operands and emits the evidence."""
         res = self.stepper.mega_step(
-            state, self.cfg, self.prec, steps, every, tracker=None if tracker is None else tracker.state,
+            state, self.cfg, prec, steps, every, tracker=None if tracker is None else tracker.state,
             **({"storage": storage} if storage != "f32" else {}),
+            **({"capture": spec} if spec is not None else {}),
         )
         if res.snaps.shape[0]:
             snapshots = torch.stack([self._observe(s) for s in res.snaps])
         else:
             obs = self._observe(res.state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
-        return SimResult(res.state, snapshots, rewrap(tracker, res.tracker))
+        profile = None if spec is None else CaptureResult(res.evidence, res.exp_time, res.exp_total)
+        return SimResult(res.state, snapshots, rewrap(tracker, res.tracker), profile)
 
     def run_ensemble(self, *args, **kwargs):
         raise NotImplementedError(ENSEMBLE_PENDING)

@@ -147,40 +147,51 @@ class SWE2DStepper(Stepper):
     def step(self, U, cfg: SWEConfig, ops: StepOps):
         return _lw_step(U, cfg, lambda q1, q3: _momentum_flux(q1, q3, ops))
 
-    def fused_step(self, U, cfg: SWEConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False):
+    def fused_step(self, U, cfg: SWEConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
+                   capture=None):
         """A fused chunk: each substep's momentum flux is one launch of
         kernel K3; the rest of the Lax-Wendroff step is f32 PyTorch, as the
-        reference leaves it to XLA."""
+        reference leaves it to XLA. With ``capture`` K3's counts are summed
+        over the substeps and returned last."""
         from repro_torch.kernels.swe_flux import swe_flux_fused
 
-        evs = []
+        evs, counts = [], []
 
         def mom(q1, q3):
-            flux, ev = swe_flux_fused(
+            flux, ev, *cnt = swe_flux_fused(
                 q1, q3, prec=prec, sites=self.sites, site_ops=self.site_ops,
-                k_floor=k_floor, collect_evidence=collect_evidence,
+                k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
             )
             evs.append(ev)
+            counts.extend(cnt)
             return flux
 
         with card_flush(U.device):  # the LW step's PyTorch arithmetic on the card
             for _ in range(steps):
                 U = _lw_step(U, cfg, mom)
-        return U, (torch.cat(evs) if collect_evidence else None)
+        ev = torch.cat(evs) if collect_evidence or capture is not None else None
+        if capture is None:
+            return U, ev
+        if counts:
+            total = torch.stack(counts).sum(dim=0, dtype=torch.int32)
+        else:
+            total = torch.zeros((len(self.sites), 2, capture.n_bins), dtype=torch.int32, device=U.device)
+        return U, ev, total
 
     def mega_supported(self, cfg: SWEConfig, prec) -> bool:
         """The megakernel takes the momentum-flux fields ``(nx-1, ny)`` as one
         block, so it equals the fused plane only where K3's grid is one tile."""
         return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]
 
-    def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32"):
+    def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
+                  capture=None):
         """The whole horizon, the entire Lax-Wendroff update included, in one
         launch of kernel K4 (``swe2d_mega``)."""
         from repro_torch.kernels.mega import swe2d_mega
 
         return swe2d_mega(
             U, cfg=cfg, prec=prec, steps=steps, every=every, sites=self.sites, site_ops=self.site_ops,
-            tracker=tracker, storage=storage,
+            tracker=tracker, storage=storage, capture=capture,
         )
 
     def observables(self, U, cfg: SWEConfig):

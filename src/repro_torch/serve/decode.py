@@ -1,6 +1,13 @@
 """Batched serving loop: prefill once, then greedy decode, one
 ``serve_step`` per token. Requests are a static batch; finished sequences
-keep decoding into the ``eos_id`` sink."""
+keep decoding into the ``eos_id`` sink.
+
+Deploy serving takes the :class:`repro_torch.profile.PrecisionPolicy`
+artifact the PDE steppers profile and validate: ``policy=`` (an object or a
+JSON path) re-bases the serving precision on the artifact's ``<EB,MB,FX>``
+format, once a validation accepted it. Its per-site hints are keyed by the
+producer's site names and are not installed here: serving threads no
+tracker."""
 
 from __future__ import annotations
 
@@ -14,7 +21,16 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.precision import PrecisionConfig
 from repro_torch.train.step import make_serve_step
 
-__all__ = ["generate"]
+__all__ = ["generate", "resolve_policy"]
+
+
+def resolve_policy(prec: PrecisionConfig, policy, require_accepted: bool = True):
+    """The serving precision from a PrecisionPolicy artifact: a shim over
+    :func:`repro_torch.profile.artifact.resolve_policy`. Returns ``(prec,
+    policy)``."""
+    from repro_torch.profile.artifact import resolve_policy as _resolve
+
+    return _resolve(prec, policy, require_accepted=require_accepted)
 
 
 @torch.inference_mode()
@@ -33,11 +49,11 @@ def generate(
     """Greedy generation. Returns (B, max_new_tokens) int32 tokens.
 
     Runs on the CUDA card unless ``device`` names another (``"cpu"`` runs
-    every kernel's plain version); ``params`` must live there."""
+    every kernel's plain version); ``params`` must live there. ``policy``
+    (a PrecisionPolicy or a path to its JSON) gives the serving format
+    (:func:`resolve_policy`)."""
     if policy is not None:
-        raise NotImplementedError(
-            "policy= needs repro_torch.profile, which is not ported yet (ROADMAP.md queue 1 item 7)"
-        )
+        prec, _ = resolve_policy(prec, policy)
     dev = resolve_device(device)
     at = params["embed"].device
     if at.type != dev.type or (dev.index is not None and at.index != dev.index):

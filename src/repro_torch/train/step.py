@@ -1,6 +1,6 @@
 """Step builders. This slice ports ``make_serve_step``; the train step, its
-optimizer and its sharding rules are still to come (ROADMAP.md queue 1
-item 13)."""
+optimizer and its sharding rules are still to come (ROADMAP.md queue 1,
+the LM stack: training)."""
 
 from __future__ import annotations
 

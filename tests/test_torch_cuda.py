@@ -6,7 +6,9 @@ heat2d's (K5a, K5d) thread-block clusters against the plain version, the
 card against repro through the port's CPU run under flush, auto where a
 kernel cannot hold the field or a stepper has none, and packed storage
 (kernel K1's harness, every storage-carrying launch shape, every stepper's
-packed and quantized runs, auto beyond heat2d's cluster). These tests skip
+packed and quantized runs, auto beyond heat2d's cluster), and range capture
+(every capturing kernel family against its plain version, every stepper's
+captured runs against the CPU under flush). These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -281,13 +283,14 @@ def test_card_equals_the_cpu_under_flush(name):
     under flush bit for bit (state, snapshots, tracker; NaNs canonical),
     which the CPU tests hold equal to repro: the card flushes f32
     subnormals as the reference does. swe2d reaches them within the 56
-    steps, so its CPU run that keeps them differs."""
+    steps, so its CPU run that keeps them differs. In r2f2_16 and
+    rr_tracked the card also runs with capture (one more line each)."""
     _need_card()
     sys.path.insert(0, ROOT)
     import chip_smoke
 
     lines, kept_differs = chip_smoke.check_card_vs_cpu("cuda", (name,))
-    assert len(lines) == 18
+    assert len(lines) == 18 + 3 * len(chip_smoke.LINK_CAPTURE_MODES)
     if name == "swe2d":
         assert kept_differs > 0
 
@@ -670,3 +673,65 @@ def test_auto_packed_beyond_the_heat2d_cluster():
     assert torch.equal(got.state.payload.cpu().to(torch.int64), want.state.payload.to(torch.int64))
     assert torch.equal(got.state.k.cpu(), want.state.k)
     assert torch.equal(_bits(got.snapshots.cpu()), _bits(want.snapshots))
+
+
+#: capture_cases' launch shape classes: the rod (warp and grid shapes, heat2d
+#: on the rod's grid too), K3, heat2d's cluster and K4 swe2d
+CAPTURE_FAMILIES = {
+    "rod": lambda kern, label: kern.split("_")[0] in ("heat1d", "advection1d", "burgers1d")
+    or (kern.startswith("heat2d") and "grid shape" in label),
+    "k3": lambda kern, label: kern == "swe_flux_fused",
+    "heat2d_cluster": lambda kern, label: kern.startswith("heat2d") and "cluster" in label,
+    "swe2d": lambda kern, label: kern == "swe2d_mega",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(CAPTURE_FAMILIES))
+def test_capture_kernels_match_plain(family):
+    """Range capture in each kernel family on every launch shape of
+    chip_smoke.capture_cases, against the plain version on the CPU under
+    flush: the counts exactly (a megakernel's per interval and in total),
+    the evidence, state, snapshots and tracker bit for bit."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.capture_cases("cuda") if CAPTURE_FAMILIES[family](c[0], c[1])]
+    assert cases
+    _, records = chip_smoke.check_capture("cuda", cases)
+    assert len(records) == len(cases) and all(r["ok"] and r["counted"] > 0 for r in records)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_card_capture_equals_the_cpu_under_flush(name):
+    """Simulation.run(capture=True) on the card on every plane in r2f2_16
+    and rr_tracked against the port's CPU run under flush: state, tracker
+    and the profile's evidence bit for bit, its counts exactly."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    lines, _ = chip_smoke.check_card_vs_cpu("cuda", (name,), modes=("r2f2_16", "rr_tracked"))
+    assert sum(", capture:" in line for line in lines) == 6
+
+
+@pytest.mark.cuda
+def test_captured_launches_are_counted_and_capture_off_is_unchanged():
+    """A captured run on the card launches the kernel with capture (its
+    counter's ``captured``) and changes no bit of the state; a run without
+    capture launches it without."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.mega import HEAT1D_MEGA
+    from repro_torch.pde import HeatConfig, Simulation
+
+    sim = Simulation("heat1d", HeatConfig(nx=128), PRESETS["r2f2_16"])
+    launches, captured = HEAT1D_MEGA.launches, HEAT1D_MEGA.captured
+    off = sim.run(400, execution="megakernel")
+    assert (HEAT1D_MEGA.launches - launches, HEAT1D_MEGA.captured - captured) == (1, 0)
+    on = sim.run(400, execution="megakernel", capture=True)
+    assert (HEAT1D_MEGA.launches - launches, HEAT1D_MEGA.captured - captured) == (2, 1)
+    assert torch.equal(off.state.view(torch.int32), on.state.view(torch.int32))
+    assert on.profile.exp_time.shape[0] == 8 and 0 < int(on.profile.exp_total.sum()) <= 2 * 2 * 126 * 400

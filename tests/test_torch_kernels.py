@@ -200,7 +200,8 @@ def test_swe_flux_legacy_wrapper():
 def test_fused_sweep_refusals():
     """The reference's refusals: packed storage takes PackedArray leaves of
     the policy's format, one storage block per leaf covering the sweep's
-    block; capture is a later slice."""
+    block; capture on a row-padded grid takes operands that keep the
+    block's rows, and a spec with an empty exponent range is refused."""
     from repro_torch.core.flexformat import FlexFormat
     from repro_torch.pack import pack_array
 
@@ -216,8 +217,14 @@ def test_fused_sweep_refusals():
         theat.heat1d_sweep(pack_array(u, FlexFormat(3, 8, 4)), alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed")
     with pytest.raises(ValueError, match="single-block"):
         theat.heat1d_sweep(pack_array(u, tp.fmt, block=(1, 16)), alpha=ALPHA, dtodx2=DTODX2, prec=tp, storage="packed")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        theat.heat1d_sweep(u, alpha=ALPHA, dtodx2=DTODX2, prec=tp, capture=True)
+    from repro_torch.profile import CaptureSpec
+
+    u5 = torch.cat([u, u, u])[:5]
+    with pytest.raises(ValueError, match="row-padded grid"):
+        fused_sweep(lambda s, o: (o.mul(s[0][:1], s[0][:1], "a"),), (u5,), prec=tp, sites=("a",), block=(2, 16),
+                    capture=CaptureSpec())
+    with pytest.raises(ValueError, match="empty exponent range"):
+        CaptureSpec(e_lo=3, e_hi=3)
     with pytest.raises(ValueError):
         tswe.swe_flux_fused(u, u, prec=tp, site_ops=("mul",) * 4)
     with pytest.raises(ValueError):

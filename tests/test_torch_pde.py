@@ -220,31 +220,33 @@ def test_snapshot_cadence_and_remainder():
 
 
 def test_out_of_slice_paths_raise_with_roadmap_items():
-    """Capture, policies and ensembles raise with their ROADMAP items;
-    storage, ported since, runs on every plane and refuses what the
-    reference refuses."""
+    """Ensembles raise, naming their ROADMAP queue and module; storage,
+    capture and policies, ported since, run on every plane and refuse what
+    the reference refuses."""
     from repro_torch.pack import PackedArray
+    from repro_torch.profile import PrecisionPolicy
 
     sim = Simulation("heat1d", HeatConfig(nx=16), tpol.PRESETS["r2f2_16"], device="cpu")
     assert isinstance(sim.run(2, execution="megakernel", storage="packed").state, PackedArray)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        sim.run(2, execution="megakernel", capture=True)
+    assert sim.run(2, execution="megakernel", capture=True).profile.exp_total.sum() > 0
     assert isinstance(sim.run(2, storage="packed").state, PackedArray)
     with pytest.raises(ValueError, match="unknown storage mode"):
         sim.run(2, storage="bf16")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        sim.run(2, capture=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    assert sim.run(2, capture=True).profile.evidence.shape == (2, 2, 2)
+    with pytest.raises(TypeError, match="capture must be bool or CaptureSpec"):
+        sim.run(2, capture="yes")
+    policy = PrecisionPolicy("heat1d", tpol.PRESETS["r2f2_16"].fmt, {s: {"k": 2, "k_lo": 1, "k_hi": 3} for s in sim.stepper.sites})
+    assert sim.run(2, policy=policy).tracker is None  # r2f2_16 tracks nothing: only the hints install
+    with pytest.raises(AttributeError):
         sim.run(2, policy=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, ensembles"):
         sim.run_ensemble(None, 2)
     for name in ("heat2d", "advection1d", "burgers1d"):
-        assert get_stepper(name).name == name  # ported: queue 1 item 8 landed
+        assert get_stepper(name).name == name
         small = Simulation(name, None, tpol.PRESETS["r2f2_16"], device="cpu")
         for execution in ("reference", "fused", "megakernel"):
             assert isinstance(small.run(2, execution=execution, storage="packed").state, PackedArray)
-            with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-                small.run(2, execution=execution, capture=True)
+            assert small.run(2, execution=execution, capture=True).profile.exp_total.sum() > 0
     with pytest.raises(KeyError):
         get_stepper("wave1d")
     with pytest.raises(ValueError):

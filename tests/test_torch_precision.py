@@ -147,15 +147,15 @@ def test_lm_path_raises_with_roadmap_item():
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import attention, model_init, moe
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: the other configs"):
         get_config("xlstm-1.3b")
     cfg = reduced(get_config("llama4-scout-17b-a16e"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: models/ssm.py"):
         model_init(torch.Generator(), dataclasses.replace(cfg, pattern=("mamba+moe",)), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: frontends"):
         model_init(torch.Generator(), dataclasses.replace(cfg, frontend="audio"), "cpu")
     q = torch.zeros(1, attention.FLASH_THRESHOLD + 1, 1, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: chunked attention"):
         attention._chunked_attention(q, q, q, True, None, tprec("rr_tile"))
     assert moe.DISPATCH_MODE == "scatter"
 
