@@ -1667,6 +1667,269 @@ def check_contract_kernels(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the kernels' member axis (ensembles)
+# ---------------------------------------------------------------------------
+
+#: phase 2's and phase 4's ensembles: three members at these scales of a
+#: workload's initial state, in these modes
+ENSEMBLE_SCALES = (0.5, 1.0, 2.0)
+ENSEMBLE_MODES = ("r2f2_16", "e5m10", "rr_tracked")
+#: the groups of phase 2's ensemble checks, each a task of its own
+ENSEMBLE_GROUPS = ("rod", "heat2d", "k3", "swe2d")
+#: f32 subnormals as bits (1e-40, -3e-39, the smallest, the largest)
+SUBNORMAL_BITS = (0x000116C2, 0x8020AB1B, 0x00000001, 0x007FFFFF)
+
+
+def members_of(x, scales=ENSEMBLE_SCALES):
+    """An ensemble batch: ``x`` (made on the CPU) at each scale, f32 (a scale
+    of 1.0 the state itself)."""
+    import torch
+
+    return torch.stack([x * torch.tensor(s, dtype=torch.float32) for s in scales])
+
+
+def member_floors(n_sites, members, device):
+    """A carried floor a member, no two alike: ``(members, n_sites)`` int32."""
+    import torch
+
+    rows = [[(m + j) % 4 for j in range(n_sites)] for m in range(members)]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def member_tracker(n_sites, fmt, members, device):
+    """A stacked tracker whose members start at splits 3, 1, 0, ... ."""
+    from repro_torch.core.policy import tracker_init, tracker_stack
+
+    return tracker_stack([tracker_init(n_sites, fmt, k0=(3, 1, 0, 2)[m % 4], device=device) for m in range(members)])
+
+
+def same_tree(a, b) -> bool:
+    """Two results of a kernel or a run, field by field: f32 as canonical
+    bits, ints exactly, PackedArrays member by member (payloads with NaN
+    signs cleared, splits), None as None."""
+    import torch
+
+    from repro_torch.pack import PackedArray, member_of
+    from repro_torch.precision.sites import SiteTracker
+
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, PackedArray) or isinstance(b, PackedArray):
+        if not (isinstance(a, PackedArray) and isinstance(b, PackedArray)):
+            return False
+        if a.payload.dim() == len(a.block):
+            return same_packed(a, b)
+        return all(same_packed(member_of(a, m), member_of(b, m)) for m in range(a.payload.shape[0]))
+    if isinstance(a, SiteTracker):
+        return isinstance(b, SiteTracker) and a.names == b.names and same_tree(a.state, b.state)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        return same_bits(a, b)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def tree_err(a, b) -> float:
+    """The largest abs difference of the f32 leaves of two results."""
+    import torch
+
+    from repro_torch.pack import PackedArray
+
+    if isinstance(a, (tuple, list)):
+        return max([tree_err(x, y) for x, y in zip(a, b) if x is not None and y is not None] or [0.0])
+    if isinstance(a, torch.Tensor) and a.dtype == torch.float32 and not isinstance(a, PackedArray):
+        return max_abs_err(a.cpu(), b.cpu())
+    return 0.0
+
+
+def ensemble_cases(device, group):
+    """(kernel, label, run(plain) -> result) for phase 2's member-axis checks
+    of ``group`` (:data:`ENSEMBLE_GROUPS`): three members (scales 0.5, 1.0
+    and 2.0) in r2f2_16, e5m10 and rr_tracked (its floors or tracker rows a
+    member's own), then capture and packed storage in r2f2_16 and
+    rr_tracked:
+
+    - ``rod``: K2 and K4 heat1d and the 1-D K5 bodies on the warp shape
+      (128 and 256 cells) and the grid shape (2049 cells, two CTAs a member);
+    - ``heat2d``: K5a and K5d on 64x64, a 16-CTA cluster a member, and on a
+      forced grid (the rod's, one CTA a member);
+    - ``k3``: K3 on one (127, 128) tile a member and on a (100, 96) field of
+      four padded (64, 64) tiles a member;
+    - ``swe2d``: K4 swe2d at 128x128 on the member plan (bands planned
+      against the card's resident CTAs) and on a forced plan of 16 CTAs a
+      member whose three members run in two waves."""
+    import torch
+
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.kernels import mega
+    from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
+    from repro_torch.pack import pack_members
+    from repro_torch.pde.swe2d import initial_state
+    from repro_torch.profile import CaptureSpec
+
+    L = ladder()
+    spec = CaptureSpec()
+    B = len(ENSEMBLE_SCALES)
+    cases = []
+    variants = [(name, {}) for name in ENSEMBLE_MODES]
+    variants += [(f"{name} capture", {"capture": spec}) for name in STORAGE_PRECS]
+    variants += [(f"{name} packed", {"storage": "packed"}) for name in STORAGE_PRECS]
+
+    def on(x, dev):
+        return None if x is None else x.to(dev)
+
+    def add(kernel, label, fn):
+        cases.append((kernel, label, fn))
+
+    if group == "rod":
+        for nx in (128, 2049):
+            u1 = rod(nx, "cpu")[0]
+            ub = members_of(u1)
+            ha = heat_args(nx)
+            shape = heat1d_launch_shape(1, nx)
+            for name, extra in variants:
+                prec = L[name.split()[0]]
+                tracked = name.startswith("rr_tracked")
+                packed = extra.get("storage") == "packed"
+
+                def sweep(plain, prec=prec, extra=extra, tracked=tracked, packed=packed, ha=ha, ub=ub):
+                    dev = "cpu" if plain else device
+                    x = ub[:, None, :].to(dev)
+                    if packed:
+                        x = pack_members(x.reshape(B, -1), prec.fmt, plain=True).with_view((1, x.shape[-1])).to(dev)
+                    fn = heat1d_sweep_plain if plain else heat1d_sweep
+                    return fn(x, steps=40, block_rows=1, prec=prec, collect_evidence=True, members=True,
+                              k_floor=member_floors(2, B, dev) if tracked else None, **ha, **extra)
+
+                def horizon(plain, prec=prec, extra=extra, tracked=tracked, ha=ha, ub=ub):
+                    dev = "cpu" if plain else device
+                    trk = member_tracker(2, prec.fmt, B, dev) if tracked else None
+                    return mega.heat1d_mega(ub.to(dev), steps=45, every=20, prec=prec, tracker=trk, collect_evidence=True,
+                                            sites=("heat.flux", "heat.update"), plain=plain, members=True, **ha, **extra)
+
+                add("heat1d_sweep", f"{name} {B} members of (1,{nx}) {shape}", sweep)
+                add("heat1d_mega", f"{name} {B} members of ({nx},) {shape}", horizon)
+            for case in ("advection1d", "burgers1d"):
+                w = k5_workload(case, "cpu")
+                u = w["state"] if nx == 128 else torch.sin(torch.arange(nx) * 0.01).float() * w["state"].abs().max()
+                ub = members_of(u)
+                for name, extra in variants:
+                    prec = L[name.split()[0]]
+                    tracked = name.startswith("rr_tracked")
+                    packed = extra.get("storage") == "packed"
+
+                    def sweep(plain, w=w, prec=prec, extra=extra, tracked=tracked, packed=packed, ub=ub):
+                        dev = "cpu" if plain else device
+                        x = ub.to(dev)
+                        if packed:
+                            x = pack_members(ub, prec.fmt, plain=True).to(dev)
+                        fn = w["plain"] if plain else w["sweep"]
+                        return fn(x, steps=30, prec=prec, sites=w["sites"], collect_evidence=True, members=True,
+                                  k_floor=member_floors(2, B, dev) if tracked else None, **w["args"], **extra)
+
+                    def horizon(plain, w=w, prec=prec, extra=extra, tracked=tracked, ub=ub):
+                        dev = "cpu" if plain else device
+                        trk = member_tracker(2, prec.fmt, B, dev) if tracked else None
+                        return w["mega"](ub.to(dev), steps=35, every=15, prec=prec, sites=w["sites"], tracker=trk,
+                                         collect_evidence=True, plain=plain, members=True, **w["args"], **extra)
+
+                    n = u.shape[-1]
+                    where = k5_launch_shape(1, n, body=case)
+                    add(f"{case}_sweep", f"{name} {B} members of ({n},) {where}", sweep)
+                    add(f"{case}_mega", f"{name} {B} members of ({n},) {where}", horizon)
+    elif group == "heat2d":
+        w = k5_workload("heat2d", "cpu")
+        ub = members_of(w["state"])
+        for plan in (None, grid_on_one_cta(64, 64)):
+            where = k5_launch_shape(64, 64, plan=plan)
+            for name, extra in variants:
+                prec = L[name.split()[0]]
+                tracked = name.startswith("rr_tracked")
+                packed = extra.get("storage") == "packed"
+
+                def sweep(plain, prec=prec, extra=extra, tracked=tracked, packed=packed, plan=plan):
+                    dev = "cpu" if plain else device
+                    x = pack_members(ub, prec.fmt, plain=True).to(dev) if packed else ub.to(dev)
+                    kw = dict(w["args"], steps=20, prec=prec, sites=w["sites"], collect_evidence=True, members=True,
+                              k_floor=member_floors(2, B, dev) if tracked else None, **extra)
+                    return w["plain"](x, **kw) if plain else w["sweep"](x, _plan=plan, **kw)
+
+                def horizon(plain, prec=prec, extra=extra, tracked=tracked, plan=plan):
+                    dev = "cpu" if plain else device
+                    trk = member_tracker(2, prec.fmt, B, dev) if tracked else None
+                    return w["mega"](ub.to(dev), steps=25, every=10, prec=prec, sites=w["sites"], tracker=trk,
+                                     collect_evidence=True, plain=plain, members=True, _plan=None if plain else plan,
+                                     **w["args"], **extra)
+
+                add("heat2d_sweep", f"{name} {B} members of (64,64) {where}", sweep)
+                add("heat2d_mega", f"{name} {B} members of (64,64) {where}", horizon)
+    elif group == "k3":
+        g = torch.Generator().manual_seed(5)
+        q3 = members_of(500.0 + 100.0 * torch.rand(127, 128, generator=g))
+        q1 = members_of(40.0 * torch.randn(127, 128, generator=g))
+        for field, block in (((127, 128), None), ((100, 96), (64, 64))):
+            a, b = q1[:, :field[0], :field[1]].contiguous(), q3[:, :field[0], :field[1]].contiguous()
+            for name, extra in [v for v in variants if "packed" not in v[0]]:
+                prec = L[name.split()[0]]
+                tracked = name.startswith("rr_tracked")
+
+                def flux(plain, prec=prec, extra=extra, tracked=tracked, a=a, b=b, block=block):
+                    dev = "cpu" if plain else device
+                    fn = swe_flux_fused_plain if plain else swe_flux_fused
+                    return fn(a.to(dev), b.to(dev), prec=prec, block=block, collect_evidence=True, members=True,
+                              k_floor=member_floors(4, B, dev) if tracked else None, **extra)
+
+                kw = dict(prec=prec) if block is None else dict(prec=prec, block=block)
+                add("swe_flux_fused", f"{name} {B} members of {field} {k3_launch_shape(a[0], kw)}", flux)
+    elif group == "swe2d":
+        scfg = swe_cfg.CONFIG
+        U = initial_state(scfg, device="cpu")
+        Ub = members_of(U)
+        sk = dict(cfg=scfg, sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"), site_ops=("mul", "mul", "mul", "div"))
+        two_waves = mega.swe2d_plan(scfg.nx, scfg.ny, ctas=16, members=B, capacity=32)
+        for plan, where in ((None, "the member plan"), (two_waves, f"forced: {two_waves.ctas} CTAs a member, "
+                                                                  f"waves of {two_waves.wave}")):
+            for name, extra in [v for v in variants if plan is None or v[0] in ("r2f2_16", "rr_tracked")]:
+                prec = L[name.split()[0]]
+                tracked = name.startswith("rr_tracked")
+                extra = {"storage": "quantized"} if extra.get("storage") == "packed" and plan is not None else extra
+
+                def horizon(plain, prec=prec, extra=extra, tracked=tracked, plan=plan):
+                    dev = "cpu" if plain else device
+                    trk = member_tracker(4, prec.fmt, B, dev) if tracked else None
+                    return mega.swe2d_mega(Ub.to(dev), steps=12, every=5, prec=prec, tracker=trk, collect_evidence=True,
+                                           plain=plain, members=True, _plan=None if plain else plan, **sk, **extra)
+
+                add("swe2d_mega", f"{name} {B} members of (3,128,128) [{where}]", horizon)
+    return cases
+
+
+def check_ensemble_kernels(device, group):
+    """Phase 2's member-axis checks of ``group`` (:func:`ensemble_cases`):
+    every output of the launch (state or payloads and splits, snapshots,
+    evidence, tracker rows, counts) bit for bit (NaNs canonical, counts
+    exactly) against the plain version on the CPU under flush, which runs
+    the members one by one, each as it runs alone. Returns the max abs
+    error by kernel (as ``<kernel>+members``) and the records."""
+    errs, records = {}, []
+    for kernel, label, run in ensemble_cases(device, group):
+        got = run(False)
+        with cpu_flushed():
+            want = run(True)
+        ok = same_tree(got, want)
+        err = tree_err(list(got), list(want))
+        key = f"{kernel}+members"
+        errs[key] = max(errs.get(key, 0.0), err)
+        log(f"ensemble {kernel} {label}: {'bit-exact' if ok else 'MISMATCH'} max_abs_err={err}")
+        records.append(dict(kernel=key, case=label, ok=ok, max_abs_err=err))
+        require(ok, f"{kernel}'s member axis disagrees with its plain version: {label}")
+    return errs, records
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the paper's ladder on the fused and megakernel planes
 # ---------------------------------------------------------------------------
 
@@ -2229,7 +2492,7 @@ def run_checks_in_workers(tasks):
             if error is not None:
                 errors.append(f"{label}: {error}")
             results.append(out)
-    require(not errors, f"{len(errors)} of phase 4's checks failed: " + "; ".join(errors))
+    require(not errors, f"{len(errors)} of {len(tasks)} checks in the workers failed: " + "; ".join(errors))
     return results, seconds
 
 
@@ -2253,6 +2516,7 @@ def check_planes_and_link(device):
     tasks += [("megakernel vs fused", "check_mega_planes", (device, {case: steps}), {}) for case, steps in MAIN_STEPS.items()]
     tasks += [("card vs CPU under storage", "check_card_vs_cpu_storage", (device,), dict(cases=[case]))
               for case in link_configs()]
+    tasks += [("card vs CPU, ensembles", "check_card_vs_cpu_ensemble", (device, case), {}) for case in link_configs()]
     results, seconds = run_checks_in_workers(tasks)
     lines, link, kept_differs = [], [], 0
     for (label, *_), out in zip(tasks, results):
@@ -2265,6 +2529,309 @@ def check_planes_and_link(device):
         "on the CPU keeping subnormals")
     require(kept_differs > 0, "no run of the link reached a subnormal: the check cannot see the flush")
     return lines + link, seconds
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: ensembles (Simulation.run_ensemble) on the kernel planes
+# ---------------------------------------------------------------------------
+
+#: phase 3's ensembles: eight members (service's max_bucket) at 0.9 + 0.05 i
+ENSEMBLE_B = 8
+ENSEMBLE_PATH_MODES = ("r2f2_16", "rr_tracked")
+#: the member-axis kernels, each a record of the kernels line as <name>+members
+MEMBER_KERNELS = ("heat1d_sweep", "heat1d_mega", "swe_flux_fused", "swe2d_mega", "heat2d_sweep", "heat2d_mega",
+                  "advection1d_sweep", "advection1d_mega", "burgers1d_sweep", "burgers1d_mega")
+
+
+def path_scales(members=ENSEMBLE_B):
+    """Phase 3's member scales, 0.9 + 0.05 i (the third is 1.0)."""
+    return tuple(0.9 + 0.05 * i for i in range(members))
+
+
+def with_subnormals(case, s0):
+    """A member with f32 subnormals set from bits in interior and pinned
+    boundary cells (the periodic rods have none; swe2d's in its momenta),
+    the batch of the CPU test ``tests/test_torch_ensemble.py``."""
+    import torch
+
+    s = s0.clone()
+    bits = s.view(torch.int32)
+    vals = [v - (1 << 32) if v >= 1 << 31 else v for v in SUBNORMAL_BITS]
+    if case == "swe2d":
+        at = [(1, 0, 3), (1, 5, 5), (2, 7, 0), (2, 6, 9)]
+    elif case == "heat2d":
+        at = [(0, 4), (5, 5), (s.shape[0] - 1, 7), (3, 8)]
+    elif case == "heat1d":
+        at = [(0,), (5,), (s.shape[0] - 1,), (17,)]
+    else:
+        at = [(3,), (20,), (21,), (40,)]
+    for idx, v in zip(at, vals):
+        bits[idx] = v
+    return s
+
+
+def ensemble_counts(ctr):
+    return {k: c.launches for k, c in ctr.items() if c.launches}
+
+
+def check_ensemble_path(device, case, modes=ENSEMBLE_PATH_MODES):
+    """Phase 3's ensembles of one configuration at its full width and
+    horizon: :data:`ENSEMBLE_B` members at :func:`path_scales` in each of
+    ``modes``, on the fused and megakernel planes and through ``auto``:
+    every member's state, snapshots and tracker bit for bit against that
+    member run alone on the card; the ensemble's launches, counted from 0
+    right before it and read right after, equal one run alone's (one sweep
+    a chunk, one megakernel a horizon), and no plain version runs; the
+    scale-1.0 member gets the paper's verdict against the f32 run (heat1d
+    rel-L2 < 0.1, swe2d corr > 0.98). Returns the lines and the member
+    launches by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pack import member_of
+    from repro_torch.pde import Simulation
+
+    L = ladder()
+    cfg, judge, offset = workload_config(case)
+    steps = MAIN_STEPS[case]
+    s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    batch = members_of(s0, path_scales()).to(device)
+    ref_sim = Simulation(case, cfg, L["f32"], device=device)
+    ref = np.asarray(ref_sim.stepper.observables(ref_sim.run(steps, state0=batch[2], execution="megakernel").state,
+                                                 cfg).cpu()) - offset
+    ctr = counters()
+    lines, launches = [], {}
+    for mode in modes:
+        sim = Simulation(case, cfg, L[mode], device=device)
+        for execution in ("fused", "megakernel", "auto"):
+            for c in ctr.values():
+                c.reset()
+            t0 = time.perf_counter()
+            ens = sim.run_ensemble(batch, steps, execution=execution)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = ensemble_counts(ctr)
+            plain = sum(c.plain_calls for c in ctr.values())
+            for c in ctr.values():
+                c.reset()
+            alone = [sim.run(steps, state0=batch[m], execution=execution) for m in range(ENSEMBLE_B)]
+            want = {k: v // ENSEMBLE_B for k, v in ensemble_counts(ctr).items()}
+            ok = got == want and plain == 0
+            same = [same_tree(member_of(ens.state, m), a.state) and same_bits(ens.snapshots[m].cpu(), a.snapshots.cpu())
+                    and (a.tracker is None or same_tree(ens.tracker.member(m), a.tracker)) for m, a in enumerate(alone)]
+            obs = np.asarray(sim.stepper.observables(ens.state[2], cfg).cpu()) - offset
+            verdict = measure(obs, ref, judge)
+            line = (f"ensemble {case} {mode} {execution} {ENSEMBLE_B} members x {steps} steps: {sum(same)} of "
+                    f"{ENSEMBLE_B} members bit-identical to the member alone{', tracker too' if mode == 'rr_tracked' else ''}; "
+                    f"launches {got} (a run alone: {want}); member 1.0: {verdict['status']} rel {verdict['rel']:.4f} "
+                    f"corr {verdict['corr']:.4f}; {seconds:.2f} s")
+            log(line)
+            lines.append(line)
+            require(all(same), f"an ensemble member differs from the member alone: {line}")
+            require(ok, f"an ensemble's launches differ from a run alone's, or plain versions ran: {line}")
+            if case in ("heat1d", "swe2d"):
+                require(verdict["status"] == "CORRECT", f"the 1.0 member misses the paper's verdict: {line}")
+            if execution != "auto":
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+    return lines, launches
+
+
+#: phase 3's resumed ensembles: (case, plane, storage), rr_tracked
+RESUME_RUNS = tuple((case, plane, storage) for case in ("heat1d", "swe2d") for plane in ("fused", "megakernel")
+                    for storage in ("f32", "packed"))
+
+
+def check_ensemble_resume(device, case, execution, storage):
+    """An rr_tracked ensemble of :data:`ENSEMBLE_B` members over the main
+    horizon in two chunks: the first chunk's (state, tracker) checkpointed
+    on the card (``repro_torch.ckpt``, under ``build/``), restored onto the
+    card and resumed with ``tracker0_batch``; equal to the uninterrupted
+    ensemble bit for bit (the state or its payloads and splits, the
+    snapshots of both chunks, every tracker row)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import ckpt
+    from repro_torch.pde import Simulation
+
+    L = ladder()
+    cfg, _, _ = workload_config(case)
+    steps = MAIN_STEPS[case]
+    every = snapshot_every(case, steps)
+    half = steps // 2
+    s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    batch = members_of(s0, path_scales()).to(device)
+    sim = Simulation(case, cfg, L["rr_tracked"], device=device)
+    kw = dict(snapshot_every=every, execution=execution, storage=storage)
+    whole = sim.run_ensemble(batch, steps, **kw)
+    first = sim.run_ensemble(batch, half, **kw)
+    where = os.path.join(ROOT, "build", f"ensemble_ckpt_{case}_{execution}_{storage}_{os.getpid()}")
+    try:
+        ckpt.save((first.state, first.tracker), where, half)
+        state, tracker = ckpt.restore((first.state, first.tracker), where, ckpt.latest_step(where), device=device)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    second = sim.run_ensemble(state, steps - half, tracker0_batch=tracker, **kw)
+    ok = (same_tree(whole.state, second.state) and same_tree(whole.tracker, second.tracker)
+          and same_bits(whole.snapshots.cpu(), torch.cat([first.snapshots, second.snapshots], dim=1).cpu()))
+    line = (f"ensemble resume {case} rr_tracked {execution} {storage}: {half} + {steps - half} steps through a checkpoint "
+            f"on the card = {steps} in one run, {ENSEMBLE_B} members: {'bit-identical' if ok else 'MISMATCH'}")
+    log(line)
+    require(ok, line)
+    return [line]
+
+
+def check_card_vs_cpu_ensemble(device, case):
+    """The link of ensembles: the stepper's ensemble at its link size
+    (:func:`link_configs`), three members at :data:`ENSEMBLE_SCALES` and the
+    subnormal member (:func:`with_subnormals`), on both kernel planes in
+    r2f2_16 and rr_tracked, plain, with capture and with packed storage:
+    the card's state, snapshots, tracker and profile bit for bit (counts
+    exactly) against the port's run on the CPU under flush."""
+    import torch
+
+    from repro_torch.pde import Simulation
+
+    L, cfg = ladder(), link_configs()[case]
+    s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    batch = torch.cat([members_of(s0), with_subnormals(case, s0)[None]])
+    out = []
+    for name in STORAGE_PRECS:
+        for execution in ("fused", "megakernel"):
+            for variant in ({}, {"capture": True}, {"storage": "packed"}):
+                kw = dict(snapshot_every=LINK_EVERY, execution=execution, **variant)
+                card = Simulation(case, cfg, L[name], device=device).run_ensemble(batch.to(device), LINK_STEPS, **kw)
+                with cpu_flushed():
+                    cpu = Simulation(case, cfg, L[name], device="cpu").run_ensemble(batch, LINK_STEPS, **kw)
+                ok = same_tree(card.state, cpu.state) and same_bits(card.snapshots.cpu(), cpu.snapshots)
+                ok = ok and same_tree(card.tracker, cpu.tracker)
+                if cpu.profile is not None:
+                    ok = ok and same_tree(tuple(card.profile), tuple(cpu.profile))
+                what = "+".join(f"{k}={v}" for k, v in variant.items()) or "plain"
+                line = (f"card vs CPU under flush, ensemble of {batch.shape[0]} (a subnormal member) {case} {name} "
+                        f"{execution} {what} {LINK_STEPS} steps: bit-identical: {'ok' if ok else 'MISMATCH'}")
+                log(line)
+                out.append(line)
+                require(ok, line)
+    return out
+
+
+def member_launch_shape(kernel, x_member, members, plan=None) -> str:
+    """A member-axis launch: CTAs a member, and the waves of K4 swe2d."""
+    from repro_torch.kernels import mega
+
+    if kernel == "swe2d_mega":
+        p = plan or mega._swe2d_member_plan(x_member.shape[1], x_member.shape[2], members, "cuda", 0)
+        waves = len(mega.member_waves(members, min(p.wave, members)))
+        return f"[{p.ctas} CTAs x {p.threads} threads a member, bands of up to {p.rows} rows, {waves} wave(s)]"
+    return f"[{members} member(s), one launch]"
+
+
+def time_ensembles(device, card, main_launches, errs):
+    """Every member-axis kernel at the main path's shapes with one member
+    and with :data:`ENSEMBLE_B`, by replayed CUDA graphs in this call
+    (r2f2_16; a fused sweep's chunk, a megakernel's horizon, K3 one tile):
+    the per-member time of a substep at B = 1 and B = 8 and the launch
+    shape; and the member records of the kernels line over one tenth of a
+    chunk or snapshot interval at B = 8 (K3 one tile), kernel and plain
+    version on the card, with the bound of eight members' work and the
+    ensemble path's launches. Returns the times and the records."""
+    import torch
+
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.kernels.heat_stencil import heat1d_sweep, heat1d_sweep_plain
+    from repro_torch.kernels.mega import heat1d_mega, swe2d_mega
+    from repro_torch.kernels.swe_flux import swe_flux_fused, swe_flux_fused_plain
+    from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
+
+    B = ENSEMBLE_B
+    prec = ladder()["r2f2_16"]
+    cfg, scfg = heat_cfg.CONFIG, swe_cfg.CONFIG
+    u = initial_condition(cfg, device="cpu")
+    U = initial_state(scfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    q3 = (500.0 + 100.0 * torch.rand(127, 128, generator=g))
+    q1 = (40.0 * torch.randn(127, 128, generator=g))
+    swe_sites = dict(sites=("swe.q1q1", "swe.q3q3", "swe.gq3", "swe.div"), site_ops=("mul", "mul", "mul", "div"))
+    hk = dict(alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    made = {}
+
+    def batch(x, m):
+        """The m-member batch of x on the card, made once (before any graph
+        capture: a copy to the card may not run inside one)."""
+        if (id(x), m) not in made:
+            made[id(x), m] = members_of(x, path_scales(m)).to(device)
+        return made[id(x), m]
+
+    # (name, run(members, steps, every, plain), the member's state, f32 bytes in and out, a snapshot's
+    # bytes, flops a substep, the main path's (steps, every), source, replaces); K3 one substep of one tile
+    specs = [
+        ("heat1d_sweep", lambda m, n, e, p: (heat1d_sweep_plain if p else heat1d_sweep)(
+            batch(u, m)[:, None], steps=n, block_rows=1, members=True, **hk), u,
+         2 * u.numel() * 4, 0, (cfg.nx - 2) * 6, (HEAT_CHUNK, None), "rod_warp.cu", "src/repro/kernels/heat_stencil.py:65"),
+        ("swe_flux_fused", lambda m, n, e, p: (swe_flux_fused_plain if p else swe_flux_fused)(
+            batch(q1, m), batch(q3, m), prec=prec, members=True), q1,
+         3 * q1.numel() * 4, 0, q1.numel() * 5, (1, None), "fused_pde.cu", "src/repro/kernels/swe_flux.py:51"),
+        ("heat1d_mega", lambda m, n, e, p: heat1d_mega(batch(u, m), steps=n, every=e, plain=p, members=True,
+                                                       sites=("heat.flux", "heat.update"), **hk), u,
+         2 * u.numel() * 4, u.numel() * 4, (cfg.nx - 2) * 6, (4000, HEAT_CHUNK), "rod_warp.cu",
+         "src/repro/kernels/mega.py:503"),
+        ("swe2d_mega", lambda m, n, e, p: swe2d_mega(batch(U, m), steps=n, every=e, plain=p, members=True, cfg=scfg,
+                                                     prec=prec, **swe_sites), U,
+         2 * U.numel() * 4, U.numel() * 4, swe_flops_per_substep(scfg.nx, scfg.ny), (400, SWE_EVERY), "mega_pde.cu",
+         "src/repro/kernels/mega.py:607"),
+    ]
+    for case in K5_CASES:
+        w = k5_workload(case, "cpu")
+        x, steps = w["state"], MAIN_STEPS[case]
+        every = snapshot_every(case, steps)
+        kw = dict(w["args"], prec=prec, sites=w["sites"])
+        src = {"heat2d": "pde_steps.cu", "advection1d": "rod_warp_advection.cu", "burgers1d": "rod_warp_burgers.cu"}[case]
+        flops = k5_flops_per_substep(case, tuple(x.shape))
+        specs += [
+            (f"{case}_sweep", lambda m, n, e, p, w=w, x=x, kw=kw: (w["plain"] if p else w["sweep"])(
+                batch(x, m), steps=n, members=True, **kw), x,
+             2 * x.numel() * 4, 0, flops, (every, None), src, K5_REPLACES[f"{case}_sweep"]),
+            (f"{case}_mega", lambda m, n, e, p, w=w, x=x, kw=kw: w["mega"](
+                batch(x, m), steps=n, every=e, plain=p, members=True, **kw), x,
+             2 * x.numel() * 4, x.numel() * 4, flops, (steps, every), src, K5_REPLACES[f"{case}_mega"]),
+        ]
+    times, recs = {}, []
+    for name, run, x, io_bytes, snap_bytes, flops, (steps, every), src, replaces in specs:
+        for m in (1, B):  # the batches (and K4 swe2d's member plan) before the graphs capture
+            run(m, 1, every and 1, False)
+        torch.cuda.synchronize()
+        reps = 2 if every else 10
+        one = graph_time_ms(lambda: run(1, steps, every, False), reps)
+        eight = graph_time_ms(lambda: run(B, steps, every, False), reps)
+        span = max(1, (every or steps) // 10)
+        ms = graph_time_ms(lambda: run(B, span, every and span, False), 5)
+        plain_ms, _ = cuda_time_ms(lambda: run(B, span, every and span, True), 1, warmup=0)
+        nbytes = B * (io_bytes + (snap_bytes if every else 0))
+        bound_ms, bound_by = bound(nbytes, B * span * flops)
+        shape = member_launch_shape(name, x, B)
+        times[name] = dict(b1_ms=one, b8_ms=eight, substeps=steps, every=every, b1_us_per_member_substep=1e3 * one / steps,
+                           b8_us_per_member_substep=1e3 * eight / (B * steps), shape=shape, record_span=span,
+                           record_ms=ms, record_plain_ms=plain_ms, record_bound_ms=bound_ms)
+        log(f"time {name} members by replayed graphs over {steps} substeps: B=1 {one:.4f} ms, B={B} {eight:.4f} ms "
+            f"({1e3 * one / steps:.4f} -> {1e3 * eight / (B * steps):.4f} us a member-substep) {shape}; the record over "
+            f"{span} substep(s) at B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}) [{card}]")
+        recs.append(dict(
+            name=f"{name}+members", route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
+            launches=main_launches.get(f"{name}+members", 0), max_abs_err=errs.get(f"{name}+members", 0.0), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
+    return times, recs
 
 
 # ---------------------------------------------------------------------------
@@ -3262,23 +3829,45 @@ def main(argv) -> int:
         log(f"  {label} took {time.perf_counter() - t:.1f} s")
         return out
 
-    errs, records = timed("K2/K3 checks", check_kernels, device, 100 if quick else HEAT_CHUNK)
-    mega_errs, mega_records = timed("K4 checks", check_mega, device)
-    k5_errs, k5_records = timed("K5 checks", check_k5, device)
-    report["storage_k1"], k1_err = timed("K1 storage checks", check_storage_k1, device)
-    st_errs, st_records = timed("storage checks", check_storage, device)
+    # phase 2's checks in worker processes that share the card, the longest first
+    phase2 = [
+        ("K4 checks", "check_mega", (device,), {}),
+        ("ensemble checks", "check_ensemble_kernels", (device, "rod"), {}),
+        ("K5 checks", "check_k5", (device,), {}),
+        ("K2/K3 checks", "check_kernels", (device, 100 if quick else HEAT_CHUNK), {}),
+        ("storage checks", "check_storage", (device,), {}),
+        *[("ensemble checks", "check_ensemble_kernels", (device, g), {}) for g in ENSEMBLE_GROUPS if g != "rod"],
+        ("capture checks", "check_capture", (device,), {}),
+        ("K6/K7 checks", "check_contract_kernels", (device,), {}),
+        ("K1 storage checks", "check_storage_k1", (device,), {}),
+        ("K6/K7 flush checks", "check_flush_contract", (device,), {}),
+    ]
+    results, seconds = run_checks_in_workers(phase2)
+    report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
+    found = dict(zip((name for _, name, *_ in phase2), results))
+    errs, records = found["check_kernels"]
+    mega_errs, mega_records = found["check_mega"]
+    k5_errs, k5_records = found["check_k5"]
+    report["storage_k1"], k1_err = found["check_storage_k1"]
+    st_errs, st_records = found["check_storage"]
     st_errs["r2f2_storage"] = k1_err
-    cap_errs, cap_records = timed("capture checks", check_capture, device)
-    c_errs, c_records = timed("K6/K7 checks", check_contract_kernels, device)
-    flush_records = timed("K6/K7 flush checks", check_flush_contract, device)
+    cap_errs, cap_records = found["check_capture"]
+    c_errs, c_records = found["check_contract_kernels"]
+    flush_records = found["check_flush_contract"]
     require(all(r["ok"] for r in flush_records), "K6 or K7 differs from its plain version on the CPU under flush")
     c_records += flush_records
+    ens_records = []
+    for (_, name, *_), out in zip(phase2, results):
+        if name == "check_ensemble_kernels":
+            for k, v in out[0].items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            ens_records += out[1]
     errs.update(mega_errs)
     errs.update(k5_errs)
     errs.update(c_errs)
     errs.update(st_errs)
     errs.update({f"{k}+capture": v for k, v in cap_errs.items()})
-    report["kernel_checks"] = records + mega_records + k5_records + st_records + cap_records + c_records
+    report["kernel_checks"] = records + mega_records + k5_records + st_records + cap_records + c_records + ens_records
     phase_done(2)
     if quick:
         log(card)
@@ -3313,6 +3902,22 @@ def main(argv) -> int:
             "a storage variant of the storage path never launched")
     report["profile_path"], captured = timed("profile path", run_profile_path, device, refs)
     main_launches.update({f"{k}+capture": captured[k] for k in CAPTURE_KERNELS})
+    # the ensemble path and its resume through a checkpoint, in worker processes (each counts its own launches)
+    ens_tasks = [("ensemble path", "check_ensemble_path", (device, "swe2d", (mode,)), {}) for mode in ENSEMBLE_PATH_MODES]
+    ens_tasks += [("ensemble path", "check_ensemble_path", (device, case), {}) for case in MAIN_STEPS if case != "swe2d"]
+    ens_tasks += [("ensemble resume", "check_ensemble_resume", (device, *run), {}) for run in RESUME_RUNS]
+    results, seconds = run_checks_in_workers(ens_tasks)
+    report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
+    report["ensemble_path"] = []
+    for (label, *_), out in zip(ens_tasks, results):
+        if label == "ensemble path":
+            report["ensemble_path"] += out[0]
+            for k, v in out[1].items():
+                main_launches[f"{k}+members"] = main_launches.get(f"{k}+members", 0) + v
+        else:
+            report["ensemble_path"] += out
+    missing = [k for k in MEMBER_KERNELS if not main_launches.get(f"{k}+members")]
+    require(not missing, f"member-axis kernels the ensemble path never launched: {missing}")
     phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")
@@ -3341,6 +3946,8 @@ def main(argv) -> int:
     recs += storage_recs
     report["capture_times"], capture_recs = timed("capture times", time_capture, device, card, main_launches, errs)
     recs += capture_recs
+    report["ensemble_times"], ensemble_recs = timed("ensemble times", time_ensembles, device, card, main_launches, errs)
+    recs += ensemble_recs
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs

@@ -35,10 +35,13 @@ def state_from_numpy(x, *, device="cpu") -> torch.Tensor:
 
 
 def tracker_from_numpy(names, k, hi_ema, lo_ema, overflow_steps, shrink_steps, *, device="cpu") -> SiteTracker:
-    """A SiteTracker from the five per-site arrays of a RangeTracker."""
+    """A SiteTracker from the five per-site arrays of a RangeTracker: rows of
+    ``(n_sites,)``, or ``(members, n_sites)`` for an ensemble's stacked
+    tracker (``repro``'s ``run_ensemble`` tracker)."""
 
     def t(v, dtype):
-        return torch.from_numpy(np.array(v, dtype=dtype, copy=True).reshape(-1)).to(device)
+        a = np.array(v, dtype=dtype, copy=True)
+        return torch.from_numpy(a if a.ndim == 2 else a.reshape(-1)).to(device)
 
     state = RangeTracker(
         hi_ema=t(hi_ema, np.float32),

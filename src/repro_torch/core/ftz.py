@@ -24,9 +24,13 @@ Limits: the mode flushes results, not inputs. A subnormal that reaches an
 op from outside the mode's results (a bit view, a Python float operand, a
 tensor made before the block) is not zeroed first, as DAZ would zero it, so
 an op whose normal result depends on such an input (``normal + subnormal``
-rounding differently, ``subnormal * 2**30``) can differ from the hardware's.
-The port's policy arithmetic feeds no such input: its quantizers zero
-subnormal inputs themselves, as ``repro``'s do. The tests
+rounding differently, ``subnormal * 2**30``), or a zero's sign (``0 +
+(-sub)`` flushes to ``-0`` where DAZ reads ``+0``), can differ from the
+hardware's. The port's policy arithmetic feeds no such input: its
+quantizers zero subnormal inputs themselves, as ``repro``'s do, and a run's
+entry on the card zeroes the subnormals of a caller's state
+(:func:`zero_subnormal_inputs`) but in the cells whose bits its stepper
+uses as they are (``Stepper.raw_cells``: copies, and capture's bins). The tests
 ``tests/test_torch_card.py`` and the card's link to the CPU under flush
 (``chip_smoke.py`` phase 4) are what hold the parity.
 """
@@ -40,7 +44,7 @@ from torch.overrides import TorchFunctionMode
 
 from repro_torch._device import on_card
 
-__all__ = ["flush", "flush_subnormals", "card_flush"]
+__all__ = ["flush", "flush_subnormals", "card_flush", "zero_subnormal_inputs"]
 
 TINY = 2.0**-126  # the smallest normal f32
 
@@ -96,6 +100,23 @@ def flush_subnormals(device) -> contextlib.AbstractContextManager:
     """A block in which every subnormal f32 result of a PyTorch op on a
     tensor of ``device``'s type becomes a zero of its sign."""
     return _FlushMode(torch.device(device).type)
+
+
+def zero_subnormal_inputs(x: torch.Tensor, keep=None) -> torch.Tensor:
+    """``x`` (f32) with every subnormal set to a zero of its sign, as XLA's
+    denormals-are-zero reads it, except where the bool mask ``keep`` is
+    True. A run's entry on the card (``Simulation.run``, ``run_ensemble``)
+    applies it to a caller's state, keeping the cells whose bits the
+    stepper uses as they are (``Stepper.raw_cells``): the flush mode
+    flushes results, not inputs, and a subnormal input otherwise reaches
+    PyTorch's arithmetic, where ``0 + (-sub)`` flushes to ``-0`` where DAZ
+    gives ``+0``. Built from the bits, so no flush mode changes it."""
+    bits = x.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    sub = (mag != 0) & (mag < 0x00800000)
+    if keep is not None:
+        sub = sub & ~keep
+    return torch.where(sub, bits & torch.iinfo(torch.int32).min, bits).view(torch.float32)
 
 
 def card_flush(device) -> contextlib.AbstractContextManager:

@@ -28,6 +28,7 @@ from .flexformat import FlexFormat
 from .r2f2 import _finite_max_exp, _needed_e_bits, _needed_e_bits_lo, op_bounds
 
 __all__ = [
+    "tracker_stack",
     "PrecisionConfig",
     "KNOWN_MODES",
     "PRESETS",
@@ -108,6 +109,17 @@ class RangeTracker(NamedTuple):
 
     def to(self, device) -> "RangeTracker":
         return RangeTracker(*(t.to(device) for t in self))
+
+    def member(self, i: int) -> "RangeTracker":
+        """Member ``i``'s rows of a stacked tracker (fields ``(members,
+        n_sites)``, an ensemble's)."""
+        return RangeTracker(*(t[i] for t in self))
+
+
+def tracker_stack(trackers) -> RangeTracker:
+    """Members' trackers as one stacked tracker, each field ``(members,
+    n_sites)``: the adjust-unit state of an ensemble, a row a member."""
+    return RangeTracker(*(torch.stack(list(col)) for col in zip(*trackers)))
 
 
 def tracker_init(n_sites: int, fmt: FlexFormat, k0=None, *, device) -> RangeTracker:

@@ -52,6 +52,8 @@ __device__ __forceinline__ void store(float* dst, const float (&v)[G]) {
 
 // K3: the momentum flux q1*q1/q3 + c*(q3*q3) over one (br, bw) split tile,
 // run by one thread-block cluster of C CTAs (kernels/swe_flux.py::cluster_plan).
+// An ensemble's member is blockIdx.z: its own field, tiles, floor, evidence
+// and histograms, so a member's tile never takes another member's rows.
 // Sites: 0 q1*q1, 1 q3*q3, 2 c*t3, 3 t1/q3. CTA `rank` owns rows
 // [rank * band, (rank + 1) * band) of the tile. It loads its q1 and q3 once
 // (float4 where the rows are 16-byte aligned) into shared memory; each split
@@ -71,6 +73,15 @@ swe_flux_kernel(const float* __restrict__ q1, const float* __restrict__ q3, floa
                 Policy p, r2f2::Capture cap) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
+  {  // the member's arrays (blockIdx.z): its field of gridDim.y row tiles, its tiles' evidence
+    const size_t m = blockIdx.z, field = static_cast<size_t>(gridDim.y) * br * width;
+    q1 = r2f2::at_member(q1, m, field);
+    q3 = r2f2::at_member(q3, m, field);
+    out = r2f2::at_member(out, m, field);
+    ev = r2f2::at_member(ev, m, static_cast<size_t>(gridDim.y) * (gridDim.x / cluster.num_blocks()) * 8);
+    k_floor = r2f2::at_member(k_floor, m, 4);
+    cap = r2f2::member_capture(cap, m, 1, 4);
+  }
   extern __shared__ __align__(16) float band_smem[];
   __shared__ uint32_t red[kSweWarps][2];  // per-warp maxima
   __shared__ uint32_t pub[2][2];          // the CTA's maxima of the two rounds, read by the cluster
@@ -264,14 +275,16 @@ Policy make_policy(int family, int eb, int mb, int fx, int fe, int fm, int tail_
 // One cluster of `cluster` CTAs per (br, bw) tile, each owning `band` rows
 // (cluster * band >= br > (cluster - 1) * band). cap_out (null: capture off)
 // takes the four sites' operand histograms, (4, 2, cap_bins) int32 zeroed,
-// over the lanes of the unpadded (cap_rows, cap_cols) field.
-extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float* ev, const int* k_floor, int rows,
-                             int width, int br, int bw, int cluster, int band, float c, int family, int eb, int mb,
-                             int fx, int fe, int fm, int tail_approx, int pinned, int* cap_out, int cap_e_lo,
+// over the lanes of the unpadded (cap_rows, cap_cols) field. `members`
+// ensemble members (blockIdx.z) each have their own (rows, width) field, tiles,
+// floor, evidence and histograms: every array leads with the member.
+extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float* ev, const int* k_floor, int members,
+                             int rows, int width, int br, int bw, int cluster, int band, float c, int family, int eb,
+                             int mb, int fx, int fe, int fm, int tail_approx, int pinned, int* cap_out, int cap_e_lo,
                              int cap_bins, int cap_rows, int cap_cols, void* stream) {
   const r2f2::Capture cap{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols};
-  if (cluster < 1 || cluster > kMaxCluster || band < 1 || cluster * band < br || (cluster - 1) * band >= br ||
-      !r2f2::capture_ok(cap))
+  if (members < 1 || members > 65535 || cluster < 1 || cluster > kMaxCluster || band < 1 || cluster * band < br ||
+      (cluster - 1) * band >= br || !r2f2::capture_ok(cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const bool vec = bw % 4 == 0 && width % 4 == 0 && aligned(q1) && aligned(q3) && aligned(out);
@@ -283,7 +296,7 @@ extern "C" int r2f2_swe_flux(const float* q1, const float* q3, float* out, float
   if (err == cudaSuccess && cluster > 8) err = r2f2::allow_large_clusters(kernel, clusters_allowed[vec]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((width / bw) * cluster, rows / br);
+  cfg.gridDim = dim3((width / bw) * cluster, rows / br, members);
   cfg.blockDim = dim3(kSweThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

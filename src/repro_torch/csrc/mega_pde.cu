@@ -73,6 +73,13 @@
 // Any field: a band loops over its rows and columns with the CTA's threads,
 // and fields with more rows than CTAs take taller bands and CTAs of up to
 // 512 threads (kernels/mega.py::swe2d_plan).
+// Ensembles (Simulation.run_ensemble): member member0 + blockIdx.y runs on
+// its own grid of gridDim.x CTAs, every array (state, snapshots, evidence,
+// Ux ring, band arrays, maxima words, the barrier counter, tracker rows,
+// histograms) its own (member_args), so its grid barriers wait only on its
+// own CTAs. The plan gives each member taller bands so that every member's
+// CTAs are resident at once, and beyond that the members run in waves of
+// cooperative launches.
 //
 // It is bound by the latency of its chain of phases, not by bytes or
 // operations (the main path's 128x128 state is 196 KB and ~2.5 MFLOP a
@@ -115,6 +122,7 @@ struct SweArgs {
   float cx2, cy2, cx, cy, c;  // dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, each rounded once to f32
   r2f2::Storage st;           // the storage rounding and the carried split out (f32 in and out)
   r2f2::Capture cap;          // the operand histograms, (slots, 4, 2, n_bins); cap.out null: capture off
+  int member0;                // the wave's first ensemble member (blockIdx.y counts from it)
 };
 
 // Floats of one CTA's band arrays for bands of up to `rows` rows (mega.py::swe2d_band_floats).
@@ -244,8 +252,33 @@ __device__ __forceinline__ int2 grid_wait(const uint32_t* words, uint32_t* seen,
   return make_int2(static_cast<int>(seen[0]) - 127, static_cast<int>(seen[1]) - 127);
 }
 
+// Member member0 + blockIdx.y: its state, snapshots, evidence, scratch, its
+// own barrier counter and maxima words, tracker rows and histograms.
+__device__ inline SweArgs member_args(SweArgs a) {
+  const size_t m = static_cast<size_t>(a.member0) + blockIdx.y, C = gridDim.x;
+  const size_t n3 = 3 * static_cast<size_t>(a.nx) * a.ny;
+  a.u_in = r2f2::at_member(a.u_in, m, n3);
+  a.u_out = r2f2::at_member(a.u_out, m, n3);
+  a.snaps = r2f2::at_member(a.snaps, m, static_cast<size_t>(a.steps / a.every) * n3);
+  a.ev = r2f2::at_member(a.ev, m, static_cast<size_t>(a.steps) * 8);
+  a.ux = r2f2::at_member(a.ux, m, 2 * 3 * static_cast<size_t>(a.nx - 1) * a.ny);
+  a.bands = r2f2::at_member(a.bands, m, C * band_floats(a.rows, a.ny));
+  a.words = r2f2::at_member(a.words, m, 3 * C);
+  a.count = r2f2::at_member(a.count, m, 1);
+  a.ka = r2f2::at_member(a.ka, m, 4);
+  a.trk_k = r2f2::at_member(a.trk_k, m, 4);
+  a.trk_hi = r2f2::at_member(a.trk_hi, m, 4);
+  a.trk_lo = r2f2::at_member(a.trk_lo, m, 4);
+  a.trk_ov = r2f2::at_member(a.trk_ov, m, 4);
+  a.trk_sh = r2f2::at_member(a.trk_sh, m, 4);
+  a.st = r2f2::member_storage(a.st, m, n3, 1);
+  a.cap = r2f2::member_capture(a.cap, m, a.steps / a.every + 1, 4);
+  return a;
+}
+
 template <int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, AdjustLaw law, Policy p) {
+__global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs args, AdjustLaw law, Policy p) {
+  const SweArgs a = member_args(args);
   extern __shared__ __align__(16) float band_smem[];
   __shared__ uint32_t red[kSweMaxWarps][2];
   __shared__ uint32_t seen[2];
@@ -512,51 +545,86 @@ __global__ void __launch_bounds__(kMaxThreads) swe2d_band_kernel(SweArgs a, Adju
 // The kernel for CTAs of up to `threads` threads: the 256-thread instance
 // keeps up to 255 registers a thread, the 384-thread one 170, the
 // 512-thread one 128.
+// The members run in waves of `wave` members (blockIdx.y), each wave one
+// cooperative grid of ctas x wave CTAs; wave 0 takes as many as fit.
 template <int kMaxThreads>
-cudaError_t launch_bands(int ctas, int threads, size_t smem, cudaStream_t stream, const SweArgs& a,
+cudaError_t launch_bands(int ctas, int threads, size_t smem, cudaStream_t stream, SweArgs a, int members, int wave,
                          const AdjustLaw& law, const Policy& p) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel<kMaxThreads>, smem, smem_allowed);
   int capacity = 0;
   if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel<kMaxThreads>, threads, smem, capacity);
   if (err != cudaSuccess) return err;
-  if (capacity < ctas) return cudaErrorCooperativeLaunchTooLarge;
-  return r2f2::launch_cooperative(swe2d_band_kernel<kMaxThreads>, dim3(ctas), dim3(threads), smem, stream, a, law, p);
+  const int fit = r2f2::member_wave(members, ctas, capacity);
+  if (wave == 0) wave = fit;
+  if (fit == 0 || wave > fit) return cudaErrorCooperativeLaunchTooLarge;
+  for (int m0 = 0; m0 < members; m0 += wave) {
+    a.member0 = m0;
+    const dim3 grid(ctas, min(wave, members - m0));
+    err = r2f2::launch_cooperative(swe2d_band_kernel<kMaxThreads>, grid, dim3(threads), smem, stream, a, law, p);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int kMaxThreads>
+int capacity_of(int threads, size_t smem) {
+  static size_t smem_allowed[r2f2::kMaxDevices] = {};
+  cudaError_t err = r2f2::allow_dynamic_smem(swe2d_band_kernel<kMaxThreads>, smem, smem_allowed);
+  int capacity = 0;
+  if (err == cudaSuccess) err = r2f2::cooperative_capacity(swe2d_band_kernel<kMaxThreads>, threads, smem, capacity);
+  return err == cudaSuccess ? capacity : -static_cast<int>(err);
 }
 
 }  // namespace
 
+// The CTAs of `threads` threads and `smem` bytes of band arrays (0: in device
+// memory) that one cooperative grid of the band kernel holds on the current
+// device, the histogram of `cap_bins` bins included (kernels/mega.py::swe2d_plan
+// plans the members' bands against it); a negative cudaError_t on failure.
+extern "C" int r2f2_swe2d_capacity(int threads, int smem, int cap_bins) {
+  if (threads < 32 || threads > kSweMaxThreads || threads % 32 != 0 || smem < 0 || cap_bins < 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(smem) + static_cast<size_t>(cap_bins) * 4 * 2 * sizeof(int);
+  if (threads <= 256) return capacity_of<256>(threads, total);
+  return threads <= 384 ? capacity_of<384>(threads, total) : capacity_of<kSweMaxThreads>(threads, total);
+}
+
 // A cooperative grid of `ctas` CTAs of `threads` threads, one band each
 // (bands of up to `rows` rows; the last band two rows or more), with the
 // band arrays in `smem` bytes of shared memory, or in `bands` (device
-// memory) when smem is 0; ux, words and count are its scratch.
+// memory) when smem is 0; ux, words and count are its scratch. `members`
+// ensemble members run in waves of `wave` (0: as many as the card holds at
+// once), each member on its own grid of ctas CTAs (blockIdx.y) with its own
+// scratch, barrier counter and arrays, every array leading with the member.
 extern "C" int r2f2_swe2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, float* ux, float* bands,
                                unsigned int* words, unsigned long long* count, const int* ka, int* trk_k,
                                float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg,
-                               int evolve, int nx, int ny, int steps, int every, int ctas, int threads, int rows,
-                               int smem, float cx2, float cy2, float cx, float cy, float c, float ema, float one_minus,
-                               int headroom, int family, int eb, int mb, int fx, int fe, int fm, int tail_approx,
-                               int pinned, const void* pay_in, const int* k_in, void* pay_out, int* k_out, int bytes,
-                               int round, int* cap_out, int cap_e_lo, int cap_bins, int cap_rows, int cap_cols,
-                               void* stream) {
+                               int evolve, int members, int wave, int nx, int ny, int steps, int every, int ctas,
+                               int threads, int rows, int smem, float cx2, float cy2, float cx, float cy, float c,
+                               float ema, float one_minus, int headroom, int family, int eb, int mb, int fx, int fe,
+                               int fm, int tail_approx, int pinned, const void* pay_in, const int* k_in, void* pay_out,
+                               int* k_out, int bytes, int round, int* cap_out, int cap_e_lo, int cap_bins, int cap_rows,
+                               int cap_cols, void* stream) {
   const r2f2::Capture cap{cap_out, cap_e_lo, cap_bins, cap_rows, cap_cols};
   // storage: rounding and the carried split only; the state comes and goes in f32
   if (pay_in != nullptr || k_in != nullptr || pay_out != nullptr || (bytes != 1 && bytes != 2 && bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nx < 3 || ny < 3 || every < 1 || ux == nullptr || words == nullptr || count == nullptr || ctas < 1 ||
-      ctas > nx - 1 || ctas > 32 * kMaxWordsPerLane || rows < (nx + ctas - 1) / ctas || threads < 32 ||
-      threads > kSweMaxThreads ||
-      threads % 32 != 0 || (smem == 0) != (bands != nullptr) ||
+  if (members < 1 || members > 65535 || wave < 0 || nx < 3 || ny < 3 || every < 1 || ux == nullptr ||
+      words == nullptr || count == nullptr || ctas < 1 || ctas > nx - 1 || ctas > 32 * kMaxWordsPerLane ||
+      rows < (nx + ctas - 1) / ctas || threads < 32 || threads > kSweMaxThreads || threads % 32 != 0 ||
+      (smem == 0) != (bands != nullptr) ||
       (smem != 0 && static_cast<size_t>(smem) < band_floats(rows, ny) * sizeof(float)) || !r2f2::capture_ok(cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const SweArgs a{u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk_k, trk_hi, trk_lo, trk_ov, trk_sh,
                   site_cfg, evolve, nx, ny, steps, every, rows, cx2, cy2, cx, cy, c,
-                  r2f2::Storage{nullptr, nullptr, nullptr, k_out, bytes, round}, cap};
+                  r2f2::Storage{nullptr, nullptr, nullptr, k_out, bytes, round}, cap, 0};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t total = static_cast<size_t>(smem) + r2f2::hist_bytes(cap, 4);  // the histogram after the bands
-  return static_cast<int>(threads <= 256   ? launch_bands<256>(ctas, threads, total, s, a, law, p)
-                          : threads <= 384 ? launch_bands<384>(ctas, threads, total, s, a, law, p)
-                                           : launch_bands<kSweMaxThreads>(ctas, threads, total, s, a, law, p));
+  return static_cast<int>(threads <= 256   ? launch_bands<256>(ctas, threads, total, s, a, members, wave, law, p)
+                          : threads <= 384 ? launch_bands<384>(ctas, threads, total, s, a, members, wave, law, p)
+                                           : launch_bands<kSweMaxThreads>(ctas, threads, total, s, a, members, wave,
+                                                                          law, p));
 }

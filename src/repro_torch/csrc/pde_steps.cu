@@ -33,6 +33,10 @@
 // is cluster-wide, so every CTA's thread 0 ticks its own copy of the rows and
 // latches its own `ka`; rank 0 writes the rows.
 //
+// Ensembles (Simulation.run_ensemble): one cluster a member (blockIdx.y),
+// each with its own field, floor or tracker rows, evidence, storage split
+// and histograms; clusters need not be resident together.
+//
 // Packed storage (r2f2::Storage): a packed input is decoded into the bands
 // at its split as they load; a packed output is encoded from the cells after
 // the last substep, at a split from the field's finite max (K5a: one more
@@ -311,6 +315,15 @@ __global__ void __launch_bounds__(kHeat2DMaxThreads)
 heat2d_sweep_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, float* __restrict__ ev,
                     const int* __restrict__ k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage io,
                     r2f2::Capture cap) {
+  {  // the member's arrays (blockIdx.y: one cluster a member)
+    const size_t m = blockIdx.y, n = static_cast<size_t>(c.nx) * c.ny;
+    u_in = r2f2::at_member(u_in, m, n);
+    u_out = r2f2::at_member(u_out, m, n);
+    ev = r2f2::at_member(ev, m, static_cast<size_t>(steps) * 4);
+    k_floor = r2f2::at_member(k_floor, m, 2);
+    io = r2f2::member_storage(io, m, n, 1);
+    cap = r2f2::member_capture(cap, m, 1, 2);
+  }
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
   __shared__ uint32_t pub[3];  // the CTA's lap, flux and storage maxima, read by the cluster
@@ -350,6 +363,20 @@ heat2d_mega_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, fl
                    float* __restrict__ ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
                    const int* __restrict__ site_cfg, int evolve, Consts c, int band, int steps, int every,
                    AdjustLaw law, Policy p, r2f2::Storage io, r2f2::Capture cap) {
+  {  // the member's arrays (blockIdx.y: one cluster a member)
+    const size_t m = blockIdx.y, n = static_cast<size_t>(c.nx) * c.ny;
+    u_in = r2f2::at_member(u_in, m, n);
+    u_out = r2f2::at_member(u_out, m, n);
+    snaps = r2f2::at_member(snaps, m, static_cast<size_t>(steps / every) * n);
+    ev = r2f2::at_member(ev, m, static_cast<size_t>(steps) * 4);
+    trk_k = r2f2::at_member(trk_k, m, 2);
+    trk_hi = r2f2::at_member(trk_hi, m, 2);
+    trk_lo = r2f2::at_member(trk_lo, m, 2);
+    trk_ov = r2f2::at_member(trk_ov, m, 2);
+    trk_sh = r2f2::at_member(trk_sh, m, 2);
+    io = r2f2::member_storage(io, m, n, 1);
+    cap = r2f2::member_capture(cap, m, steps / every + 1, 2);
+  }
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
   __shared__ uint32_t pub[3];
@@ -432,25 +459,25 @@ void heat2d_shape(int cells, int& per_thread, int& threads) {
 }
 
 template <int P>
-cudaError_t heat2d_sweep(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
-                         float* ev, const int* k_floor, Consts c, int band, int steps, Policy p, r2f2::Storage st,
-                         r2f2::Capture cap) {
+cudaError_t heat2d_sweep(int cluster, int members, int threads, size_t smem, void* stream, const float* u_in,
+                         float* u_out, float* ev, const int* k_floor, Consts c, int band, int steps, Policy p,
+                         r2f2::Storage st, r2f2::Capture cap) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
-  return r2f2::launch_cluster(heat2d_sweep_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
-                              u_in, u_out, ev, k_floor, c, band, steps, p, st, cap);
+  return r2f2::launch_cluster(heat2d_sweep_kernel<P>, smem_allowed, clusters_allowed, cluster, members, threads, smem,
+                              stream, u_in, u_out, ev, k_floor, c, band, steps, p, st, cap);
 }
 
 template <int P>
-cudaError_t heat2d_mega(int cluster, int threads, size_t smem, void* stream, const float* u_in, float* u_out,
-                        float* snaps, float* ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov, int* trk_sh,
-                        const int* site_cfg, int evolve, Consts c, int band, int steps, int every, AdjustLaw law,
-                        Policy p, r2f2::Storage st, r2f2::Capture cap) {
+cudaError_t heat2d_mega(int cluster, int members, int threads, size_t smem, void* stream, const float* u_in,
+                        float* u_out, float* snaps, float* ev, int* trk_k, float* trk_hi, float* trk_lo, int* trk_ov,
+                        int* trk_sh, const int* site_cfg, int evolve, Consts c, int band, int steps, int every,
+                        AdjustLaw law, Policy p, r2f2::Storage st, r2f2::Capture cap) {
   static size_t smem_allowed[r2f2::kMaxDevices] = {};
   static bool clusters_allowed[r2f2::kMaxDevices] = {};
-  return r2f2::launch_cluster(heat2d_mega_kernel<P>, smem_allowed, clusters_allowed, cluster, threads, smem, stream,
-                              u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve, c, band,
-                              steps, every, law, p, st, cap);
+  return r2f2::launch_cluster(heat2d_mega_kernel<P>, smem_allowed, clusters_allowed, cluster, members, threads, smem,
+                              stream, u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg, evolve,
+                              c, band, steps, every, law, p, st, cap);
 }
 
 // Validate a heat2d plan and give its launch shape: `cluster` CTAs of `band`
@@ -498,37 +525,39 @@ bool storage_ok(const void* u_in, const float* u_out, R2F2_STORAGE_ARGS, int eb,
 }  // namespace
 
 // heat2d (K5a, K5d): one cluster of `cluster` CTAs of `band` interior rows
-// (kernels/pde_steps.py::heat2d_cluster_plan).
-extern "C" int r2f2_heat2d_sweep(const float* u_in, float* u_out, float* ev, const int* k_floor, int nx, int ny,
-                                 int steps, float c0, float c1, int cluster, int band, R2F2_POLICY_ARGS,
+// (kernels/pde_steps.py::heat2d_cluster_plan) a member, `members` ensemble
+// members in one launch, every array leading with the member.
+extern "C" int r2f2_heat2d_sweep(const float* u_in, float* u_out, float* ev, const int* k_floor, int members, int nx,
+                                 int ny, int steps, float c0, float c1, int cluster, int band, R2F2_POLICY_ARGS,
                                  R2F2_STORAGE_ARGS, R2F2_CAPTURE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
   const r2f2::Capture cap = R2F2_CAPTURE;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || !r2f2::capture_ok(cap) ||
+  if (members < 1 || !heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || !r2f2::capture_ok(cap) ||
       !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, false))
     return static_cast<int>(cudaErrorInvalidValue);
   smem += r2f2::hist_bytes(cap, 2);
-  R2F2_HEAT2D_DISPATCH(heat2d_sweep, cluster, threads, smem, stream, u_in, u_out, ev, k_floor, Consts{nx, ny, c0, c1},
-                       band, steps, R2F2_POLICY, R2F2_STORAGE, cap)
+  R2F2_HEAT2D_DISPATCH(heat2d_sweep, cluster, members, threads, smem, stream, u_in, u_out, ev, k_floor,
+                       Consts{nx, ny, c0, c1}, band, steps, R2F2_POLICY, R2F2_STORAGE, cap)
 }
 
 extern "C" int r2f2_heat2d_mega(const float* u_in, float* u_out, float* snaps, float* ev, int* trk_k, float* trk_hi,
-                                float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int nx,
-                                int ny, int steps, int every, float c0, float c1, int cluster, int band, float ema,
-                                float one_minus, int headroom, R2F2_POLICY_ARGS, R2F2_STORAGE_ARGS,
+                                float* trk_lo, int* trk_ov, int* trk_sh, const int* site_cfg, int evolve,
+                                int members, int nx, int ny, int steps, int every, float c0, float c1, int cluster,
+                                int band, float ema, float one_minus, int headroom, R2F2_POLICY_ARGS, R2F2_STORAGE_ARGS,
                                 R2F2_CAPTURE_ARGS, void* stream) {
   int per_thread, threads;
   size_t smem;
   const r2f2::Capture cap = R2F2_CAPTURE;
-  if (!heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || every < 1 || !r2f2::capture_ok(cap) ||
+  if (members < 1 || !heat2d_plan(nx, ny, cluster, band, per_thread, threads, smem) || every < 1 ||
+      !r2f2::capture_ok(cap) ||
       !storage_ok(u_in, u_out, pay_in, k_in, pay_out, k_out, bytes, round, eb, mb, fx, true) ||
       (pay_out != nullptr && !round))
     return static_cast<int>(cudaErrorInvalidValue);
   const Policy p = R2F2_POLICY;
   const AdjustLaw law{ema, one_minus, headroom, p.eb, p.fx};
   smem += r2f2::hist_bytes(cap, 2);
-  R2F2_HEAT2D_DISPATCH(heat2d_mega, cluster, threads, smem, stream, u_in, u_out, snaps, ev, trk_k, trk_hi, trk_lo,
-                       trk_ov, trk_sh, site_cfg, evolve, Consts{nx, ny, c0, c1}, band, steps, every, law, p,
+  R2F2_HEAT2D_DISPATCH(heat2d_mega, cluster, members, threads, smem, stream, u_in, u_out, snaps, ev, trk_k, trk_hi,
+                       trk_lo, trk_ov, trk_sh, site_cfg, evolve, Consts{nx, ny, c0, c1}, band, steps, every, law, p,
                        R2F2_STORAGE, cap)
 }

@@ -618,6 +618,40 @@ inline size_t hist_bytes(const Capture& c, int n_sites) {
 inline bool capture_ok(const Capture& c) { return c.out == nullptr || (c.n_bins >= 1 && c.n_bins <= kMaxBins); }
 
 // ---------------------------------------------------------------------------
+// Ensemble members (pde/solver.py::Simulation.run_ensemble): one launch runs
+// the same run for `members` states, each member's arrays at the member's
+// index times a per-member stride. A kernel takes its member from its grid
+// (blockIdx.y, or .z where y is taken, plus the wave's first member where the
+// members of a cooperative grid run in waves) and moves every pointer to it
+// first, so the body runs as for one member: no maximum, split, tracker row,
+// histogram, evidence, snapshot, storage split or barrier is shared.
+template <typename T>
+__host__ __device__ __forceinline__ T* at_member(T* p, size_t m, size_t stride) {
+  return p != nullptr ? p + m * stride : p;
+}
+
+// Member m's storage arguments: payloads of `n` elements and `splits` splits a member.
+__host__ __device__ inline Storage member_storage(Storage s, size_t m, size_t n, size_t splits) {
+  if (s.pay_in != nullptr) s.pay_in = static_cast<const char*>(s.pay_in) + m * n * s.bytes;
+  if (s.pay_out != nullptr) s.pay_out = static_cast<char*>(s.pay_out) + m * n * s.bytes;
+  s.k_in = at_member(s.k_in, m, splits);
+  s.k_out = at_member(s.k_out, m, splits);
+  return s;
+}
+
+// Member m's histograms: `slots` slots of n_sites sites a member.
+__host__ __device__ inline Capture member_capture(Capture c, size_t m, int slots, int n_sites) {
+  c.out = at_member(c.out, m, static_cast<size_t>(slots) * n_sites * 2 * c.n_bins);
+  return c;
+}
+
+// Host side: members a wave of a cooperative grid holds, `ctas` CTAs a member
+// and `capacity` CTAs resident at once (0: one member does not fit).
+inline int member_wave(int members, int ctas, int capacity) {
+  return ctas < 1 || ctas > capacity ? 0 : (capacity / ctas < members ? capacity / ctas : members);
+}
+
+// ---------------------------------------------------------------------------
 // The adjust unit (core/policy.py::adjust_step), one site's tick in f32 and
 // integer logic, as the megakernels run it once per site per substep.
 
@@ -820,17 +854,17 @@ inline cudaError_t allow_large_clusters(Kernel kernel, bool* allowed) {
   return err;
 }
 
-// Host side: one thread-block cluster of `cluster` CTAs (cudaLaunchKernelEx
-// with a cluster dimension); `smem_allowed` and `clusters_allowed` are the
-// kernel's own records of the attributes set.
+// Host side: `members` thread-block clusters of `cluster` CTAs, one a member
+// (blockIdx.y; cudaLaunchKernelEx with a cluster dimension); `smem_allowed`
+// and `clusters_allowed` are the kernel's own records of the attributes set.
 template <typename... Params, typename... Args>
 inline cudaError_t launch_cluster(void (*kernel)(Params...), size_t* smem_allowed, bool* clusters_allowed,
-                                  int cluster, int threads, size_t smem, void* stream, Args... args) {
+                                  int cluster, int members, int threads, size_t smem, void* stream, Args... args) {
   cudaError_t err = allow_dynamic_smem(kernel, smem, smem_allowed);
   if (err == cudaSuccess && cluster > 8) err = allow_large_clusters(kernel, clusters_allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster, members);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

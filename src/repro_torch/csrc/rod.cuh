@@ -98,6 +98,12 @@
 // (the warp shape: a reduction and a republish of the edges, two CTA
 // barriers; the grid shape: one grid barrier and a pass over its cells),
 // and does so once more after a remainder.
+//
+// Ensembles (Simulation.run_ensemble): each of `members` members runs the
+// launch's blocks as it would alone, member member0 + blockIdx.y, every array
+// moved to its own by member_args (a member's blocks, evidence, tracker rows,
+// storage splits, histograms, scratch and barrier counters); the grid
+// shape runs as many members at once as the card holds their CTAs, in waves.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -125,10 +131,35 @@ struct RodArgs {
   const int* site_cfg;  // (2, 3): op, k_lo, k_hi, read with an evolving tracker
   int evolve;           // tick the tracker rows and latch the floor at boundaries
   int blocks, n, row, steps, every;  // row: cells a row (heat1d nx, heat2d ny, a periodic rod n); every = 0: no snapshots
+  int members, member0, mblocks;     // ensemble members, the wave's first, a member's blocks (blocks: a launch's)
   float c0, c1;  // heat alpha, dtodx2; advection1d speed, dtodx; burgers1d dt/(2dx), 0.5
   r2f2::Storage st;  // packed input and output, storage rounding, the output split (one block)
   r2f2::Capture cap;  // the operand histograms, (slots, 2, 2, n_bins); cap.out null: capture off
 };
+
+// Member member0 + blockIdx.y of an ensemble launch: every array moved to
+// the member's (a member's mblocks blocks of n cells; the host may have moved
+// the block arrays to a group of its blocks already), the adjust table shared.
+__device__ inline RodArgs member_args(RodArgs a) {
+  const size_t m = static_cast<size_t>(a.member0) + blockIdx.y;
+  const size_t cells = static_cast<size_t>(a.mblocks) * a.n;
+  const int slots = a.every > 0 ? a.steps / a.every + 1 : 1;
+  a.u_in = r2f2::at_member(a.u_in, m, cells);
+  a.u_out = r2f2::at_member(a.u_out, m, cells);
+  a.snaps = r2f2::at_member(a.snaps, m, a.every > 0 ? static_cast<size_t>(a.steps / a.every) * cells : 0);
+  a.ev = r2f2::at_member(a.ev, m, static_cast<size_t>(a.mblocks) * a.steps * 4);
+  a.work = r2f2::at_member(a.work, m, (a.st.pay_in != nullptr ? 3 : 2) * cells);
+  a.maxes = r2f2::at_member(a.maxes, m, static_cast<size_t>(a.mblocks) * 4 + 2);
+  a.count = r2f2::at_member(a.count, m, a.mblocks);
+  a.trk_k = r2f2::at_member(a.trk_k, m, 2);
+  a.trk_hi = r2f2::at_member(a.trk_hi, m, 2);
+  a.trk_lo = r2f2::at_member(a.trk_lo, m, 2);
+  a.trk_ov = r2f2::at_member(a.trk_ov, m, 2);
+  a.trk_sh = r2f2::at_member(a.trk_sh, m, 2);
+  a.st = r2f2::member_storage(a.st, m, cells, a.mblocks);
+  a.cap = r2f2::member_capture(a.cap, m, slots, 2);
+  return a;
+}
 
 // The warp shape's launchers (rod_warp.cuh, one translation unit a body):
 // `threads` / 32 warps of one CTA a block, `cells` cells a lane.

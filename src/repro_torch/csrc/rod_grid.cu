@@ -14,17 +14,20 @@ ROD_GRID_LAUNCHER(launch_grid_heat1d, kHeat1D)
 // block and its tracker rows. cap_out (null: capture off) takes the operand
 // histograms, (slots, 2, 2, cap_bins) int32 zeroed: slot 0 a fused sweep's,
 // slot i a megakernel's interval i and slot steps / every its remainder.
+// `members` ensemble members run the same blocks in one launch, every array
+// leading with the member (rod.cuh::member_args).
 extern "C" int r2f2_rod(int body, const float* u_in, float* u_out, float* snaps, float* ev, float* work,
                         unsigned int* maxes, unsigned long long* count, int* trk_k, float* trk_hi, float* trk_lo,
-                        int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int blocks, int n, int row,
-                        int steps, int every, int shape, int threads, int cells, int ctas, float c0, float c1,
+                        int* trk_ov, int* trk_sh, const int* site_cfg, int evolve, int blocks, int members, int n,
+                        int row, int steps, int every, int shape, int threads, int cells, int ctas, float c0, float c1,
                         float ema, float one_minus, int headroom, int family, int eb, int mb, int fx, int fe, int fm,
                         int tail_approx, int pinned, const void* pay_in, const int* k_in, void* pay_out, int* k_out,
                         int bytes, int round, int* cap_out, int cap_e_lo, int cap_bins, int cap_rows,
                         int cap_cols, void* stream) {
   const bool periodic = body == kAdvection1D || body == kBurgers1D;
   const bool storage = pay_in != nullptr || pay_out != nullptr || round != 0 || k_out != nullptr;
-  bool ok = blocks >= 1 && row >= 1 && n >= row && n % row == 0 && every >= 0 && (every == 0 || snaps != nullptr);
+  bool ok = blocks >= 1 && members >= 1 && row >= 1 && n >= row && n % row == 0 && every >= 0 &&
+            (every == 0 || snaps != nullptr);
   ok = ok && (periodic ? blocks == 1 && n == row : row >= 3);
   ok = ok && (body != kHeat2D || (blocks == 1 && n / row >= 3));
   // storage: one block; the payloads' width holds the format; rounding in a megakernel; a packed input
@@ -38,7 +41,7 @@ extern "C" int r2f2_rod(int body, const float* u_in, float* u_out, float* snaps,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const r2f2::Storage st{pay_in, k_in, pay_out, k_out, bytes, round};
   const RodArgs a{u_in, u_out, snaps, ev, work, maxes, count, trk_k, trk_hi, trk_lo, trk_ov, trk_sh, site_cfg,
-                  evolve, blocks, n, row, steps, every, c0, c1, st, cap};
+                  evolve, blocks, n, row, steps, every, members, 0, blocks, c0, c1, st, cap};
   const AdjustLaw law{ema, one_minus, headroom, eb, fx};
   const Policy p{family, eb, mb, fx, fe, fm, tail_approx, pinned};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -212,7 +212,8 @@ struct Grid {
 // heat1d and heat2d: three passes a substep (lap, flux, update), each behind
 // a grid barrier.
 template <int B, int G>
-__global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int ctas, AdjustLaw law, Policy p) {
+__global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs args, int ctas, AdjustLaw law, Policy p) {
+  const RodArgs a = member_args(args);  // blockIdx.y: the member, of the wave from member0
   extern __shared__ int rod_hist[];
   RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
@@ -333,7 +334,8 @@ __global__ void __launch_bounds__(kGridThreads) heat_grid_kernel(RodArgs a, int 
 // grid barrier. The max of u that selects a substep's first split is taken
 // in the update of the substep before (once from the load), into the ring.
 template <int B, int G>
-__global__ void __launch_bounds__(kGridThreads) periodic_grid_kernel(RodArgs a, int ctas, AdjustLaw law, Policy p) {
+__global__ void __launch_bounds__(kGridThreads) periodic_grid_kernel(RodArgs args, int ctas, AdjustLaw law, Policy p) {
+  const RodArgs a = member_args(args);  // blockIdx.y: the member, of the wave from member0
   extern __shared__ int rod_hist[];
   RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
@@ -497,19 +499,26 @@ cudaError_t launch_grid(RodArgs a, int ctas, const AdjustLaw& law, const Policy&
   cudaError_t err = r2f2::cooperative_capacity(kernel, kGridThreads, smem, capacity);
   if (err != cudaSuccess) return err;
   if (ctas < 1 || ctas > capacity) return cudaErrorCooperativeLaunchTooLarge;
+  // a member's blocks in groups the card holds at once; members whose blocks
+  // fit one group in waves of as many members as fit (blockIdx.y)
   const int group = capacity / ctas, blocks = a.blocks;
-  for (int b0 = 0; b0 < blocks; b0 += group) {
-    RodArgs g = a;
-    const size_t at = static_cast<size_t>(b0) * a.n;
-    g.blocks = min(group, blocks - b0);
-    g.u_in = a.u_in + at;
-    g.u_out = a.u_out + at;
-    g.work = a.work + 2 * at;
-    g.maxes = a.maxes + static_cast<size_t>(b0) * 4;
-    g.count = a.count + b0;
-    if (a.ev != nullptr) g.ev = a.ev + static_cast<size_t>(b0) * a.steps * 4;
-    err = r2f2::launch_cooperative(kernel, dim3(g.blocks * ctas), dim3(kGridThreads), smem, stream, g, ctas, law, p);
-    if (err != cudaSuccess) return err;
+  const int wave = blocks <= group ? r2f2::member_wave(a.members, blocks * ctas, capacity) : 1;
+  for (int m0 = 0; m0 < a.members; m0 += wave) {
+    for (int b0 = 0; b0 < blocks; b0 += group) {
+      RodArgs g = a;
+      const size_t at = static_cast<size_t>(b0) * a.n;
+      g.member0 = m0;
+      g.blocks = min(group, blocks - b0);
+      g.u_in = a.u_in + at;
+      g.u_out = a.u_out + at;
+      g.work = a.work + 2 * at;
+      g.maxes = a.maxes + static_cast<size_t>(b0) * 4;
+      g.count = a.count + b0;
+      if (a.ev != nullptr) g.ev = a.ev + static_cast<size_t>(b0) * a.steps * 4;
+      const dim3 grid(g.blocks * ctas, min(wave, a.members - m0));
+      err = r2f2::launch_cooperative(kernel, grid, dim3(kGridThreads), smem, stream, g, ctas, law, p);
+      if (err != cudaSuccess) return err;
+    }
   }
   return cudaSuccess;
 }

@@ -368,7 +368,8 @@ struct Rod {
 
 // One CTA of `threads` / 32 warps a block.
 template <int B, int G, int K>
-__global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs a, AdjustLaw law, Policy p) {
+__global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs args, AdjustLaw law, Policy p) {
+  const RodArgs a = member_args(args);  // blockIdx.y: the member
   extern __shared__ int rod_hist[];
   RodHist<B> hist(a, rod_hist);  // zeroed before Step's CTA barrier
   const Step<B> c(a, p);
@@ -407,7 +408,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rod_warp_kernel(RodArgs a, Adj
 
 template <int B, int G, int K>
 cudaError_t launch_warp(const RodArgs& a, int threads, const AdjustLaw& law, const Policy& p, cudaStream_t stream) {
-  rod_warp_kernel<B, G, K><<<a.blocks, threads, r2f2::hist_bytes(a.cap, 2), stream>>>(a, law, p);
+  rod_warp_kernel<B, G, K><<<dim3(a.blocks, a.members), threads, r2f2::hist_bytes(a.cap, 2), stream>>>(a, law, p);
   return cudaGetLastError();
 }
 

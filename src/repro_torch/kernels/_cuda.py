@@ -56,30 +56,34 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _CAPTURE = [_P] + [_I] * 4  # CaptureIO.args()
 _SIGNATURES = {
     # the rod bodies (K2, K4 heat1d, K5b/c/e/f, K5a/d's grid): body, u_in, u_out, snaps, ev, work,
-    # maxes, count, trk k/hi/lo/ov/sh, site_cfg, evolve, blocks, n, row, steps, every, shape,
-    # threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), storage(6), capture(5), stream
-    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 10 + [_F] * 4 + [_I] + [_I] * 8 + [_P] * 4 + [_I] * 2 + _CAPTURE + [_P],
-    # q1, q3, out, ev, k_floor, rows, width, br, bw, cluster, band, c, policy(8), capture(5), stream
-    "r2f2_swe_flux": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 8 + _CAPTURE + [_P],
-    # u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve, nx,
-    # ny, steps, every, ctas, threads, rows, smem, dt/(2dx), dt/(2dy), dt/dx, dt/dy, g/2, ema,
-    # 1 - ema, headroom, policy(8), stream
-    "r2f2_swe2d_mega": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
+    # maxes, count, trk k/hi/lo/ov/sh, site_cfg, evolve, blocks, members, n, row, steps, every,
+    # shape, threads, cells, ctas, c0, c1, ema, 1 - ema, headroom, policy(8), storage(6),
+    # capture(5), stream
+    "r2f2_rod": [_I] + [_P] * 13 + [_I] * 11 + [_F] * 4 + [_I] + [_I] * 8 + [_P] * 4 + [_I] * 2 + _CAPTURE + [_P],
+    # q1, q3, out, ev, k_floor, members, rows, width, br, bw, cluster, band, c, policy(8),
+    # capture(5), stream
+    "r2f2_swe_flux": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 8 + _CAPTURE + [_P],
+    # u_in, u_out, snaps, ev, ux, bands, words, count, ka, trk k/hi/lo/ov/sh, site_cfg, evolve,
+    # members, wave, nx, ny, steps, every, ctas, threads, rows, smem, dt/(2dx), dt/(2dy), dt/dx,
+    # dt/dy, g/2, ema, 1 - ema, headroom, policy(8), stream
+    "r2f2_swe2d_mega": [_P] * 15 + [_I] * 11 + [_F] * 7 + [_I] + [_I] * 8 + [_P],
+    # threads, band-array bytes, histogram bins: the CTAs one cooperative grid holds
+    "r2f2_swe2d_capacity": [_I] * 3,
     # x, y, k_tiles, m, n, bm, bn, eb, mb, fx, cluster (0: the two-pass shape), rows, stream
     "r2f2_quantize": [_P] * 3 + [_I] * 9 + [_P],
     # a, b, c, scratch, m, n, kdim, bm, bn, bk, splits, slots, eb, mb, fx, round_products,
     # tail_approx, stream
     "r2f2_matmul": [_P] * 4 + [_I] * 13 + [_P],
 }
-# heat2d's cluster kernels (csrc/pde_steps.cu): sweep u_in, u_out, ev, k_floor, nx, ny, steps,
-# c0, c1, the cluster's CTAs and band rows, policy(8), storage(6), capture(5), stream; mega u_in,
-# u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, nx, ny, steps, every, c0, c1, CTAs, band,
-# ema, 1 - ema, headroom, policy(8), storage(6), capture(5), stream; swe2d's megakernel takes
-# storage(6) and capture(5) before its stream too
+# heat2d's cluster kernels (csrc/pde_steps.cu): sweep u_in, u_out, ev, k_floor, members, nx, ny,
+# steps, c0, c1, the cluster's CTAs and band rows, policy(8), storage(6), capture(5), stream; mega
+# u_in, u_out, snaps, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, members, nx, ny, steps, every, c0,
+# c1, CTAs, band, ema, 1 - ema, headroom, policy(8), storage(6), capture(5), stream; swe2d's
+# megakernel takes storage(6) and capture(5) before its stream too
 _STORAGE = [_P] * 4 + [_I] * 2  # StorageIO.args()
-_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
+_SIGNATURES["r2f2_heat2d_sweep"] = [_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
 _SIGNATURES["r2f2_heat2d_mega"] = (
-    [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
+    [_P] * 10 + [_I] * 6 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] + [_I] * 8 + _STORAGE + _CAPTURE + [_P]
 )
 _SIGNATURES["r2f2_swe2d_mega"] = _SIGNATURES["r2f2_swe2d_mega"][:-1] + _STORAGE + _CAPTURE + [_P]
 
@@ -157,15 +161,16 @@ class CaptureIO(NamedTuple):
         return (ptr(self.out), int(self.e_lo), n_bins, int(self.rows), int(self.cols))
 
 
-def capture_io(spec, slots: int, n_sites: int, device, rows: int = 0, cols: int = 0) -> CaptureIO:
-    """A zeroed histogram buffer of ``slots`` slots for a CaptureSpec (an
-    empty CaptureIO for None). Raises where the spec has more bins than the
-    kernels' histograms take."""
+def capture_io(spec, slots: int, n_sites: int, device, rows: int = 0, cols: int = 0, members: int = 1) -> CaptureIO:
+    """A zeroed histogram buffer of ``slots`` slots a member (``(members,
+    slots, n_sites, 2, n_bins)``) for a CaptureSpec (an empty CaptureIO for
+    None). Raises where the spec has more bins than the kernels'
+    histograms take."""
     if spec is None:
         return CaptureIO()
     if spec.n_bins > MAX_BINS:
         raise ValueError(f"the kernels' histograms take at most {MAX_BINS} bins; the spec has {spec.n_bins}")
-    out = torch.zeros((slots, n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
+    out = torch.zeros((members, slots, n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
     return CaptureIO(out, spec.e_lo, rows, cols)
 
 

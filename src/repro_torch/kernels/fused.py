@@ -258,6 +258,7 @@ def fused_sweep(
     plain: bool = False,
     capture=None,
     storage: str = "f32",
+    members: bool = False,
 ):
     """Run ``steps`` substeps of a fused body over blocked 2-D state.
 
@@ -265,6 +266,12 @@ def fused_sweep(
     the state shape; ``pad_values`` are per-leaf pad constants (default
     0.0); ``k_floor`` is the ``(n_sites,)`` carried split that floors (or,
     under ``prec.pinned``, fixes) the rr family's per-block split.
+
+    ``members=True`` runs an ensemble: every leaf leads with a member dim
+    ``(members, rows, width)``, ``k_floor`` is ``(members, n_sites)``, and
+    each member is swept as on its own (its own blocks, splits, evidence,
+    counts and storage splits) in one launch; the evidence is then
+    ``(members, steps, n_sites, 2)`` and the counts lead with the member too.
 
     ``storage="packed"`` takes PackedArray leaves instead and returns them:
     each leaf is decoded at its split before the first substep and encoded
@@ -278,14 +285,17 @@ def fused_sweep(
     n_bins)`` int32 counts.
 
     ``kernel(leaves, br=, bw=, gi=, gj=, k_floor=, collect=, k_in=)``
-    launches the CUDA kernel on the padded leaves and returns ``(outs,
-    block_evidence)``; with ``k_in`` (the leaves' splits, packed storage)
-    the leaves and outs are payloads and it returns ``(outs,
-    block_evidence, k_outs)``. Under capture it is also given ``capture=``
-    and ``extent=`` (the unpadded rows and width, each None where that
-    axis has no padding) and returns the counts last. It runs for CUDA
-    tensors unless ``plain``; CPU tensors (or ``plain``) take the plain
-    version, counted in ``counter.plain_calls``.
+    launches the CUDA kernel on the padded leaves, each ``(members, rows,
+    width)`` (a run alone is one member), with ``k_floor`` ``(members,
+    n_sites)``, and returns ``(outs, block_evidence)``, the evidence
+    ``(members, gi, gj, steps, n_sites, 2)``; with ``k_in`` (the leaves'
+    splits, ``(members,)`` each, packed storage) the leaves and outs are
+    payloads and it returns ``(outs, block_evidence, k_outs)``. Under
+    capture it is also given ``capture=`` and ``extent=`` (the unpadded rows
+    and width, each None where that axis has no padding) and returns the
+    ``(members, n_sites, 2, n_bins)`` counts last. It runs for CUDA tensors
+    unless ``plain``; CPU tensors (or ``plain``) take the plain version,
+    counted in ``counter.plain_calls``.
 
     Returns ``(out_leaves, evidence)`` with evidence ``(steps, n_sites, 2)``
     (max over blocks) or None, and the counts under capture.
@@ -301,10 +311,14 @@ def fused_sweep(
         leaves = [pa.payload for pa in pas]
     else:
         leaves = [x.to(torch.float32) for x in state]
-    rows, width = leaves[0].shape
+    if not members:  # a run alone: one member
+        leaves = [x[None] for x in leaves]
+    if leaves[0].dim() != 3:
+        raise ValueError(f"fused_sweep takes 2-D leaves (3-D with members=True); got {tuple(leaves[0].shape)}")
+    n_members, rows, width = leaves[0].shape
     for x in leaves[1:]:
-        if tuple(x.shape) != (rows, width):
-            raise ValueError(f"state leaves disagree: {tuple(x.shape)} vs {(rows, width)}")
+        if tuple(x.shape) != (n_members, rows, width):
+            raise ValueError(f"state leaves disagree: {tuple(x.shape)} vs {(n_members, rows, width)}")
     n_state = len(leaves)
     n_out = n_state if n_out is None else n_out
     if steps != 1 and n_out != n_state:
@@ -323,51 +337,87 @@ def fused_sweep(
         if n_out != n_state:
             raise ValueError(f"in-kernel packed storage needs body in/out leaf counts to match ({n_state} != {n_out})")
         _single_block(pas, "in-kernel packed storage")
-    if pr or pw:
-        pv = tuple(pad_values) if pad_values is not None else (0.0,) * n_state
-        leaves = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(leaves, pv)]
+    pv = tuple(pad_values) if pad_values is not None else (0.0,) * n_state
     gi, gj = (rows + pr) // br, (width + pw) // bw
     collect = bool(collect_evidence) or capture is not None
     extent = (rows if pr else None, width if pw else None) if (pr or pw) else None
-    cap_kw = {} if capture is None else {"capture": capture, "extent": extent}
     if k_floor is not None:
         k_floor = torch.as_tensor(k_floor).to(device=leaves[0].device, dtype=torch.int32)
+        k_floor = k_floor.reshape(n_members, n_sites) if members else k_floor.reshape(1, n_sites)
 
     k_outs = counts = None
     if leaves[0].is_cuda and not plain:
         if kernel is None:
             raise RuntimeError("this fused body has no CUDA kernel; pass CPU tensors to run its plain version")
+        if pr or pw:
+            leaves = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(leaves, pv)]
+        kw = {} if capture is None else {"capture": capture, "extent": extent}
         if packed:
-            res = kernel(
-                leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect,
-                k_in=[pa.k.reshape(1).to(torch.int32) for pa in pas], **cap_kw,
-            )
-            outs, block_ev, k_outs = res[:3]
-        else:
-            res = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect, **cap_kw)
-            outs, block_ev = res[:2]
+            kw["k_in"] = [pa.k.reshape(n_members).to(torch.int32) for pa in pas]
+        res = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect, **kw)
+        outs, block_ev = res[:2]
+        if packed:
+            k_outs = res[2]
         if capture is not None:
             counts = res[-1]
+        evidence = block_ev.amax(dim=(1, 2)) if collect else None
+        if not packed and (pr or pw):
+            outs = [o[:, :rows, :width] for o in outs]
     else:
         if counter is not None:
             counter.plain_calls += 1
-        if packed:  # the prologue: each leaf decoded at its carried split
-            leaves = [unpack_block(pa.payload.to(torch.int64), prec.fmt, pa.k.reshape(())) for pa in pas]
-        outs, block_ev, counts = _sweep_plain(
-            body, leaves, prec=prec, sites=tuple(sites), site_ops=site_ops, steps=steps,
-            br=br, bw=bw, gi=gi, gj=gj, n_out=n_out, k_floor=k_floor, collect=collect, capture=capture, extent=extent,
+        outs, evidence, counts, k_outs = _sweep_members(
+            body, leaves, pas if packed else None, prec=prec, sites=tuple(sites), site_ops=site_ops, steps=steps,
+            br=br, bw=bw, gi=gi, gj=gj, pr=pr, pw=pw, pv=pv, n_out=n_out, k_floor=k_floor, collect=collect,
+            capture=capture, extent=extent,
         )
-        if packed:  # the epilogue: a split picked afresh from each advanced leaf
-            k_outs = [block_storage_k(v, prec.fmt) for v in outs]
-            outs = [pack_block(v, prec.fmt, k).to(payload_dtype(prec.fmt)) for v, k in zip(outs, k_outs)]
-    evidence = block_ev.amax(dim=(0, 1)) if collect else None
     if packed:
         outs = [
-            PackedArray(p, k.reshape(pa.k.shape).to(torch.int32), pa.fmt, pa.shape, pa.block)
+            PackedArray(p if members else p[0], k.reshape(pa.k.shape).to(torch.int32), pa.fmt, pa.shape, pa.block)
             for p, k, pa in zip(outs, k_outs, pas)
         ]
-    elif pr or pw:
-        outs = [o[:rows, :width] for o in outs]
+    elif not members:
+        outs = [o[0] for o in outs]
+    if not members:
+        evidence = None if evidence is None else evidence[0]
+        counts = None if counts is None else counts[0]
     if capture is not None:
         return tuple(outs), evidence, counts
     return tuple(outs), evidence
+
+
+def _sweep_members(body, leaves, pas, *, prec, sites, site_ops, steps, br, bw, gi, gj, pr, pw, pv, n_out, k_floor,
+                   collect, capture, extent):
+    """The plain version over ``(members, rows, width)`` leaves, member by
+    member: each member's leaves (decoded at its split under packed
+    storage), padded, swept by :func:`_sweep_plain` at its own floor, cropped
+    (or encoded at a split picked afresh from it). Returns the stacked outs,
+    evidence, counts and splits (each None where absent)."""
+    n_members, rows, width = leaves[0].shape
+    fmt = prec.fmt
+    outs, evs, cnts, ks = [], [], [], []
+    for m in range(n_members):
+        if pas is not None:  # the prologue: each leaf decoded at the member's carried split
+            st = [unpack_block(x[m].to(torch.int64), fmt, pa.k.reshape(n_members)[m]) for x, pa in zip(leaves, pas)]
+        else:
+            st = [x[m] for x in leaves]
+        if pr or pw:
+            st = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(st, pv)]
+        out, block_ev, cnt = _sweep_plain(
+            body, st, prec=prec, sites=sites, site_ops=site_ops, steps=steps, br=br, bw=bw, gi=gi, gj=gj, n_out=n_out,
+            k_floor=None if k_floor is None else k_floor[m], collect=collect, capture=capture, extent=extent,
+        )
+        if pas is not None:  # the epilogue: a split picked afresh from each advanced leaf
+            k_m = [block_storage_k(v, fmt) for v in out]
+            out = [pack_block(v, fmt, k).to(payload_dtype(fmt)) for v, k in zip(out, k_m)]
+            ks.append(torch.stack(k_m))
+        elif pr or pw:
+            out = [o[:rows, :width] for o in out]
+        outs.append(out)
+        if collect:
+            evs.append(block_ev.amax(dim=(0, 1)))
+        if cnt is not None:
+            cnts.append(cnt)
+    stacked = [torch.stack(col) for col in zip(*outs)]
+    k_outs = None if pas is None else list(torch.stack(ks).T)
+    return stacked, torch.stack(evs) if evs else None, torch.stack(cnts) if cnts else None, k_outs

@@ -62,10 +62,11 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, st
         raise ValueError(f"heat1d_sweep has two sites (flux, update); got {n_sites}")
     if capture is not None and extent is not None:
         raise ValueError("the rod kernel captures whole row blocks: pass rows divisible by block_rows")
-    plan = plan or rod_plan(br, u.shape[1], _cuda.sm_count(u.device))
-    ev = torch.empty((gi, gj, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
+    members = u.shape[0]
+    plan = plan or rod_plan(br, u.shape[2], _cuda.sm_count(u.device))
+    ev = torch.empty((members, gi, gj, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     u_in, u_out, out, storage = sweep_storage(u, k_in)
-    cap = _cuda.capture_io(capture, 1, n_sites, u.device)
+    cap = _cuda.capture_io(capture, 1, n_sites, u.device, members=members)
     err = launch_rod(
         "heat1d", u_in, u_out, plan, br=br, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k_floor,
         storage=storage, capture=cap,
@@ -73,44 +74,48 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, alpha, dtodx2, prec, st
     _cuda.check(err, "heat1d_sweep")
     HEAT1D_SWEEP.count("f32" if k_in is None else "packed", capture=capture is not None)
     res = [[out], ev] if k_in is None else [[out], ev, [storage.k_out]]
-    return tuple(res) if capture is None else (*res, cap.out[0])
+    return tuple(res) if capture is None else (*res, cap.out[:, 0])
 
 
 def _sweep(u0, *, alpha, dtodx2, prec, steps, block_rows, sites, k_floor, collect_evidence, capture, storage, plain,
-           plan=None):
+           plan=None, members=False):
     alpha, dtodx2 = float(alpha), float(dtodx2)
     kernel = functools.partial(_launch, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, n_sites=len(sites), plan=plan)
     (out,), *rest = fused_sweep(
         _heat1d_body(alpha, dtodx2, sites), (u0,), prec=prec, sites=sites, steps=steps,
-        block=(block_rows, u0.shape[1]), k_floor=k_floor, collect_evidence=collect_evidence,
-        kernel=kernel, counter=HEAT1D_SWEEP, plain=plain, capture=capture, storage=storage,
+        block=(block_rows, u0.shape[-1]), k_floor=k_floor, collect_evidence=collect_evidence,
+        kernel=kernel, counter=HEAT1D_SWEEP, plain=plain, capture=capture, storage=storage, members=members,
     )
     return (out, *rest)
 
 
 def heat1d_sweep(
     u0, *, alpha, dtodx2, prec, steps=1, block_rows=8, sites=HEAT1D_SITES, k_floor=None,
-    collect_evidence=False, capture=None, storage="f32", _plan=None,
+    collect_evidence=False, capture=None, storage="f32", members=False, _plan=None,
 ):
     """Advance ``(rows, nx)`` rods ``steps`` substeps in one launch.
     Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None. With
     ``capture`` (a CaptureSpec) also the ``(2, 2, n_bins)`` operand counts.
+    ``members=True`` takes ``(members, rows, nx)`` ensemble members, each
+    with its own ``k_floor`` row, evidence and counts, in the same launch.
     ``_plan`` asks the kernel for another launch shape than
     ``rod.rod_plan``'s (the chip checks and timings)."""
     return _sweep(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, block_rows=block_rows, sites=sites,
         k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, plan=_plan,
+        members=members,
     )
 
 
 def heat1d_sweep_plain(
     u0, *, alpha, dtodx2, prec, steps=1, block_rows=8, sites=HEAT1D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32",
+    capture=None, storage="f32", members=False,
 ):
     """The plain PyTorch version of :func:`heat1d_sweep`, on any device."""
     return _sweep(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, block_rows=block_rows, sites=sites,
         k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
+        members=members,
     )
 
 

@@ -64,7 +64,7 @@ import torch
 
 from repro_torch._device import f32_scalar
 from repro_torch.core.flexformat import quantize_em
-from repro_torch.core.policy import RangeTracker, adjust_step
+from repro_torch.core.policy import RangeTracker, adjust_step, tracker_stack
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fused import FusedOps, _packed_leaves, _single_block
 from repro_torch.kernels.heat_stencil import _heat1d_body
@@ -74,7 +74,7 @@ from repro_torch.kernels.pde_steps import (
 )
 from repro_torch.kernels.rod import launch_rod, mega_storage, rod_plan
 from repro_torch.pack.packed import (
-    PackedArray, _view2d, block_storage_k, pack_block, payload_dtype, unpack_array, unpack_block,
+    PackedArray, block_storage_k, pack_block, pack_members, payload_dtype, unpack_array, unpack_block, unpack_members,
 )
 from repro_torch.precision.fusion import fused_family
 
@@ -87,6 +87,8 @@ __all__ = [
     "swe2d_bands",
     "swe2d_band_floats",
     "swe2d_grid_scratch",
+    "swe2d_capacity",
+    "member_waves",
     "mega_sweep",
     "mega_sweep_plain",
     "heat1d_mega",
@@ -241,6 +243,7 @@ def mega_sweep(
     plain: bool = False,
     capture=None,
     storage: str = "f32",
+    members: bool = False,
 ) -> MegaResult:
     """Run a whole horizon, ``steps`` substeps with a snapshot every
     ``every``, in one launch.
@@ -248,14 +251,21 @@ def mega_sweep(
     ``storage`` is ``"f32"``, ``"quantized"`` or ``"packed"`` (the module
     docstring says what each does); PackedArray leaves take ``"packed"``.
 
+    ``members=True`` runs an ensemble in the same launch: every leaf (a
+    PackedArray's payload and splits) and every tracker row leads with a
+    member dim, and so does every field of the result (``kst`` is then
+    ``(members, n_state)``); each member runs as it would alone.
+
     ``kernel(leaves, steps=, every=, tracker=, evolve=, collect=, storage=,
-    k_in=)`` launches the stepper's CUDA kernel and returns a
-    :class:`MegaResult` whose state holds payloads where ``k_in`` (the
-    leaves' splits) is given; it runs for CUDA tensors unless ``plain`` and
-    counts its own launch. Under ``capture`` (a CaptureSpec) it is also
-    given ``capture=`` and fills ``exp_time`` and ``exp_total``; capture
-    turns the evidence on. CPU tensors (or ``plain``) take
-    :func:`mega_sweep_plain`, counted on ``counter``.
+    k_in=)`` launches the stepper's CUDA kernel on leaves that lead with the
+    member (a run alone is one member; the tracker rows ``(members,
+    n_sites)``, ``k_in`` the leaves' ``(members,)`` splits) and returns a
+    :class:`MegaResult` whose fields lead with the member and whose state
+    holds payloads where ``k_in`` is given; it runs for CUDA tensors unless
+    ``plain`` and counts its own launch. Under ``capture`` (a CaptureSpec)
+    it is also given ``capture=`` and fills ``exp_time`` and ``exp_total``;
+    capture turns the evidence on. CPU tensors (or ``plain``) take
+    :func:`mega_sweep_plain`, member by member, counted on ``counter``.
     """
     if storage not in ("f32", "quantized", "packed"):
         raise ValueError(f"unknown mega storage {storage!r}")
@@ -264,8 +274,8 @@ def mega_sweep(
     if fused_family(prec.mode) is None:
         raise ValueError(f"mode {prec.mode!r} has no fused arithmetic family; run it on the reference plane")
     _site_ops(sites, site_ops)
-    if tracker is not None and len(tracker.k) != len(sites):
-        raise ValueError(f"tracker has {len(tracker.k)} rows for {len(sites)} sites")
+    if tracker is not None and tracker.k.shape[-1] != len(sites):
+        raise ValueError(f"tracker has {tracker.k.shape[-1]} rows for {len(sites)} sites")
     if prec.k_bounds is not None and len(prec.k_bounds) != len(sites):
         raise ValueError(f"k_bounds covers {len(prec.k_bounds)} sites; the body has {len(sites)}")
     packed_io = any(isinstance(x, PackedArray) for x in state)
@@ -278,9 +288,14 @@ def mega_sweep(
         pas = _packed_leaves(state, prec)
         _single_block(pas, "megakernel packed io")
         leaves = [pa.payload for pa in pas]
-        k_in = [pa.k.reshape(1).to(torch.int32) for pa in pas]
     else:
         leaves = [x.to(torch.float32) for x in state]
+    if not members:  # a run alone: one member
+        leaves = [x[None] for x in leaves]
+        tracker = None if tracker is None else RangeTracker(*(t[None] for t in tracker))
+    n_members = leaves[0].shape[0]
+    if packed_io:
+        k_in = [pa.k.reshape(n_members).to(torch.int32) for pa in pas]
     on_card = leaves[0].is_cuda and not plain
     if on_card:
         if kernel is None:
@@ -293,30 +308,57 @@ def mega_sweep(
     else:
         if counter is not None:
             counter.plain_calls += 1
-        res = mega_sweep_plain(
-            body, leaves, prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
-            tracker=tracker, collect_evidence=collect_evidence, storage=storage, k_in=k_in, capture=capture,
-        )
+        res = _stack_results([
+            mega_sweep_plain(
+                body, [x[m] for x in leaves], prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
+                tracker=None if tracker is None else tracker.member(m),
+                collect_evidence=collect_evidence, storage=storage,
+                k_in=None if k_in is None else [k[m] for k in k_in], capture=capture,
+            )
+            for m in range(n_members)
+        ])
     if packed_io:
-        final = tuple(
-            PackedArray(p, k.reshape(pa.k.shape), pa.fmt, pa.shape, pa.block) for p, k, pa in zip(res.state, res.kst, pas)
-        )
-        return res._replace(state=final)
-    if storage == "packed":  # f32 leaves: packed here at the kernel's carried split
-        return res._replace(state=tuple(_pack_at(q, prec.fmt, k, plain=not on_card) for q, k in zip(res.state, res.kst)))
-    return res
+        res = res._replace(state=tuple(
+            PackedArray(p, k.reshape((n_members, 1, 1)), pa.fmt, pa.shape, pa.block)
+            for p, k, pa in zip(res.state, res.kst.T, pas)
+        ))
+    elif storage == "packed":  # f32 leaves: packed here at the kernel's carried split
+        res = res._replace(state=tuple(
+            pack_members(q, prec.fmt, k=k, plain=not on_card) for q, k in zip(res.state, res.kst.T)
+        ))
+    return res if members else _only_member(res)
 
 
-def _pack_at(q, fmt, k, *, plain):
-    """Pack one leaf as a single block at split ``k`` (kernel K1 on the card)."""
-    view = _view2d(tuple(q.shape))
-    if plain:
-        payload = pack_block(q.reshape(view), fmt, k).to(payload_dtype(fmt))
-    else:
-        from repro_torch.kernels.storage import pack_blocks
+def _stack_results(results) -> MegaResult:
+    """Members' results as one result whose fields lead with the member."""
+    def stack(values):
+        return None if values[0] is None else torch.stack(list(values))
 
-        payload, _ = pack_blocks(q.reshape(view), fmt, *view, k=k.reshape(1))
-    return PackedArray(payload, k.reshape(1, 1).to(torch.int32), fmt, tuple(q.shape), view)
+    first = results[0]
+    return MegaResult(
+        tuple(torch.stack(col) for col in zip(*(r.state for r in results))),
+        tuple(torch.stack(col) for col in zip(*(r.snaps for r in results))),
+        None if first.tracker is None else tracker_stack([r.tracker for r in results]),
+        stack([r.evidence for r in results]), stack([r.kst for r in results]),
+        stack([r.exp_time for r in results]), stack([r.exp_total for r in results]),
+    )
+
+
+def _only_member(res: MegaResult) -> MegaResult:
+    """A one-member result as the result of a run alone."""
+    def first(x):
+        return None if x is None else x[0]
+
+    def leaf(x):
+        if isinstance(x, PackedArray):
+            return PackedArray(x.payload[0], x.k[0], x.fmt, x.shape, x.block)
+        return x[0]
+
+    return MegaResult(
+        tuple(leaf(x) for x in res.state), tuple(x[0] for x in res.snaps),
+        None if res.tracker is None else res.tracker.member(0),
+        first(res.evidence), first(res.kst), first(res.exp_time), first(res.exp_total),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +382,9 @@ def _adjust_args(prec, sites, site_ops, device):
 
 
 def _tracker_buffers(tracker, evolve, device):
-    """Output copies of the tracker rows that the kernel updates in place
-    (evolve), or the pinned split row (has_floor), or nothing."""
+    """Output copies of the tracker rows ``(members, n_sites)`` that the
+    kernel updates in place (evolve), or the pinned split row (has_floor),
+    or nothing."""
     if tracker is None:
         return None, (None,) * 5
     t = RangeTracker(
@@ -356,38 +399,43 @@ def _tracker_buffers(tracker, evolve, device):
     return t, (t.k, t.hi_ema, t.lo_ema, t.overflow_steps, t.shrink_steps)
 
 
-def _mega_capture(capture, steps, every, n_sites, device):
+def _mega_capture(capture, steps, every, n_sites, device, members):
     """A megakernel's histogram buffer: a slot for each of the ``steps //
-    every`` intervals and one for the remainder."""
-    return _cuda.capture_io(capture, steps // every + 1, n_sites, device)
+    every`` intervals and one for the remainder, a set a member."""
+    return _cuda.capture_io(capture, steps // every + 1, n_sites, device, members=members)
 
 
 def _with_counts(res: MegaResult, cap: _cuda.CaptureIO, n_out: int) -> MegaResult:
     """A launch's result with the counts of its histogram buffer: each
-    interval's slot, and their sum with the remainder's."""
+    member's interval slots, and their sum with the remainder's."""
     if cap.out is None:
         return res
-    return res._replace(exp_time=cap.out[:n_out], exp_total=cap.out.sum(dim=0, dtype=torch.int32))
+    return res._replace(exp_time=cap.out[:, :n_out], exp_total=cap.out.sum(dim=1, dtype=torch.int32))
+
+
+def _kst(sio):
+    """The carried storage splits a launch gives back, ``(members, 1)``."""
+    return None if sio.k_out is None else sio.k_out[:, None]
 
 
 def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dtodx2, prec, sites, plan=None,
                    storage="f32", k_in=None, capture=None):
     (u,) = leaves
     u = u.contiguous()
-    if u.dim() != 2 or u.shape[0] != 1:
-        raise ValueError(f"heat1d_mega takes one (1, nx) rod; got {tuple(u.shape)}")
-    nx = u.shape[1]
+    if u.dim() != 3 or u.shape[1] != 1:
+        raise ValueError(f"heat1d_mega takes (members, 1, nx) rods; got {tuple(u.shape)}")
+    members, nx = u.shape[0], u.shape[2]
     plan = plan or rod_plan(1, nx, _cuda.sm_count(u.device))
     if len(sites) != 2:
         raise ValueError(f"heat1d_mega has two sites (flux, update); got {len(sites)}")
     dev = u.device
     u_in, u_out, out, sio = mega_storage(u, storage, k_in)
-    snaps = torch.empty((steps // every, 1, nx), dtype=torch.float32, device=dev)
-    ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
+    snaps = torch.empty((members, steps // every, 1, nx), dtype=torch.float32, device=dev)
+    ev = torch.empty((members, steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
-    cap = _mega_capture(capture, steps, every, 2, dev)
+    cap = _mega_capture(capture, steps, every, 2, dev, members)
     err = launch_rod(
         "heat1d", u_in, u_out, plan, br=1, steps=steps, consts=(alpha, dtodx2), prec=prec, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
@@ -395,7 +443,7 @@ def _launch_heat1d(leaves, *, steps, every, tracker, evolve, collect, alpha, dto
     )
     _cuda.check(err, "heat1d_mega")
     HEAT1D_MEGA.count(storage, capture=capture is not None)
-    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, steps // every)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, _kst(sio)), cap, steps // every)
 
 
 #: threads of a CTA of swe2d's grid (csrc/mega_pde.cu): at least, and at most
@@ -409,10 +457,11 @@ SWE2D_SMEM_LIMIT = _cuda.SMEM_LIMIT
 class Swe2DPlan(NamedTuple):
     """The launch shape of swe2d's megakernel (``csrc/mega_pde.cu``)."""
 
-    ctas: int  # the cooperative grid's CTAs, one band of rows each
+    ctas: int  # the cooperative grid's CTAs a member, one band of rows each
     threads: int  # threads a CTA
     rows: int  # the tallest band's rows
     smem: int  # bytes of shared memory a CTA's band arrays take; 0: they live in device memory
+    wave: int = 1  # ensemble members a cooperative grid runs at once (blockIdx.y); the rest in later waves
 
 
 def swe2d_band_floats(rows: int, ny: int) -> int:
@@ -430,7 +479,19 @@ def swe2d_bands(nx: int, ctas: int):
     return [(b * nx // ctas, (b + 1) * nx // ctas) for b in range(ctas)]
 
 
-def swe2d_plan(nx: int, ny: int, *, sms: int = 132, ctas: Optional[int] = None) -> Swe2DPlan:
+#: the fewest CTAs the plan gives a member of an ensemble before it runs the
+#: members in waves instead (16 bands of 8 rows at 128x128)
+SWE2D_MIN_MEMBER_CTAS = 16
+
+
+def member_waves(members: int, wave: int):
+    """The waves of an ensemble's members, ``[(first, count), ...]``, as a
+    cooperative launch of ``wave`` members at a time runs them."""
+    return [(m0, min(wave, members - m0)) for m0 in range(0, members, wave)]
+
+
+def swe2d_plan(nx: int, ny: int, *, sms: int = 132, ctas: Optional[int] = None, members: int = 1,
+               capacity: Optional[int] = None) -> Swe2DPlan:
     """How K4 runs an ``(nx, ny)`` swe2d state: a cooperative grid of one
     CTA per row (one-row bands were the fastest of one, two and four rows
     timed on the card at the main path's 128x128, PERF.md), at most one CTA
@@ -439,28 +500,71 @@ def swe2d_plan(nx: int, ny: int, *, sms: int = 132, ctas: Optional[int] = None) 
     127 CTAs, the last band two rows); fields with more rows take taller
     bands. A CTA has a thread per point of its tallest band's rows, rounded
     up to 128, from 256 to 512. ``ctas`` asks for another grid (the chip
-    checks and timings). Any ``nx, ny >= 3``."""
+    checks and timings). Any ``nx, ny >= 3``.
+
+    ``members`` ensemble members each take a grid of their own, side by side
+    in one cooperative launch of ``capacity`` resident CTAs (the occupancy
+    query's, :func:`swe2d_capacity`; None: as many as asked): where
+    ``members * ctas`` exceeds it, each member gets taller bands, down to
+    :data:`SWE2D_MIN_MEMBER_CTAS` CTAs (at 128x128 and eight members on 264
+    resident CTAs, 33 CTAs of up to four rows), and beyond that the members
+    run in waves of ``wave``. A plan is a pure function of its arguments."""
     if min(nx, ny) < 3:
         raise ValueError(f"swe2d needs nx, ny >= 3; got ({nx}, {ny})")
-    ctas = max(1, min(min(nx, sms) if ctas is None else ctas, nx - 1))
+    if members < 1:
+        raise ValueError(f"an ensemble has at least one member; got {members}")
+    if ctas is None:
+        ctas = min(nx, sms)
+        if capacity is not None and members * ctas > capacity:
+            ctas = max(capacity // members, min(SWE2D_MIN_MEMBER_CTAS, ctas))
+    ctas = max(1, min(ctas, nx - 1))
     rows = -(-nx // ctas)
     threads = min(max(-(-rows * ny // 128) * 128, _SWE2D_THREADS), _SWE2D_MAX_THREADS)
     nbytes = 4 * swe2d_band_floats(rows, ny)
-    return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0)
+    wave = members if capacity is None else max(1, min(members, capacity // ctas))
+    return Swe2DPlan(ctas, threads, rows, nbytes if nbytes <= SWE2D_SMEM_LIMIT else 0, wave)
 
 
-def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device):
-    """The grid's scratch, whatever the number of substeps: Ux in a ring of
-    two substeps (f32, ``(2, 3, nx-1, ny)``), the band arrays of every CTA
-    when they do not fit shared memory (else None), each CTA's maxima at a
-    substep's two grid barriers and at the storage rounding's (int32,
-    ``(3, ctas)``, written before they are read) and the 64-bit barrier
-    counter (zeroed)."""
-    ux = torch.empty(2 * 3 * (nx - 1) * ny, dtype=torch.float32, device=device)
-    bands = None if plan.smem else torch.empty(plan.ctas * swe2d_band_floats(plan.rows, ny), dtype=torch.float32,
-                                               device=device)
-    words = torch.empty(3 * plan.ctas, dtype=torch.int32, device=device)
-    count = torch.zeros(1, dtype=torch.int64, device=device)
+def swe2d_capacity(plan: Swe2DPlan, device, n_bins: int = 0) -> int:
+    """The CTAs of ``plan``'s shape (its threads and shared memory, with a
+    capture histogram of ``n_bins`` bins) one cooperative grid of K4 holds
+    on ``device`` (the occupancy query of ``csrc/mega_pde.cu``)."""
+    with torch.cuda.device(device):
+        got = _cuda.library().r2f2_swe2d_capacity(plan.threads, plan.smem, n_bins)
+    if got < 0:
+        raise RuntimeError(f"the occupancy query of swe2d_mega failed: cudaError {-got}")
+    return got
+
+
+def _swe2d_member_plan(nx, ny, members, device, n_bins):
+    """The default plan of ``members`` members on the card: planned against
+    the resident CTAs of the one-member plan's shape, then of its own."""
+    sms = _cuda.sm_count(device)
+    plan = swe2d_plan(nx, ny, sms=sms)
+    if members == 1:
+        return plan
+    capacity = swe2d_capacity(plan, device, n_bins)
+    for _ in range(3):  # a taller band changes the CTA's shape, and so what fits
+        plan = swe2d_plan(nx, ny, sms=sms, members=members, capacity=capacity)
+        got = swe2d_capacity(plan, device, n_bins)
+        if got == capacity:
+            break
+        capacity = got
+    return swe2d_plan(nx, ny, sms=sms, ctas=plan.ctas, members=members, capacity=capacity)
+
+
+def swe2d_grid_scratch(nx, ny, plan: Swe2DPlan, device, members=1):
+    """The grid's scratch a member, whatever the number of substeps: Ux in a
+    ring of two substeps (f32, ``(2, 3, nx-1, ny)``), the band arrays of
+    every CTA when they do not fit shared memory (else None), each CTA's
+    maxima at a substep's two grid barriers and at the storage rounding's
+    (int32, ``(3, ctas)``, written before they are read) and the 64-bit
+    barrier counter (zeroed)."""
+    ux = torch.empty(members * 2 * 3 * (nx - 1) * ny, dtype=torch.float32, device=device)
+    bands = None if plan.smem else torch.empty(members * plan.ctas * swe2d_band_floats(plan.rows, ny),
+                                               dtype=torch.float32, device=device)
+    words = torch.empty(members * 3 * plan.ctas, dtype=torch.int32, device=device)
+    count = torch.zeros(members, dtype=torch.int64, device=device)
     return ux, bands, words, count
 
 
@@ -468,29 +572,29 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
                   storage="f32", k_in=None, capture=None):
     (U,) = leaves
     U = U.contiguous()
-    if U.dim() != 3 or U.shape[0] != 3 or min(U.shape[1:]) < 3:
-        raise ValueError(f"swe2d_mega takes a (3, nx, ny) state with nx, ny >= 3; got {tuple(U.shape)}")
+    if U.dim() != 4 or U.shape[1] != 3 or min(U.shape[2:]) < 3:
+        raise ValueError(f"swe2d_mega takes (members, 3, nx, ny) states with nx, ny >= 3; got {tuple(U.shape)}")
     if len(sites) != 4 or _site_ops(sites, site_ops) != ("mul", "mul", "mul", "div"):
         raise ValueError(f"swe2d_mega's sites are (q1q1, q3q3, gq3, div) as mul, mul, mul, div; got {site_ops}")
-    _, nx, ny = U.shape
-    plan = plan or swe2d_plan(nx, ny, sms=_cuda.sm_count(U.device))
+    members, _, nx, ny = U.shape
     dev = U.device
+    plan = plan or _swe2d_member_plan(nx, ny, members, dev, 0 if capture is None else capture.n_bins)
     n_out = steps // every
     if k_in is not None:
         raise ValueError("swe2d's megakernel takes f32 state: swe2d_mega decodes a packed carry first")
     _, _, out, sio = mega_storage(U, storage, None)
-    snaps = torch.empty((n_out, 3, nx, ny), dtype=torch.float32, device=dev)
-    ev = torch.empty((steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
+    snaps = torch.empty((members, n_out, 3, nx, ny), dtype=torch.float32, device=dev)
+    ev = torch.empty((members, steps, 4, 2), dtype=torch.float32, device=dev) if collect else None
     if plan.threads % 32 or not 32 <= plan.threads <= _SWE2D_MAX_THREADS:
         raise ValueError(f"swe2d_mega's CTAs have a multiple of 32 threads up to {_SWE2D_MAX_THREADS}; got {plan}")
-    ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, dev)
+    ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, dev, members)
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, site_ops, dev if evolve else None)
     consts = [float(f32_scalar(v, "cpu")) for v in (
         cfg.dt / (2 * cfg.dx), cfg.dt / (2 * cfg.dy), cfg.dt / cfg.dx, cfg.dt / cfg.dy, 0.5 * 9.81,
     )]
-    cap = _mega_capture(capture, steps, every, 4, dev)
+    cap = _mega_capture(capture, steps, every, 4, dev, members)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         # k is the floor the run starts from; the kernel latches it per CTA
@@ -498,32 +602,34 @@ def _launch_swe2d(leaves, *, steps, every, tracker, evolve, collect, cfg, prec, 
         err = lib.r2f2_swe2d_mega(
             _cuda.ptr(U), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(ux), _cuda.ptr(bands),
             _cuda.ptr(words), _cuda.ptr(count), _cuda.ptr(k), _cuda.ptr(k), _cuda.ptr(hi), _cuda.ptr(lo), _cuda.ptr(ov),
-            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), nx, ny, steps, every, plan.ctas, plan.threads, plan.rows,
-            plan.smem, *consts, ema, one_minus, headroom, *_cuda.policy_args(prec, fused_family(prec.mode)),
-            *sio.args(), *cap.args(), _cuda.stream_of(U),
+            _cuda.ptr(sh), _cuda.ptr(table), int(evolve), members, min(plan.wave, members), nx, ny, steps, every,
+            plan.ctas, plan.threads, plan.rows, plan.smem, *consts, ema, one_minus, headroom,
+            *_cuda.policy_args(prec, fused_family(prec.mode)), *sio.args(), *cap.args(), _cuda.stream_of(U),
         )
     _cuda.check(err, "swe2d_mega")
     SWE2D_MEGA.count(storage, capture=capture is not None)
-    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, n_out)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, _kst(sio)), cap, n_out)
 
 
 def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, consts, prec, sites, cluster=None,
                plan=None, storage="f32", k_in=None, capture=None):
-    """Launch one K5 megakernel on the ``(1, nx*ny)`` leaf
-    (``pde_steps.k5_plan``'s shape)."""
+    """Launch one K5 megakernel on the ``(members, 1, nx*ny)`` leaves
+    (``pde_steps.k5_plan``'s shape, a member each)."""
     (u,) = leaves
     u = u.contiguous()
-    if u.shape != (1, nx * ny) or len(sites) != 2:
-        raise ValueError(f"{body}_mega takes one (1, {nx * ny}) leaf and two sites; got {tuple(u.shape)}, {len(sites)} sites")
+    if u.shape[1:] != (1, nx * ny) or len(sites) != 2:
+        raise ValueError(f"{body}_mega takes (members, 1, {nx * ny}) leaves and two sites; got {tuple(u.shape)}, "
+                         f"{len(sites)} sites")
+    members = u.shape[0]
     plan = k5_plan(body, nx, ny, u.device, cluster, plan)
     dev = u.device
     u_in, u_out, out, sio = mega_storage(u, storage, k_in)
-    snaps = torch.empty((steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
-    ev = torch.empty((steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
+    snaps = torch.empty((members, steps // every, 1, nx * ny), dtype=torch.float32, device=dev)
+    ev = torch.empty((members, steps, 2, 2), dtype=torch.float32, device=dev) if collect else None
     tracker_out, (k, hi, lo, ov, sh) = _tracker_buffers(tracker, evolve, dev)
     # untracked, no host-to-device copy: a CUDA graph captures the launch
     table, ema, one_minus, headroom = _adjust_args(prec, sites, None, dev if evolve else None)
-    cap = _mega_capture(capture, steps, every, 2, dev)
+    cap = _mega_capture(capture, steps, every, 2, dev, members)
     err = launch_k5(
         body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k,
         tracker_rows=(hi, lo, ov, sh), table=table, evolve=evolve, every=every, snaps=snaps,
@@ -531,7 +637,7 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
     )
     _cuda.check(err, f"{body}_mega")
     BODIES[body].mega.count(storage, capture=capture is not None)
-    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, sio.k_out), cap, steps // every)
+    return _with_counts(MegaResult((out,), (snaps,), tracker_out, ev, _kst(sio)), cap, steps // every)
 
 
 # ---------------------------------------------------------------------------
@@ -539,32 +645,50 @@ def _launch_k5(leaves, *, steps, every, tracker, evolve, collect, body, nx, ny, 
 # ---------------------------------------------------------------------------
 
 
-def _lead(u0, view):
-    """A stepper's leaf as the kernel's one 2-D leaf, and a result back (a
-    packed one too: f32 leaves under packed storage come back packed)."""
-    shape = tuple(u0.shape)
-    lead = u0.with_view(view) if isinstance(u0, PackedArray) else u0.reshape(view)
-    return lead, lambda o: o.with_view(shape) if isinstance(o, PackedArray) else o.reshape(shape)
+def _lead(u0, view, members):
+    """A stepper's leaf as the kernel's one 2-D leaf (after the member dim,
+    with ``members``), a result back (a packed one too: f32 leaves under
+    packed storage come back packed), and a member's shape."""
+    packed = isinstance(u0, PackedArray)
+    shape = u0.shape if packed else tuple(u0.shape[1:] if members else u0.shape)
+    first = () if packed or not members else tuple(u0.shape[:1])
+
+    def unwrap(o):
+        if isinstance(o, PackedArray):
+            return o.with_view(shape)
+        return o.reshape(tuple(o.shape[:1] if members else ()) + shape)
+
+    return (u0.with_view(view) if packed else u0.reshape(first + view)), unwrap, shape
+
+
+def _snaps(snaps, shape, members):
+    """The kernel's snapshots ``(n_out, *view)`` (a member dim first with
+    ``members``) as ``(n_out, *shape)``."""
+    lead = snaps.shape[:2] if members else snaps.shape[:1]
+    return snaps.reshape(tuple(lead) + tuple(shape))
 
 
 def heat1d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _plan=None,
+    capture=None, storage="f32", plain=False, members=False, _plan=None,
 ) -> MegaResult:
     """Whole-horizon 1-D heat run of the ``(nx,)`` rod (a PackedArray under
-    packed storage); snapshots come back as ``(n_out, nx)``. ``_plan`` asks
-    the kernel for another launch shape than ``rod.rod_plan``'s (the chip
-    checks and timings)."""
+    packed storage); snapshots come back as ``(n_out, nx)``. ``members=True``
+    takes ``(members, nx)`` ensemble members (a PackedArray's payload and
+    splits lead with the member) with ``(members, 2)`` tracker rows, one
+    block each in one launch; every result field then leads with the
+    member. ``_plan`` asks the kernel for another launch shape than
+    ``rod.rod_plan``'s (the chip checks and timings)."""
     nx = u0.shape[-1]
-    lead, unwrap = _lead(u0, (1, nx))
+    lead, unwrap, _ = _lead(u0, (1, nx), members)
     kernel = functools.partial(_launch_heat1d, alpha=alpha, dtodx2=dtodx2, prec=prec, sites=tuple(sites), plan=_plan)
     res = mega_sweep(
         _heat1d_body(float(alpha), float(dtodx2), sites), (lead,), prec=prec, sites=sites,
         steps=steps, every=every, tracker=tracker, collect_evidence=collect_evidence, kernel=kernel,
-        counter=HEAT1D_MEGA, plain=plain, capture=capture, storage=storage,
+        counter=HEAT1D_MEGA, plain=plain, capture=capture, storage=storage, members=members,
     )
     (out,), (snaps,) = res.state, res.snaps
-    return res._replace(state=unwrap(out), snaps=snaps.reshape(snaps.shape[0], nx))
+    return res._replace(state=unwrap(out), snaps=_snaps(snaps, (nx,), members))
 
 
 def _swe2d_body(cfg, sites):
@@ -581,83 +705,88 @@ def _swe2d_body(cfg, sites):
 
 def swe2d_mega(
     U0, *, cfg, prec, steps, every, sites, site_ops, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _plan=None,
+    capture=None, storage="f32", plain=False, members=False, _plan=None,
 ) -> MegaResult:
     """Whole-horizon shallow-water run of the stacked ``(3, nx, ny)`` state.
     Packed storage takes the reference's host-pack shape: a packed carry is
     decoded here, the kernel rounds at boundaries and gives the carried
     split back, and :func:`mega_sweep` packs the final state at it.
+    ``members=True`` takes ``(members, 3, nx, ny)`` ensemble members, each
+    on its own bands of one cooperative launch (:func:`swe2d_plan`).
     ``_plan`` asks the kernel for another launch shape than
     :func:`swe2d_plan`'s (the chip checks and timings)."""
     if isinstance(U0, PackedArray):
-        U0 = unpack_array(U0, plain=plain)
+        U0 = unpack_members(U0, plain=plain) if members else unpack_array(U0, plain=plain)
     kernel = functools.partial(
         _launch_swe2d, cfg=cfg, prec=prec, sites=tuple(sites), site_ops=tuple(site_ops), plan=_plan,
     )
     res = mega_sweep(
         _swe2d_body(cfg, sites), (U0,), prec=prec, sites=sites, site_ops=site_ops, steps=steps, every=every,
         tracker=tracker, collect_evidence=collect_evidence, kernel=kernel, counter=SWE2D_MEGA, plain=plain,
-        capture=capture, storage=storage,
+        capture=capture, storage=storage, members=members,
     )
     (out,), (snaps,) = res.state, res.snaps
     return res._replace(state=out, snaps=snaps)
 
 
 def _k5_mega(body, fn, u0, nx, ny, consts, *, prec, steps, every, sites, tracker, collect_evidence, capture, storage, plain,
-             cluster=None, plan=None):
+             cluster=None, plan=None, members=False):
     kernel = functools.partial(
         _launch_k5, body=body, nx=nx, ny=ny, consts=consts, prec=prec, sites=tuple(sites), cluster=cluster, plan=plan,
     )
-    lead, unwrap = _lead(u0, (1, nx * ny))
+    lead, unwrap, shape = _lead(u0, (1, nx * ny), members)
     res = mega_sweep(
         fn, (lead,), prec=prec, sites=sites, steps=steps, every=every, tracker=tracker,
         collect_evidence=collect_evidence, kernel=kernel, counter=BODIES[body].mega, plain=plain,
-        capture=capture, storage=storage,
+        capture=capture, storage=storage, members=members,
     )
     (out,), (snaps,) = res.state, res.snaps
-    return res._replace(state=unwrap(out), snaps=snaps.reshape((snaps.shape[0],) + tuple(u0.shape)))
+    return res._replace(state=unwrap(out), snaps=_snaps(snaps, shape, members))
 
 
 def heat2d_mega(
     u0, *, alpha, dtodx2, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _cluster=None, _plan=None,
+    capture=None, storage="f32", plain=False, members=False, _cluster=None, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon 2-D heat run of the ``(nx, ny)`` field; snapshots come
-    back as ``(n_out, nx, ny)``. ``_cluster`` asks the kernel for a cluster
+    """Whole-horizon 2-D heat run of the ``(nx, ny)`` field (``members=True``:
+    ``(members, nx, ny)``, a cluster a member); snapshots come back as
+    ``(n_out, nx, ny)``. ``_cluster`` asks the kernel for a cluster
     size other than the plan's, ``_plan`` for a grid shape (the chip checks
     and timings)."""
-    nx, ny = u0.shape
+    nx, ny = u0.shape[-2:]
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _k5_mega(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain, cluster=_cluster, plan=_plan,
+        storage=storage, plain=plain, cluster=_cluster, plan=_plan, members=members,
     )
 
 
 def advection1d_mega(
     u0, *, speed, dtodx, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _plan=None,
+    capture=None, storage="f32", plain=False, members=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon upwind advection run of the ``(nx,)`` profile. ``_plan``
+    """Whole-horizon upwind advection run of the ``(nx,)`` profile
+    (``members=True``: ``(members, nx)``). ``_plan``
     asks the kernel for another launch shape than ``rod.rod_plan``'s."""
     speed, dtodx = float(speed), float(dtodx)
     return _k5_mega(
         "advection1d", _advection1d_body(speed, dtodx, sites), u0, 1, u0.shape[-1], (speed, dtodx), prec=prec,
         steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
-        capture=capture, storage=storage, plain=plain, plan=_plan,
+        capture=capture, storage=storage, plain=plain, plan=_plan, members=members,
     )
 
 
 def burgers1d_mega(
     u0, *, dt, dx, prec, steps, every, sites, tracker=None, collect_evidence=False,
-    capture=None, storage="f32", plain=False, _plan=None,
+    capture=None, storage="f32", plain=False, members=False, _plan=None,
 ) -> MegaResult:
-    """Whole-horizon Lax-Friedrichs Burgers run of the ``(nx,)`` wave.
+    """Whole-horizon Lax-Friedrichs Burgers run of the ``(nx,)`` wave
+    (``members=True``: ``(members, nx)``).
     ``_plan`` asks the kernel for another launch shape than ``rod.rod_plan``'s."""
     dt, dx = float(dt), float(dx)
     return _k5_mega(
         "burgers1d", _burgers1d_body(dt, dx, sites), u0, 1, u0.shape[-1], (dt / (2.0 * dx), 0.5), prec=prec,
         steps=steps, every=every, sites=sites, tracker=tracker, collect_evidence=collect_evidence,
-        capture=capture, storage=storage, plain=plain, plan=_plan,
+        capture=capture, storage=storage, plain=plain, plan=_plan, members=members,
     )

@@ -197,123 +197,132 @@ def k5_plan(body, nx, ny, device, cluster=None, plan=None):
 
 def launch_k5(body, u, out, plan, *, nx, ny, consts, prec, steps, storage=_cuda.StorageIO(), capture=_cuda.CaptureIO(),
               **kw):
-    """Launch a K5 kernel on the ``(1, nx*ny)`` leaf ``u`` into ``out``:
-    heat2d's cluster (``csrc/pde_steps.cu``, its own entries) or a rod shape
-    (``csrc/rod.cuh``, :func:`rod.launch_rod` with its keywords). ``u`` or
-    ``out`` is None where ``storage`` gives a packed input or output;
-    ``capture`` is the histogram buffer. Returns the CUDA error code."""
+    """Launch a K5 kernel on the ``(members, 1, nx*ny)`` leaves ``u`` into
+    ``out``, one ensemble member each: heat2d's cluster (``csrc/pde_steps.cu``,
+    its own entries; one cluster a member) or a rod shape (``csrc/rod.cuh``,
+    :func:`rod.launch_rod` with its keywords). ``u`` or ``out`` is None
+    where ``storage`` gives a packed input or output; ``capture`` is the
+    histogram buffer. Returns the CUDA error code."""
+    field = u if u is not None else storage.pay_in
+    members = field.shape[0]
     if isinstance(plan, RodPlan):
-        shape = (nx, ny) if body == "heat2d" else (1, nx * ny)
+        shape = (members, nx, ny) if body == "heat2d" else (members, 1, nx * ny)
 
         def view(t):
             return None if t is None else t.view(shape)
 
         storage = storage._replace(pay_in=view(storage.pay_in), pay_out=view(storage.pay_out))
-        return launch_rod(body, view(u), view(out), plan, br=shape[0], steps=steps, consts=consts, prec=prec,
+        return launch_rod(body, view(u), view(out), plan, br=shape[1], steps=steps, consts=consts, prec=prec,
                           storage=storage, capture=capture, **kw)
     lib = _cuda.library()
     policy = _cuda.policy_args(prec, fused_family(prec.mode))
     ptrs = [_cuda.ptr(kw.get(name)) for name in ("snaps", "ev")]
-    field = u if u is not None else storage.pay_in
     with torch.cuda.device(field.device):
         if kw.get("every", 0) == 0:  # the fused sweep
             return lib.r2f2_heat2d_sweep(
-                _cuda.ptr(u), _cuda.ptr(out), ptrs[1], _cuda.ptr(kw.get("k")), nx, ny, steps, *consts, *plan, *policy,
-                *storage.args(), *capture.args(), _cuda.stream_of(field),
+                _cuda.ptr(u), _cuda.ptr(out), ptrs[1], _cuda.ptr(kw.get("k")), members, nx, ny, steps, *consts, *plan,
+                *policy, *storage.args(), *capture.args(), _cuda.stream_of(field),
             )
         hi, lo, ov, sh = kw["tracker_rows"]
         return lib.r2f2_heat2d_mega(
             _cuda.ptr(u), _cuda.ptr(out), *ptrs, _cuda.ptr(kw.get("k")), *map(_cuda.ptr, (hi, lo, ov, sh)),
-            _cuda.ptr(kw.get("table")), int(kw["evolve"]), nx, ny, steps, kw["every"], *consts, *plan, *kw["law"],
-            *policy, *storage.args(), *capture.args(), _cuda.stream_of(field),
+            _cuda.ptr(kw.get("table")), int(kw["evolve"]), members, nx, ny, steps, kw["every"], *consts, *plan,
+            *kw["law"], *policy, *storage.args(), *capture.args(), _cuda.stream_of(field),
         )
 
 
 def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, body, nx, ny, consts, prec, steps, n_sites, cluster, plan,
             k_in=None, capture=None, extent=None):
-    """Launch one K5 fused kernel on the ``(1, nx*ny)`` leaf (:func:`k5_plan`'s
-    shape); with ``k_in`` the leaf and the output are payloads, with
-    ``capture`` the counts come back last (the leaf is one block: no pad)."""
+    """Launch one K5 fused kernel on the ``(members, 1, nx*ny)`` leaf
+    (:func:`k5_plan`'s shape, a member each); with ``k_in`` the leaf and the
+    output are payloads, with ``capture`` the counts come back last (the
+    leaf is one block: no pad)."""
     (u,) = leaves
     u = u.contiguous()
-    if n_sites != 2 or (gi, gj) != (1, 1) or u.shape != (1, nx * ny):
+    members = u.shape[0]
+    if n_sites != 2 or (gi, gj) != (1, 1) or u.shape[1:] != (1, nx * ny):
         raise ValueError(f"{body}_sweep takes one (1, {nx * ny}) block and two sites; got {tuple(u.shape)}, {n_sites} sites")
     plan = k5_plan(body, nx, ny, u.device, cluster, plan)
-    ev = torch.empty((1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
+    ev = torch.empty((members, 1, 1, steps, n_sites, 2), dtype=torch.float32, device=u.device) if collect else None
     u_in, u_out, out, storage = sweep_storage(u, k_in)
-    cap = _cuda.capture_io(capture, 1, n_sites, u.device)
+    cap = _cuda.capture_io(capture, 1, n_sites, u.device, members=members)
     err = launch_k5(body, u_in, u_out, plan, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, ev=ev, k=k_floor,
                     storage=storage, capture=cap)
     _cuda.check(err, f"{body}_sweep")
     BODIES[body].sweep.count("f32" if k_in is None else "packed", capture=capture is not None)
     res = [[out], ev] if k_in is None else [[out], ev, [storage.k_out]]
-    return tuple(res) if capture is None else (*res, cap.out[0])
+    return tuple(res) if capture is None else (*res, cap.out[:, 0])
 
 
 def _sweep(body, fn, u0, nx, ny, consts, *, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
-           cluster=None, plan=None):
+           cluster=None, plan=None, members=False):
     kernel = functools.partial(
         _launch, body=body, nx=nx, ny=ny, consts=consts, prec=prec, steps=steps, n_sites=len(sites), cluster=cluster,
         plan=plan,
     )
     packed = isinstance(u0, PackedArray)
+    lead = (u0.payload.shape[0],) if packed and members else (u0.shape[0],) if members else ()
+    view = lead + (1, nx * ny)
     (out,), *rest = fused_sweep(
-        fn, (u0.with_view((1, nx * ny)) if packed else u0.reshape(1, nx * ny),), prec=prec, sites=sites, steps=steps,
+        fn, (u0.with_view((1, nx * ny)) if packed else u0.reshape(view),), prec=prec, sites=sites, steps=steps,
         block=(1, nx * ny), k_floor=k_floor, collect_evidence=collect_evidence, kernel=kernel,
-        counter=BODIES[body].sweep, plain=plain, capture=capture, storage=storage,
+        counter=BODIES[body].sweep, plain=plain, capture=capture, storage=storage, members=members,
     )
     return ((out.with_view(u0.shape) if packed else out.reshape(u0.shape)), *rest)
 
 
 def _heat2d(u0, *, alpha, dtodx2, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, cluster=None,
-            plan=None):
-    nx, ny = u0.shape
+            plan=None, members=False):
+    nx, ny = u0.shape[-2:]
     alpha, dtodx2 = float(alpha), float(dtodx2)
     return _sweep(
         "heat2d", _heat2d_body(nx, ny, alpha, dtodx2, sites), u0, nx, ny, (alpha, dtodx2), prec=prec, steps=steps,
         sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, storage=storage, plain=plain,
-        cluster=cluster, plan=plan,
+        cluster=cluster, plan=plan, members=members,
     )
 
 
 def heat2d_sweep(
     u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32", _cluster=None, _plan=None,
+    capture=None, storage="f32", members=False, _cluster=None, _plan=None,
 ):
     """Advance an ``(nx, ny)`` field ``steps`` 5-point substeps in one
     launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None,
     and with ``capture`` the ``(2, 2, n_bins)`` operand counts last.
     ``_cluster`` asks the kernel for a cluster size other than the plan's,
     ``_plan`` for a grid shape (``rod.RodPlan``): the chip checks and
-    timings go through each."""
+    timings go through each. ``members=True`` takes ``(members, nx, ny)``
+    ensemble members (one cluster each), with ``(members, 2)`` floors, in
+    one launch; the evidence and counts then lead with the member."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
         collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, cluster=_cluster, plan=_plan,
+        members=members,
     )
 
 
 def heat2d_sweep_plain(u0, *, alpha, dtodx2, prec, steps=1, sites=HEAT2D_SITES, k_floor=None, collect_evidence=False, capture=None,
-                       storage="f32"):
+                       storage="f32", members=False):
     """The plain PyTorch version of :func:`heat2d_sweep`, on any device."""
     return _heat2d(
         u0, alpha=alpha, dtodx2=dtodx2, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True, members=members,
     )
 
 
 def _advection1d(u0, *, speed, dtodx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain,
-                 plan=None):
+                 plan=None, members=False):
     speed, dtodx = float(speed), float(dtodx)
     return _sweep(
         "advection1d", _advection1d_body(speed, dtodx, sites), u0, 1, u0.shape[-1], (speed, dtodx), prec=prec,
         steps=steps, sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain, plan=plan,
+        storage=storage, plain=plain, plan=plan, members=members,
     )
 
 
 def advection1d_sweep(
     u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32", _plan=None,
+    capture=None, storage="f32", members=False, _plan=None,
 ):
     """Advance an ``(nx,)`` periodic profile ``steps`` upwind substeps in one
     launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
@@ -322,31 +331,34 @@ def advection1d_sweep(
     return _advection1d(
         u0, speed=speed, dtodx=dtodx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
         collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, plan=_plan,
+        members=members,
     )
 
 
 def advection1d_sweep_plain(
     u0, *, speed, dtodx, prec, steps=1, sites=ADVECTION1D_SITES, k_floor=None, collect_evidence=False, capture=None, storage="f32",
+    members=False,
 ):
     """The plain PyTorch version of :func:`advection1d_sweep`, on any device."""
     return _advection1d(
         u0, speed=speed, dtodx=dtodx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True, members=members,
     )
 
 
-def _burgers1d(u0, *, dt, dx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, plan=None):
+def _burgers1d(u0, *, dt, dx, prec, steps, sites, k_floor, collect_evidence, capture, storage, plain, plan=None,
+               members=False):
     dt, dx = float(dt), float(dx)
     return _sweep(
         "burgers1d", _burgers1d_body(dt, dx, sites), u0, 1, u0.shape[-1], (dt / (2.0 * dx), 0.5), prec=prec,
         steps=steps, sites=sites, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
-        storage=storage, plain=plain, plan=plan,
+        storage=storage, plain=plain, plan=plan, members=members,
     )
 
 
 def burgers1d_sweep(
     u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False,
-    capture=None, storage="f32", _plan=None,
+    capture=None, storage="f32", members=False, _plan=None,
 ):
     """Advance an ``(nx,)`` periodic wave ``steps`` Lax-Friedrichs substeps in
     one launch. Returns ``(u, evidence)``; evidence is ``(steps, 2, 2)`` or None.
@@ -355,13 +367,14 @@ def burgers1d_sweep(
     return _burgers1d(
         u0, dt=dt, dx=dx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
         collect_evidence=collect_evidence, capture=capture, storage=storage, plain=False, plan=_plan,
+        members=members,
     )
 
 
 def burgers1d_sweep_plain(u0, *, dt, dx, prec, steps=1, sites=BURGERS1D_SITES, k_floor=None, collect_evidence=False, capture=None,
-                          storage="f32"):
+                          storage="f32", members=False):
     """The plain PyTorch version of :func:`burgers1d_sweep`, on any device."""
     return _burgers1d(
         u0, dt=dt, dx=dx, prec=prec, steps=steps, sites=sites, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True,
+        collect_evidence=collect_evidence, capture=capture, storage=storage, plain=True, members=members,
     )

@@ -76,77 +76,83 @@ def rod_plan(br: int, nx: int, n_sms: int = 132, *, periodic: bool = False) -> R
     return RodPlan("grid", ctas * GRID_THREADS, next((g for g in CELLS if g >= min(share, most)), most), ctas)
 
 
-def grid_scratch(rows, nx, br, device, *, staged=False):
-    """The grid shape's scratch for a ``(rows, nx)`` field of ``(br, nx)``
-    blocks, whatever the number of substeps: the other field buffer and the
-    laplacian (f32; with ``staged``, a third buffer the kernel decodes a
-    packed input into), a substep's two maxima in a ring of two substeps a
-    block and two slots for the storage maxima (int32, zeroed; the kernel
-    zeroes each slot again before its next use) and a 64-bit barrier
-    counter a block (zeroed)."""
+def grid_scratch(rows, nx, br, device, *, staged=False, members=1):
+    """The grid shape's scratch for ``members`` ``(rows, nx)`` fields of
+    ``(br, nx)`` blocks, whatever the number of substeps, a member's after
+    the member before: the other field buffer and the laplacian (f32; with
+    ``staged``, a third buffer the kernel decodes a packed input into), a
+    substep's two maxima in a ring of two substeps a block and two slots for
+    the storage maxima (int32, zeroed; the kernel zeroes each slot again
+    before its next use) and a 64-bit barrier counter a block (zeroed)."""
     blocks = rows // br
-    work = torch.empty((3 if staged else 2) * rows * nx, dtype=torch.float32, device=device)
-    maxes = torch.zeros(blocks * 4 + 2, dtype=torch.int32, device=device)
-    count = torch.zeros(blocks, dtype=torch.int64, device=device)
+    work = torch.empty(members * (3 if staged else 2) * rows * nx, dtype=torch.float32, device=device)
+    maxes = torch.zeros(members * (blocks * 4 + 2), dtype=torch.int32, device=device)
+    count = torch.zeros(members * blocks, dtype=torch.int64, device=device)
     return work, maxes, count
 
 
 def launch_rod(body, u, out, plan, *, br, steps, consts, prec, ev=None, k=None, tracker_rows=(None,) * 4, table=None,
                evolve=False, every=0, snaps=None, law=(0.0, 0.0, 0), storage=_cuda.StorageIO(),
                capture=_cuda.CaptureIO()):
-    """Launch ``body`` of the rod kernels on the ``(rows, nx)`` f32 field
-    ``u`` (contiguous, ``rows`` a multiple of ``br``; heat2d's field is one
-    ``(nx, ny)`` block) into ``out`` on the launch shape ``plan`` of one
-    ``(br, nx)`` block, with the body's two constants ``consts``: a fused
-    sweep with its carried floor ``k`` and per-block evidence ``ev``
-    ``(blocks, steps, 2, 2)``; a megakernel (one block) with its tracker's
-    ``k`` and other rows, the adjust unit's ``table`` and ``law`` (ema, 1 -
-    ema, headroom), and ``snaps`` at every ``every``-th substep. ``storage``
-    (one block) gives a packed input in place of ``u`` (None), a packed
-    output in place of ``out`` (None), the megakernels' boundary rounding
-    and the output split; ``capture`` the histogram buffer (slot 0 a fused
-    sweep's, slot i a megakernel's interval i, the last its remainder).
+    """Launch ``body`` of the rod kernels on the ``(members, rows, nx)`` f32
+    fields ``u`` (contiguous, ``rows`` a multiple of ``br``; heat2d's field
+    is one ``(nx, ny)`` block) into ``out`` on the launch shape ``plan`` of
+    one ``(br, nx)`` block, with the body's two constants ``consts``: a fused
+    sweep with its carried floor ``k`` ``(members, 2)`` and per-block
+    evidence ``ev`` ``(members, blocks, steps, 2, 2)``; a megakernel (one
+    block a member) with its tracker's ``k`` and other rows ``(members,
+    2)``, the adjust unit's ``table`` and ``law`` (ema, 1 - ema, headroom),
+    and ``snaps`` at every ``every``-th substep. ``storage`` (one block a
+    member) gives a packed input in place of ``u`` (None), a packed output
+    in place of ``out`` (None), the megakernels' boundary rounding and the
+    output split; ``capture`` the histogram buffer (slot 0 a fused sweep's,
+    slot i a megakernel's interval i, the last its remainder). Each member
+    is an ensemble member of its own: nothing is shared between them.
     Returns the launch's CUDA error code."""
     field = u if u is not None else storage.pay_in
-    rows, nx = field.shape
+    members, rows, nx = field.shape
     blocks, n = rows // br, br * nx
     work = maxes = count = None
     if plan.shape == "grid":
-        work, maxes, count = grid_scratch(rows, nx, br, field.device, staged=storage.pay_in is not None)
+        work, maxes, count = grid_scratch(rows, nx, br, field.device, staged=storage.pay_in is not None,
+                                          members=members)
         if out is None:  # the last substep lands in f32 before the epilogue encodes it
-            out = torch.empty((rows, nx), dtype=torch.float32, device=field.device)
+            out = torch.empty((members, rows, nx), dtype=torch.float32, device=field.device)
     lib = _cuda.library()
     with torch.cuda.device(field.device):
         return lib.r2f2_rod(
             BODIES[body], _cuda.ptr(u), _cuda.ptr(out), _cuda.ptr(snaps), _cuda.ptr(ev), _cuda.ptr(work),
             _cuda.ptr(maxes), _cuda.ptr(count), _cuda.ptr(k), *map(_cuda.ptr, tracker_rows), _cuda.ptr(table),
-            int(evolve), blocks, n, nx, steps, every, int(plan.shape == "grid"), plan.threads, plan.cells, plan.ctas,
-            *map(float, consts), *law, *_cuda.policy_args(prec, fused_family(prec.mode)), *storage.args(),
+            int(evolve), blocks, members, n, nx, steps, every, int(plan.shape == "grid"), plan.threads, plan.cells,
+            plan.ctas, *map(float, consts), *law, *_cuda.policy_args(prec, fused_family(prec.mode)), *storage.args(),
             *capture.args(), _cuda.stream_of(field),
         )
 
 
+def _splits(u):
+    return torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
+
+
 def sweep_storage(u, k_in):
-    """A fused sweep's arguments for its one leaf ``u``: ``(u_in, u_out, out,
-    storage)``, the f32 input and output (None where packed), the tensor the
-    launch returns, and its storage arguments: f32 in and out, or (``k_in``:
-    the payload's split) the payload in and a payload out with its fresh
-    split."""
+    """A fused sweep's arguments for its one leaf ``u`` (``(members, rows,
+    width)``): ``(u_in, u_out, out, storage)``, the f32 input and output
+    (None where packed), the tensor the launch returns, and its storage
+    arguments: f32 in and out, or (``k_in``: the leaf's payload splits,
+    ``(members,)``) the payload in and a payload out with its fresh split."""
     if k_in is None:
         out = torch.empty_like(u)
         return u, out, out, _cuda.StorageIO()
     out = torch.empty_like(u)
-    k_out = torch.empty(1, dtype=torch.int32, device=u.device)
-    return None, None, out, _cuda.StorageIO(pay_in=u, k_in=k_in[0].contiguous(), pay_out=out, k_out=k_out)
+    return None, None, out, _cuda.StorageIO(pay_in=u, k_in=k_in[0].contiguous(), pay_out=out, k_out=_splits(u))
 
 
 def mega_storage(u, storage, k_in):
     """A megakernel's arguments for its one leaf ``u``, as
     :func:`sweep_storage`'s: the boundary rounding and the carried split
-    ``kst`` under ``"quantized"``/``"packed"``, and with ``k_in`` (packed io)
-    the payload in and the payload out at ``kst``."""
+    ``kst`` (one a member) under ``"quantized"``/``"packed"``, and with
+    ``k_in`` (packed io) the payload in and the payload out at ``kst``."""
     rounding = storage != "f32"
-    k_out = torch.empty(1, dtype=torch.int32, device=u.device) if rounding else None
+    k_out = _splits(u) if rounding else None
     if k_in is None:
         out = torch.empty_like(u, dtype=torch.float32)
         return u, out, out, _cuda.StorageIO(k_out=k_out, round=rounding)

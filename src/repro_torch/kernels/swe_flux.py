@@ -72,7 +72,7 @@ def _swe_flux_body(sites):
 
 def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites, capture=None, extent=None):
     q1, q3 = (x.contiguous() for x in leaves)
-    rows, width = q1.shape
+    members, rows, width = q1.shape
     if n_sites != 4:
         raise ValueError(f"swe_flux_fused has four sites (q1q1, q3q3, gq3, div); got {n_sites}")
     cluster, band = cluster_plan(br, bw)
@@ -80,22 +80,22 @@ def _launch(leaves, *, br, bw, gi, gj, k_floor, collect, prec, n_sites, capture=
         raise ValueError(f"a ({br}, {bw}) tile needs {3 * band * bw * 4} B of shared memory per CTA; "
                          f"the kernel takes at most {_cuda.SMEM_LIMIT} B")
     valid_rows, valid_cols = (rows, width) if extent is None else (extent[0] or rows, extent[1] or width)
-    cap = _cuda.capture_io(capture, 1, n_sites, q1.device, valid_rows, valid_cols)
+    cap = _cuda.capture_io(capture, 1, n_sites, q1.device, valid_rows, valid_cols, members=members)
     out = torch.empty_like(q1)
-    ev = torch.empty((gi, gj, 1, n_sites, 2), dtype=torch.float32, device=q1.device) if collect else None
+    ev = torch.empty((members, gi, gj, 1, n_sites, 2), dtype=torch.float32, device=q1.device) if collect else None
     lib = _cuda.library()
     with torch.cuda.device(q1.device):
         err = lib.r2f2_swe_flux(
             _cuda.ptr(q1), _cuda.ptr(q3), _cuda.ptr(out), _cuda.ptr(ev), _cuda.ptr(k_floor),
-            rows, width, br, bw, cluster, band, 0.5 * G_GRAV,
+            members, rows, width, br, bw, cluster, band, 0.5 * G_GRAV,
             *_cuda.policy_args(prec, fused_family(prec.mode)), *cap.args(), _cuda.stream_of(q1),
         )
     _cuda.check(err, "swe_flux_fused")
     SWE_FLUX.count(capture=capture is not None)
-    return ([out], ev) if capture is None else ([out], ev, cap.out[0])
+    return ([out], ev) if capture is None else ([out], ev, cap.out[:, 0])
 
 
-def _flux(q1, q3, *, prec, block, sites, site_ops, k_floor, collect_evidence, capture, plain):
+def _flux(q1, q3, *, prec, block, sites, site_ops, k_floor, collect_evidence, capture, plain, members=False):
     if tuple(site_ops) != SWE_OPS:
         raise ValueError(f"swe_flux_fused's sites are {SWE_OPS} ops; got {tuple(site_ops)}")
     block = tuple(prec.kernel_blocks[:2]) if block is None else tuple(block)
@@ -104,31 +104,37 @@ def _flux(q1, q3, *, prec, block, sites, site_ops, k_floor, collect_evidence, ca
         _swe_flux_body(sites), (q1, q3), prec=prec, sites=sites, site_ops=site_ops, steps=1,
         block=block, n_out=1, pad_values=(0.0, 1.0), k_floor=k_floor,
         collect_evidence=collect_evidence, kernel=kernel, counter=SWE_FLUX, plain=plain, capture=capture,
+        members=members,
     )
     return (out, *rest)
 
 
 def swe_flux_fused(
     q1, q3, *, prec, block=None, sites=SWE_SITES, site_ops=SWE_OPS, k_floor=None,
-    collect_evidence=False, capture=None,
+    collect_evidence=False, capture=None, members=False,
 ):
     """Momentum flux over 2-D fields ``q1 = hu``, ``q3 = h``; ``block``
     defaults to ``prec.kernel_blocks[:2]``. Returns ``(flux, evidence)``
     with evidence ``(1, 4, 2)`` or None, and with ``capture`` the ``(4, 2,
-    n_bins)`` counts of the valid midpoints (pad lanes never count) last."""
+    n_bins)`` counts of the valid midpoints (pad lanes never count) last.
+    ``members=True`` takes ``(members, rows, width)`` ensemble members with
+    ``(members, 4)`` floors in one launch, each member's tiles its own (a
+    tile never takes another member's rows); the evidence and counts then
+    lead with the member."""
     return _flux(
         q1, q3, prec=prec, block=block, sites=sites, site_ops=site_ops, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, plain=False,
+        collect_evidence=collect_evidence, capture=capture, plain=False, members=members,
     )
 
 
 def swe_flux_fused_plain(
     q1, q3, *, prec, block=None, sites=SWE_SITES, site_ops=SWE_OPS, k_floor=None, collect_evidence=False, capture=None,
+    members=False,
 ):
     """The plain PyTorch version of :func:`swe_flux_fused`, on any device."""
     return _flux(
         q1, q3, prec=prec, block=block, sites=sites, site_ops=site_ops, k_floor=k_floor,
-        collect_evidence=collect_evidence, capture=capture, plain=True,
+        collect_evidence=collect_evidence, capture=capture, plain=True, members=members,
     )
 
 

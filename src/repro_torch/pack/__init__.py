@@ -10,14 +10,18 @@ from .packed import (
     PackedArray,
     block_storage_k,
     is_packed,
+    member_of,
     pack_array,
+    pack_members,
     pack_block,
     pack_state,
     payload_dtype,
     state_nbytes,
     storage_quantize,
+    stack_members,
     unpack_array,
     unpack_block,
+    unpack_members,
     unpack_state,
 )
 
@@ -35,4 +39,9 @@ __all__ = [
     "block_storage_k",
     "pack_block",
     "unpack_block",
+    # ensembles: members packed one storage block each, and one member of a stacked state
+    "pack_members",
+    "unpack_members",
+    "member_of",
+    "stack_members",
 ]

@@ -49,6 +49,10 @@ __all__ = [
     "block_storage_k",
     "pack_block",
     "unpack_block",
+    "pack_members",
+    "unpack_members",
+    "member_of",
+    "stack_members",
 ]
 
 
@@ -191,6 +195,74 @@ def unpack_array(pa: PackedArray, *, plain: bool = False) -> torch.Tensor:
         pt = pa.payload.to(torch.int64).reshape(gi, br, gj, bw)
         x2 = unpack_block(pt, pa.fmt, pa.k.reshape(gi, 1, gj, 1)).reshape(gi * br, gj * bw)
     return x2[:rows, :width].reshape(pa.shape)
+
+
+def pack_members(x, fmt: FlexFormat, *, k=None, plain: bool = False) -> PackedArray:
+    """Pack ensemble members ``x`` ``(members, *shape)``, each as one storage
+    block (one split a member, or ``k``'s ``(members,)`` splits), as
+    :func:`pack_array` packs a member alone:
+    a PackedArray whose payload ``(members, *view)`` and splits ``(members,
+    1, 1)`` lead with the member, its shape and block the member's. A CUDA
+    tensor runs kernel K1's harness (a storage block a member) unless
+    ``plain``."""
+    x = torch.as_tensor(x).to(torch.float32)
+    members, shape = x.shape[0], tuple(x.shape[1:])
+    rows, width = _view2d(shape)
+    xt = x.reshape(members, rows, width)
+    if xt.is_cuda and not plain:
+        from repro_torch.kernels.storage import pack_blocks
+
+        payload, k = pack_blocks(xt.reshape(members * rows, width).contiguous(), fmt, rows, width,
+                                 k=None if k is None else k.reshape(members, 1))
+    else:
+        STORAGE.plain_calls += 1
+        k = _k_of_max_exp(_finite_max_exp(xt, dim=(1, 2)), fmt, 0) if k is None else k.reshape(members).to(torch.int32)
+        payload = pack_block(xt, fmt, k[:, None, None]).to(payload_dtype(fmt))
+    return PackedArray(payload.reshape(members, rows, width), k.reshape(members, 1, 1), fmt, shape, (rows, width))
+
+
+def unpack_members(pa: PackedArray, *, plain: bool = False) -> torch.Tensor:
+    """Decode ensemble members packed one storage block each (a PackedArray
+    whose payload and splits lead with the member) to ``(members, *shape)``
+    f32; a CUDA payload runs kernel K1's harness unless ``plain``."""
+    members = pa.payload.shape[0]
+    rows, width = _view2d(pa.shape)
+    if tuple(pa.block) != (rows, width):
+        raise ValueError(f"unpack_members takes one storage block a member; got block {pa.block} of {(rows, width)}")
+    if pa.payload.is_cuda and not plain:
+        from repro_torch.kernels.storage import unpack_blocks
+
+        x = unpack_blocks(pa.payload.reshape(members * rows, width).contiguous(), pa.k.reshape(members, 1), pa.fmt,
+                          rows, width)
+    else:
+        STORAGE.plain_calls += 1
+        x = unpack_block(pa.payload.to(torch.int64).reshape(members, rows, width), pa.fmt, pa.k.reshape(members, 1, 1))
+    return x.reshape((members,) + pa.shape)
+
+
+def member_of(tree, i: int):
+    """Member ``i`` of an ensemble state tree: every tensor's row ``i`` and
+    every PackedArray's payload and splits at ``i``."""
+    def one(x):
+        if isinstance(x, PackedArray):
+            return PackedArray(x.payload[i], x.k[i], x.fmt, x.shape, x.block)
+        return x[i]
+
+    return _map(one, tree)
+
+
+def stack_members(trees):
+    """The inverse of :func:`member_of`: members' state trees stacked along a
+    new leading member dim (PackedArrays' payloads and splits)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: stack_members([t[key] for t in trees]) for key in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_members(list(col)) for col in zip(*trees))
+    if isinstance(first, PackedArray):
+        return PackedArray(torch.stack([t.payload for t in trees]), torch.stack([t.k for t in trees]), first.fmt,
+                           first.shape, first.block)
+    return torch.stack(list(trees))
 
 
 def _map(fn, tree):

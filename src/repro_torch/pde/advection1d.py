@@ -63,11 +63,17 @@ class Advection1DStepper(Stepper):
     failure_mode = "overflow"
     story = "flux operand is the 1e5-peak field itself; E5M10 infs the flux"
     snapshots_default = 8
+    ensemble_hooks = True  # the hooks take members=True: one launch for every member
     fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: AdvectionConfig) -> bool:
         """Kernels K5b and K5e take a rod of any length (``kernels/rod.py::rod_plan``)."""
         return True
+
+    def raw_cells(self, cfg: AdvectionConfig, device):
+        """Every cell: the first step's capture bins the state itself (the
+        flux's operand), each cell as its bits are."""
+        return torch.ones(cfg.nx, dtype=torch.bool, device=device)
 
     def default_config(self) -> AdvectionConfig:
         return AdvectionConfig()
@@ -79,21 +85,22 @@ class Advection1DStepper(Stepper):
         return advection1d_update(u, cfg.speed, cfg.dtodx, ops, self.sites)
 
     def fused_step(self, u, cfg: AdvectionConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32", capture=None):
+                   storage: str = "f32", capture=None, members: bool = False):
         """``steps`` substeps in one launch of kernel K5b (the rod as one block)."""
         from repro_torch.kernels.pde_steps import advection1d_sweep
 
         return advection1d_sweep(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, sites=self.sites,
             k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
+            members=members,
         )
 
     def mega_step(self, u, cfg: AdvectionConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
-                  capture=None):
+                  capture=None, members: bool = False):
         """The whole horizon in one launch of kernel K5e (``advection1d_mega``)."""
         from repro_torch.kernels.mega import advection1d_mega
 
         return advection1d_mega(
             u, speed=cfg.speed, dtodx=cfg.dtodx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage, capture=capture,
+            tracker=tracker, storage=storage, capture=capture, members=members,
         )

@@ -60,11 +60,17 @@ class Burgers1DStepper(Stepper):
     failure_mode = "nonlinear-drift"
     story = "u*u squares the range, overflows E5M10, then decays ~1/t post-shock"
     snapshots_default = 8
+    ensemble_hooks = True  # the hooks take members=True: one launch for every member
     fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
 
     def kernels_hold(self, cfg: BurgersConfig) -> bool:
         """Kernels K5c and K5f take a rod of any length (``kernels/rod.py::rod_plan``)."""
         return True
+
+    def raw_cells(self, cfg: BurgersConfig, device):
+        """Every cell: the first step's capture bins the state itself (both
+        operands of u*u), each cell as its bits are."""
+        return torch.ones(cfg.nx, dtype=torch.bool, device=device)
 
     def default_config(self) -> BurgersConfig:
         return BurgersConfig()
@@ -76,21 +82,22 @@ class Burgers1DStepper(Stepper):
         return burgers1d_update(u, cfg.dt, cfg.dx, ops, self.sites)
 
     def fused_step(self, u, cfg: BurgersConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32", capture=None):
+                   storage: str = "f32", capture=None, members: bool = False):
         """``steps`` substeps in one launch of kernel K5c (the rod as one block)."""
         from repro_torch.kernels.pde_steps import burgers1d_sweep
 
         return burgers1d_sweep(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, sites=self.sites,
             k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
+            members=members,
         )
 
     def mega_step(self, u, cfg: BurgersConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
-                  capture=None):
+                  capture=None, members: bool = False):
         """The whole horizon in one launch of kernel K5f (``burgers1d_mega``)."""
         from repro_torch.kernels.mega import burgers1d_mega
 
         return burgers1d_mega(
             u, dt=cfg.dt, dx=cfg.dx, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage, capture=capture,
+            tracker=tracker, storage=storage, capture=capture, members=members,
         )

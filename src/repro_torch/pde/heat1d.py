@@ -74,11 +74,18 @@ class Heat1DStepper(Stepper):
     story = "alpha*lap falls below E5M10's subnormal floor late in the run"
     snapshots_default = 8
     fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
+    ensemble_hooks = True  # the hooks take members=True: one launch for every member
 
     def kernels_hold(self, cfg: HeatConfig) -> bool:
         """Kernels K2 and K4 take a rod of any length
         (``kernels/rod.py::rod_plan``)."""
         return True
+
+    def raw_cells(self, cfg: HeatConfig, device):
+        """The rod's two ends, which every step copies."""
+        keep = torch.zeros(cfg.nx, dtype=torch.bool, device=device)
+        keep[0] = keep[-1] = True
+        return keep
 
     def default_config(self) -> HeatConfig:
         return HeatConfig(nx=128)
@@ -90,26 +97,27 @@ class Heat1DStepper(Stepper):
         return heat1d_update(u[None, :], cfg.alpha, cfg.dtodx2, ops, self.sites)[0]
 
     def fused_step(self, u, cfg: HeatConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32", capture=None):
-        """``steps`` substeps in one launch of kernel K2 (one row, one block)."""
+                   storage: str = "f32", capture=None, members: bool = False):
+        """``steps`` substeps in one launch of kernel K2 (one row, one block;
+        with ``members``, one a member)."""
         from repro_torch.kernels.heat_stencil import heat1d_sweep
 
         packed = storage == "packed"
         out, *rest = heat1d_sweep(
-            u.with_view((1, cfg.nx)) if packed else u[None, :], alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec,
+            u.with_view((1, cfg.nx)) if packed else u[..., None, :], alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec,
             steps=steps, block_rows=1, sites=self.sites, k_floor=k_floor, collect_evidence=collect_evidence,
-            storage=storage, capture=capture,
+            storage=storage, capture=capture, members=members,
         )
-        return ((out.with_view((cfg.nx,)) if packed else out[0]), *rest)
+        return ((out.with_view((cfg.nx,)) if packed else out[..., 0, :]), *rest)
 
     def mega_step(self, u, cfg: HeatConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
-                  capture=None):
+                  capture=None, members: bool = False):
         """The whole horizon in one launch of kernel K4 (``heat1d_mega``)."""
         from repro_torch.kernels.mega import heat1d_mega
 
         return heat1d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage, capture=capture,
+            tracker=tracker, storage=storage, capture=capture, members=members,
         )
 
 

@@ -102,11 +102,18 @@ class Heat2DStepper(Stepper):
     story = "2D decay drives alpha*lap below E5M10's floor; 2D locality tiles"
     snapshots_default = 8
     fused_packed = True  # the fused kernel decodes and re-encodes a packed carry
+    ensemble_hooks = True  # the hooks take members=True: one launch for every member
 
     def kernels_hold(self, cfg: Heat2DConfig) -> bool:
         """Kernels K5a and K5d take a field of any size: heat2d's cluster,
         or beyond it a cooperative grid (``kernels/pde_steps.py::heat2d_plan``)."""
         return True
+
+    def raw_cells(self, cfg: Heat2DConfig, device):
+        """The field's boundary, which every step copies."""
+        keep = torch.ones((cfg.nx, cfg.ny), dtype=torch.bool, device=device)
+        keep[1:-1, 1:-1] = False
+        return keep
 
     def default_config(self) -> Heat2DConfig:
         return Heat2DConfig()
@@ -118,21 +125,22 @@ class Heat2DStepper(Stepper):
         return heat2d_update(u, cfg.alpha, cfg.dtodx2, ops, self.sites)
 
     def fused_step(self, u, cfg: Heat2DConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   storage: str = "f32", capture=None):
+                   storage: str = "f32", capture=None, members: bool = False):
         """``steps`` substeps in one launch of kernel K5a (the field as one block)."""
         from repro_torch.kernels.pde_steps import heat2d_sweep
 
         return heat2d_sweep(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, sites=self.sites,
             k_floor=k_floor, collect_evidence=collect_evidence, storage=storage, capture=capture,
+            members=members,
         )
 
     def mega_step(self, u, cfg: Heat2DConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
-                  capture=None):
+                  capture=None, members: bool = False):
         """The whole horizon in one launch of kernel K5d (``heat2d_mega``)."""
         from repro_torch.kernels.mega import heat2d_mega
 
         return heat2d_mega(
             u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec, steps=steps, every=every, sites=self.sites,
-            tracker=tracker, storage=storage, capture=capture,
+            tracker=tracker, storage=storage, capture=capture, members=members,
         )

@@ -29,6 +29,12 @@ does: the kernels build with ``-ftz=true``, and the PyTorch arithmetic of
 the initial state, the reference plane and the observables runs under
 ``core/ftz.py::card_flush``.
 
+:meth:`Simulation.run_ensemble` runs the same run for a batch of initial
+states, each member with its own tracker rows, splits, profile and storage
+splits, as ``repro`` vmaps ``run``: the kernel planes hand the whole batch
+to one launch a chunk (the kernels take a member axis), the reference plane
+runs member by member.
+
 ``capture`` (True or a :class:`repro_torch.profile.CaptureSpec`) records
 the run's range profile on every plane: per-step site evidence and
 per-site operand exponent histograms, per snapshot interval and in total
@@ -44,12 +50,18 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
+from repro_torch.core import ftz
 from repro_torch.core.ftz import card_flush
 from repro_torch.core.policy import PrecisionConfig
-from repro_torch.pack import PackedArray, is_packed, pack_state, storage_quantize, unpack_state
+from repro_torch.dist.sharding import constrain
+from repro_torch.pack import (
+    PackedArray, is_packed, member_of, pack_members, pack_state, stack_members, storage_quantize, unpack_members,
+    unpack_state,
+)
 from repro_torch.pde.registry import get_stepper
 from repro_torch.precision import fold_evidence, fused_eligible, get_engine, mega_eligible, site_tracker_init
-from repro_torch.precision.sites import rewrap
+from repro_torch.precision.sites import rewrap, stack_site_trackers
 from repro_torch.profile.capture import CaptureResult, CaptureSpec, pair_exp_hist, site_evidence
 
 __all__ = ["Stepper", "StepOps", "Simulation", "SimResult", "EXECUTIONS", "STORAGE_MODES"]
@@ -59,7 +71,6 @@ EXECUTIONS = ("reference", "fused", "megakernel", "auto")
 #: packed format at every chunk boundary but carried f32; "packed", carried
 #: as PackedArray payloads (the same values as "quantized", bit for bit)
 STORAGE_MODES = ("f32", "quantized", "packed")
-ENSEMBLE_PENDING = "run_ensemble is not ported to repro_torch yet: ROADMAP.md queue 1, ensembles (`run_ensemble`)"
 
 
 class StepOps:
@@ -154,7 +165,13 @@ class Stepper:
     (ROADMAP.md queue 2). The shape gates ``fused_supported`` and
     ``mega_supported`` are the planes' own limits, on every device. A hook
     that does PyTorch arithmetic of the policy on the card enters
-    ``core/ftz.py::card_flush`` itself (swe2d's fused step)."""
+    ``core/ftz.py::card_flush`` itself (swe2d's fused step).
+
+    ``ensemble_hooks`` says that both hooks also take ``members=True``: a
+    state whose leaves lead with a member dim, ``(members, n_sites)``
+    floors and tracker rows, and results that lead with the member, all
+    members in one launch. An ensemble of a stepper without them runs
+    member by member."""
 
     name: str = "?"
     sites: Tuple[str, ...] = ()
@@ -165,6 +182,7 @@ class Stepper:
     fused_step = None
     fused_packed = False
     mega_step = None
+    ensemble_hooks = False
 
     def fused_supported(self, cfg, prec: PrecisionConfig) -> bool:
         return True
@@ -175,6 +193,16 @@ class Stepper:
     def kernels_hold(self, cfg) -> bool:
         """Whether the hooks launch CUDA kernels that hold the config's field."""
         return False
+
+    def raw_cells(self, cfg, device):
+        """A bool mask over one state of the cells whose bits a step uses as
+        they are, or None for no cell: cells it only copies (a pinned
+        boundary, whose bits ``repro`` keeps) and cells that capture bins as
+        operands before any arithmetic (``repro`` counts a subnormal there
+        in the low edge bin). On the card a caller's f32 subnormals there
+        keep their bits, and every other one enters as a zero of its sign,
+        as XLA's DAZ reads it (``core/ftz.py::zero_subnormal_inputs``)."""
+        return None
 
     def default_config(self):
         raise NotImplementedError
@@ -205,12 +233,14 @@ class SimResult(NamedTuple):
 class _Profile:
     """A captured chunked run's accumulators: the per-step evidence, each
     whole interval's counts (the time axis) and the total, the remainder's
-    included (the fused and reference planes' shared epilogue)."""
+    included (the fused and reference planes' shared epilogue). ``lead``
+    is ``(members,)`` for an ensemble, whose every array leads with the
+    member."""
 
-    def __init__(self, spec: CaptureSpec, n_sites: int, device):
-        self.spec, self.n_sites = spec, n_sites
+    def __init__(self, spec: CaptureSpec, n_sites: int, device, lead=()):
+        self.spec, self.n_sites, self.lead = spec, n_sites, tuple(lead)
         self.evidence, self.exp_time = [], []
-        self.total = torch.zeros((n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
+        self.total = torch.zeros(self.lead + (n_sites, 2, spec.n_bins), dtype=torch.int32, device=device)
 
     def add(self, evidence, counts, *, whole: bool):
         self.evidence.append(evidence.to(self.total.device))
@@ -220,11 +250,29 @@ class _Profile:
             self.exp_time.append(counts)
 
     def result(self) -> CaptureResult:
-        dev = self.total.device
-        ev = torch.cat(self.evidence) if self.evidence else torch.zeros((0, self.n_sites, 2), device=dev)
-        exp_time = (torch.stack(self.exp_time) if self.exp_time else
-                    torch.zeros((0, self.n_sites, 2, self.spec.n_bins), dtype=torch.int32, device=dev))
+        dev, axis = self.total.device, len(self.lead)
+        ev = (torch.cat(self.evidence, dim=axis) if self.evidence else
+              torch.zeros(self.lead + (0, self.n_sites, 2), device=dev))
+        exp_time = (torch.stack(self.exp_time, dim=axis) if self.exp_time else
+                    torch.zeros(self.lead + (0, self.n_sites, 2, self.spec.n_bins), dtype=torch.int32, device=dev))
         return CaptureResult(ev, exp_time, self.total)
+
+
+def _constrain_ensemble(tree):
+    """Every tensor's leading (member) dim as the logical ``batch`` axis: the
+    identity outside a ``dist.sharding.axis_rules`` context."""
+    return tree_map(lambda x: constrain(x, "batch", *([None] * (len(x.shape) - 1))), tree)
+
+
+def _stack_runs(results) -> SimResult:
+    """Members' results as one result whose every array leads with the member."""
+    first = results[0]
+    tracker = None if first.tracker is None else stack_site_trackers([r.tracker for r in results])
+    profile = None
+    if first.profile is not None:
+        profile = CaptureResult(*(torch.stack(list(col)) for col in zip(*(r.profile for r in results))))
+    return SimResult(stack_members([r.state for r in results]), torch.stack([r.snapshots for r in results]),
+                     tracker, profile)
 
 
 class Simulation:
@@ -304,7 +352,7 @@ class Simulation:
             elif isinstance(state0, PackedArray):
                 state = state0.to(self.device)
             else:
-                state = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
+                state = self._entry(torch.as_tensor(state0).to(device=self.device, dtype=torch.float32), steps)
             state = self._storage_in(state, storage)
         if tracker is not None:
             tracker = tracker.to(self.device)
@@ -335,6 +383,16 @@ class Simulation:
             obs = self._observe(state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(state, snapshots, tracker, None if profile is None else profile.result())
+
+    def _entry(self, state, steps: int):
+        """A caller's f32 state as a run on the card reads it: its subnormals
+        zeroes of their sign, as XLA's DAZ reads them, but in the cells
+        whose bits the stepper uses as they are (``Stepper.raw_cells``).
+        The CPU's own flags do this there; a run of no steps computes
+        nothing."""
+        if steps == 0 or not ftz.on_card(self.device):
+            return state
+        return ftz.zero_subnormal_inputs(state, self.stepper.raw_cells(self.cfg, self.device))
 
     def _resolve_capture(self, capture) -> Optional[CaptureSpec]:
         """``capture`` may be None, a bool (True: the default spec) or a CaptureSpec."""
@@ -455,5 +513,170 @@ class Simulation:
         profile = None if spec is None else CaptureResult(res.evidence, res.exp_time, res.exp_total)
         return SimResult(res.state, snapshots, rewrap(tracker, res.tracker), profile)
 
-    def run_ensemble(self, *args, **kwargs):
-        raise NotImplementedError(ENSEMBLE_PENDING)
+    # -- ensembles ----------------------------------------------------------
+
+    def run_ensemble(
+        self,
+        state0_batch,
+        steps: int,
+        *,
+        snapshot_every: Optional[int] = None,
+        sharded: bool = False,
+        execution: str = "reference",
+        capture=None,
+        policy=None,
+        tracker0_batch=None,
+        storage: str = "f32",
+    ) -> SimResult:
+        """Run :meth:`run` for a batch of initial states at once.
+
+        ``state0_batch`` is the stepper's state with a leading member dim
+        (a numpy array or a tensor; under packed storage also a PackedArray
+        whose payload and splits lead with the member). Each member carries
+        its own tracker rows, its own splits, capture and storage split, and
+        equals that member run alone; every array of the result leads with
+        the member (the tracker is a stacked SiteTracker, ``tracker.state.k``
+        ``(members, n_sites)``). ``capture``, ``policy`` and ``storage``
+        behave as in :meth:`run`, per member; a packed ensemble's state comes
+        back as a PackedArray whose children lead with the member.
+
+        ``tracker0_batch`` resumes tracked modes from a stacked tracker, such
+        as the ``tracker`` an earlier ``run_ensemble`` returned: each
+        member's carried split and adjust counters continue from there.
+
+        The kernel planes hand the whole batch to one launch a chunk (one
+        a horizon on the megakernel plane), the kernels taking a member
+        axis; the reference plane, and a stepper whose hooks take no member
+        dim (``Stepper.ensemble_hooks``), run member by member. ``execution``
+        and ``storage`` are resolved once, before any member runs.
+
+        With ``sharded=True`` every leaf's member dim is annotated as the
+        logical ``batch`` axis (``dist.sharding.constrain``), on the way in
+        and on the way out: the identity outside an ``axis_rules`` context,
+        and passive on one device.
+        """
+        if sharded:
+            state0_batch = _constrain_ensemble(state0_batch)
+            if tracker0_batch is not None:
+                tracker0_batch = _constrain_ensemble(tracker0_batch)
+        execution = self._resolve_execution(execution)
+        storage = self._resolve_storage(storage)
+        res = self._run_ensemble(state0_batch, steps, snapshot_every=snapshot_every, execution=execution,
+                                 capture=capture, policy=policy, tracker0_batch=tracker0_batch, storage=storage)
+        return _constrain_ensemble(res) if sharded else res
+
+    def _run_ensemble(self, state0_batch, steps, *, snapshot_every, execution, capture, policy, tracker0_batch,
+                      storage) -> SimResult:
+        stepper = self.stepper
+        if not isinstance(state0_batch, PackedArray):
+            state0_batch = self._entry(torch.as_tensor(state0_batch).to(device=self.device, dtype=torch.float32), steps)
+        members = (state0_batch.payload if isinstance(state0_batch, PackedArray) else state0_batch).shape[0]
+        if tracker0_batch is not None and tracker0_batch.state.k.shape[0] != members:
+            raise ValueError(f"tracker0_batch has {tracker0_batch.state.k.shape[0]} members for {members} states")
+        if execution == "reference" or not stepper.ensemble_hooks:
+            return _stack_runs([
+                self.run(steps, snapshot_every=snapshot_every, state0=member_of(state0_batch, m),
+                         tracker=None if tracker0_batch is None else tracker0_batch.member(m), execution=execution,
+                         capture=capture, policy=policy, storage=storage)
+                for m in range(members)
+            ])
+        spec = self._resolve_capture(capture)
+        with card_flush(self.device):
+            state = self._storage_in_members(state0_batch.to(self.device), storage)
+        tracker = None if tracker0_batch is None else tracker0_batch.to(self.device)
+        prec, one = self.prec, None
+        if policy is not None:
+            prec, one = self._apply_policy(prec, None, policy)
+        if one is None:
+            one = self.init_tracker()
+        if tracker is None and one is not None:
+            tracker = stack_site_trackers([one] * members)
+        every = snapshot_every or max(1, steps // stepper.snapshots_default)
+        if execution == "megakernel":
+            return self._ensemble_mega(state, tracker, steps, every, storage, prec, spec)
+        n_out, rem = divmod(steps, every)
+        profile = None if spec is None else _Profile(spec, len(stepper.sites), self.device, (members,))
+        snaps = []
+        for _ in range(n_out):
+            state, tracker, cap = self._chunk_fused_members(state, tracker, every, storage, prec, spec)
+            snaps.append(self._observe_members(state))
+            if profile is not None:
+                profile.add(*cap, whole=True)
+        if rem:
+            state, tracker, cap = self._chunk_fused_members(state, tracker, rem, storage, prec, spec)
+            if profile is not None:
+                profile.add(*cap, whole=False)
+        if snaps:
+            snapshots = torch.stack(snaps, dim=1)
+        else:
+            obs = self._observe_members(state)
+            snapshots = obs.new_empty((members, 0) + tuple(obs.shape[1:]))
+        return SimResult(state, snapshots, tracker, None if profile is None else profile.result())
+
+    def _storage_in_members(self, state, storage: str):
+        """:meth:`_storage_in` for an ensemble's state: each member packed as
+        one storage block (kernel K1 once for all members on the card)."""
+        fmt = self.prec.fmt
+        if storage == "packed":
+            return state if is_packed(state) else pack_members(state, fmt)
+        if is_packed(state):
+            state = unpack_members(state)
+        return unpack_members(pack_members(state, fmt)) if storage == "quantized" else state
+
+    def _storage_out_members(self, state, storage: str):
+        if storage == "f32":
+            return state
+        with card_flush(self.device):
+            packed = pack_members(state, self.prec.fmt)
+            return unpack_members(packed) if storage == "quantized" else packed
+
+    def _unpacked_members(self, state):
+        if not is_packed(state):
+            return state
+        with card_flush(self.device):
+            return unpack_members(state)
+
+    def _observe_members(self, state):
+        state = self._unpacked_members(state)
+        with card_flush(self.device):
+            return torch.stack([self.stepper.observables(s, self.cfg) for s in state])
+
+    def _chunk_fused_members(self, state, tracker, n: int, storage: str, prec, spec=None):
+        """:meth:`_chunk_fused` for an ensemble: one launch for every member,
+        each member's floor its own tracker row and its evidence folded into
+        its own rows."""
+        in_kernel = storage == "packed" and self.stepper.fused_packed
+        if not in_kernel:
+            state = self._unpacked_members(state)
+        res = self.stepper.fused_step(
+            state, self.cfg, prec, n,
+            k_floor=None if tracker is None else tracker.state.k,
+            collect_evidence=spec is not None or (tracker is not None and not prec.pinned),
+            members=True,
+            **({"storage": "packed"} if in_kernel else {}),
+            **({"capture": spec} if spec is not None else {}),
+        )
+        state, ev = res[:2]
+        if not in_kernel:
+            state = self._storage_out_members(state, storage)
+        if tracker is not None:
+            tracker = fold_evidence(tracker, ev, prec, ops=self.stepper.site_ops or None)
+        return state, tracker, (None if spec is None else (ev, res[2]))
+
+    def _ensemble_mega(self, state, tracker, steps: int, every: int, storage: str, prec, spec=None) -> SimResult:
+        """:meth:`_run_mega` for an ensemble: one launch for every member."""
+        res = self.stepper.mega_step(
+            state, self.cfg, prec, steps, every, tracker=None if tracker is None else tracker.state, members=True,
+            **({"storage": storage} if storage != "f32" else {}),
+            **({"capture": spec} if spec is not None else {}),
+        )
+        members = res.snaps.shape[0]
+        if res.snaps.shape[1]:
+            with card_flush(self.device):
+                snapshots = torch.stack([torch.stack([self.stepper.observables(s, self.cfg) for s in member])
+                                         for member in res.snaps])
+        else:
+            obs = self._observe_members(res.state)
+            snapshots = obs.new_empty((members, 0) + tuple(obs.shape[1:]))
+        profile = None if spec is None else CaptureResult(res.evidence, res.exp_time, res.exp_total)
+        return SimResult(res.state, snapshots, rewrap(tracker, res.tracker), profile)

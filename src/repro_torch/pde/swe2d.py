@@ -96,23 +96,34 @@ def _reflect(U):
 _F32 = PrecisionConfig(mode="f32")
 
 
-def _lw_step(U, cfg: SWEConfig, mom):
-    """One Richtmyer two-step update; ``mom(q1, q3)`` computes the
-    substituted x-midpoint momentum flux, every other sub-equation is f32."""
+def _f32_mom(q1, q3):
+    return _momentum_flux(q1, q3, StepOps(_F32))
+
+
+def _lw_predict(U, cfg: SWEConfig):
+    """The f32 half of a Richtmyer two-step update before the policy's
+    momentum flux: the x and y half steps ``Ux`` and the flux ``Gy`` of
+    ``Uy``."""
     dev = U.device
-    f32 = StepOps(_F32)
-
-    def f32_mom(q1, q3):
-        return _momentum_flux(q1, q3, f32)
-
-    F = _flux_F(U, f32_mom)
-    Gf = _flux_G(U, f32_mom)
+    F = _flux_F(U, _f32_mom)
+    Gf = _flux_G(U, _f32_mom)
     half = _f32(0.5, dev)
     Ux = half * (U[:, 1:, :] + U[:, :-1, :]) - _f32(cfg.dt / (2 * cfg.dx), dev) * (F[:, 1:, :] - F[:, :-1, :])
     Uy = half * (U[:, :, 1:] + U[:, :, :-1]) - _f32(cfg.dt / (2 * cfg.dy), dev) * (Gf[:, :, 1:] - Gf[:, :, :-1])
+    return Ux, _flux_G(Uy, _f32_mom)
 
-    Fx = _flux_F(Ux, mom)  # the paper's Ux_mx equation
-    Gy = _flux_G(Uy, f32_mom)
+
+def _lw_step(U, cfg: SWEConfig, mom):
+    """One Richtmyer two-step update; ``mom(q1, q3)`` computes the
+    substituted x-midpoint momentum flux, every other sub-equation is f32."""
+    Ux, Gy = _lw_predict(U, cfg)
+    return _lw_correct(U, Ux, Gy, mom(Ux[1], Ux[0]), cfg)  # the paper's Ux_mx equation
+
+
+def _lw_correct(U, Ux, Gy, flux, cfg: SWEConfig):
+    """The rest of the update from the policy's momentum flux of ``Ux``."""
+    dev = U.device
+    Fx = torch.stack([Ux[1], flux, Ux[1] * Ux[2] / Ux[0]])
 
     # U - cx*dFx - cy*dGy, each product fused into its subtraction as the
     # compiled reference computes it (the half steps' fused form rounds the
@@ -133,6 +144,7 @@ class SWE2DStepper(Stepper):
     failure_mode = "overflow"
     story = "h*h = 2.5e5 at a realistic basin depth overflows E5M10's 65504"
     snapshots_default = 4
+    ensemble_hooks = True  # the hooks take members=True: one launch for every member
 
     def kernels_hold(self, cfg: SWEConfig) -> bool:
         """K3 tiles any field; the megakernel's own limit is ``mega_supported``."""
@@ -148,11 +160,13 @@ class SWE2DStepper(Stepper):
         return _lw_step(U, cfg, lambda q1, q3: _momentum_flux(q1, q3, ops))
 
     def fused_step(self, U, cfg: SWEConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
-                   capture=None):
+                   capture=None, members: bool = False):
         """A fused chunk: each substep's momentum flux is one launch of
         kernel K3; the rest of the Lax-Wendroff step is f32 PyTorch, as the
         reference leaves it to XLA. With ``capture`` K3's counts are summed
-        over the substeps and returned last."""
+        over the substeps and returned last. With ``members`` the state is
+        ``(members, 3, nx, ny)``: the PyTorch part runs member by member, and
+        each substep's K3 launch takes every member's flux at once."""
         from repro_torch.kernels.swe_flux import swe_flux_fused
 
         evs, counts = [], []
@@ -160,7 +174,7 @@ class SWE2DStepper(Stepper):
         def mom(q1, q3):
             flux, ev, *cnt = swe_flux_fused(
                 q1, q3, prec=prec, sites=self.sites, site_ops=self.site_ops,
-                k_floor=k_floor, collect_evidence=collect_evidence, capture=capture,
+                k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, members=members,
             )
             evs.append(ev)
             counts.extend(cnt)
@@ -168,14 +182,22 @@ class SWE2DStepper(Stepper):
 
         with card_flush(U.device):  # the LW step's PyTorch arithmetic on the card
             for _ in range(steps):
-                U = _lw_step(U, cfg, mom)
-        ev = torch.cat(evs) if collect_evidence or capture is not None else None
+                if members:
+                    parts = [_lw_predict(u, cfg) for u in U]
+                    flux = mom(torch.stack([ux[1] for ux, _ in parts]), torch.stack([ux[0] for ux, _ in parts]))
+                    U = torch.stack([_lw_correct(u, ux, gy, f, cfg) for u, (ux, gy), f in zip(U, parts, flux)])
+                else:
+                    U = _lw_step(U, cfg, mom)
+        lead = U.shape[:1] if members else ()
+        ev = torch.cat(evs, dim=len(lead)) if (collect_evidence or capture is not None) and evs else None
+        if ev is None and (collect_evidence or capture is not None):
+            ev = torch.zeros(lead + (0, len(self.sites), 2), device=U.device)
         if capture is None:
             return U, ev
         if counts:
             total = torch.stack(counts).sum(dim=0, dtype=torch.int32)
         else:
-            total = torch.zeros((len(self.sites), 2, capture.n_bins), dtype=torch.int32, device=U.device)
+            total = torch.zeros(lead + (len(self.sites), 2, capture.n_bins), dtype=torch.int32, device=U.device)
         return U, ev, total
 
     def mega_supported(self, cfg: SWEConfig, prec) -> bool:
@@ -184,14 +206,14 @@ class SWE2DStepper(Stepper):
         return (cfg.nx - 1) <= prec.kernel_blocks[0] and cfg.ny <= prec.kernel_blocks[1]
 
     def mega_step(self, U, cfg: SWEConfig, prec, steps: int, every: int, *, tracker=None, storage: str = "f32",
-                  capture=None):
+                  capture=None, members: bool = False):
         """The whole horizon, the entire Lax-Wendroff update included, in one
         launch of kernel K4 (``swe2d_mega``)."""
         from repro_torch.kernels.mega import swe2d_mega
 
         return swe2d_mega(
             U, cfg=cfg, prec=prec, steps=steps, every=every, sites=self.sites, site_ops=self.site_ops,
-            tracker=tracker, storage=storage, capture=capture,
+            tracker=tracker, storage=storage, capture=capture, members=members,
         )
 
     def observables(self, U, cfg: SWEConfig):

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch._device import on_card
-from repro_torch.core.policy import PrecisionConfig, adjust_sequence, evidence_bounds
+from repro_torch.core.policy import PrecisionConfig, adjust_sequence, evidence_bounds, tracker_stack
 
 from .sites import SiteTracker, rewrap
 
@@ -77,21 +77,37 @@ def fold_evidence(tracker, evidence, cfg: PrecisionConfig, ops=None):
     (:func:`repro_torch.core.policy.adjust_sequence`). ``ops`` is the
     per-site op tuple selecting each site's envelope (None: all ``"mul"``).
     The evidence and the tracker are folded on the host, one copy per
-    chunk, and the tracker goes back to its own device.
+    chunk, and the tracker goes back to its own device. A stacked tracker
+    (an ensemble's, rows ``(members, n_sites)``) takes ``(members,
+    substeps, n_sites, 2)`` evidence and folds each member's as a tracker of
+    its own, still with one copy per chunk for all members.
     """
     if tracker is None:
         return None
     if cfg.pinned:  # static profiled k: the adjust unit is out of the loop
         return tracker
     state = tracker.state if isinstance(tracker, SiteTracker) else tracker
-    n_sites = evidence.shape[1]
-    if len(state.k) != n_sites:
-        raise ValueError(f"evidence covers {n_sites} sites but tracker has {len(state.k)} rows")
+    stacked = state.k.dim() == 2
+    n_sites = evidence.shape[-2]
+    if state.k.shape[-1] != n_sites:
+        raise ValueError(f"evidence covers {n_sites} sites but tracker has {state.k.shape[-1]} rows")
     if ops is not None and len(ops) != n_sites:
         raise ValueError(f"site_ops covers {len(ops)} sites but evidence has {n_sites}")
     ev = evidence.to("cpu", torch.float32)
+    if not stacked:
+        return rewrap(tracker, _fold(state, ev, cfg, ops))
+    if ev.dim() != 4 or ev.shape[0] != state.k.shape[0]:
+        raise ValueError(f"a stacked tracker of {state.k.shape[0]} members takes (members, substeps, n_sites, 2) "
+                         f"evidence; got {tuple(ev.shape)}")
+    host = state.to("cpu")
+    new = tracker_stack([_fold(host.member(m), ev[m], cfg, ops) for m in range(ev.shape[0])])
+    return rewrap(tracker, new.to(state.k.device))
+
+
+def _fold(state, ev, cfg, ops):
+    """One tracker's fold of ``(substeps, n_sites, 2)`` host evidence."""
+    n_sites = ev.shape[1]
     bounds = [evidence_bounds(ev[:, j, 0], ev[:, j, 1], "mul" if ops is None else ops[j]) for j in range(n_sites)]
     step_hi = torch.stack([b[0] for b in bounds], dim=1)
     step_lo = torch.stack([b[1] for b in bounds], dim=1)
-    new = adjust_sequence(state, step_hi, step_lo, cfg)
-    return rewrap(tracker, new)
+    return adjust_sequence(state, step_hi, step_lo, cfg)

@@ -274,3 +274,53 @@ def test_flush_mode_flushes_out_targets(one_thread):
     with flush_subnormals("cpu"):
         torch.mul(torch.full((2,), 2.0**-126), torch.tensor([0.5, -0.25]), out=dst)
     assert torch.equal(_bits(dst), torch.tensor([0, -2**31], dtype=torch.int32))
+
+
+def _with_subnormals(x, cells):
+    """``x`` with f32 subnormals set from bits at ``cells`` (a float
+    assignment would flush under the CPU's flush flags)."""
+    x = x.clone()
+    for at, b in zip(cells, (0x000116C2, -2**31 | 0x0020AB1B, 0x00000001, 0x007FFFFF)):
+        x.view(torch.int32)[at] = b
+    return x
+
+
+@pytest.mark.parametrize("name,execution", [("swe2d", "reference"), ("swe2d", "fused"), ("heat1d", "reference"),
+                                            ("heat2d", "reference"), ("advection1d", "reference")])
+def test_card_entry_zeroes_subnormal_inputs(name, execution, one_thread, monkeypatch):
+    """A caller's state with f32 subnormals in interior and pinned boundary
+    cells, run with capture and with the card's scope taken on the CPU's
+    tensors (the flush mode where PyTorch computes, no input flush): the
+    run's entry zeroes the subnormals (keeping their sign) but in the cells
+    whose bits the stepper uses as they are (``Stepper.raw_cells``: heat's
+    pinned boundary; every cell of advection1d, whose capture bins the
+    state), and the run and its profile equal the run under the CPU's own
+    FTZ/DAZ flags, which keep a pinned cell's bits and count a subnormal
+    operand in the low edge bin as repro does. Without the entry's zeroing,
+    swe2d's momentum takes a zero of the other sign (0 + -sub flushes to -0
+    where DAZ reads +0)."""
+    from repro_torch.pde import AdvectionConfig, Heat2DConfig
+
+    cfg = {"swe2d": SWEConfig(nx=64, ny=64), "heat1d": HeatConfig(nx=64), "heat2d": Heat2DConfig(nx=24, ny=24),
+           "advection1d": AdvectionConfig(nx=128)}[name]
+    cells = {"swe2d": [(1, 0, 3), (1, 5, 5), (2, 7, 0), (2, 6, 9)], "heat1d": [(0,), (5,), (63,), (17,)],
+             "heat2d": [(0, 4), (5, 5), (23, 7), (3, 8)], "advection1d": [(3,), (20,), (21,), (40,)]}[name]
+    sim = Simulation(name, cfg, PRESETS["r2f2_16"], device="cpu")
+    u0 = _with_subnormals(sim.stepper.init_state(cfg, device="cpu"), cells)
+
+    def run():
+        return Simulation(name, cfg, PRESETS["r2f2_16"], device="cpu").run(24, snapshot_every=8, state0=u0,
+                                                                            execution=execution, capture=True)
+
+    torch.set_flush_denormal(True)
+    want = run()
+    torch.set_flush_denormal(False)
+    monkeypatch.setattr(ftz, "on_card", lambda device: True)
+    got = run()
+    assert torch.equal(_bits(got.state), _bits(want.state)) and torch.equal(_bits(got.snapshots), _bits(want.snapshots))
+    assert torch.equal(got.profile.exp_total, want.profile.exp_total)
+    if name in ("heat1d", "heat2d"):  # the pinned cells keep their bits
+        assert _bits(want.state)[cells[0]] == 0x000116C2
+    elif name == "swe2d":
+        monkeypatch.setattr(ftz, "zero_subnormal_inputs", lambda x, keep=None: x)
+        assert not torch.equal(_bits(run().state), _bits(want.state))

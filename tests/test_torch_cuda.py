@@ -8,7 +8,9 @@ kernel cannot hold the field or a stepper has none, and packed storage
 (kernel K1's harness, every storage-carrying launch shape, every stepper's
 packed and quantized runs, auto beyond heat2d's cluster), and range capture
 (every capturing kernel family against its plain version, every stepper's
-captured runs against the CPU under flush). These tests skip
+captured runs against the CPU under flush), and ensembles (every kernel's
+member axis against its plain version, every stepper's ensembles against
+the CPU under flush, one launch for every member). These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -735,3 +737,56 @@ def test_captured_launches_are_counted_and_capture_off_is_unchanged():
     assert (HEAT1D_MEGA.launches - launches, HEAT1D_MEGA.captured - captured) == (2, 1)
     assert torch.equal(off.state.view(torch.int32), on.state.view(torch.int32))
     assert on.profile.exp_time.shape[0] == 8 and 0 < int(on.profile.exp_total.sum()) <= 2 * 2 * 126 * 400
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["rod", "heat2d", "k3", "swe2d"])
+def test_member_axis_kernels_match_plain(group):
+    """Every kernel's member axis (three members, each with its own floor or
+    tracker rows, capture and packed storage; the rod's warp and grid
+    shapes, heat2d's cluster and grid, K3 on one and on padded tiles, K4
+    swe2d's member bands and a plan of two waves) against the plain version
+    on the CPU under flush, bit for bit."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    errs, records = chip_smoke.check_ensemble_kernels("cuda", group)
+    assert records and all(r["ok"] for r in records) and max(errs.values()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_card_ensemble_equals_the_cpu_under_flush(name):
+    """Each stepper's ensemble (three members and one with subnormals) on
+    both kernel planes, r2f2_16 and rr_tracked, plain, captured and packed,
+    against the port's ensemble on the CPU under flush."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert chip_smoke.check_card_vs_cpu_ensemble("cuda", name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("execution", ["fused", "megakernel"])
+def test_ensemble_launches_once_for_every_member(execution):
+    """An 8-member heat1d ensemble on a kernel plane launches its kernel as
+    often as one run does (8 chunks, or one horizon), each member equal to
+    the member run alone."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+    from repro_torch.kernels.mega import HEAT1D_MEGA
+    from repro_torch.pde import HeatConfig, Simulation
+
+    ctr = HEAT1D_SWEEP if execution == "fused" else HEAT1D_MEGA
+    sim = Simulation("heat1d", HeatConfig(nx=128), PRESETS["r2f2_16"])
+    u0 = sim.stepper.init_state(sim.cfg, device="cpu").cuda()
+    batch = torch.stack([u0 * (0.9 + 0.05 * i) for i in range(8)])
+    before = (ctr.launches, ctr.plain_calls)
+    ens = sim.run_ensemble(batch, 400, execution=execution)
+    assert (ctr.launches - before[0], ctr.plain_calls - before[1]) == (8 if execution == "fused" else 1, 0)
+    for i in (0, 7):
+        alone = sim.run(400, state0=batch[i], execution=execution)
+        assert torch.equal(ens.state[i].view(torch.int32), alone.state.view(torch.int32))

@@ -220,9 +220,9 @@ def test_snapshot_cadence_and_remainder():
 
 
 def test_out_of_slice_paths_raise_with_roadmap_items():
-    """Ensembles raise, naming their ROADMAP queue and module; storage,
-    capture and policies, ported since, run on every plane and refuse what
-    the reference refuses."""
+    """Ensembles, storage, capture and policies, ported since this test
+    held them as raising, run on every plane and refuse what the reference
+    refuses."""
     from repro_torch.pack import PackedArray
     from repro_torch.profile import PrecisionPolicy
 
@@ -239,8 +239,8 @@ def test_out_of_slice_paths_raise_with_roadmap_items():
     assert sim.run(2, policy=policy).tracker is None  # r2f2_16 tracks nothing: only the hints install
     with pytest.raises(AttributeError):
         sim.run(2, policy=object())
-    with pytest.raises(NotImplementedError, match="queue 1, ensembles"):
-        sim.run_ensemble(None, 2)
+    ens = sim.run_ensemble(torch.stack([sim.stepper.init_state(sim.cfg, device="cpu")] * 2), 2)
+    assert ens.state.shape == (2, 16) and ens.snapshots.shape[0] == 2  # ported: run_ensemble runs
     for name in ("heat2d", "advection1d", "burgers1d"):
         assert get_stepper(name).name == name
         small = Simulation(name, None, tpol.PRESETS["r2f2_16"], device="cpu")

@@ -31,7 +31,9 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.r2f2_matmul import (
     MAX_BLOCK, R2F2_MATMUL, SCRATCH_CAP, k_ranges, launch_plan, r2f2_matmul, r2f2_matmul_plain, ring_plan, split_plan,
 )
-from repro_torch.kernels.mega import SWE2D_SMEM_LIMIT, swe2d_band_floats, swe2d_bands, swe2d_grid_scratch, swe2d_plan
+from repro_torch.kernels.mega import (
+    SWE2D_MIN_MEMBER_CTAS, SWE2D_SMEM_LIMIT, member_waves, swe2d_band_floats, swe2d_bands, swe2d_grid_scratch, swe2d_plan,
+)
 from repro_torch.kernels.pde_steps import (
     HEAT2D_CLUSTERS, HEAT2D_CTA_CELLS, HEAT2D_MAX_CTA_CELLS, ClusterPlan, heat2d_cluster_plan, heat2d_plan,
 )
@@ -550,6 +552,76 @@ def test_swe2d_grid_scratch_does_not_grow_with_the_horizon(nx, ny):
         assert bands.dtype == torch.float32 and bands.numel() == plan.ctas * swe2d_band_floats(plan.rows, ny)
     assert words.dtype == torch.int32 and words.numel() == 3 * plan.ctas
     assert count.dtype == torch.int64 and count.numel() == 1 and not count.any()
+
+
+@pytest.mark.parametrize("members,capacity,want", [
+    (8, 264, (33, 512, 4, 8)),  # service's max_bucket, two CTAs an SM: 33 CTAs of up to 4 rows, one wave
+    (8, 396, (49, 384, 3, 8)),  # three CTAs an SM
+    (1, 264, (127, 256, 2, 1)),  # one member keeps the one-row bands
+    (2, 264, (127, 256, 2, 2)),  # two members of 127 CTAs fit side by side
+    (3, 264, (88, 256, 2, 3)),
+    (8, 64, (16, 512, 8, 4)),  # beyond the fewest CTAs a member: two waves of four members
+    (8, 16, (16, 512, 8, 1)),  # one member a wave
+])
+def test_swe2d_member_plan(members, capacity, want):
+    """Ensemble members at 128x128: each member takes its own bands, planned
+    so that every member's CTAs are resident at once (members * ctas <=
+    capacity), with taller bands down to SWE2D_MIN_MEMBER_CTAS CTAs a
+    member; beyond that the members run in waves."""
+    plan = swe2d_plan(128, 128, members=members, capacity=capacity)
+    assert (plan.ctas, plan.threads, plan.rows, plan.wave) == want
+    assert plan.wave * plan.ctas <= capacity or plan.ctas > capacity
+
+
+def test_swe2d_member_plan_covers_every_field_and_member():
+    """For any field, member count and capacity: the bands cover every row
+    once with the walls in the last band and every halo row in the field;
+    a member's grid fits the capacity beside the others' where it can
+    (else it keeps SWE2D_MIN_MEMBER_CTAS CTAs, or the field's rows); the
+    waves hand out every member exactly once, in order, each wave within
+    the capacity; a forced grid keeps its CTAs."""
+    for nx in (3, 5, 17, 64, 127, 128, 129, 200, 400):
+        for ny in (3, 64, 128):
+            for members in (1, 2, 3, 5, 8, 9, 33):
+                for capacity in (16, 33, 64, 132, 264, 528, 10**4):
+                    plan = swe2d_plan(nx, ny, members=members, capacity=capacity)
+                    bands = swe2d_bands(nx, plan.ctas)
+                    assert bands[0][0] == 0 and bands[-1][1] == nx
+                    assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
+                    assert all(r1 < nx for _, r1 in bands[:-1]) and bands[-1][1] - bands[-1][0] >= 2
+                    assert max(r1 - r0 for r0, r1 in bands) == plan.rows
+                    one = swe2d_plan(nx, ny)
+                    if members * one.ctas <= capacity:
+                        assert plan.ctas == one.ctas and plan.wave == members
+                    else:
+                        assert plan.ctas == max(1, min(max(capacity // members, min(SWE2D_MIN_MEMBER_CTAS, one.ctas)),
+                                                       nx - 1))
+                    waves = member_waves(members, plan.wave)
+                    assert [m for m0, n in waves for m in range(m0, m0 + n)] == list(range(members))
+                    assert all(n * plan.ctas <= capacity for _, n in waves) or plan.ctas > capacity
+    forced = swe2d_plan(128, 128, ctas=16, members=3, capacity=32)
+    assert (forced.ctas, forced.wave) == (16, 2) and member_waves(3, forced.wave) == [(0, 2), (2, 1)]
+    with pytest.raises(ValueError, match="at least one member"):
+        swe2d_plan(128, 128, members=0)
+
+
+def test_member_scratch_is_a_members_worth_each():
+    """An ensemble's grid scratch is one member's scratch a member: the rod
+    grid's buffers, maxima and barrier counters, and K4 swe2d's Ux ring,
+    band arrays, maxima words and one 64-bit barrier counter a member (each
+    member's grid barriers wait only on its own CTAs)."""
+    work, maxes, count = grid_scratch(1, 3000, 1, "cpu", members=5)
+    assert work.numel() == 5 * 2 * 3000 and maxes.numel() == 5 * (4 + 2) and count.numel() == 5 and not count.any()
+    work, _, _ = grid_scratch(1, 3000, 1, "cpu", staged=True, members=5)
+    assert work.numel() == 5 * 3 * 3000
+    for nx, ny in ((128, 128), (64, 5000)):
+        plan = swe2d_plan(nx, ny, members=8, capacity=264)
+        ux, bands, words, count = swe2d_grid_scratch(nx, ny, plan, "cpu", members=8)
+        assert ux.numel() == 8 * 2 * 3 * (nx - 1) * ny and words.numel() == 8 * 3 * plan.ctas
+        assert count.dtype == torch.int64 and count.numel() == 8 and not count.any()
+        assert (bands is None) == bool(plan.smem)
+        if bands is not None:
+            assert bands.numel() == 8 * plan.ctas * swe2d_band_floats(plan.rows, ny)
 
 
 # ---------------------------------------------------------------------------

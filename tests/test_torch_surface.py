@@ -7,7 +7,7 @@ import importlib
 
 import pytest
 
-PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "models", "configs")
+PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "models", "configs", "dist", "ckpt")
 
 #: (package, name) -> the ROADMAP.md item it waits for
 PENDING = {
