@@ -68,7 +68,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (counts zeroed before: every capturing kernel launched with capture; the
    two planes' profiles equal), and for heat1d and swe2d ``tune_policy`` on
    each plane to an accepted policy and the pinned deploy run at its
-   splits, ``CORRECT``;
+   splits, ``CORRECT``; then the ensembles (:func:`check_ensemble_path`,
+   8 members, and their resumes through a checkpoint); then the serving
+   path: in worker processes beside the ensembles' (:func:`serving_tasks`), passivity
+   (heat1d and swe2d rr_tracked on the three planes, ``repro_torch.obs`` on
+   and off, the same bits), a fused-plane bucket of rr_tracked heat1d and
+   swe2d requests at misaligned cadences (final splits and §5.3 counters
+   against solo runs, K2 and K3 launches against chunks), a packed swe2d
+   bucket and evictions resumed from checkpoints (bit for bit), and
+   ``python -m repro_torch.obs --smoke`` on the card; then, alone on the
+   card, a burst of 37 requests through ``SimService`` on the five
+   configurations uncut (``execution="auto"``, ``max_bucket`` 8,
+   ``max_active_members`` 16, mixed cadences, a subnormal request, mid-flight
+   rr_tracked joiners, deploy requests under the profile path's policies):
+   every request equal to its solo run bit for bit, each megakernel's
+   launches equal to its buckets' chunk calls, and the throughput, chunk
+   latency, occupancy, compile split and recorder overhead printed;
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons; then the card against ``repro``: every builtin stepper on
@@ -2386,7 +2401,8 @@ def run_profile_path(device, refs):
     (capture, synthesis, validation on that plane) to an accepted policy,
     and the pinned deploy run under it: its splits are the synthesized k,
     and its verdict against the f32 reference is the paper's (CORRECT).
-    Returns the rows and the capturing launches."""
+    Returns the rows, the capturing launches and the accepted policies (the
+    megakernel plane's, by workload)."""
     import numpy as np
 
     from repro_torch.core.policy import PrecisionConfig
@@ -2413,11 +2429,13 @@ def run_profile_path(device, refs):
         f"{sum(c.plain_calls for c in ctr.values())}")
     require(all(captured[k] > 0 for k in CAPTURE_KERNELS), "a capturing kernel never launched with capture on the profile path")
     require(sum(c.plain_calls for c in ctr.values()) == 0, "plain versions ran on the profile path")
+    policies = {}
     for case in PROFILE_TUNED:
         cfg, judge, offset = workload_config(case)
         steps = MAIN_STEPS[case]
         for execution in ("fused", "megakernel"):
             _, _, policy = tune_policy(case, cfg, steps=steps, execution=execution, device=device)
+            policies[case] = policy  # the megakernel plane's, which the serving path deploys
             stamp = policy.validation
             deploy = PrecisionConfig(mode="deploy", fmt=policy.fmt, ema=policy.ema, headroom=policy.headroom, pinned=True)
             sim = Simulation(case, cfg, deploy, device=device)
@@ -2436,7 +2454,7 @@ def run_profile_path(device, refs):
             require(verdict["status"] == "CORRECT", f"{case} {execution}: the deploy run under the policy is {verdict['status']}")
             rows.append(dict(case=case, execution=execution, policy=policy.sites, validation=stamp, deploy_splits=splits,
                              **verdict))
-    return rows, captured
+    return rows, captured, policies
 
 
 # ---------------------------------------------------------------------------
@@ -2832,6 +2850,357 @@ def time_ensembles(device, card, main_launches, errs):
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         ))
     return times, recs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the serving plane (repro_torch.service) on the card
+# ---------------------------------------------------------------------------
+
+#: the serving burst's knobs, repro.service's defaults
+SERVE_MAX_BUCKET = 8
+SERVE_MAX_ACTIVE = 16
+#: cadences of the four r2f2_16 requests of a stepper: H/8, H/4, the
+#: misaligned H/5, and the stepper's default
+SERVE_CADENCES = (8, 4, 5, None)
+
+
+def serve_cadence(case, div):
+    steps = MAIN_STEPS[case]
+    return None if div is None else max(1, steps // div)
+
+
+def service_result_tree(h):
+    """A served request's final state as tensors on the host (a PackedArray's
+    payload and splits too)."""
+    import torch
+
+    from repro_torch import _tree
+
+    return _tree.tree_map(torch.from_numpy, h.result().state)
+
+
+def served_equals_solo(h, solo, exact=True) -> bool:
+    """A served request against its solo run: state, snapshots and tracker
+    bit for bit (NaNs canonical); with ``exact`` False (the fused plane's
+    rr_tracked relaxation) the final splits and §5.3 counters only."""
+    import numpy as np
+    import torch
+
+    res = h.result()
+    tracker_ok = same_tree(None if res.tracker is None else res.tracker.state.to("cpu"),
+                           None if solo.tracker is None else solo.tracker.state.to("cpu"))
+    if not exact:
+        return tracker_ok
+    snaps = torch.from_numpy(np.stack(res.snapshots))
+    return (tracker_ok and same_tree(service_result_tree(h), solo.state.to("cpu"))
+            and same_bits(snaps, solo.snapshots.cpu()))
+
+
+def serve_solo(h, device):
+    """The request's solo ``Simulation.run`` on the card: the same state0,
+    steps, cadence, plane, storage and policy."""
+    from repro_torch.pde import Simulation
+
+    req, key = h._record.req, h.bucket_key
+    sim = Simulation(req.stepper, key.cfg, key.prec, device=device)  # the policy's hints: the same k_bounds again
+    return sim.run(h._record.steps, snapshot_every=h._record.every, state0=req.state0,
+                   execution=h.bucket_key.execution, storage=req.storage, policy=req.policy)
+
+
+def serve_plane_kernel(key) -> str:
+    return plane_kernel(key.stepper, key.execution)
+
+
+def run_serving_burst(device, policies):
+    """The serving path: one ``SimService`` on the card (``max_bucket`` 8,
+    ``max_active_members`` 16, ``execution="auto"``) with observability on,
+    serving the five configurations uncut: per stepper four r2f2_16
+    requests at scales 0.9 + 0.05 i and cadences H/8, H/4, H/5 and the
+    default, a fifth r2f2_16 request holding f32 subnormals set from bits,
+    two rr_tracked requests at H/4 (the second submitted once the first has
+    run a chunk: a mid-flight joiner), and for heat1d and swe2d a deploy
+    request carrying the policy the profile path tuned. The launches of each
+    kernel, counted from 0 right before the burst and read right after, must
+    equal its buckets' chunk calls on the megakernel plane (one launch a
+    chunk for every member); every request must complete and equal its solo
+    run on the card bit for bit. Returns the metrics and the check lines."""
+    import repro_torch.obs as obs
+    from repro_torch.core.policy import PrecisionConfig
+    from repro_torch.obs.timing import sync
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    L = ladder()
+    svc_cfg = ServiceConfig(max_bucket=SERVE_MAX_BUCKET, max_active_members=SERVE_MAX_ACTIVE, max_queue=256)
+    states = {}
+    for case in MAIN_STEPS:
+        cfg = workload_config(case)[0]
+        states[case] = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    scope = obs.enable(sample=1.0)
+    t0 = time.perf_counter()
+    try:
+        svc = SimService(svc_cfg, device=device)
+        handles, joiners = [], {}
+        for case in MAIN_STEPS:
+            cfg, steps, s0 = workload_config(case)[0], MAIN_STEPS[case], states[case]
+            for i, div in enumerate(SERVE_CADENCES):
+                scale = 0.9 + 0.05 * i
+                handles.append(svc.submit(SimRequest(case, steps, "r2f2_16", cfg=cfg, state0=members_of(s0, (scale,))[0],
+                                                     snapshot_every=serve_cadence(case, div),
+                                                     tag=f"{case}/r2f2_16 x{scale:.2f}/{div or 'default'}")))
+            handles.append(svc.submit(SimRequest(case, steps, "r2f2_16", cfg=cfg, state0=with_subnormals(case, s0),
+                                                 snapshot_every=serve_cadence(case, 4), tag=f"{case}/r2f2_16 subnormals")))
+            first = svc.submit(SimRequest(case, steps, L["rr_tracked"], cfg=cfg, state0=s0.clone(),
+                                          snapshot_every=serve_cadence(case, 4), tag=f"{case}/rr_tracked"))
+            handles.append(first)
+            joiners[case] = first
+            if case in policies:
+                pol = policies[case]
+                deploy = PrecisionConfig(mode="deploy", fmt=pol.fmt, ema=pol.ema, headroom=pol.headroom, pinned=True)
+                handles.append(svc.submit(SimRequest(case, steps, deploy, cfg=cfg, state0=s0.clone(), policy=pol,
+                                                     tag=f"{case}/deploy@policy")))
+        # each rr_tracked request's partner joins once it has run a chunk
+        while joiners:
+            require(svc.pump(), "the service went idle before every rr_tracked request had run a chunk")
+            for case, first in list(joiners.items()):
+                if first._record.elapsed > 0:
+                    cfg = workload_config(case)[0]
+                    handles.append(svc.submit(SimRequest(
+                        case, MAIN_STEPS[case], L["rr_tracked"], cfg=cfg, state0=members_of(states[case], (0.95,))[0],
+                        snapshot_every=serve_cadence(case, 4), tag=f"{case}/rr_tracked joiner")))
+                    del joiners[case]
+        svc.run_until_idle()
+        sync(None, device)
+        wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    launches = ensemble_counts(ctr)
+    plain = sum(c.plain_calls for c in ctr.values())
+    m = svc.metrics
+    summary = m.summary()
+    chunks_by_kernel = {}
+    for key, n, steps, secs, compiled in m.chunk_samples:
+        k = serve_plane_kernel(key)
+        chunks_by_kernel[k] = chunks_by_kernel.get(k, 0) + (steps if k == "swe_flux_fused" else 1)
+    mega = {k: v for k, v in chunks_by_kernel.items() if k.endswith("_mega")}
+    lines = []
+    line = (f"serving burst: {len(handles)} requests on {sorted({h.bucket_key.execution for h in handles})}; "
+            f"kernel launches {launches} (counted from 0 before the burst); bucket chunk calls by kernel "
+            f"{chunks_by_kernel}; plain-version calls {plain}")
+    log(line)
+    lines.append(line)
+    require(all(h.status == "done" for h in handles), "a served request did not complete: "
+            + str([(h.tag, h.status) for h in handles if h.status != "done"]))
+    require(plain == 0, "plain versions ran on the serving path")
+    require(set(mega) >= {f"{case}_mega" for case in MAIN_STEPS}, f"a megakernel never ran on the serving path: {line}")
+    require(all(launches.get(k) == v for k, v in mega.items()),
+            f"the megakernel plane's launches differ from its buckets' chunk calls: {line}")
+    require(launches == chunks_by_kernel, f"a kernel's launches differ from its buckets' chunks: {line}")
+    bad = []
+    for h in handles:
+        solo = serve_solo(h, device)
+        if not served_equals_solo(h, solo):
+            bad.append(h.tag)
+    line = (f"serving burst: {len(handles) - len(bad)} of {len(handles)} requests equal their solo runs on the card "
+            f"bit for bit (state, snapshots, tracker)")
+    log(line)
+    lines.append(line)
+    require(not bad, f"served requests differ from their solo runs: {bad}")
+
+    fresh = [s for _, _, _, s, c in m.chunk_samples if c]
+    warm = [s for _, _, _, s, c in m.chunk_samples if not c]
+    busy = summary["busy_seconds"] + summary["compile_seconds"]
+    frac = scope.tracer.self_seconds / busy if busy > 0 else float("nan")
+    metrics = dict(
+        requests=len(handles), wall_s=wall, chunks=summary["chunks"], member_steps=summary["member_steps"],
+        throughput_member_steps_per_s=summary["throughput_steps_per_s"],
+        chunk_latency_p50_us=summary["chunk_latency_p50_us"], chunk_latency_p99_us=summary["chunk_latency_p99_us"],
+        occupancy_mean=summary["occupancy_mean"], occupancy_max=summary["occupancy_max"],
+        compiles=summary["compiles"], compile_s=summary["compile_seconds"], busy_s=summary["busy_seconds"],
+        fresh_chunk_ms_mean=1e3 * sum(fresh) / len(fresh) if fresh else float("nan"),
+        warm_chunk_ms_mean=1e3 * sum(warm) / len(warm) if warm else float("nan"),
+        recorder_self_s=scope.tracer.self_seconds, recorder_fraction=frac, spans=len(scope.tracer.spans),
+        dropped=scope.tracer.dropped, launches=launches, telemetry_scopes=len(scope.telemetry.scopes()),
+    )
+    line = (f"serving metrics: {metrics['throughput_member_steps_per_s']:.0f} member-steps/s over "
+            f"{metrics['busy_s']:.4f} s busy; chunk latency p50 {metrics['chunk_latency_p50_us']:.1f} us, p99 "
+            f"{metrics['chunk_latency_p99_us']:.1f} us; occupancy mean {metrics['occupancy_mean']:.2f} max "
+            f"{metrics['occupancy_max']}; {metrics['compiles']} compiles ({metrics['compile_s']:.4f} s), fresh chunk "
+            f"calls {metrics['fresh_chunk_ms_mean']:.3f} ms mean against warm {metrics['warm_chunk_ms_mean']:.3f} ms; "
+            f"recorder self-time {metrics['recorder_self_s']:.6f} s = {100 * frac:.3f}% of busy plus compile time "
+            f"({metrics['spans']} spans, {metrics['dropped']} dropped); burst wall {wall:.2f} s")
+    log(line)
+    lines.append(line)
+    require(metrics["telemetry_scopes"] == sum(1 for h in handles if h._record.tracked),
+            "the service's telemetry holds other scopes than its tracked requests'")
+    return metrics, lines
+
+
+def check_serving_fused_bucket(device):
+    """The fused plane's bucket: three rr_tracked heat1d and three swe2d
+    requests at misaligned cadences (H/8, H/5, H/3), one of each a mid-flight
+    joiner; each member's final splits and §5.3 counters equal its solo run
+    on the card (the plane folds at the bucket's chunk boundaries, as
+    ``repro``'s does), and K2 and K3 launched once a chunk (K3 once a step)."""
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    L = ladder()
+    ctr = counters()
+    svc = SimService(ServiceConfig(), device=device)
+    handles, later = [], []
+    for case in ("heat1d", "swe2d"):
+        cfg, steps = workload_config(case)[0], MAIN_STEPS[case]
+        s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+        for i, div in enumerate((8, 5, 3)):
+            req = SimRequest(case, steps, L["rr_tracked"], cfg=cfg, state0=members_of(s0, (0.9 + 0.05 * i,))[0],
+                             snapshot_every=steps // div, execution="fused", tag=f"{case}/rr_tracked fused H/{div}")
+            (later if i == 2 else handles).append(req)
+    for c in ctr.values():
+        c.reset()
+    handles = [svc.submit(r) for r in handles]
+    svc.pump()
+    svc.pump()
+    handles += [svc.submit(r) for r in later]
+    svc.run_until_idle()
+    launches = ensemble_counts(ctr)
+    chunks = {}
+    for key, n, steps, secs, compiled in svc.metrics.chunk_samples:
+        k = serve_plane_kernel(key)
+        chunks[k] = chunks.get(k, 0) + (steps if k == "swe_flux_fused" else 1)
+    ok = [served_equals_solo(h, serve_solo(h, device), exact=False) for h in handles]
+    line = (f"serving fused bucket: {sum(ok)} of {len(handles)} rr_tracked requests (heat1d, swe2d, cadences H/8, H/5, "
+            f"H/3, joiners mid-flight) match their solo runs in final splits and §5.3 counters; launches {launches}, "
+            f"chunk calls {chunks}; occupancy max {svc.metrics.occupancy()[1]}")
+    log(line)
+    require(all(h.status == "done" for h in handles) and all(ok), line)
+    require(launches == chunks, line)
+    return [line]
+
+
+def check_serving_storage_and_eviction(device):
+    """A packed-storage bucket (swe2d r2f2_16, three requests at H/4, the
+    third a mid-flight joiner) against solo runs, bit for bit (payloads and
+    splits); then an evicted and resumed heat1d rr_tracked request and an
+    evicted and resumed packed swe2d request (checkpointed under ``build/``,
+    restored onto the card), each equal to the uninterrupted request.
+
+    Carried storage rounds at every chunk boundary of the bucket, as
+    ``repro``'s chunk programs do, so a packed member equals its solo run
+    where the bucket's boundaries are its own snapshot points: one cadence
+    for the bucket here (mixed cadences pack more often than a solo run)."""
+    import shutil
+
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    L = ladder()
+    lines = []
+    cfg, steps = workload_config("swe2d")[0], MAIN_STEPS["swe2d"]
+    s0 = Simulation("swe2d", cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    svc = SimService(ServiceConfig(), device=device)
+    reqs = [SimRequest("swe2d", steps, "r2f2_16", cfg=cfg, state0=members_of(s0, (0.9 + 0.05 * i,))[0],
+                       snapshot_every=steps // 4, storage="packed") for i in range(3)]
+    hs = [svc.submit(r) for r in reqs[:2]]
+    svc.pump()
+    hs.append(svc.submit(reqs[2]))
+    svc.run_until_idle()
+    ok = [served_equals_solo(h, serve_solo(h, device)) for h in hs]
+    line = (f"serving packed bucket swe2d r2f2_16 on {hs[0].bucket_key.execution}: {sum(ok)} of {len(hs)} requests "
+            f"equal their solo packed runs bit for bit (payloads, splits, snapshots)")
+    log(line)
+    lines.append(line)
+    require(all(ok), line)
+    where = os.path.join(ROOT, "build", f"service_ckpt_{os.getpid()}")
+    try:
+        for case, prec, storage in (("heat1d", L["rr_tracked"], "f32"), ("swe2d", L["r2f2_16"], "packed")):
+            cfg, steps = workload_config(case)[0], MAIN_STEPS[case]
+            s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+            svc = SimService(ServiceConfig(ckpt_dir=os.path.join(where, case), auto_resume=False), device=device)
+            kw = dict(cfg=cfg, snapshot_every=steps // 4, storage=storage)
+            hA = svc.submit(SimRequest(case, steps, prec, state0=s0.clone(), **kw))
+            hB = svc.submit(SimRequest(case, steps, prec, state0=s0.clone(), **kw))
+            svc.pump()
+            svc.evict(hA.id)
+            svc.run_until_idle()
+            svc.resume(hA.id)
+            svc.run_until_idle()
+            same = (hA.status == hB.status == "done" and served_equals_solo(hA, serve_solo(hA, device))
+                    and served_equals_solo(hB, serve_solo(hB, device)))
+            kinds = [e.kind for e in hA.stream.drain()]
+            line = (f"serving eviction {case} {prec.mode} {storage} on {hA.bucket_key.execution}: evicted at step "
+                    f"{steps // 4}, resumed from the checkpoint on the card; the request equals the uninterrupted "
+                    f"one and its solo run: {'bit-identical' if same else 'MISMATCH'}; events {kinds}")
+            log(line)
+            lines.append(line)
+            require(same and "evicted" in kinds and "resumed" in kinds, line)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return lines
+
+
+#: the passivity runs: the reference plane at a cut depth, the kernel planes whole
+PASSIVITY_STEPS = {"reference": {"heat1d": 400, "swe2d": 50}}
+
+
+def check_passivity(device, case):
+    """heat1d or swe2d in rr_tracked on the reference, fused and megakernel
+    planes with ``repro_torch.obs`` on and off: the same bits (state,
+    snapshots, tracker), and the instrumented run really recorded spans,
+    dispatches and telemetry."""
+    import repro_torch.obs as obs
+    from repro_torch.pde import Simulation
+
+    L = ladder()
+    cfg = workload_config(case)[0]
+    s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    sim = Simulation(case, cfg, L["rr_tracked"], device=device)
+    lines = []
+    for execution in ("reference", "fused", "megakernel"):
+        steps = PASSIVITY_STEPS.get(execution, {}).get(case, MAIN_STEPS[case])
+        off = sim.run(steps, state0=s0, execution=execution)
+        scope = obs.enable(sample=1.0)
+        try:
+            on = sim.run(steps, state0=s0, execution=execution)
+        finally:
+            obs.disable()
+        dispatched = scope.registry.counter("repro_cuda_dispatch_total").total()
+        same = (same_tree(off.state, on.state) and same_bits(off.snapshots.cpu(), on.snapshots.cpu())
+                and same_tree(off.tracker, on.tracker))
+        recorded = len(scope.telemetry) > 0 and (execution == "reference" or dispatched > 0)
+        line = (f"passivity {case} rr_tracked {execution} {steps} steps: obs on = obs off bit for bit: "
+                f"{'ok' if same else 'MISMATCH'}; {len(scope.tracer.spans)} spans, {dispatched:.0f} dispatches, "
+                f"{len(scope.telemetry)} telemetry series")
+        log(line)
+        lines.append(line)
+        require(same and recorded, line)
+    return lines
+
+
+def check_obs_smoke(device):
+    """``python -m repro_torch.obs --smoke`` on the card: its five gates."""
+    from repro_torch.obs.__main__ import main as obs_main
+
+    out = os.path.join(OUT_DIR, "obs_smoke")
+    rc = obs_main(["--smoke", "--out", out, "--device", device])
+    require(rc == 0, f"repro_torch.obs --smoke failed on the card (exit {rc})")
+    return [f"repro_torch.obs --smoke on the card: passed (artifacts in {os.path.relpath(out, ROOT)})"]
+
+
+def serving_tasks(device):
+    """The serving path's checks, each a task for :func:`run_checks_in_workers`
+    (the longest first): passivity, the fused bucket, packed storage and
+    eviction, the obs gate."""
+    return [
+        ("serving passivity", "check_passivity", (device, "heat1d"), {}),
+        ("serving fused bucket", "check_serving_fused_bucket", (device,), {}),
+        ("serving passivity", "check_passivity", (device, "swe2d"), {}),
+        ("serving storage and eviction", "check_serving_storage_and_eviction", (device,), {}),
+        ("obs smoke", "check_obs_smoke", (device,), {}),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -3900,17 +4269,24 @@ def main(argv) -> int:
     main_launches.update({k: v[0] for k, v in st_totals.items() if k.endswith("+packed") or k == "r2f2_storage"})
     require(all(main_launches[f"{k}+packed"] > 0 for k in STORAGE_TIMED) and main_launches["r2f2_storage"] > 0,
             "a storage variant of the storage path never launched")
-    report["profile_path"], captured = timed("profile path", run_profile_path, device, refs)
+    report["profile_path"], captured, policies = timed("profile path", run_profile_path, device, refs)
     main_launches.update({f"{k}+capture": captured[k] for k in CAPTURE_KERNELS})
-    # the ensemble path and its resume through a checkpoint, in worker processes (each counts its own launches)
-    ens_tasks = [("ensemble path", "check_ensemble_path", (device, "swe2d", (mode,)), {}) for mode in ENSEMBLE_PATH_MODES]
+    # the ensemble path, its resume through a checkpoint and the serving path's checks, in worker processes (each
+    # counts its own launches); then the serving burst alone on the card
+    serve_tasks = serving_tasks(device)
+    ens_tasks = serve_tasks[:1]
+    ens_tasks += [("ensemble path", "check_ensemble_path", (device, "swe2d", (mode,)), {}) for mode in ENSEMBLE_PATH_MODES]
     ens_tasks += [("ensemble path", "check_ensemble_path", (device, case), {}) for case in MAIN_STEPS if case != "swe2d"]
     ens_tasks += [("ensemble resume", "check_ensemble_resume", (device, *run), {}) for run in RESUME_RUNS]
-    results, seconds = run_checks_in_workers(ens_tasks)
+    ens_tasks += serve_tasks[1:]
+    results, seconds = timed("ensemble and serving checks", run_checks_in_workers, ens_tasks)
     report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
-    report["ensemble_path"] = []
-    for (label, *_), out in zip(ens_tasks, results):
-        if label == "ensemble path":
+    report["ensemble_path"], report["serving_lines"] = [], []
+    for task, out in zip(ens_tasks, results):
+        label = task[0]
+        if task in serve_tasks:
+            report["serving_lines"] += out
+        elif label == "ensemble path":
             report["ensemble_path"] += out[0]
             for k, v in out[1].items():
                 main_launches[f"{k}+members"] = main_launches.get(f"{k}+members", 0) + v
@@ -3918,6 +4294,11 @@ def main(argv) -> int:
             report["ensemble_path"] += out
     missing = [k for k in MEMBER_KERNELS if not main_launches.get(f"{k}+members")]
     require(not missing, f"member-axis kernels the ensemble path never launched: {missing}")
+    report["serving"], burst_lines = timed("serving burst", run_serving_burst, device, policies)
+    report["serving_lines"] += burst_lines
+    checks_s = sum(seconds[label] for label in {task[0] for task in serve_tasks})
+    log(f"serving phase: its checks {checks_s:.1f} s of worker time beside the ensembles', the burst and its solo "
+        f"runs {report['phase_s']['serving burst']:.1f} s alone on the card; {card}")
     phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")

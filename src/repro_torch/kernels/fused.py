@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+import repro_torch.obs as _obs
 from repro_torch.core.fma import fma
 from repro_torch.core.flexformat import quantize_em
 from repro_torch.kernels.blockops import block_max_exp, rr_add_block, rr_div_block, rr_mul_block, rr_rsqrt_block
@@ -354,7 +355,9 @@ def fused_sweep(
         kw = {} if capture is None else {"capture": capture, "extent": extent}
         if packed:
             kw["k_in"] = [pa.k.reshape(n_members).to(torch.int32) for pa in pas]
-        res = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect, **kw)
+        with _obs.span("cuda.fused_sweep", steps=steps, grid=f"{gi}x{gj}", members=n_members):
+            _obs.inc("repro_cuda_dispatch_total", help="CUDA kernel launches entered", kernel="fused_sweep")
+            res = kernel(leaves, br=br, bw=bw, gi=gi, gj=gj, k_floor=k_floor, collect=collect, **kw)
         outs, block_ev = res[:2]
         if packed:
             k_outs = res[2]

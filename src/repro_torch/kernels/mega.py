@@ -62,6 +62,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+import repro_torch.obs as _obs
 from repro_torch._device import f32_scalar
 from repro_torch.core.flexformat import quantize_em
 from repro_torch.core.policy import RangeTracker, adjust_step, tracker_stack
@@ -300,11 +301,13 @@ def mega_sweep(
     if on_card:
         if kernel is None:
             raise RuntimeError("this mega body has no CUDA kernel; pass CPU tensors to run its plain version")
-        res = kernel(
-            leaves, steps=steps, every=every, tracker=tracker,
-            evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence) or capture is not None,
-            storage=storage, k_in=k_in, **({} if capture is None else {"capture": capture}),
-        )
+        with _obs.span("cuda.mega_sweep", steps=steps, every=every, members=n_members):
+            _obs.inc("repro_cuda_dispatch_total", help="CUDA kernel launches entered", kernel="mega_sweep")
+            res = kernel(
+                leaves, steps=steps, every=every, tracker=tracker,
+                evolve=tracker is not None and not prec.pinned, collect=bool(collect_evidence) or capture is not None,
+                storage=storage, k_in=k_in, **({} if capture is None else {"capture": capture}),
+            )
     else:
         if counter is not None:
             counter.plain_calls += 1

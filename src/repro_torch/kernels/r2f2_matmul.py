@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+import repro_torch.obs as _obs
 from repro_torch.core.flexformat import FlexFormat, quantize_em
 from repro_torch.core.r2f2 import _finite_max_exp, product_guard_bits, select_k
 from repro_torch.kernels import _cuda
@@ -172,7 +173,8 @@ def r2f2_matmul(a, b, *, fmt: FlexFormat, blocks=DEFAULT_BLOCKS, round_products=
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     scratch = torch.empty((plan.gk, m, n), dtype=torch.float32, device=a.device) if plan.splits > 1 else None
     lib = _cuda.library()
-    with torch.cuda.device(a.device):
+    with _obs.span("cuda.r2f2_matmul", m=m, n=n, k=kdim), torch.cuda.device(a.device):
+        _obs.inc("repro_cuda_dispatch_total", help="CUDA kernel launches entered", kernel="r2f2_matmul")
         err = lib.r2f2_matmul(
             _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(out), _cuda.ptr(scratch), m, n, kdim, bm, bn, bk, plan.splits,
             plan.slots, fmt.eb, fmt.mb, fmt.fx, int(round_products), int(tail_approx), _cuda.stream_of(a),

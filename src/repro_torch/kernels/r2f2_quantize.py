@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+import repro_torch.obs as _obs
 from repro_torch.core.flexformat import FlexFormat, quantize_em
 from repro_torch.core.r2f2 import _finite_max_exp, select_k_operand
 from repro_torch.kernels import _cuda
@@ -110,7 +111,8 @@ def r2f2_quantize(x, *, fmt: FlexFormat, block=DEFAULT_BLOCK, _plan: Optional[Qu
     k = torch.empty((m // bm, n // bn), dtype=torch.int32, device=x.device)
     plan = _plan or quantize_plan(m, n, bm, bn, aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    with _obs.span("cuda.r2f2_quantize", m=m, n=n), torch.cuda.device(x.device):
+        _obs.inc("repro_cuda_dispatch_total", help="CUDA kernel launches entered", kernel="r2f2_quantize")
         err = lib.r2f2_quantize(
             _cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(k), m, n, bm, bn, fmt.eb, fmt.mb, fmt.fx, plan.cluster, plan.rows,
             _cuda.stream_of(x),

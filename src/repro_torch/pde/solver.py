@@ -49,6 +49,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+import repro_torch.obs as _obs
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.core import ftz
@@ -341,18 +342,38 @@ class Simulation:
         :class:`repro_torch.profile.CaptureResult`; ``policy`` (a
         PrecisionPolicy) installs its hints and seeds a fresh tracker at its
         splits. Neither changes the run's arithmetic.
+
+        With :mod:`repro_torch.obs` enabled the run is wrapped in a
+        ``sim.run`` span, counted in ``repro_sim_runs_total``, and a tracked
+        run's final tracker (or, for a captured run, the k series at every
+        chunk boundary replayed from its evidence) is drained into the
+        precision telemetry: passive, the bits are the same with it on or off.
         """
+        resolved = self._resolve_execution(execution)
+        with _obs.span("sim.run", stepper=self.stepper.name, mode=self.prec.mode, steps=steps, execution=resolved,
+                       storage=storage):
+            _obs.inc("repro_sim_runs_total", help="Simulation.run calls by plane", stepper=self.stepper.name,
+                     mode=self.prec.mode, execution=resolved)
+            res = self._run(steps, snapshot_every=snapshot_every, state0=state0, tracker=tracker, execution=resolved,
+                            capture=capture, policy=policy, storage=storage)
+        self._drain_telemetry(res, steps, snapshot_every, tracker, policy)
+        return res
+
+    def _run(self, steps, *, snapshot_every, state0, tracker, execution, capture, policy, storage) -> SimResult:
         execution = self._resolve_execution(execution)
         storage = self._resolve_storage(storage)
         spec = self._resolve_capture(capture)
         stepper, prec = self.stepper, self.prec
+        if state0 is not None and not isinstance(state0, PackedArray):
+            # moved before the flush mode, which would flush the copy's subnormals, the kept cells' too
+            state0 = torch.as_tensor(state0).to(device=self.device, dtype=torch.float32)
         with card_flush(self.device):
             if state0 is None:
                 state = stepper.init_state(self.cfg, device=self.device)
             elif isinstance(state0, PackedArray):
                 state = state0.to(self.device)
             else:
-                state = self._entry(torch.as_tensor(state0).to(device=self.device, dtype=torch.float32), steps)
+                state = self._entry(state0, steps)
             state = self._storage_in(state, storage)
         if tracker is not None:
             tracker = tracker.to(self.device)
@@ -383,6 +404,44 @@ class Simulation:
             obs = self._observe(state)
             snapshots = obs.new_empty((0,) + tuple(obs.shape))
         return SimResult(state, snapshots, tracker, None if profile is None else profile.result())
+
+    # -- precision-telemetry drains (passive; repro_torch.obs) ---------------
+
+    def _drain_telemetry(self, res, steps, snapshot_every, tracker_arg, policy):
+        """Feed a finished tracked run into :mod:`repro_torch.obs`'s telemetry
+        under a fresh ``sim:<stepper>`` scope: its final tracker or, for a
+        captured run, the k series replayed from its evidence at every chunk
+        boundary, with each site's coverage of the final split."""
+        o = _obs.active()
+        if o is None or o.telemetry is None or res.tracker is None:
+            return
+        scope = o.telemetry.unique_scope(f"sim:{self.stepper.name}")
+        if res.profile is None:
+            o.telemetry.record_tracker(scope, res.tracker, steps)
+            return
+        from repro_torch.obs.precision import coverage_fraction, replay_k_series
+
+        prec, tr0 = self.prec, tracker_arg
+        if policy is not None:
+            prec, tr0 = self._apply_policy(prec, tr0, policy)
+        if tr0 is None:
+            tr0 = self.init_tracker()
+        every = snapshot_every or max(1, steps // self.stepper.snapshots_default)
+        sites, ops = list(self.stepper.sites), self.stepper.site_ops or None
+        bsteps, k, grew, shrank = replay_k_series(res.profile.evidence, prec, sites, site_ops=ops, every=every,
+                                                  tracker0=tr0)
+        final_k = dict(zip(res.tracker.names, res.tracker.state.k.tolist()))
+        cov = coverage_fraction(res.profile.evidence, prec, sites, final_k, site_ops=ops)
+        o.telemetry.record_series(scope, sites, bsteps, k, grew, shrank, coverage=cov)
+
+    def _drain_ensemble_telemetry(self, res, steps):
+        """Each member's final tracker under ``ens:<stepper>/m<i>``."""
+        o = _obs.active()
+        if o is None or o.telemetry is None or res.tracker is None:
+            return
+        base = o.telemetry.unique_scope(f"ens:{self.stepper.name}")
+        for i in range(res.tracker.state.k.shape[0]):
+            o.telemetry.record_tracker(f"{base}/m{i}", res.tracker.member(i), steps)
 
     def _entry(self, state, steps: int):
         """A caller's f32 state as a run on the card reads it: its subnormals
@@ -527,6 +586,7 @@ class Simulation:
         policy=None,
         tracker0_batch=None,
         storage: str = "f32",
+        _drain: bool = True,
     ) -> SimResult:
         """Run :meth:`run` for a batch of initial states at once.
 
@@ -554,16 +614,33 @@ class Simulation:
         logical ``batch`` axis (``dist.sharding.constrain``), on the way in
         and on the way out: the identity outside an ``axis_rules`` context,
         and passive on one device.
+
+        With :mod:`repro_torch.obs` enabled the call is wrapped in a
+        ``sim.run_ensemble`` span, counted once in ``repro_sim_runs_total``
+        (as ``repro``'s vmapped ``run`` counts once), and each member's final
+        tracker is drained under ``ens:<stepper>/m<i>``. ``_drain=False``
+        says that the caller drains the members' trackers itself (the
+        service's batcher, under its requests' scopes), so this call records
+        no telemetry, as ``repro``'s records none inside the service's
+        jitted chunk.
         """
         if sharded:
             state0_batch = _constrain_ensemble(state0_batch)
             if tracker0_batch is not None:
                 tracker0_batch = _constrain_ensemble(tracker0_batch)
-        execution = self._resolve_execution(execution)
+        resolved = self._resolve_execution(execution)
         storage = self._resolve_storage(storage)
-        res = self._run_ensemble(state0_batch, steps, snapshot_every=snapshot_every, execution=execution,
-                                 capture=capture, policy=policy, tracker0_batch=tracker0_batch, storage=storage)
-        return _constrain_ensemble(res) if sharded else res
+        with _obs.span("sim.run_ensemble", stepper=self.stepper.name, mode=self.prec.mode, steps=steps,
+                       execution=execution, sharded=bool(sharded)):
+            _obs.inc("repro_sim_runs_total", help="Simulation.run calls by plane", stepper=self.stepper.name,
+                     mode=self.prec.mode, execution=resolved)
+            res = self._run_ensemble(state0_batch, steps, snapshot_every=snapshot_every, execution=resolved,
+                                     capture=capture, policy=policy, tracker0_batch=tracker0_batch, storage=storage)
+        if sharded:
+            res = _constrain_ensemble(res)
+        if _drain:
+            self._drain_ensemble_telemetry(res, steps)
+        return res
 
     def _run_ensemble(self, state0_batch, steps, *, snapshot_every, execution, capture, policy, tracker0_batch,
                       storage) -> SimResult:
@@ -575,7 +652,7 @@ class Simulation:
             raise ValueError(f"tracker0_batch has {tracker0_batch.state.k.shape[0]} members for {members} states")
         if execution == "reference" or not stepper.ensemble_hooks:
             return _stack_runs([
-                self.run(steps, snapshot_every=snapshot_every, state0=member_of(state0_batch, m),
+                self._run(steps, snapshot_every=snapshot_every, state0=member_of(state0_batch, m),
                          tracker=None if tracker0_batch is None else tracker0_batch.member(m), execution=execution,
                          capture=capture, policy=policy, storage=storage)
                 for m in range(members)

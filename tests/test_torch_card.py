@@ -324,3 +324,31 @@ def test_card_entry_zeroes_subnormal_inputs(name, execution, one_thread, monkeyp
     elif name == "swe2d":
         monkeypatch.setattr(ftz, "zero_subnormal_inputs", lambda x, keep=None: x)
         assert not torch.equal(_bits(run().state), _bits(want.state))
+
+
+@pytest.mark.parametrize("name", ["heat1d", "heat2d"])
+def test_card_entry_keeps_pinned_subnormals_of_a_state_from_elsewhere(name, one_thread, monkeypatch):
+    """On the card a caller's state arrives from the host, and the copy to
+    the card is a PyTorch result that the flush mode would flush, pinned
+    cells included: ``Simulation.run`` moves the state before it enters the
+    mode, as ``run_ensemble`` does. A numpy state under the card's scope
+    takes the same path on the CPU: its pinned cells keep their bits, and
+    the run equals the run under the CPU's own FTZ/DAZ flags."""
+    from repro_torch.pde import Heat2DConfig
+
+    cfg = {"heat1d": HeatConfig(nx=64), "heat2d": Heat2DConfig(nx=24, ny=24)}[name]
+    cells = {"heat1d": [(0,), (5,), (63,), (17,)], "heat2d": [(0, 4), (5, 5), (23, 7), (3, 8)]}[name]
+    u0 = _with_subnormals(Simulation(name, cfg, PRESETS["r2f2_16"], device="cpu").stepper.init_state(
+        cfg, device="cpu"), cells)
+
+    def run(state0):
+        return Simulation(name, cfg, PRESETS["r2f2_16"], device="cpu").run(16, snapshot_every=8, state0=state0,
+                                                                            execution="megakernel")
+
+    torch.set_flush_denormal(True)
+    want = run(u0)
+    torch.set_flush_denormal(False)
+    monkeypatch.setattr(ftz, "on_card", lambda device: True)
+    got = run(u0.numpy())
+    assert _bits(want.state)[cells[0]] == 0x000116C2
+    assert torch.equal(_bits(got.state), _bits(want.state)) and torch.equal(_bits(got.snapshots), _bits(want.snapshots))

@@ -10,7 +10,10 @@ packed and quantized runs, auto beyond heat2d's cluster), and range capture
 (every capturing kernel family against its plain version, every stepper's
 captured runs against the CPU under flush), and ensembles (every kernel's
 member axis against its plain version, every stepper's ensembles against
-the CPU under flush, one launch for every member). These tests skip
+the CPU under flush, one launch for every member), and the serving plane
+and observability (a bucket's launches, its requests against their solo
+runs and the CPU under flush, packed and fused buckets, the obs gate, obs
+on against off). These tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,6 +23,7 @@ The file imports neither JAX nor repro."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -790,3 +794,110 @@ def test_ensemble_launches_once_for_every_member(execution):
     for i in (0, 7):
         alone = sim.run(400, state0=batch[i], execution=execution)
         assert torch.equal(ens.state[i].view(torch.int32), alone.state.view(torch.int32))
+
+
+def _serve_mixed_bucket(device, name, cfg, execution="auto", storage="f32", cadences=(8, 5, 4)):
+    """Three r2f2_16 requests of 40 steps at ``cadences``, the third a
+    mid-flight joiner, served on ``device``; returns the service and its
+    handles."""
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    s0 = Simulation(name, cfg, PRESETS["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    svc = SimService(ServiceConfig(), device=device)
+    reqs = [SimRequest(name, 40, "r2f2_16", cfg=cfg, state0=s0 * (0.9 + 0.05 * i), snapshot_every=every,
+                       execution=execution, storage=storage) for i, every in enumerate(cadences)]
+    hs = [svc.submit(r) for r in reqs[:2]]
+    svc.pump()
+    hs.append(svc.submit(reqs[2]))
+    svc.run_until_idle()
+    return svc, hs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_service_on_the_card_launches_once_a_chunk_and_equals_the_cpu(name):
+    """SimService on the card (its default device) through auto: one
+    megakernel launch a bucket chunk for every member, dispatches counted
+    by repro_torch.obs, every request equal to its solo run on the card and
+    to the same bucket served on the CPU under flush, bit for bit."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import repro_torch.obs as obs
+
+    cfg = chip_smoke.link_configs()[name]
+    ctr = chip_smoke.counters()[f"{name}_mega"]
+    before = (ctr.launches, ctr.plain_calls)
+    scope = obs.enable()
+    try:
+        svc, hs = _serve_mixed_bucket(None, name, cfg)
+    finally:
+        obs.disable()
+    chunks = svc.metrics.chunks
+    assert all(h.bucket_key.execution == "megakernel" for h in hs)
+    assert (ctr.launches - before[0], ctr.plain_calls - before[1]) == (chunks, 0)
+    assert scope.registry.counter("repro_cuda_dispatch_total").value(kernel="mega_sweep") == chunks
+    with chip_smoke.cpu_flushed():
+        _, cpu = _serve_mixed_bucket("cpu", name, cfg)
+    for h, c in zip(hs, cpu):
+        assert chip_smoke.served_equals_solo(h, chip_smoke.serve_solo(h, "cuda"))
+        assert np.array_equal(chip_smoke.canon_bits(torch.from_numpy(h.result().state)).numpy(),
+                              chip_smoke.canon_bits(torch.from_numpy(c.result().state)).numpy())
+        assert all(np.array_equal(chip_smoke.canon_bits(torch.from_numpy(a)).numpy(),
+                                  chip_smoke.canon_bits(torch.from_numpy(b)).numpy())
+                   for a, b in zip(h.snapshots, c.snapshots))
+
+
+@pytest.mark.cuda
+def test_service_packed_and_fused_buckets_on_the_card():
+    """swe2d r2f2_16 with packed storage, and heat1d on the fused plane (K2
+    once a chunk), served on the card: each request equals its solo run."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels.heat_stencil import HEAT1D_SWEEP
+
+    links = chip_smoke.link_configs()
+    # carried storage rounds at every bucket chunk boundary: one cadence
+    svc, hs = _serve_mixed_bucket("cuda", "swe2d", links["swe2d"], storage="packed", cadences=(4, 4, 4))
+    for h in hs:
+        assert chip_smoke.served_equals_solo(h, chip_smoke.serve_solo(h, "cuda"))
+    before = HEAT1D_SWEEP.launches
+    svc, hs = _serve_mixed_bucket("cuda", "heat1d", links["heat1d"], execution="fused")
+    assert HEAT1D_SWEEP.launches - before == svc.metrics.chunks
+    for h in hs:
+        assert chip_smoke.served_equals_solo(h, chip_smoke.serve_solo(h, "cuda"))
+
+
+@pytest.mark.cuda
+def test_obs_smoke_gate_on_the_card(tmp_path):
+    """python -m repro_torch.obs --smoke on the card (its default device)."""
+    _need_card()
+    from repro_torch.obs.__main__ import main
+
+    assert main(["--smoke", "--out", str(tmp_path / "obs")]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d"])
+@pytest.mark.parametrize("execution", ["reference", "fused", "megakernel"])
+def test_obs_is_passive_on_the_card(name, execution):
+    """rr_tracked with repro_torch.obs on and off: the same bits on the card."""
+    _need_card()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import repro_torch.obs as obs
+    from repro_torch.pde import Simulation
+
+    sim = Simulation(name, chip_smoke.link_configs()[name], chip_smoke.ladder()["rr_tracked"])
+    off = sim.run(40, snapshot_every=8, execution=execution)
+    scope = obs.enable()
+    try:
+        on = sim.run(40, snapshot_every=8, execution=execution)
+    finally:
+        obs.disable()
+    assert len(scope.telemetry) > 0
+    assert chip_smoke.same_tree(off.state, on.state) and chip_smoke.same_tree(off.tracker, on.tracker)
+    assert chip_smoke.same_bits(off.snapshots.cpu(), on.snapshots.cpu())

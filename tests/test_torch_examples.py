@@ -1,6 +1,7 @@
 """The port's examples (examples/torch_*.py) run end to end on the CPU at a
 few steps, each through its ``main``: the quickstart's five parts, the heat
-and shallow-water ladders, and the zoo with --profile and --ensemble."""
+and shallow-water ladders, the zoo with --profile and --ensemble, and the
+service burst with --trace."""
 
 import importlib.util
 import os
@@ -50,3 +51,12 @@ def test_pde_zoo_with_profile_and_ensemble(capsys):
     assert set(out) == {"heat1d", "burgers1d"} and len(out["heat1d"]["ensemble"]) == 3
     text = capsys.readouterr().out
     assert "autotuned splits" in text and "ensemble[3]" in text
+
+
+def test_pde_service_with_trace(tmp_path, capsys):
+    out = example("torch_pde_service").main(["--device", "cpu", "--steps", "16", "--workloads", "heat2d,burgers1d",
+                                             "--trace", str(tmp_path / "obs")])
+    assert out["done"] and out["summary"]["completed"] == 8
+    assert all(rel < 0.1 for rel in out["rels"].values()) and len(out["rels"]) == 4
+    text = capsys.readouterr().out
+    assert "[tune] heat2d" in text and "occupancy" in text and "trace.json" in text

@@ -7,7 +7,8 @@ import importlib
 
 import pytest
 
-PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "models", "configs", "dist", "ckpt")
+PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "models", "configs", "dist", "ckpt", "obs",
+            "service")
 
 #: (package, name) -> the ROADMAP.md item it waits for
 PENDING = {
