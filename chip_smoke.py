@@ -83,7 +83,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rr_tracked joiners, deploy requests under the profile path's policies):
    every request equal to its solo run bit for bit, each megakernel's
    launches equal to its buckets' chunk calls, and the throughput, chunk
-   latency, occupancy, compile split and recorder overhead printed;
+   latency, occupancy, compile split and recorder overhead printed; then
+   the health plane (``repro_torch.obs.health``): in the same worker pool
+   the monitor on (``shadow_rate=1.0``) against off for heat1d and swe2d
+   rr_tracked buckets at full width on the three planes (bit for bit,
+   every request shadowed, each ``shadow_rel`` equal to its recomputation)
+   and ``python -m repro_torch.obs.health --smoke`` (clean exit 0, storm
+   exit 3, the storm's alerts equal to the CPU's under flush); then, alone
+   on the card, a monitored burst of 12 requests of the five
+   configurations uncut (:func:`run_health_burst`: r2f2_16 and rr_tracked
+   each, e5m10 for swe2d and advection1d), each equal to its solo run, every
+   request shadowed at f32, overflow storms for exactly the e5m10 requests,
+   the live detectors equal to their offline replay, the scrape endpoint
+   over loopback, and the replays' seconds and the hooks' share printed;
 4. the fused plane against the reference plane (the reference plane at a
    cut depth), and the megakernel plane against the fused plane at the
    full horizons; then the card against ``repro``: every builtin stepper on
@@ -3190,17 +3202,373 @@ def check_obs_smoke(device):
     return [f"repro_torch.obs --smoke on the card: passed (artifacts in {os.path.relpath(out, ROOT)})"]
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the health plane (repro_torch.obs.health) on the card
+# ---------------------------------------------------------------------------
+
+
+def health_bucket(device, case, execution, steps, flight_dir=None):
+    """Two rr_tracked requests of ``case`` at its full width (scales 0.9 and
+    0.95, cadence H/4) in one bucket on ``execution``; with ``flight_dir``
+    under ``repro_torch.obs`` and the health monitor at ``shadow_rate=1.0``.
+    Returns the handles, their initial states and the monitor (None off)."""
+    import repro_torch.obs as obs
+    import repro_torch.obs.health as health
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    L = ladder()
+    cfg = workload_config(case)[0]
+    s0 = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    states = list(members_of(s0, (0.9, 0.95)))
+    monitor = None
+    if flight_dir is not None:
+        obs.enable(sample=1.0)
+        monitor = health.enable(shadow_rate=1.0, flight_dir=flight_dir)
+    try:
+        svc = SimService(ServiceConfig(max_bucket=SERVE_MAX_BUCKET), device=device)
+        hs = [svc.submit(SimRequest(case, steps, L["rr_tracked"], cfg=cfg, state0=x.clone(), execution=execution,
+                                    snapshot_every=max(1, steps // 4))) for x in states]
+        svc.run_until_idle()
+    finally:
+        health.disable()
+        obs.disable()
+    require(all(h.status == "done" for h in hs) and svc.metrics.occupancy()[1] == 2,
+            f"health bucket {case} {execution}: a request did not complete, or the two did not share a bucket")
+    return hs, states, monitor
+
+
+def served_equal(a, b) -> bool:
+    """Two served requests: state, snapshots and tracker bit for bit (NaNs
+    canonical), and the same final splits."""
+    import numpy as np
+    import torch
+
+    ra, rb = a.result(), b.result()
+    return (same_tree(service_result_tree(a), service_result_tree(b)) and ra.final_k == rb.final_k
+            and same_bits(torch.from_numpy(np.stack(ra.snapshots)), torch.from_numpy(np.stack(rb.snapshots)))
+            and same_tree(None if ra.tracker is None else ra.tracker.state.to("cpu"),
+                          None if rb.tracker is None else rb.tracker.state.to("cpu")))
+
+
+def shadow_recomputed(h, oracle):
+    """``rel_l2`` of a served request's final state against ``oracle``, its
+    f32 oracle run replayed outside the monitor (``Simulation.oracle_replay``
+    on the card; requests of one configuration, initial state and horizon
+    share it)."""
+    from repro_torch.obs.shadow import rel_l2
+
+    sim = h._record.sim
+    return rel_l2(h.result().state, oracle.state, offset=sim.stepper.metric_offset(sim.cfg))
+
+
+def check_health_passivity(device, case, executions):
+    """heat1d or swe2d at full width, two rr_tracked requests in one bucket on
+    each of ``executions`` (the reference plane at :data:`PASSIVITY_STEPS`):
+    the health monitor on (``shadow_rate=1.0``) equals it off bit for bit
+    (state, snapshots, tracker, final splits); every request is shadowed,
+    and each ``shadow_rel`` equals, as a float, ``rel_l2`` of the served
+    state against ``sim.oracle_replay`` recomputed outside the monitor (once
+    a request's initial state and horizon, shared by the planes)."""
+    lines, oracles = [], {}
+    for execution in executions:
+        steps = PASSIVITY_STEPS.get(execution, {}).get(case, MAIN_STEPS[case])
+        off, _, _ = health_bucket(device, case, execution, steps)
+        where = os.path.join(ROOT, "build", f"health_passivity_{os.getpid()}_{case}_{execution}")
+        on, states, monitor = health_bucket(device, case, execution, steps, flight_dir=where)
+        same = all(served_equal(a, b) for a, b in zip(off, on))
+        rels = [monitor.shadow_rel.get(h.id) for h in on]
+        for i, (h, x) in enumerate(zip(on, states)):
+            if (i, steps) not in oracles:
+                oracles[i, steps] = h._record.sim.oracle_replay(steps, state0=x)
+        again = [shadow_recomputed(h, oracles[i, steps]) for i, h in enumerate(on)]
+        line = (f"health passivity {case} rr_tracked {execution} {steps} steps: monitor on = off bit for bit: "
+                f"{'ok' if same else 'MISMATCH'}; shadowed {len(monitor.shadow_rel)} of {len(on)}, shadow_rel "
+                f"{rels} = recomputed {again}: {'ok' if rels == again else 'MISMATCH'}; "
+                f"{len(monitor.alerts)} alerts {[str(a) for a in monitor.alerts]}")
+        log(line)
+        lines.append(line)
+        require(same and len(monitor.shadow_rel) == len(on) and rels == again, line)
+    return lines
+
+
+def health_storm_alerts(device, flight_dir):
+    """``repro_torch.obs.health``'s storm burst (three starved pinned
+    advection1d members) on ``device`` with ``shadow_rate=1.0``: its alerts as
+    dicts."""
+    import repro_torch.obs as obs
+    import repro_torch.obs.health as health
+    from repro_torch.service import SimService
+
+    obs.enable(sample=1.0)
+    try:
+        monitor = health.enable(shadow_rate=1.0, flight_dir=flight_dir)
+        svc = SimService(device=device)
+        health._storm_burst(svc)
+        svc.run_until_idle()
+    finally:
+        health.disable()
+        obs.disable()
+    return [a.to_dict() for a in monitor.alerts]
+
+
+def check_health_smoke(device):
+    """``python -m repro_torch.obs.health --smoke --device cuda`` exits 0 and
+    ``--burst storm`` exits 3 (each a process of its own, through the
+    module's ``__main__`` delegation); the storm's alerts, read from its last
+    flight dump, equal the port's storm on the CPU under flush, wall times
+    left out (no alert carries one)."""
+    from repro_torch.obs.flightrec import load_flightrec
+
+    out = os.path.join(OUT_DIR, "health_smoke")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    rcs = {}
+    for burst in ("clean", "storm"):
+        res = subprocess.run([sys.executable, "-m", "repro_torch.obs.health", "--smoke", "--burst", burst, "--device",
+                              device, "--out", os.path.join(out, burst)], capture_output=True, text=True, env=env,
+                             timeout=600)
+        rcs[burst] = res.returncode
+        if res.returncode != {"clean": 0, "storm": 3}[burst]:
+            log(res.stdout[-4000:] + res.stderr[-4000:])
+    dumps = sorted(os.listdir(os.path.join(out, "storm", "flightrec")))
+    card = [e["alert"] for e in load_flightrec(os.path.join(out, "storm", "flightrec", dumps[-1]))["events"]
+            if e["kind"] == "alert"]
+    with cpu_flushed():
+        cpu = health_storm_alerts("cpu", os.path.join(ROOT, "build", f"health_storm_cpu_{os.getpid()}"))
+    line = (f"repro_torch.obs.health --smoke on the card: clean exit {rcs['clean']} (want 0), storm exit "
+            f"{rcs['storm']} (want 3); the storm's {len(card)} alerts on the card "
+            f"{'equal' if card == cpu else 'DIFFER FROM'} the CPU's under flush: "
+            f"{[(a['kind'], a['scope'], a['step'], a['detail'].get('fraction')) for a in card]}")
+    log(line)
+    require(rcs == {"clean": 0, "storm": 3} and card == cpu and len(card) == 3, line)
+    return [line]
+
+
 def serving_tasks(device):
     """The serving path's checks, each a task for :func:`run_checks_in_workers`
-    (the longest first): passivity, the fused bucket, packed storage and
-    eviction, the obs gate."""
+    (the longest first): passivity, the health plane's passivity, the fused
+    bucket, packed storage and eviction, the obs and health gates."""
+    kernel_planes = ("fused", "megakernel")
     return [
+        ("health passivity", "check_health_passivity", (device, "heat1d", kernel_planes), {}),
         ("serving passivity", "check_passivity", (device, "heat1d"), {}),
+        ("health passivity", "check_health_passivity", (device, "swe2d", kernel_planes), {}),
         ("serving fused bucket", "check_serving_fused_bucket", (device,), {}),
+        ("health smoke", "check_health_smoke", (device,), {}),
         ("serving passivity", "check_passivity", (device, "swe2d"), {}),
+        ("health passivity", "check_health_passivity", (device, "swe2d", ("reference",)), {}),
+        ("health passivity", "check_health_passivity", (device, "heat1d", ("reference",)), {}),
         ("serving storage and eviction", "check_serving_storage_and_eviction", (device,), {}),
         ("obs smoke", "check_obs_smoke", (device,), {}),
     ]
+
+
+#: the health burst's requests beyond r2f2_16 and rr_tracked: e5m10 where the
+#: ladder's row is ``DESTROYED(NaN)``
+HEALTH_E5M10 = ("swe2d", "advection1d")
+#: the families ``/metrics`` must serve after the health burst
+HEALTH_FAMILIES = ("repro_health_alerts_total", "repro_health_shadow_sampled_total", "repro_health_shadow_breach_total",
+                   "repro_health_shadow_seconds_total", "repro_health_error_budget_burn",
+                   "repro_health_shadow_rel_l2", "repro_health_queue_depth", "repro_service_chunk_latency_seconds")
+HEALTH_HOOKS = ("on_submit", "note_occupancy", "on_chunk", "observe_frame", "on_tracker", "on_request_done",
+                "on_request_failed", "sweep", "dump")
+
+
+def time_hooks(monitor):
+    """Wrap the monitor's hooks (and its detector sweep and flight dumps,
+    which the hooks call) to sum their wall seconds by name into the
+    returned dict."""
+    spent = {}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+        return timed
+
+    for name in HEALTH_HOOKS:
+        setattr(monitor, name, wrap(name, getattr(monitor, name)))
+    return spent
+
+
+def run_health_burst(device, ladder_rows):
+    """The health plane at full width: one ``SimService`` on the card
+    (``max_bucket`` 8, ``execution="auto"``) under ``obs.enable(sample=1.0)``
+    and ``health.enable(shadow_rate=1.0, flight_dir=chiprun_out/flightrec)``
+    serving the five configurations uncut: per configuration an r2f2_16 and
+    an rr_tracked request at cadence H/4, and e5m10 requests for swe2d and
+    advection1d (the ladder's ``DESTROYED(NaN)`` rows). Every request equals
+    its solo run on the card bit for bit; each megakernel's launches (counted
+    from 0 right before the burst, read right after) equal its buckets'
+    chunk calls; every request is shadowed and each ``shadow_rel`` equals its
+    recomputation outside the monitor (inf for e5m10); ``overflow_storm``
+    with signal ``nonfinite`` fires for exactly the e5m10 requests; the
+    telemetry detectors' alerts equal ``run_detectors`` replayed offline over
+    the exported telemetry, and any SLO breach is one its rule's value
+    shows; the verdict's ``shadow.breaches`` counts the requests over the
+    error budget; every flight dump reloads; ``/metrics`` over loopback holds
+    the health and chunk-latency families and ``/health``'s status matches
+    the alerts. Prints each request's rel beside phase 3's ladder rel, the
+    replays' seconds by configuration and the hooks' self-time as a share of
+    chunk time. Returns the figures and the lines."""
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    import repro_torch.obs as obs
+    import repro_torch.obs.health as health
+    from repro_torch.obs.flightrec import load_flightrec
+    from repro_torch.obs.metrics import parse_prometheus
+    from repro_torch.obs.precision import load_telemetry
+    from repro_torch.obs.server import HealthServer
+    from repro_torch.obs.timing import sync
+    from repro_torch.pde import Simulation
+    from repro_torch.service import ServiceConfig, SimRequest, SimService
+
+    L = ladder()
+    flight_dir = os.path.join(OUT_DIR, "flightrec")
+    art_dir = os.path.join(OUT_DIR, "health_burst")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    states = {}
+    for case in MAIN_STEPS:
+        cfg = workload_config(case)[0]
+        states[case] = Simulation(case, cfg, L["f32"], device="cpu").stepper.init_state(cfg, device="cpu")
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    scope = obs.enable(sample=1.0)
+    t0 = time.perf_counter()
+    try:
+        monitor = health.enable(shadow_rate=1.0, flight_dir=flight_dir)
+        spent = time_hooks(monitor)
+        svc = SimService(ServiceConfig(max_bucket=SERVE_MAX_BUCKET, max_queue=256), device=device)
+        handles = []
+        for case in MAIN_STEPS:
+            cfg, steps = workload_config(case)[0], MAIN_STEPS[case]
+            for prec in ("r2f2_16", "rr_tracked") + (("e5m10",) if case in HEALTH_E5M10 else ()):
+                handles.append(svc.submit(SimRequest(case, steps, L[prec], cfg=cfg, state0=states[case].clone(),
+                                                     snapshot_every=serve_cadence(case, 4), tag=f"{case}/{prec}")))
+        svc.run_until_idle()
+        sync(None, device)
+        wall = time.perf_counter() - t0
+        launches = ensemble_counts(ctr)
+        plain = sum(c.plain_calls for c in ctr.values())
+        paths = obs.export(art_dir)
+        server = HealthServer.for_monitor(monitor).start()
+        try:
+            with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+                families = parse_prometheus(r.read().decode())
+            try:
+                with urllib.request.urlopen(server.url + "/health", timeout=30) as r:
+                    code, served_verdict = r.status, json.loads(r.read().decode())
+            except urllib.error.HTTPError as e:
+                code, served_verdict = e.code, json.loads(e.read().decode())
+        finally:
+            server.stop()
+    finally:
+        health.disable()
+        obs.disable()
+    m = svc.metrics
+    summary = m.summary()
+    chunks_by_kernel = {}
+    for key, n, steps, secs, compiled in m.chunk_samples:
+        k = serve_plane_kernel(key)
+        chunks_by_kernel[k] = chunks_by_kernel.get(k, 0) + (steps if k == "swe_flux_fused" else 1)
+    mega = {k: v for k, v in chunks_by_kernel.items() if k.endswith("_mega")}
+    lines = []
+
+    def say(line):
+        log(line)
+        lines.append(line)
+
+    say(f"health burst: {len(handles)} requests on {sorted({h.bucket_key.execution for h in handles})}; kernel "
+        f"launches {launches} (counted from 0 before the burst); bucket chunk calls by kernel {chunks_by_kernel}; "
+        f"plain-version calls {plain}; burst wall {wall:.2f} s")
+    require(all(h.status == "done" for h in handles), "a request of the health burst did not complete: "
+            + str([(h.tag, h.status) for h in handles if h.status != "done"]))
+    require(plain == 0, "plain versions ran on the health burst's path")
+    require(set(mega) >= {f"{case}_mega" for case in MAIN_STEPS}, "a megakernel never ran on the health burst")
+    require(launches == chunks_by_kernel, "a kernel's launches differ from its buckets' chunk calls on the health burst")
+    bad = [h.tag for h in handles if not served_equals_solo(h, serve_solo(h, device))]
+    say(f"health burst: {len(handles) - len(bad)} of {len(handles)} requests equal their solo runs on the card bit for "
+        "bit (state, snapshots, tracker)")
+    require(not bad, f"requests of the health burst differ from their solo runs: {bad}")
+
+    # the shadow oracle: every request, each rel recomputed outside the monitor
+    ladder_rel = {(r["case"], r["prec"]): r["rel"] for r in ladder_rows if r["execution"] == "auto"}
+    rels, mismatched, oracles = {}, [], {}
+    for h in handles:
+        case, prec = h.tag.split("/")
+        rel = monitor.shadow_rel.get(h.id)
+        if case not in oracles:  # the requests of a configuration share their initial state and horizon
+            oracles[case] = h._record.sim.oracle_replay(MAIN_STEPS[case], state0=states[case])
+        again = shadow_recomputed(h, oracles[case])
+        rels[h.tag] = rel
+        if rel != again or (prec == "e5m10") != (rel == float("inf")):
+            mismatched.append((h.tag, rel, again))
+        say(f"  shadow {h.tag:24s} rel {rel!r} (recomputed {again!r}); phase 3's ladder rel (observables, auto) "
+            f"{ladder_rel.get((case, prec))!r}")
+    require(len(monitor.shadow_rel) == len(handles), "a request of the health burst was not shadowed")
+    require(not mismatched, f"shadow_rel differs from its recomputation (or e5m10's is not inf): {mismatched}")
+
+    # the alerts: frame storms for exactly the e5m10 requests, the detectors' against the offline replay
+    scope_of = {f"req{h.id}:{h.bucket_key.stepper}": h.tag for h in handles}
+    frame = [a for a in monitor.alerts if a.kind == "overflow_storm" and a.detail.get("signal") == "nonfinite"]
+    slo = [a for a in monitor.alerts if a.kind == "slo_breach"]
+    detected = [a for a in monitor.alerts if a not in frame and a not in slo]
+    offline = health.run_detectors(load_telemetry(paths["telemetry"]), monitor.config)
+    rules = {r.name: r for r in monitor.config.slos}
+    e5m10 = sorted(h.tag for h in handles if h.tag.endswith("/e5m10"))
+    say(f"health alerts: {len(monitor.alerts)} ({len(frame)} frame storms on {sorted(scope_of[a.scope] for a in frame)}, "
+        f"{len(detected)} detector alerts against {len(offline)} replayed offline, {len(slo)} SLO breaches); "
+        + "; ".join(str(a) for a in monitor.alerts))
+    require(sorted(scope_of[a.scope] for a in frame) == e5m10, "the frame storms are not exactly the e5m10 requests")
+    require([a.to_dict() for a in detected] == [a.to_dict() for a in offline],
+            "the live detector alerts differ from run_detectors over the exported telemetry")
+    require(all(not rules[a.scope].ok(a.detail["value"]) for a in slo), "an SLO breach its rule's value does not show")
+    verdict = monitor.verdict()
+    over = sum(1 for rel in monitor.shadow_rel.values() if not (rel <= monitor.config.err_budget))
+    require(verdict["shadow"]["breaches"] == over and verdict["shadow"]["sampled"] == len(handles),
+            f"the verdict's shadow figures {verdict['shadow']} against {over} requests over the budget")
+    for p in monitor.dump_paths:
+        load_flightrec(p)
+    missing = [f for f in HEALTH_FAMILIES if f not in families]
+    status = "alerting" if monitor.alerts else "ok"
+    say(f"health scrape over loopback: /metrics {len(families)} families (missing {missing}); /health HTTP {code} "
+        f"status {served_verdict.get('status')} (want {status}); {len(monitor.dump_paths)} flight dumps reload")
+    require(not missing and served_verdict.get("status") == status and code == (200 if status == "ok" else 503),
+            "the scrape endpoint's /metrics or /health disagree with the monitor")
+
+    # what it cost: the replays by configuration, the hooks beside the chunks
+    replay_s = {}
+    for e in monitor.flight.events():
+        if e["kind"] == "shadow":
+            tag = next(h.tag for h in handles if h.id == e["request"])
+            replay_s.setdefault(tag.split("/")[0], []).append(e["seconds"])
+    shadow_s, dump_s = verdict["shadow"]["seconds"], spent.get("dump", 0.0)
+    hooks_s = sum(v for k, v in spent.items() if k not in ("sweep", "dump")) - shadow_s - dump_s
+    chunk_s = summary["busy_seconds"] + summary["compile_seconds"]
+    series = scope.telemetry.all_series()
+    figures = dict(
+        requests=len(handles), wall_s=wall, chunks=summary["chunks"], chunk_s=chunk_s,
+        replay_s_by_config={k: sum(v) / len(v) for k, v in replay_s.items()}, shadow_s=shadow_s,
+        hook_self_s=hooks_s, hook_share_of_chunk_time=hooks_s / chunk_s if chunk_s > 0 else float("nan"),
+        dump_s=dump_s, hook_s_by_name=spent, sweep_ms_per_chunk=1e3 * spent.get("sweep", 0.0) / max(1, summary["chunks"]),
+        telemetry_series=len(series), telemetry_samples=sum(len(s.steps) for s in series),
+        shadow_rel=rels, alerts=[a.to_dict() for a in monitor.alerts], breaches=over,
+        flight_dumps=len(monitor.dump_paths), launches=launches,
+    )
+    say("health costs: shadow replay seconds by configuration (mean a request) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in figures["replay_s_by_config"].items())
+        + f"; hooks' self-time (all but the replays and the flight dumps) {hooks_s:.4f} s = "
+        f"{100 * figures['hook_share_of_chunk_time']:.2f}% of {chunk_s:.4f} s of chunk time over {summary['chunks']} "
+        f"chunks; {len(monitor.dump_paths)} flight dumps {dump_s:.4f} s; the detector sweep "
+        f"{figures['sweep_ms_per_chunk']:.3f} ms a chunk over {len(series)} series of {figures['telemetry_samples']} "
+        f"samples; hooks by name { {k: round(v, 4) for k, v in spent.items()} }")
+    return figures, lines
 
 
 # ---------------------------------------------------------------------------
@@ -4274,11 +4642,11 @@ def main(argv) -> int:
     # the ensemble path, its resume through a checkpoint and the serving path's checks, in worker processes (each
     # counts its own launches); then the serving burst alone on the card
     serve_tasks = serving_tasks(device)
-    ens_tasks = serve_tasks[:1]
+    ens_tasks = serve_tasks[:3]
     ens_tasks += [("ensemble path", "check_ensemble_path", (device, "swe2d", (mode,)), {}) for mode in ENSEMBLE_PATH_MODES]
     ens_tasks += [("ensemble path", "check_ensemble_path", (device, case), {}) for case in MAIN_STEPS if case != "swe2d"]
     ens_tasks += [("ensemble resume", "check_ensemble_resume", (device, *run), {}) for run in RESUME_RUNS]
-    ens_tasks += serve_tasks[1:]
+    ens_tasks += serve_tasks[3:]
     results, seconds = timed("ensemble and serving checks", run_checks_in_workers, ens_tasks)
     report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
     report["ensemble_path"], report["serving_lines"] = [], []
@@ -4296,9 +4664,13 @@ def main(argv) -> int:
     require(not missing, f"member-axis kernels the ensemble path never launched: {missing}")
     report["serving"], burst_lines = timed("serving burst", run_serving_burst, device, policies)
     report["serving_lines"] += burst_lines
+    report["health"], health_lines = timed("health burst", run_health_burst, device, report["ladder"])
+    report["serving_lines"] += health_lines
     checks_s = sum(seconds[label] for label in {task[0] for task in serve_tasks})
-    log(f"serving phase: its checks {checks_s:.1f} s of worker time beside the ensembles', the burst and its solo "
-        f"runs {report['phase_s']['serving burst']:.1f} s alone on the card; {card}")
+    health_checks_s = sum(seconds.get(label, 0.0) for label in ("health passivity", "health smoke"))
+    log(f"serving phase: its checks {checks_s:.1f} s of worker time beside the ensembles' (the health plane's "
+        f"{health_checks_s:.1f} s of them), the burst and its solo runs {report['phase_s']['serving burst']:.1f} s and "
+        f"the health burst {report['phase_s']['health burst']:.1f} s alone on the card; {card}")
     phase_done(3)
 
     four = ("e5m10", "r2f2_16", "bf16", "rr_tracked")

@@ -9,8 +9,18 @@ report into (DESIGN.md §15), as ``repro.obs`` has it.
   grow/shrink counters and evidence coverage, drained from trackers.
 * :mod:`repro_torch.obs.timing`: the timing helper with a compile/execute
   split that synchronizes the card before it reads the clock.
-* :mod:`repro_torch.obs.health`: the registry the service asks for a live
-  health monitor; none is enabled until the monitor itself is ported.
+* :mod:`repro_torch.obs.health`: the live numerics-health monitor the
+  service reports into (DESIGN.md §16): anomaly detectors over the
+  telemetry and the streamed frames, SLO rules, the shadow oracle, the
+  flight recorder; ``python -m repro_torch.obs.health`` (report,
+  ``--watch``, ``--smoke``).
+* :mod:`repro_torch.obs.shadow`: deterministic shadow-oracle sampling, f32
+  replays of served requests (``Simulation.oracle_replay``) and the rel-L2
+  drift.
+* :mod:`repro_torch.obs.flightrec`: the bounded flight recorder and its
+  strict loader (``repro``'s schema, so dumps load in either package).
+* :mod:`repro_torch.obs.server`: the stdlib HTTP scrape endpoint
+  (``/metrics``, ``/health``, ``/telemetry``).
 * ``python -m repro_torch.obs``: the headless reporter over exported
   artifacts, and the ``--smoke`` gate.
 

@@ -317,6 +317,24 @@ class Simulation:
                 )
         return execution
 
+    # -- f32 oracle (shadow replay) ------------------------------------------
+
+    def oracle(self) -> "Simulation":
+        """This simulation's f32 oracle twin: the same stepper and config,
+        reference arithmetic, on the same device. The health plane's shadow
+        sampler replays service requests through it to measure live drift
+        (DESIGN.md §16)."""
+        return Simulation(self.stepper, self.cfg, PrecisionConfig(mode="f32"), device=self.device)
+
+    def oracle_replay(self, steps: int, *, state0=None, snapshot_every: Optional[int] = None) -> SimResult:
+        """Replay a workload at f32 on the reference plane: the shadow oracle
+        of :mod:`repro_torch.obs.shadow`. A separate run over copies of the
+        inputs that shares no carried state or tracker with the primary run,
+        which is why shadow sampling is passive. A packed ``state0`` is
+        decoded on entry (``_storage_in``); a host state moves to the device
+        before the flush mode, so its subnormals reach the run as they are."""
+        return self.oracle().run(steps, snapshot_every=snapshot_every, state0=state0, execution="reference")
+
     def run(
         self,
         steps: int,

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.service [--steppers a,b] [--per 2]
         [--precisions f32,r2f2_16,rr_tracked] [--steps 240]
-        [--execution auto] [--max-bucket 8] [--smoke] [--device cpu]
+        [--execution auto] [--max-bucket 8] [--smoke] [--health]
+        [--shadow-rate 0.25] [--device cpu]
 
 Submits ``--per`` requests per (registered stepper x precision) with scaled
 initial conditions: compatible members pack into shared buckets (the
@@ -11,6 +12,11 @@ sibling buckets. Then it drives the service to idle and prints one line per
 request and the metrics report. The exit status is 0 only if every
 admitted request completed. Runs on the CUDA card unless ``--device cpu``
 is given.
+
+``--health`` also runs the burst under the :mod:`repro_torch.obs.health`
+monitor (shadow-oracle sampling at ``--shadow-rate``, anomaly detectors, SLO
+rules) and makes ANY health alert a nonzero exit (3): the headless alerting
+contract (DESIGN.md §16).
 """
 
 from __future__ import annotations
@@ -38,12 +44,24 @@ def main(argv=None) -> int:
                     choices=("auto", "reference", "fused", "megakernel"))
     ap.add_argument("--max-bucket", type=int, default=8)
     ap.add_argument("--smoke", action="store_true", help="a reduced burst")
+    ap.add_argument("--health", action="store_true",
+                    help="run under the repro_torch.obs.health monitor; any alert makes the exit status nonzero")
+    ap.add_argument("--shadow-rate", type=float, default=0.25, help="--health shadow-oracle sampling rate")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
     names = args.steppers.split(",") if args.steppers else known_steppers()
     steps = 48 if args.smoke else args.steps
     precs = ("f32", "rr_tracked") if args.smoke else tuple(args.precisions.split(","))
+
+    monitor = None
+    if args.health:
+        import repro_torch.obs as obs
+        import repro_torch.obs.health as health
+
+        if not obs.enabled():
+            obs.enable(sample=1.0)
+        monitor = health.enable(shadow_rate=args.shadow_rate)
 
     svc = SimService(ServiceConfig(max_bucket=args.max_bucket, max_queue=1024), device=args.device)
     handles = []
@@ -86,6 +104,14 @@ def main(argv=None) -> int:
 
     print()
     print(svc.metrics.report())
+    if monitor is not None:
+        v = monitor.verdict()
+        print(f"health: {v['status']} — {v['alerts']['total']} alert(s), "
+              f"shadow sampled {v['shadow']['sampled']} (burn {v['shadow']['burn']})")
+        for a in monitor.alerts:
+            print(f"  {a}")
+        if monitor.alerts:
+            return 3  # the headless alerting contract: an alert is a nonzero exit
     return 0 if ok else 2
 
 

@@ -161,12 +161,15 @@ class RequestRecord:
     """
 
     def __init__(self, rid: int, req: SimRequest, sim: Simulation, key: BucketKey,
-                 state, tracker, steps: int, every: int):
+                 state, tracker, steps: int, every: int, initial=None):
         self.id = rid
         self.req = req
         self.sim = sim
         self.key = key
         self.state = state
+        #: the initial state as admitted, before a packed request's admission
+        #: pack (``state`` itself otherwise): the shadow oracle replays from it
+        self.initial = state if initial is None else initial
         self.tracker = tracker
         self.tracked = tracker is not None
         self.steps = steps
@@ -263,6 +266,7 @@ def resolve_request(rid: int, req: SimRequest, *, device=None) -> RequestRecord:
             state0 = stepper.init_state(cfg, device=device)
     else:
         state0 = _on_device(req.state0, device)
+    initial = state0
     if storage == "packed" and not is_packed(state0):
         # a packed member carries payloads from admission on, packed as a solo
         # run packs its entry state, so members that join a running bucket
@@ -273,7 +277,7 @@ def resolve_request(rid: int, req: SimRequest, *, device=None) -> RequestRecord:
     every = req.snapshot_every or max(1, req.steps // stepper.snapshots_default)
 
     key = BucketKey(stepper.name, cfg, prec, execution, _shape_sig(state0), storage)
-    return RequestRecord(rid, req, sim, key, state0, tracker, req.steps, every)
+    return RequestRecord(rid, req, sim, key, state0, tracker, req.steps, every, initial=initial)
 
 
 def scaled_state0(stepper_name: str, scale: float = 1.0, overrides=None, *, device=None):

@@ -1,7 +1,7 @@
 """The port's examples (examples/torch_*.py) run end to end on the CPU at a
 few steps, each through its ``main``: the quickstart's five parts, the heat
 and shallow-water ladders, the zoo with --profile and --ensemble, and the
-service burst with --trace."""
+service burst with --trace and with --health."""
 
 import importlib.util
 import os
@@ -60,3 +60,21 @@ def test_pde_service_with_trace(tmp_path, capsys):
     assert all(rel < 0.1 for rel in out["rels"].values()) and len(out["rels"]) == 4
     text = capsys.readouterr().out
     assert "[tune] heat2d" in text and "occupancy" in text and "trace.json" in text
+
+
+def test_pde_service_with_health(tmp_path, monkeypatch, capsys):
+    """--health: the clean burst's verdict is ok with every second request
+    shadowed; the stale-artifact deploy (advection1d pinned at k=0, traffic
+    ~1e5) raises one overflow storm a member and dumps the flight ring
+    (under artifacts/flightrec of the working directory)."""
+    import repro_torch.obs as obs
+    import repro_torch.obs.health as health
+
+    monkeypatch.chdir(tmp_path)
+    out = example("torch_pde_service").main(["--device", "cpu", "--steps", "16", "--workloads", "heat1d", "--health"])
+    assert out["done"] and out["verdict"]["status"] == "ok" and out["verdict"]["shadow"]["sampled"] == 2
+    assert [(a.kind, a.detail["signal"]) for a in out["alerts"]] == [("overflow_storm", "nonfinite")] * 3
+    assert len(os.listdir(tmp_path / "artifacts" / "flightrec")) == 3
+    assert health.active() is None and obs.active() is None
+    text = capsys.readouterr().out
+    assert "STALE artifact" in text and "exiting nonzero" in text

@@ -289,10 +289,12 @@ def test_service_drains_only_the_requests_scopes():
 # ---------------------------------------------------------------------------
 
 
-def test_health_registry_has_no_monitor_until_ported():
+def test_health_registry_has_no_monitor_until_ported(tmp_path):
+    """No monitor until one is enabled; ``enable`` installs one (the health
+    plane is ported: tests/test_torch_health.py) and ``disable`` removes it."""
     assert health.active() is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, obs/health"):
-        health.enable(shadow_rate=0.5)
+    mon = health.enable(shadow_rate=0.5, flight_dir=str(tmp_path))
+    assert health.active() is mon and mon.config.shadow_rate == 0.5
     health.disable()
     assert health.active() is None
 

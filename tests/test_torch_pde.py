@@ -268,7 +268,9 @@ def test_port_imports_without_jax_or_repro():
         "repro_torch.configs.heat1d, repro_torch.configs.swe2d, repro_torch.configs.heat2d, "
         "repro_torch.configs.advection1d, repro_torch.configs.burgers1d, repro_torch.configs.llama4_scout_17b_a16e, "
         "repro_torch.kernels.ops, repro_torch.kernels.r2f2_quantize, repro_torch.kernels.r2f2_matmul, "
-        "repro_torch.core.rr_dot, repro_torch.models, repro_torch.models.moe, repro_torch.train, repro_torch.serve\n"
+        "repro_torch.core.rr_dot, repro_torch.models, repro_torch.models.moe, repro_torch.train, repro_torch.serve, "
+        "repro_torch.service, repro_torch.obs.health, repro_torch.obs.shadow, repro_torch.obs.flightrec, "
+        "repro_torch.obs.server\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
     )

@@ -8,7 +8,7 @@ import importlib
 import pytest
 
 PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "models", "configs", "dist", "ckpt", "obs",
-            "service")
+            "service", "obs.health", "obs.shadow", "obs.flightrec", "obs.server")
 
 #: (package, name) -> the ROADMAP.md item it waits for
 PENDING = {
