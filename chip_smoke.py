@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick          # build + kernel-vs-plain checks only
     python3 chip_smoke.py --heat1d-sizes   # build + heat1d's K2/K4 times by rod size and its ladder rows
     python3 chip_smoke.py --swe2d-times    # build + K4 swe2d's times by shape
+    python3 chip_smoke.py --lm             # build + phase 6's LM paths and K6/K7's times
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -87,12 +88,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the health plane (``repro_torch.obs.health``): in the same worker pool
    the monitor on (``shadow_rate=1.0``) against off for heat1d and swe2d
    rr_tracked buckets at full width on the three planes (bit for bit,
-   every request shadowed, each ``shadow_rel`` equal to its recomputation)
+   every request shadowed, each ``shadow_rel`` equal to its recomputation;
+   the kernel planes at heat1d 1000 and swe2d 100 steps,
+   :data:`HEALTH_PASSIVITY_STEPS`)
    and ``python -m repro_torch.obs.health --smoke`` (clean exit 0, storm
    exit 3, the storm's alerts equal to the CPU's under flush); then, alone
-   on the card, a monitored burst of 12 requests of the five
-   configurations uncut (:func:`run_health_burst`: r2f2_16 and rr_tracked
-   each, e5m10 for swe2d and advection1d), each equal to its solo run, every
+   on the card, a monitored burst of 7 requests of the five
+   configurations uncut (:func:`run_health_burst`: r2f2_16 each, e5m10
+   for swe2d and advection1d), each equal to its solo run, every
    request shadowed at f32, overflow storms for exactly the e5m10 requests,
    the live detectors equal to their offline replay, the scrape endpoint
    over loopback, and the replays' seconds and the hooks' share printed;
@@ -124,16 +127,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    in the kernels line;
 6. the contraction path: the kernel API (K6 and K7 at bench_kernels'
    shapes) and llama4-scout-17b-a16e served at its published widths, cut
-   to 2 layers, with random weights: 4 prompts of 64 tokens, 16 greedy new
+   to 2 layers, with random weights: 4 prompts of 64 tokens, 8 greedy new
    tokens, under r2f2_16 with K7 in the router and the shared expert
-   (exactly 128 launches), the same with K7's plain version (the same
+   (exactly 64 launches), the same with K7's plain version (the same
    tokens, bit-identical prefill logits) and f32 (the logits' rel-L2), each
-   then timed warm (a prefill and decode steps one by one), then K6 and K7
+   then timed warm (a prefill and 3 decode steps one by one); then the LM
+   families at their published widths, depth cut to one pattern period,
+   random weights (:func:`run_lm_families`): jamba-v0.1-52b (8 layers,
+   13.3 G params: mamba, attention, MoE; K7 exactly 16 launches a
+   generate at its routers), mistral-nemo-12b at S = 8192 on the chunked
+   attention path against the dense one (causal and windowed), xlstm-1.3b
+   (its first decode step against a forward), qwen3-moe-235b-a22b (scatter
+   against einsum dispatch; K7 at its router), pixtral-12b's patch and
+   hubert-xlarge's frame frontends, and stablelm-12b, llama3-405b and
+   yi-34b (a prefill against a forward, decode steps), each in f32 and
+   most in r2f2_16, with its ms and peak memory; the seconds the cuts of
+   phases 3 and 6 saved are printed beside the families'; then K6 and K7
    timed at the path's shapes beside their bounds, plain versions and
    cuBLAS SGEMM, both by replayed CUDA graphs (and by CUDA events around
    the wrapper's calls): K6 also on its two-pass shape (its kernel before the cluster shape),
    K7 split and unsplit, with its launch shape (the K blocks split S over
-   CTAs, the CTA count).
+   CTAs, the CTA count), also at jamba's and qwen3's router shapes.
 
 ``--heat1d-sizes`` times heat1d's K2 and K4 as phase 5 does and runs
 heat1d's ladder rows, nothing else; ``--swe2d-times`` times K4 swe2d as
@@ -2507,23 +2521,26 @@ def _run_check(task):
 def run_checks_in_workers(tasks):
     """Run ``tasks``, each (label, function name, args, kwargs), in
     :data:`CHECK_WORKERS` spawned processes that share the card, handed out
-    in the order listed (list the longest first); log each task's lines in
-    that order, and raise after the last task if any failed. Every worker
-    has ended when this returns. Returns each task's result in order and
-    the seconds by label, summed over the workers."""
+    in the order listed (list the longest first); log each task's lines and
+    seconds in that order, and raise after the last task if any failed.
+    Every worker has ended when this returns. Returns each task's result in
+    order, the seconds by label, summed over the workers, and each task's
+    seconds in order."""
     ctx = multiprocessing.get_context("spawn")
-    results, seconds, errors = [], {}, []
+    results, seconds, errors, each = [], {}, [], []
     with concurrent.futures.ProcessPoolExecutor(CHECK_WORKERS, mp_context=ctx, initializer=_check_worker_init) as pool:
         futures = [pool.submit(_run_check, (name, args, kw)) for _, name, args, kw in tasks]
-        for (label, *_), fut in zip(tasks, futures):
+        for (label, name, args, _), fut in zip(tasks, futures):
             out, text, error, s = fut.result()
             print(text, end="", flush=True)
+            log(f"  task {label} ({name}{tuple(a for a in args if a != 'cuda')}): {s:.1f} s")
             seconds[label] = seconds.get(label, 0.0) + s
+            each.append(s)
             if error is not None:
                 errors.append(f"{label}: {error}")
             results.append(out)
     require(not errors, f"{len(errors)} of {len(tasks)} checks in the workers failed: " + "; ".join(errors))
-    return results, seconds
+    return results, seconds, each
 
 
 #: phase 4's reference plane at a cut depth (heat1d 1000 of 4000 steps,
@@ -2547,7 +2564,7 @@ def check_planes_and_link(device):
     tasks += [("card vs CPU under storage", "check_card_vs_cpu_storage", (device,), dict(cases=[case]))
               for case in link_configs()]
     tasks += [("card vs CPU, ensembles", "check_card_vs_cpu_ensemble", (device, case), {}) for case in link_configs()]
-    results, seconds = run_checks_in_workers(tasks)
+    results, seconds, _ = run_checks_in_workers(tasks)
     lines, link, kept_differs = [], [], 0
     for (label, *_), out in zip(tasks, results):
         if label == "card vs CPU":
@@ -3262,9 +3279,17 @@ def shadow_recomputed(h, oracle):
     return rel_l2(h.result().state, oracle.state, offset=sim.stepper.metric_offset(sim.cfg))
 
 
+#: the health passivity runs' depths on the kernel planes: heat1d at phase
+#: 4's reference depth (1000 of 4000 steps), swe2d over one snapshot interval
+#: of the main path (100 of 400); every request's f32 shadow oracle replays
+#: that horizon op by op on the reference plane, which is the checks' cost
+HEALTH_PASSIVITY_STEPS = {"heat1d": REFERENCE_STEPS["heat1d"], "swe2d": SWE_EVERY}
+
+
 def check_health_passivity(device, case, executions):
     """heat1d or swe2d at full width, two rr_tracked requests in one bucket on
-    each of ``executions`` (the reference plane at :data:`PASSIVITY_STEPS`):
+    each of ``executions`` (the reference plane at :data:`PASSIVITY_STEPS`,
+    the kernel planes at :data:`HEALTH_PASSIVITY_STEPS`):
     the health monitor on (``shadow_rate=1.0``) equals it off bit for bit
     (state, snapshots, tracker, final splits); every request is shadowed,
     and each ``shadow_rel`` equals, as a float, ``rel_l2`` of the served
@@ -3272,7 +3297,7 @@ def check_health_passivity(device, case, executions):
     a request's initial state and horizon, shared by the planes)."""
     lines, oracles = [], {}
     for execution in executions:
-        steps = PASSIVITY_STEPS.get(execution, {}).get(case, MAIN_STEPS[case])
+        steps = PASSIVITY_STEPS.get(execution, {}).get(case, HEALTH_PASSIVITY_STEPS[case])
         off, _, _ = health_bucket(device, case, execution, steps)
         where = os.path.join(ROOT, "build", f"health_passivity_{os.getpid()}_{case}_{execution}")
         on, states, monitor = health_bucket(device, case, execution, steps, flight_dir=where)
@@ -3398,9 +3423,10 @@ def run_health_burst(device, ladder_rows):
     """The health plane at full width: one ``SimService`` on the card
     (``max_bucket`` 8, ``execution="auto"``) under ``obs.enable(sample=1.0)``
     and ``health.enable(shadow_rate=1.0, flight_dir=chiprun_out/flightrec)``
-    serving the five configurations uncut: per configuration an r2f2_16 and
-    an rr_tracked request at cadence H/4, and e5m10 requests for swe2d and
-    advection1d (the ladder's ``DESTROYED(NaN)`` rows). Every request equals
+    serving the five configurations uncut: per configuration an r2f2_16
+    request at cadence H/4, and e5m10 requests for swe2d and advection1d (the
+    ladder's ``DESTROYED(NaN)`` rows); rr_tracked on the health plane is held
+    by :func:`check_health_passivity`. Every request equals
     its solo run on the card bit for bit; each megakernel's launches (counted
     from 0 right before the burst, read right after) equal its buckets'
     chunk calls; every request is shadowed and each ``shadow_rel`` equals its
@@ -3448,7 +3474,7 @@ def run_health_burst(device, ladder_rows):
         handles = []
         for case in MAIN_STEPS:
             cfg, steps = workload_config(case)[0], MAIN_STEPS[case]
-            for prec in ("r2f2_16", "rr_tracked") + (("e5m10",) if case in HEALTH_E5M10 else ()):
+            for prec in ("r2f2_16",) + (("e5m10",) if case in HEALTH_E5M10 else ()):
                 handles.append(svc.submit(SimRequest(case, steps, L[prec], cfg=cfg, state0=states[case].clone(),
                                                      snapshot_every=serve_cadence(case, 4), tag=f"{case}/{prec}")))
         svc.run_until_idle()
@@ -3492,7 +3518,12 @@ def run_health_burst(device, ladder_rows):
     require(plain == 0, "plain versions ran on the health burst's path")
     require(set(mega) >= {f"{case}_mega" for case in MAIN_STEPS}, "a megakernel never ran on the health burst")
     require(launches == chunks_by_kernel, "a kernel's launches differ from its buckets' chunk calls on the health burst")
-    bad = [h.tag for h in handles if not served_equals_solo(h, serve_solo(h, device))]
+    solo_s, bad = {}, []
+    for h in handles:
+        t = time.perf_counter()
+        if not served_equals_solo(h, serve_solo(h, device)):
+            bad.append(h.tag)
+        solo_s[h.tag] = time.perf_counter() - t
     say(f"health burst: {len(handles) - len(bad)} of {len(handles)} requests equal their solo runs on the card bit for "
         "bit (state, snapshots, tracker)")
     require(not bad, f"requests of the health burst differ from their solo runs: {bad}")
@@ -3559,7 +3590,12 @@ def run_health_burst(device, ladder_rows):
         dump_s=dump_s, hook_s_by_name=spent, sweep_ms_per_chunk=1e3 * spent.get("sweep", 0.0) / max(1, summary["chunks"]),
         telemetry_series=len(series), telemetry_samples=sum(len(s.steps) for s in series),
         shadow_rel=rels, alerts=[a.to_dict() for a in monitor.alerts], breaches=over,
-        flight_dumps=len(monitor.dump_paths), launches=launches,
+        flight_dumps=len(monitor.dump_paths), launches=launches, solo_s=solo_s,
+        # the rr_tracked request a configuration no longer served: its f32
+        # replay is its r2f2_16 neighbour's (the same oracle), its solo run
+        # about as long
+        cut_s=sum(figures_replay + solo_s[f"{case}/r2f2_16"] for case, figures_replay in
+                  {k: sum(v) / len(v) for k, v in replay_s.items()}.items()),
     )
     say("health costs: shadow replay seconds by configuration (mean a request) "
         + ", ".join(f"{k} {v:.3f}" for k, v in figures["replay_s_by_config"].items())
@@ -4215,13 +4251,16 @@ def time_swe2d(device, card, explore=False):
 # full width with K7 in the router and the shared expert
 
 LM_ARCH, LM_LAYERS = "llama4-scout-17b-a16e", 2  # depth cut from 48 layers
-LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 16
-#: K7 launches per generate: 2 layers x (router + 3 shared-expert sites) x 16 forwards
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 8
+#: K7 launches per generate: 2 layers x (router + 3 shared-expert sites) x 8 forwards
 LM_K7_LAUNCHES = LM_LAYERS * 4 * LM_NEW
 
 
 #: decode steps timed one by one after the generate (which warmed every path)
-LM_TIMED_STEPS = 5
+LM_TIMED_STEPS = 3
+#: the llama4 runs' depths before they were cut to make room for the LM
+#: families (new tokens a generate, timed decode steps)
+LM_NEW_BEFORE, LM_TIMED_STEPS_BEFORE = 16, 5
 
 
 def run_api_path(device):
@@ -4366,6 +4405,434 @@ def run_lm(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the LM families at published widths, depth cut to one pattern period
+
+#: (arch, layers kept of the published depth), each with random weights from seed 0
+LM_FAMILY_LAYERS = {
+    "jamba-v0.1-52b": 8, "mistral-nemo-12b": 1, "xlstm-1.3b": 8, "qwen3-moe-235b-a22b": 1, "pixtral-12b": 1,
+    "hubert-xlarge": 1, "stablelm-12b": 1, "llama3-405b": 1, "yi-34b": 1,
+}
+#: jamba: 2 prompts of 64 tokens, 4 greedy new tokens; K7 at the router of
+#: its 4 MoE layers once a forward (a prefill and 3 decode steps)
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW = 2, 64, 4
+JAMBA_K7_LAUNCHES = 4 * JAMBA_NEW
+#: mistral-nemo: one prompt of 8192 tokens (8 x 8 chunk pairs of 1024) and the
+#: sliding window it is compared with
+NEMO_S, NEMO_WINDOW = 8192, 4096
+#: chunked against dense f32 prefill logits: |chunked - dense| <= NEMO_BOUND *
+#: max|dense| (the two sum each softmax row in another order, online)
+NEMO_BOUND = 1e-4
+#: xlstm: 4 prompts of 64 tokens, 8 new tokens; its first decode step against
+#: a forward over the prompt and that token, f32: |step - forward| <=
+#: XLSTM_BOUND * max|forward| (the carried state sums in another order than
+#: one chunk over the 65 tokens)
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW, XLSTM_BOUND = 4, 64, 8, 1e-4
+#: qwen3: 2 prompts of 64 tokens, 4 new tokens; scatter against einsum
+#: dispatch, f32: |einsum - scatter| <= QWEN3_BOUND * max|scatter| (the combine
+#: sums a token's 8 experts in another order)
+QWEN3_BATCH, QWEN3_PROMPT, QWEN3_NEW, QWEN3_BOUND = 2, 64, 4, 1e-5
+#: pixtral: 1024 patch embeddings (frontend_dim 1024) and 64 tokens; hubert:
+#: 512 audio frames (frontend_dim 512)
+PIXTRAL_PATCHES, PIXTRAL_TOKENS, HUBERT_FRAMES = 1024, 64, 512
+#: stablelm, llama3-405b, yi: one prompt of 64 tokens and 2 decode steps; the
+#: prefill's last logits against a forward's: |prefill - forward| <=
+#: DENSE_BOUND * max|forward|
+DENSE_PROMPT, DENSE_STEPS, DENSE_BOUND = 64, 2, 1e-5
+#: r2f2_16 logits against f32's on the same inputs: rel-L2 below this
+LM_REL_BOUND = 0.05
+
+
+@contextlib.contextmanager
+def serving_timers(rec):
+    """Time ``generate``'s prefill and each serve step on the host's clock,
+    the card synchronised on both sides, by wrapping them where
+    ``repro_torch.serve.decode`` looks them up: ``rec`` gains ``prefill_ms``,
+    ``logits`` (the prefill's) and ``step_ms``."""
+    import torch
+
+    import repro_torch.serve.decode as decode
+
+    real_prefill, real_step = decode.prefill, decode.make_serve_step
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        rec["prefill_ms"], rec["logits"] = (time.perf_counter() - t) * 1e3, out[0]
+        return out
+
+    def make_serve_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*sa, **skw)
+            torch.cuda.synchronize()
+            rec.setdefault("step_ms", []).append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return timed
+
+    decode.prefill, decode.make_serve_step = prefill, make_serve_step
+    try:
+        yield rec
+    finally:
+        decode.prefill, decode.make_serve_step = real_prefill, real_step
+
+
+def family_model(arch, device):
+    """``arch`` at its published widths, cut to :data:`LM_FAMILY_LAYERS`,
+    random weights from seed 0 on the card. Returns (cfg, params, n_params)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_init
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=LM_FAMILY_LAYERS[arch])
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=device).manual_seed(0), cfg, device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"lm {arch}: {cfg.n_layers} of {full.n_layers} layers, pattern {list(cfg.pattern)}, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}: {n / 1e9:.3f} G params ({n * 4 / 1e9:.1f} GB f32), init {time.perf_counter() - t0:.1f} s")
+    return cfg, params, n
+
+
+def free_models():
+    """Return the freed models' memory to the card before the next loads."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counted(name):
+    """Zero every kernel's counts, run the block, and require that no
+    wrapper ran its plain version; ``rec["launches"]`` holds the launches."""
+    ctr = counters()
+    for c in ctr.values():
+        c.reset()
+    rec = {}
+    yield rec
+    rec["launches"] = {k: c.launches for k, c in ctr.items() if c.launches}
+    plain = {k: c.plain_calls for k, c in ctr.items() if c.plain_calls}
+    require(not plain, f"lm {name}: a wrapper ran a plain version on the card: {plain}")
+
+
+def rel_l2_t(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def max_rel_t(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def family_generate(name, params, cfg, prec, prompts, new, device, card, **kw):
+    """One timed ``generate`` with the kernel counts zeroed right before and
+    read right after. Returns tokens, the prefill's logits and the figures."""
+    import statistics
+
+    import torch
+
+    from repro_torch.serve import generate
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    t = time.perf_counter()
+    with counted(name) as counts, serving_timers(rec):
+        tokens = generate(params, cfg, prec, prompts, max_new_tokens=new, device=device, **kw)
+        torch.cuda.synchronize()
+    figs = dict(generate_ms=(time.perf_counter() - t) * 1e3, prefill_ms=rec["prefill_ms"], step_ms=rec.get("step_ms", []),
+                decode_ms_per_token=statistics.median(rec["step_ms"]) if rec.get("step_ms") else None,
+                peak_bytes=torch.cuda.max_memory_allocated(), launches=counts["launches"])
+    logits = rec["logits"]
+    require(tuple(tokens.shape) == (prompts.shape[0], new) and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+            f"lm {name}: tokens of the wrong shape or range")
+    require(bool(torch.isfinite(logits).all()), f"lm {name}: non-finite prefill logits")
+    log(f"lm {name}: generate {figs['generate_ms']:.1f} ms, prefill {figs['prefill_ms']:.1f} ms, decode "
+        f"{figs['decode_ms_per_token'] or 0:.1f} ms/token (median of {len(figs['step_ms'])} steps inside generate, "
+        f"the first warm after the prefill), peak {figs['peak_bytes'] / 2**30:.2f} GiB, launches {figs['launches']} "
+        f"[{card}]")
+    return tokens, logits, figs
+
+
+def timed_call(fn):
+    """``fn()`` on the host's clock, the card synchronised on both sides, with
+    the peak memory of the call. Returns (ms, peak bytes, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated(), out
+
+
+def lm_jamba(device, card, kern, f32):
+    import torch
+
+    cfg, params, n = family_model("jamba-v0.1-52b", device)
+    prompts = torch.randint(0, cfg.vocab, (JAMBA_BATCH, JAMBA_PROMPT), generator=torch.Generator().manual_seed(1)).to(device)
+    out = {"n_params": n}
+    ft, fl, out["f32"] = family_generate("jamba f32", params, cfg, f32, prompts, JAMBA_NEW, device, card)
+    require(not out["f32"]["launches"], "lm jamba: the f32 run launched a kernel")
+    kt, kl, out["r2f2_16+K7"] = family_generate("jamba r2f2_16+K7", params, cfg, kern, prompts, JAMBA_NEW, device, card)
+    launches = out["r2f2_16+K7"]["launches"]
+    require(launches == {"r2f2_matmul": JAMBA_K7_LAUNCHES},
+            f"lm jamba: launches {launches} a generate, want K7 {JAMBA_K7_LAUNCHES} (4 MoE routers x {JAMBA_NEW} forwards) and no other")
+    out["rel_l2_vs_f32"] = rel = rel_l2_t(kl, fl)
+    out["token_agreement_f32"] = float((kt == ft).float().mean())
+    log(f"lm jamba: prefill logits rel-L2 r2f2_16+K7 vs f32 {rel:.4e} (bound {LM_REL_BOUND}); greedy tokens equal to "
+        f"f32's: {out['token_agreement_f32']:.3f} [{card}]")
+    require(rel < LM_REL_BOUND, f"lm jamba: r2f2_16 logits drift from f32's: rel-L2 {rel}")
+    return out
+
+
+def lm_mistral_nemo(device, card, kern, f32):
+    """One prompt of 8192 tokens: the chunked f32 prefill against the dense
+    path at the same S (``attention.FLASH_THRESHOLD`` raised to S for the
+    dense run), causal and with a window; then a chunked r2f2_16 prefill and
+    2 decode steps against f32's."""
+    import torch
+
+    from repro_torch.models import attention, decode_step, prefill
+
+    cfg, params, n = family_model("mistral-nemo-12b", device)
+    prompt = torch.randint(0, cfg.vocab, (1, NEMO_S), generator=torch.Generator().manual_seed(2)).to(device)
+    out = {"n_params": n}
+    calls = []
+    real = attention._chunked_attention
+    attention._chunked_attention = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        with torch.inference_mode():
+            for window in (None, NEMO_WINDOW):
+                tag = "causal" if window is None else f"window {window}"
+                n0 = len(calls)
+                with counted(f"mistral-nemo f32 {tag}") as counts:
+                    ms, peak, (chunked, _) = timed_call(lambda: prefill(params, cfg, f32, tokens=prompt, window=window))
+                    took_chunked = len(calls) - n0 == 1
+                    threshold = attention.FLASH_THRESHOLD
+                    attention.FLASH_THRESHOLD = NEMO_S
+                    try:
+                        d_ms, d_peak, (dense, _) = timed_call(lambda: prefill(params, cfg, f32, tokens=prompt, window=window))
+                    finally:
+                        attention.FLASH_THRESHOLD = threshold
+                    took_dense = len(calls) - n0 == 1
+                require(not counts["launches"], f"lm mistral-nemo f32 {tag}: a kernel launched")
+                err = max_rel_t(chunked, dense)
+                out[f"f32 {tag}"] = dict(chunked_ms=ms, chunked_peak_bytes=peak, dense_ms=d_ms, dense_peak_bytes=d_peak,
+                                         max_err_rel_to_max=err)
+                log(f"lm mistral-nemo f32 prefill S={NEMO_S} {tag}: chunked ({NEMO_S // attention.FLASH_CHUNK}x{NEMO_S // attention.FLASH_CHUNK} chunk pairs of {attention.FLASH_CHUNK}) {ms:.1f} ms, peak "
+                    f"{peak / 2**30:.2f} GiB; dense {d_ms:.1f} ms, peak {d_peak / 2**30:.2f} GiB; max |chunked - dense| "
+                    f"over the logits = {err:.3e} x max|dense| (bound {NEMO_BOUND}) [{card}]")
+                require(took_chunked and took_dense, f"lm mistral-nemo {tag}: the runs did not take the chunked and dense paths")
+                require(err <= NEMO_BOUND and bool(torch.isfinite(chunked).all()),
+                        f"lm mistral-nemo {tag}: chunked attention differs from dense: {err}")
+                del chunked, dense
+            res = {}
+            for name, prec in (("f32", f32), ("r2f2_16", kern)):
+                with counted(f"mistral-nemo {name}") as counts:
+                    ms, peak, (logits, caches) = timed_call(
+                        lambda: prefill(params, cfg, prec, tokens=prompt, max_len=NEMO_S + DENSE_STEPS))
+                    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+                    step_ms, steps = [], []
+                    for i in range(DENSE_STEPS):
+                        s_ms, _, (lg, caches) = timed_call(lambda: decode_step(params, caches, tok, NEMO_S + i, cfg, prec))
+                        tok = torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)[:, None]
+                        step_ms.append(s_ms)
+                        steps.append(lg)
+                launches = counts["launches"]
+                last = logits
+                res[name] = (last, steps)
+                out[name] = dict(prefill_ms=ms, peak_bytes=peak, step_ms=step_ms, launches=launches)
+                log(f"lm mistral-nemo {name}: chunked prefill S={NEMO_S} {ms:.1f} ms, peak {peak / 2**30:.2f} GiB; decode "
+                    f"steps {', '.join(f'{v:.1f}' for v in step_ms)} ms; launches {launches} [{card}]")
+                require(not launches and all(bool(torch.isfinite(x).all()) for x in (last, *steps)),
+                        f"lm mistral-nemo {name}: non-finite logits, or a kernel launched")
+                del caches
+        rel = rel_l2_t(res["r2f2_16"][0], res["f32"][0])
+        step_rel = [rel_l2_t(a, b) for a, b in zip(res["r2f2_16"][1], res["f32"][1])]
+        out["rel_l2_vs_f32"], out["decode_rel_l2_vs_f32"] = rel, step_rel
+        log(f"lm mistral-nemo: r2f2_16 vs f32 rel-L2: chunked prefill {rel:.4e}, decode steps "
+            f"{[f'{v:.4e}' for v in step_rel]} (bound {LM_REL_BOUND})")
+        require(rel < LM_REL_BOUND and max(step_rel) < LM_REL_BOUND, "lm mistral-nemo: r2f2_16 logits drift from f32's")
+    finally:
+        attention._chunked_attention = real
+    return out
+
+
+def lm_xlstm(device, card, kern, f32):
+    import torch
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    cfg, params, n = family_model("xlstm-1.3b", device)
+    prompts = torch.randint(0, cfg.vocab, (XLSTM_BATCH, XLSTM_PROMPT), generator=torch.Generator().manual_seed(3)).to(device)
+    out = {"n_params": n}
+    ft, fl, out["f32"] = family_generate("xlstm f32", params, cfg, f32, prompts, XLSTM_NEW, device, card)
+    kt, kl, out["r2f2_16"] = family_generate("xlstm r2f2_16", params, cfg, kern, prompts, XLSTM_NEW, device, card)
+    require(not out["f32"]["launches"] and not out["r2f2_16"]["launches"], "lm xlstm: a kernel launched")
+    out["rel_l2_vs_f32"] = rel = rel_l2_t(kl, fl)
+    # the first decode step against a forward over the prompt and that token. f32 is the gate: under r2f2_16
+    # the 65-token forward can overflow where repro's does too (a split picked from a tile's largest exponent
+    # lets 15.99963 round up to inf at k = 0, bit for bit as repro's prepare_operand does; ROADMAP queue 3),
+    # so there its agreement is printed, and its decode step must be finite
+    with torch.inference_mode():
+        for name, prec, first in (("f32", f32, ft[:, :1]), ("r2f2_16", kern, kt[:, :1])):
+            _, caches = prefill(params, cfg, prec, tokens=prompts, max_len=XLSTM_PROMPT + 1)
+            step, _ = decode_step(params, caches, first, XLSTM_PROMPT, cfg, prec)
+            whole, _ = forward(params, cfg, prec, tokens=torch.cat([prompts, first.to(prompts.dtype)], dim=1))
+            ok = torch.isfinite(whole[:, -1]).all(dim=-1)
+            err = max_rel_t(step[ok, -1], whole[ok, -1]) if bool(ok.any()) else float("nan")
+            rel = rel_l2_t(step[ok, -1], whole[ok, -1]) if bool(ok.any()) else float("nan")
+            out[f"{name} first step vs forward"] = dict(max_err_rel_to_max=err, rel_l2=rel,
+                                                        forward_rows_nonfinite=int((~ok).sum()))
+            log(f"lm xlstm {name}: first decode step vs a forward over the prompt and that token: max err {err:.3e} x "
+                f"max|forward|, rel-L2 {rel:.4e} over the {int(ok.sum())} of {len(ok)} prompts whose forward is finite"
+                + (f" (bound {XLSTM_BOUND})" if name == "f32" else " (printed, not gated)"))
+            require(bool(torch.isfinite(step).all()), f"lm xlstm {name}: non-finite first decode step")
+            if name == "f32":
+                require(bool(ok.all()) and err <= XLSTM_BOUND, f"lm xlstm f32: the first decode step differs from the forward: {err}")
+    log(f"lm xlstm: prefill logits rel-L2 r2f2_16 vs f32 {rel:.4e} (bound {LM_REL_BOUND}) [{card}]")
+    require(rel < LM_REL_BOUND, f"lm xlstm: r2f2_16 logits drift from f32's: rel-L2 {rel}")
+    return out
+
+
+def lm_qwen3(device, card, kern, f32):
+    import torch
+
+    from repro_torch.models import moe
+
+    cfg, params, n = family_model("qwen3-moe-235b-a22b", device)
+    prompts = torch.randint(0, cfg.vocab, (QWEN3_BATCH, QWEN3_PROMPT), generator=torch.Generator().manual_seed(4)).to(device)
+    out = {"n_params": n}
+    st, sl, out["f32 scatter"] = family_generate("qwen3 f32 scatter", params, cfg, f32, prompts, QWEN3_NEW, device, card)
+    mode = moe.DISPATCH_MODE
+    moe.DISPATCH_MODE = "einsum"
+    try:
+        et, el, out["f32 einsum"] = family_generate("qwen3 f32 einsum", params, cfg, f32, prompts, QWEN3_NEW, device, card)
+    finally:
+        moe.DISPATCH_MODE = mode
+    err = max_rel_t(el, sl)
+    out["einsum_vs_scatter_max_err"] = err
+    log(f"lm qwen3 f32: einsum vs scatter dispatch: tokens {'equal' if torch.equal(et, st) else 'DIFFER'}, prefill logits "
+        f"max err {err:.3e} x max|scatter| (bound {QWEN3_BOUND})")
+    require(torch.equal(et, st) and err <= QWEN3_BOUND, "lm qwen3: the einsum dispatch differs from the scatter dispatch")
+    kt, kl, out["r2f2_16+K7"] = family_generate("qwen3 r2f2_16+K7", params, cfg, kern, prompts, QWEN3_NEW, device, card)
+    require(out["r2f2_16+K7"]["launches"] == {"r2f2_matmul": QWEN3_NEW * cfg.n_layers},
+            f"lm qwen3: launches {out['r2f2_16+K7']['launches']}, want K7 once a forward ({QWEN3_NEW})")
+    out["rel_l2_vs_f32"] = rel = rel_l2_t(kl, sl)
+    log(f"lm qwen3: prefill logits rel-L2 r2f2_16+K7 vs f32 {rel:.4e} (bound {LM_REL_BOUND}) [{card}]")
+    require(rel < LM_REL_BOUND, f"lm qwen3: r2f2_16 logits drift from f32's: rel-L2 {rel}")
+    return out
+
+
+def lm_frontends(device, card, kern, f32):
+    """pixtral: a prefill of 1024 patch embeddings and 64 tokens; hubert
+    (encoder only): a forward over 512 frames; f32 and r2f2_16 each."""
+    import torch
+
+    from repro_torch.models import forward, prefill
+
+    out = {}
+    for arch in ("pixtral-12b", "hubert-xlarge"):
+        cfg, params, n = family_model(arch, device)
+        g = torch.Generator().manual_seed(5)
+        rows = PIXTRAL_PATCHES if arch == "pixtral-12b" else HUBERT_FRAMES
+        embeds = torch.randn(1, rows, cfg.frontend_dim, generator=g).to(device)
+        tokens = torch.randint(0, cfg.vocab, (1, PIXTRAL_TOKENS), generator=g).to(device) if arch == "pixtral-12b" else None
+        res, out[arch] = {}, {"n_params": n}
+        with torch.inference_mode():
+            for name, prec in (("f32", f32), ("r2f2_16", kern)):
+                with counted(f"{arch} {name}") as counts:
+                    if tokens is not None:
+                        ms, peak, (logits, _) = timed_call(lambda: prefill(params, cfg, prec, tokens=tokens, embeds=embeds))
+                    else:
+                        ms, peak, (logits, _) = timed_call(lambda: forward(params, cfg, prec, embeds=embeds))
+                launches = counts["launches"]
+                res[name] = logits
+                out[arch][name] = dict(ms=ms, peak_bytes=peak, launches=launches)
+                what = "prefill" if tokens is not None else "forward"
+                log(f"lm {arch} {name}: {what} over {rows} {'patches' if tokens is not None else 'frames'}"
+                    f"{f' + {PIXTRAL_TOKENS} tokens' if tokens is not None else ''} {ms:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+                    f"logits {tuple(logits.shape)} [{card}]")
+                require(tuple(logits.shape) == (1, rows + (0 if tokens is None else PIXTRAL_TOKENS), cfg.vocab)
+                        and bool(torch.isfinite(logits).all()) and not launches,
+                        f"lm {arch} {name}: logits of the wrong shape, non-finite, or a kernel launched")
+        out[arch]["rel_l2_vs_f32"] = rel = rel_l2_t(res["r2f2_16"], res["f32"])
+        log(f"lm {arch}: logits rel-L2 r2f2_16 vs f32 {rel:.4e} (bound {LM_REL_BOUND})")
+        require(rel < LM_REL_BOUND, f"lm {arch}: r2f2_16 logits drift from f32's: rel-L2 {rel}")
+        del params, res, logits
+        free_models()
+    return out
+
+
+def lm_dense(device, card, f32):
+    """stablelm, llama3-405b and yi: an f32 prefill and 2 decode steps each,
+    the prefill's last logits against a forward's."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    out = {}
+    for arch in ("stablelm-12b", "llama3-405b", "yi-34b"):
+        cfg, params, n = family_model(arch, device)
+        prompt = torch.randint(0, cfg.vocab, (1, DENSE_PROMPT), generator=torch.Generator().manual_seed(6)).to(device)
+        with torch.inference_mode(), counted(f"{arch} f32") as counts:
+            ms, peak, (logits, caches) = timed_call(lambda: prefill(params, cfg, f32, tokens=prompt, max_len=DENSE_PROMPT + DENSE_STEPS))
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            step_ms = []
+            for i in range(DENSE_STEPS):
+                s_ms, _, (lg, caches) = timed_call(lambda: decode_step(params, caches, tok, DENSE_PROMPT + i, cfg, f32))
+                require(bool(torch.isfinite(lg).all()), f"lm {arch}: non-finite decode logits")
+                tok = torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)[:, None]
+                step_ms.append(s_ms)
+            whole, _ = forward(params, cfg, f32, tokens=prompt)
+        err = max_rel_t(logits[:, -1], whole[:, -1])
+        same = torch.equal(logits[:, -1], whole[:, -1])
+        out[arch] = dict(n_params=n, prefill_ms=ms, peak_bytes=peak, step_ms=step_ms, forward_max_err=err, bit_identical=same)
+        log(f"lm {arch} f32: prefill {ms:.1f} ms, peak {peak / 2**30:.2f} GiB; decode steps "
+            f"{', '.join(f'{v:.1f}' for v in step_ms)} ms; the prefill's last logits vs a forward's: "
+            f"{'bit-identical' if same else f'max err {err:.3e} x max'} (bound {DENSE_BOUND}) [{card}]")
+        require(bool(torch.isfinite(logits).all()) and err <= DENSE_BOUND and not counts["launches"],
+                f"lm {arch}: prefill differs from forward ({err}), or a kernel launched")
+        del params, logits, caches, whole
+        free_models()
+    return out
+
+
+def run_lm_families(device, card):
+    """The LM families at their published widths, depth cut to one pattern
+    period (:data:`LM_FAMILY_LAYERS`), random weights from seed 0, each freed
+    before the next loads: jamba (K7 at its routers, exactly 16 launches a
+    generate), mistral-nemo's chunked attention at S = 8192, xlstm, qwen3
+    (both dispatches, K7 at its router), pixtral's and hubert's frontends,
+    and the dense decoders. Returns the figures by family."""
+    from repro_torch.core.policy import PRESETS
+
+    kern = dataclasses.replace(PRESETS["r2f2_16"], use_kernels=True)
+    f32 = PRESETS["f32"]
+    out, seconds = {}, {}
+    for name, fn, args in (("jamba-v0.1-52b", lm_jamba, (kern, f32)), ("mistral-nemo-12b", lm_mistral_nemo, (kern, f32)),
+                           ("xlstm-1.3b", lm_xlstm, (kern, f32)), ("qwen3-moe-235b-a22b", lm_qwen3, (kern, f32)),
+                           ("frontends", lm_frontends, (kern, f32)), ("dense", lm_dense, (f32,))):
+        t = time.perf_counter()
+        out[name] = fn(device, card, *args)
+        free_models()
+        seconds[name] = time.perf_counter() - t
+        log(f"lm family {name}: {seconds[name]:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4418,6 +4885,9 @@ def time_contract_kernels(device, launches, errs, card):
         ("shared-expert gate prefill", LM_PREFILL_ROWS, LM_D, LM_FF), ("shared-expert gate decode", LM_DECODE_ROWS, LM_D, LM_FF),
         ("shared-expert down prefill", LM_PREFILL_ROWS, LM_FF, LM_D), ("shared-expert down decode", LM_DECODE_ROWS, LM_FF, LM_D),
         ("bench_kernels", 512, 512, 512),
+        # the LM families' routers: jamba's (16 experts) and qwen3's (128), d_model 4096
+        ("jamba router prefill", JAMBA_BATCH * JAMBA_PROMPT, 4096, 16), ("jamba router decode", JAMBA_BATCH, 4096, 16),
+        ("qwen3 router prefill", QWEN3_BATCH * QWEN3_PROMPT, 4096, 128), ("qwen3 router decode", QWEN3_BATCH, 4096, 128),
     ]
     for label, m, kd, n in k7_shapes:
         a = torch.randn(m, kd, generator=g).to(device)
@@ -4487,6 +4957,10 @@ def time_contract_kernels(device, launches, errs, card):
     log(f"K7 per generate (launches x device time at the path's shapes): {per_generate:.3f} ms; "
         f"launches x (time - bound) {gap:.3f} ms [{card}]")
     rows.append(dict(name="r2f2_matmul per generate", ms=per_generate, gap_ms=gap))
+    for fam, moe_layers, new in (("jamba", 4, JAMBA_NEW), ("qwen3", 1, QWEN3_NEW)):
+        fam_ms = moe_layers * (k7[f"{fam} router prefill"]["ms"] + (new - 1) * k7[f"{fam} router decode"]["ms"])
+        log(f"K7 per {fam} generate ({moe_layers * new} launches x device time at its router shapes): {fam_ms:.4f} ms [{card}]")
+        rows.append(dict(name=f"r2f2_matmul per {fam} generate", ms=fam_ms))
     main_rows = {"r2f2_quantize": f"({LM_D},{LM_FF}) block (256,256)",
                  "r2f2_matmul": f"shared-expert gate prefill ({LM_PREFILL_ROWS},{LM_D})@({LM_D},{LM_FF})"}
     replaces = {"r2f2_quantize": "src/repro/kernels/r2f2_quantize.py:45", "r2f2_matmul": "src/repro/kernels/r2f2_matmul.py:73"}
@@ -4543,6 +5017,18 @@ def main(argv) -> int:
         print(json.dumps({"swe2d_times": times}))
         return 0
 
+    if "--lm" in argv:  # phase 6's LM paths and K6/K7's times only: its last line is their figures, not a verdict
+        lm = {"api": run_api_path(device), "llama4": run_lm(device, card), "families": run_lm_families(device, card)}
+        launches = {"r2f2_quantize": lm["api"]["r2f2_quantize"],
+                    "r2f2_matmul": lm["llama4"]["r2f2_16+K7"]["launches"]["r2f2_matmul"]}
+        _, lm["contract_times"] = time_contract_kernels(device, launches, {"r2f2_quantize": 0.0, "r2f2_matmul": 0.0}, card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_lm.json"), "w") as f:
+            json.dump(lm, f, indent=1, default=str)
+        log(card)
+        print(json.dumps({"lm_seconds": lm["families"]["seconds"]}))
+        return 0
+
     if "--heat1d-sizes" in argv:  # timings only: its last line is the times, not a verdict
         report = heat1d_sizes(device, card)
         log(card)
@@ -4579,7 +5065,7 @@ def main(argv) -> int:
         ("K1 storage checks", "check_storage_k1", (device,), {}),
         ("K6/K7 flush checks", "check_flush_contract", (device,), {}),
     ]
-    results, seconds = run_checks_in_workers(phase2)
+    results, seconds, _ = run_checks_in_workers(phase2)
     report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
     found = dict(zip((name for _, name, *_ in phase2), results))
     errs, records = found["check_kernels"]
@@ -4647,8 +5133,11 @@ def main(argv) -> int:
     ens_tasks += [("ensemble path", "check_ensemble_path", (device, case), {}) for case in MAIN_STEPS if case != "swe2d"]
     ens_tasks += [("ensemble resume", "check_ensemble_resume", (device, *run), {}) for run in RESUME_RUNS]
     ens_tasks += serve_tasks[3:]
-    results, seconds = timed("ensemble and serving checks", run_checks_in_workers, ens_tasks)
+    results, seconds, task_s = timed("ensemble and serving checks", run_checks_in_workers, ens_tasks)
     report["phase_s"].update({f"{k} (summed over the workers)": v for k, v in seconds.items()})
+    report["health_passivity_kernel_planes_s"] = {
+        task[2][1]: s for task, s in zip(ens_tasks, task_s)
+        if task[1] == "check_health_passivity" and task[2][2] != ("reference",)}
     report["ensemble_path"], report["serving_lines"] = [], []
     for task, out in zip(ens_tasks, results):
         label = task[0]
@@ -4686,8 +5175,34 @@ def main(argv) -> int:
     t_lm = time.perf_counter()
     api = run_api_path(device)
     report["lm"] = run_lm(device, card)
+    t_fam = time.perf_counter()
+    report["lm_families"] = run_lm_families(device, card)
+    families_s = time.perf_counter() - t_fam
     main_launches["r2f2_quantize"] = api["r2f2_quantize"]
-    main_launches["r2f2_matmul"] = report["lm"]["r2f2_16+K7"]["launches"]["r2f2_matmul"]
+    # K7's paths, each counted from 0 right before its generate: llama4's, jamba's and qwen3's
+    k7_paths = {"llama4-scout": report["lm"]["r2f2_16+K7"]["launches"]["r2f2_matmul"],
+                "jamba": report["lm_families"]["jamba-v0.1-52b"]["r2f2_16+K7"]["launches"]["r2f2_matmul"],
+                "qwen3": report["lm_families"]["qwen3-moe-235b-a22b"]["r2f2_16+K7"]["launches"]["r2f2_matmul"]}
+    main_launches["r2f2_matmul"] = sum(k7_paths.values())
+    log(f"K7 launches by path: {k7_paths}, {main_launches['r2f2_matmul']} in all")
+    # what the cuts saved, at this run's rates, beside what the LM families took
+    lm = report["lm"]
+    saved_lm = sum(((LM_NEW_BEFORE - LM_NEW) + (LM_TIMED_STEPS_BEFORE - LM_TIMED_STEPS)) * r["decode_ms_per_token"] / 1e3
+                   for r in (lm["r2f2_16+K7"], lm["r2f2_16+plain K7"], lm["f32"]))
+    saved_burst = report["health"]["cut_s"]
+    saved_workers = sum(seconds_s * (MAIN_STEPS[case] / HEALTH_PASSIVITY_STEPS[case] - 1)
+                        for case, seconds_s in report["health_passivity_kernel_planes_s"].items())
+    report["cuts"] = dict(
+        llama4_s=saved_lm, health_burst_s=saved_burst, health_passivity_worker_s=saved_workers,
+        lm_families_s=families_s, lm_families_by_name_s=report["lm_families"]["seconds"],
+    )
+    log(f"cuts (this run's rates x the work cut): llama4 {LM_NEW_BEFORE} -> {LM_NEW} new tokens and {LM_TIMED_STEPS_BEFORE} -> "
+        f"{LM_TIMED_STEPS} timed steps in each of its 3 modes saved ~{saved_lm:.1f} s; the health burst's rr_tracked requests "
+        f"(5 replays and solo runs) ~{saved_burst:.1f} s; health passivity's kernel planes at heat1d "
+        f"{HEALTH_PASSIVITY_STEPS['heat1d']} of {MAIN_STEPS['heat1d']} and swe2d {HEALTH_PASSIVITY_STEPS['swe2d']} of "
+        f"{MAIN_STEPS['swe2d']} steps ~{saved_workers:.1f} s of worker time in phase 3's pool (its wall: see phase 3); "
+        f"the LM families took {families_s:.1f} s against {saved_lm + saved_burst:.1f} s saved on the main process "
+        f"[{card}]")
     log(f"contraction path phase: {time.perf_counter() - t_lm:.1f} s")
     phase_done("6 (the path)")
 

@@ -1,8 +1,9 @@
 """Configurations: the paper's PDE workloads (one module each) and the LM
 architecture registry, where ``get_config(<arch id>)`` resolves.
 
-``ARCHS`` lists the architectures the port runs. ``reduced(cfg)`` shrinks
-any architecture to a CPU test size of the same family, as ``repro``'s does.
+``ARCHS`` lists the ten architectures. ``reduced(cfg)`` shrinks any
+architecture to a CPU test size of the same family, as ``repro``'s does;
+``shapes`` holds the assigned input shapes and the (arch x shape) matrix.
 """
 
 from __future__ import annotations
@@ -12,26 +13,27 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config", "reduced"]
+from .shapes import SHAPES, ShapeConfig, applicability, cell_window
+
+__all__ = ["ARCHS", "get_config", "reduced", "SHAPES", "ShapeConfig", "applicability", "cell_window"]
 
 _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "hubert-xlarge": "hubert_xlarge",
+    "stablelm-12b": "stablelm_12b",
+    "llama3-405b": "llama3_405b",
+    "yi-34b": "yi_34b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "pixtral-12b": "pixtral_12b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
-#: ``repro``'s other architectures: their mixers or FFNs are not ported yet
-_PENDING = (
-    "qwen3-moe-235b-a22b", "hubert-xlarge", "stablelm-12b", "llama3-405b", "yi-34b",
-    "mistral-nemo-12b", "pixtral-12b", "xlstm-1.3b", "jamba-v0.1-52b",
-)
 
 ARCHS = tuple(_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: "
-            f"the other configs); available: {ARCHS}"
-        )
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG

@@ -9,6 +9,8 @@ imports neither JAX nor ``repro``):
     params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), device="cpu")
     packed_from_numpy(np.asarray(pa.payload), np.asarray(pa.k), (pa.fmt.eb, pa.fmt.mb, pa.fmt.fx), pa.shape, pa.block)
     packed_to_numpy(packed)  # the same five fields back, for repro.pack.PackedArray
+    mamba_state_from_numpy(st.h, st.conv)  # and mlstm_state_from_numpy(C, n), slstm_state_from_numpy(c, h)
+    caches_from_numpy(cfg.pattern, jax.tree_util.tree_map(np.asarray, jax_caches))
 """
 
 from __future__ import annotations
@@ -20,12 +22,17 @@ import torch
 
 from repro_torch.core.flexformat import FlexFormat
 from repro_torch.core.policy import PrecisionConfig, RangeTracker
+from repro_torch.models.attention import KVCache
+from repro_torch.models.config import parse_entry
+from repro_torch.models.ssm import MambaState
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.pack import PackedArray, payload_dtype
 from repro_torch.precision.sites import SiteTracker
 
 __all__ = [
     "state_from_numpy", "tracker_from_numpy", "precision_from_dict", "params_from_numpy", "packed_from_numpy",
-    "packed_to_numpy",
+    "packed_to_numpy", "mamba_state_from_numpy", "mlstm_state_from_numpy", "slstm_state_from_numpy",
+    "caches_from_numpy",
 ]
 
 
@@ -104,3 +111,48 @@ def packed_to_numpy(pa: PackedArray):
         pa.payload.cpu().numpy().copy(), pa.k.cpu().numpy().astype(np.int32), (pa.fmt.eb, pa.fmt.mb, pa.fmt.fx),
         pa.shape, pa.block,
     )
+
+
+def _tensor(x, device):
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def mamba_state_from_numpy(h, conv, *, device="cpu") -> MambaState:
+    """A mamba mixer's carried state: ``h`` (..., B, d_inner, state) and the
+    rolling conv window ``conv`` (..., B, conv_k - 1, d_inner), bits unchanged."""
+    return MambaState(h=_tensor(h, device), conv=_tensor(conv, device))
+
+
+def mlstm_state_from_numpy(C, n, *, device="cpu") -> MLSTMState:
+    """An mLSTM cell's carried state: ``C`` (..., B, H, dk, dv), ``n`` (..., B, H, dk)."""
+    return MLSTMState(C=_tensor(C, device), n=_tensor(n, device))
+
+
+def slstm_state_from_numpy(c, h, *, device="cpu") -> SLSTMState:
+    """An sLSTM cell's carried state: ``c`` and ``h``, (..., B, lstm_inner) each."""
+    return SLSTMState(c=_tensor(c, device), h=_tensor(h, device))
+
+
+_STATES = {"attn": KVCache, "mamba": mamba_state_from_numpy, "mlstm": mlstm_state_from_numpy,
+           "slstm": slstm_state_from_numpy}
+
+
+def caches_from_numpy(pattern, caches, *, device="cpu"):
+    """A decode state (one cache a pattern position, each stacked over
+    groups, as ``repro``'s ``prefill`` and ``init_decode_state`` return it,
+    with numpy leaves) as the port's: a KVCache at attention positions (its
+    dtype kept, bf16 included), the mixer's state NamedTuple elsewhere."""
+    out = []
+    for entry, c in zip(pattern, caches):
+        make = _STATES[parse_entry(entry)[0]]
+        if make is KVCache:
+            out.append(KVCache(*(_kv_tensor(t, device) for t in c)))
+        else:
+            out.append(make(*c, device=device))
+    return tuple(out)
+
+
+def _kv_tensor(a, device):
+    a = np.asarray(a)
+    t = _tensor(a.astype(np.float32), device)
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t

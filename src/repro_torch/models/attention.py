@@ -1,8 +1,11 @@
 """GQA attention: full-sequence (prefill) and decode against a KV cache.
 
 KV heads are repeated to the full head count (``_expand_kv``, the flat-head
-form). Decode caches are bf16 at rest, ``(B, S_max, KV, hd)``; a decode
-step returns a new cache and leaves its input as it was.
+form). Sequences longer than ``FLASH_THRESHOLD`` take the chunked
+(flash-style, online-softmax) path, whose live logits are one
+``(B, H, FLASH_CHUNK, FLASH_CHUNK)`` block. Decode caches are bf16 at rest,
+``(B, S_max, KV, hd)``; a decode step returns a new cache and leaves its
+input as it was.
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rope
 from repro_torch.precision import PrecisionConfig, contract, dot
 
-__all__ = ["attn_init", "attn_apply", "attn_decode", "KVCache", "init_cache", "FLASH_THRESHOLD"]
+__all__ = ["attn_init", "attn_apply", "attn_decode", "KVCache", "init_cache", "FLASH_THRESHOLD", "FLASH_CHUNK"]
 
 _NEG = -1e30
-#: sequences longer than this take the chunked (flash-style) path
+#: sequences longer than this (S, not S*T) take the chunked (flash-style) path
 FLASH_THRESHOLD = 4096
+#: query and KV chunk length of the chunked path
+FLASH_CHUNK = 1024
 
 
 class KVCache(NamedTuple):
@@ -66,11 +71,43 @@ def _dense_attention(q, k, v, causal, window, prec):
     return contract("bhst,bthd->bshd", probs, v, prec, site="attn.pv")
 
 
-def _chunked_attention(q, k, v, causal, window, prec):
-    raise NotImplementedError(
-        f"sequences longer than {FLASH_THRESHOLD} take the chunked attention path, which is not "
-        "ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: chunked attention)"
-    )
+def _chunked_attention(q, k, v, causal, window, prec, cq=None, ck=None):
+    """Flash-style online-softmax attention: an outer loop over query
+    chunks, an inner loop over KV chunks carrying the running max, sum and
+    accumulator in f32; each chunk pair contracts at ``attn.qk`` and
+    ``attn.pv``, so a policy quantizes per chunk. q: (B,S,H,hd); k,v:
+    (B,T,H,hd) (already expanded). -> (B,S,H,hd)"""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    cq = min(FLASH_CHUNK if cq is None else cq, S)
+    ck = min(FLASH_CHUNK if ck is None else ck, T)
+    if S % cq or T % ck:
+        raise ValueError(f"chunked attention needs S % cq == 0 and T % ck == 0, got {(S, T, cq, ck)}")
+    qpos_base = torch.arange(cq, device=q.device)[:, None]
+    kpos_base = torch.arange(ck, device=q.device)[None, :]
+    outs = []
+    for qi in range(S // cq):
+        qblk = q[:, qi * cq : (qi + 1) * cq]
+        m = torch.full((B, H, cq), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, cq, H, hd), dtype=torch.float32, device=q.device)
+        for kj in range(T // ck):
+            kblk, vblk = k[:, kj * ck : (kj + 1) * ck], v[:, kj * ck : (kj + 1) * ck]
+            logit = contract("bshd,bthd->bhst", qblk, kblk, prec, site="attn.qk")  # (B,H,cq,ck)
+            qp, kp = qi * cq + qpos_base, kj * ck + kpos_base
+            msk = torch.ones((cq, ck), dtype=torch.bool, device=q.device) if not causal else (kp <= qp)
+            if window is not None:
+                msk = msk & (kp > qp - window)
+            logit = torch.where(msk[None, None], logit, _NEG)
+            m_new = torch.maximum(m, torch.amax(logit, dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(logit - m_new[..., None])
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = contract("bhst,bthd->bshd", p, vblk, prec, site="attn.pv")  # (B,cq,H,hd)
+            acc = acc * corr.transpose(1, 2)[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp_min(l.transpose(1, 2), 1e-30)[..., None])
+    return torch.cat(outs, dim=1)
 
 
 def attn_apply(p, x, cfg: ModelConfig, prec: PrecisionConfig, positions=None, window: Optional[int] = None):

@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with capacity-based dispatch
-(GShard/Switch), scatter form.
+(GShard/Switch), in ``repro``'s two forms: index scatter (the default) or
+one-hot einsum (``REPRO_MOE_DISPATCH=einsum``).
 
 Each token picks its top-k experts (ties to the lower index, as
 ``jax.lax.top_k``); tokens beyond an expert's capacity
@@ -22,8 +23,8 @@ from repro_torch.precision import PrecisionConfig, contract, operand_dtype
 
 __all__ = ["moe_init", "moe_apply", "top_k", "DISPATCH_MODE"]
 
-#: "scatter" (index dispatch); repro's "einsum" (one-hot) variant, chosen
-#: by REPRO_MOE_DISPATCH, is not ported yet
+#: "scatter" (index dispatch) | "einsum" (one-hot dispatch and combine
+#: tensors), chosen by REPRO_MOE_DISPATCH as in ``repro``
 DISPATCH_MODE = os.environ.get("REPRO_MOE_DISPATCH", "scatter")
 
 
@@ -52,12 +53,6 @@ def top_k(x, k: int):
 
 def moe_apply(p, x, cfg: ModelConfig, prec: PrecisionConfig):
     """x: (B, S, d) -> (out, aux_loss)."""
-    if DISPATCH_MODE != "scatter":
-        raise NotImplementedError(
-            f"MoE dispatch {DISPATCH_MODE!r} is not ported to repro_torch yet (ROADMAP.md queue 1, the LM stack: "
-            "the einsum MoE dispatch); "
-            "the scatter dispatch is"
-        )
     B, S, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     n = B * S
@@ -75,22 +70,36 @@ def moe_apply(p, x, cfg: ModelConfig, prec: PrecisionConfig):
     pos = (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(n, k)
     keep = (pos < capacity) & (pos >= 0)
 
-    # scatter dispatch; payloads move in the policy's operand dtype. Kept
-    # tokens have distinct (expert, slot) pairs: only the drop slot
-    # `capacity` collides, and it is cut off.
-    payload = operand_dtype(prec)
-    flat_e = expert_idx.reshape(-1)
-    flat_pos = torch.where(keep, pos, capacity).reshape(-1)
-    x_rep = xt.to(payload)[:, None, :].expand(n, k, d).reshape(n * k, d)
-    xe = torch.zeros((e, capacity + 1, d), dtype=payload, device=x.device)
-    xe = xe.index_put_((flat_e, flat_pos), x_rep, accumulate=True)[:, :capacity].to(torch.float32)
-    h = silu(contract("ecd,edf->ecf", xe, p["gate"], prec, site="moe.gate")) * contract(
-        "ecd,edf->ecf", xe, p["up"], prec, site="moe.up"
-    )
-    ye = contract("ecf,efd->ecd", h, p["down"], prec, site="moe.down")
-    yk = ye.to(payload)[flat_e, torch.clamp_max(flat_pos, capacity - 1)]  # (n*k, d)
-    yk = torch.where(keep.reshape(-1, 1), yk, torch.zeros((), dtype=payload, device=x.device)).reshape(n, k, d)
-    out = torch.sum(yk.to(torch.float32) * gate_vals[..., None], dim=1).reshape(B, S, d)
+    if DISPATCH_MODE == "einsum":
+        # one-hot einsum dispatch (GShard form): (n, e, c) dispatch and
+        # combine tensors, every move a contraction under the policy
+        dt = xt.dtype
+        pos_oh = torch.nn.functional.one_hot(torch.where(keep, pos, capacity).long(), capacity + 1)[..., :capacity].to(dt)
+        disp = torch.einsum("nke,nkc->nec", onehot.to(dt), pos_oh)
+        comb = torch.einsum("nk,nke,nkc->nec", gate_vals.to(dt), onehot.to(dt), pos_oh)
+        xe = contract("nec,nd->ecd", disp, xt, prec, site="moe.dispatch")
+        h = silu(contract("ecd,edf->ecf", xe, p["gate"], prec, site="moe.gate")) * contract(
+            "ecd,edf->ecf", xe, p["up"], prec, site="moe.up"
+        )
+        ye = contract("ecf,efd->ecd", h, p["down"], prec, site="moe.down")
+        out = contract("nec,ecd->nd", comb, ye, prec, site="moe.combine").reshape(B, S, d)
+    else:
+        # scatter dispatch; payloads move in the policy's operand dtype. Kept
+        # tokens have distinct (expert, slot) pairs: only the drop slot
+        # `capacity` collides, and it is cut off.
+        payload = operand_dtype(prec)
+        flat_e = expert_idx.reshape(-1)
+        flat_pos = torch.where(keep, pos, capacity).reshape(-1)
+        x_rep = xt.to(payload)[:, None, :].expand(n, k, d).reshape(n * k, d)
+        xe = torch.zeros((e, capacity + 1, d), dtype=payload, device=x.device)
+        xe = xe.index_put_((flat_e, flat_pos), x_rep, accumulate=True)[:, :capacity].to(torch.float32)
+        h = silu(contract("ecd,edf->ecf", xe, p["gate"], prec, site="moe.gate")) * contract(
+            "ecd,edf->ecf", xe, p["up"], prec, site="moe.up"
+        )
+        ye = contract("ecf,efd->ecd", h, p["down"], prec, site="moe.down")
+        yk = ye.to(payload)[flat_e, torch.clamp_max(flat_pos, capacity - 1)]  # (n*k, d)
+        yk = torch.where(keep.reshape(-1, 1), yk, torch.zeros((), dtype=payload, device=x.device)).reshape(n, k, d)
+        out = torch.sum(yk.to(torch.float32) * gate_vals[..., None], dim=1).reshape(B, S, d)
 
     if cfg.moe_shared_expert:
         sp = p["shared"]

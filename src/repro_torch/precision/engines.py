@@ -99,6 +99,25 @@ def _row_slices(x, tile_rows: int):
     return list(torch.split(x, step, dim=0))
 
 
+def _by_slices(x, tile_rows: int, quantize):
+    """``quantize(slice) -> (xq, k)`` over :func:`_row_slices`, each slice's
+    result written into one output as it comes (no list of quantized slices
+    beside the whole: at jamba's expert weights, 3.8 GB an operand, that
+    list was a second copy). Returns ``(xq, [k of each slice])``."""
+    slices = _row_slices(x, tile_rows)
+    if len(slices) == 1:
+        xq, k = quantize(x)
+        return xq, [k]
+    xq, ks, row = torch.empty_like(x), [], 0
+    for p in slices:
+        q, k = quantize(p)
+        xq[row : row + p.shape[0]] = q
+        ks.append(k)
+        row += p.shape[0]
+        del q
+    return xq, ks
+
+
 @register_engine("f32")
 class F32Engine(PrecisionEngine):
     """Reference arithmetic: everything stays f32."""
@@ -156,8 +175,7 @@ class FixedEngine(PrecisionEngine):
     def prepare_operand(self, x, cfg, *, k=None):
         x = _f32(x)
         e, m = cfg.fixed_em
-        parts = [ste(p, quantize_em(p, e, m)) for p in _row_slices(x, 1)]
-        return (parts[0] if len(parts) == 1 else torch.cat(parts)), None
+        return _by_slices(x, 1, lambda p: (ste(p, quantize_em(p, e, m)), None))[0], None
 
     def multiply(self, a, b, cfg, *, tracker=None, site=None):
         return self._q(self._q(a, cfg) * self._q(b, cfg), cfg), tracker
@@ -219,11 +237,10 @@ class RRTileEngine(PrecisionEngine):
             if k.ndim:
                 return self._quantize(x, cfg, k)
         tile = tile_shape_for(x, cfg.tile)
-        parts = [self._quantize(p, cfg, k) for p in _row_slices(x, 1 if tile is None else tile[0])]
-        if len(parts) == 1:
-            return parts[0]
-        xq = torch.cat([p[0] for p in parts])
-        return xq, (k if k is not None else torch.cat([p[1] for p in parts]))
+        xq, ks = _by_slices(x, 1 if tile is None else tile[0], lambda p: self._quantize(p, cfg, k))
+        if len(ks) == 1:
+            return xq, ks[0]
+        return xq, (k if k is not None else torch.cat(ks))
 
     def contract(self, spec, a, b, cfg, *, tracker=None, site=None, shared_k=False):
         if kernel_eligible(spec, a, b, cfg):

@@ -1,3 +1,3 @@
-"""Step builders (this slice: the greedy serve step)."""
+"""Step builders: the greedy serve step (training is not ported yet)."""
 
 from .step import make_serve_step

@@ -14,6 +14,19 @@ from repro_torch.precision import PrecisionConfig
 
 __all__ = ["make_serve_step"]
 
+#: names of ``repro.train.step`` still to port -> their ROADMAP.md item
+_PENDING = {
+    n: "ROADMAP.md queue 1, the LM stack: training"
+    for n in ("TrainConfig", "make_train_step", "init_train_state", "param_pspec", "params_pspec_tree",
+              "state_pspec_tree", "batch_pspec")
+}
+
+
+def __getattr__(name):
+    if name in _PENDING:
+        raise AttributeError(f"repro_torch.train.step.{name} is not ported yet ({_PENDING[name]})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 def make_serve_step(cfg: ModelConfig, prec: PrecisionConfig, window: Optional[int] = None):
     """Returns serve_step(params, caches, tokens, pos) -> (next_tokens, caches):

@@ -13,7 +13,9 @@ member axis against its plain version, every stepper's ensembles against
 the CPU under flush, one launch for every member), and the serving plane
 and observability (a bucket's launches, its requests against their solo
 runs and the CPU under flush, packed and fused buckets, the obs gate, obs
-on against off). These tests skip
+on against off), and the LM families (chunked attention at full head
+width against the CPU run, reduced jamba with K7 at its routers). These
+tests skip
 without a card; on the GPU machine, which has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -901,3 +903,61 @@ def test_obs_is_passive_on_the_card(name, execution):
     assert len(scope.telemetry) > 0
     assert chip_smoke.same_tree(off.state, on.state) and chip_smoke.same_tree(off.tracker, on.tracker)
     assert chip_smoke.same_bits(off.snapshots.cpu(), on.snapshots.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "r2f2_16"])
+@pytest.mark.parametrize("causal, window", [(True, None), (True, 700), (False, None)])
+def test_chunked_attention_on_the_card_equals_the_cpu(mode, causal, window):
+    """The chunked (online-softmax) attention at mistral-nemo's full head
+    width (32 heads x 128), S = 2048 in 4 x 4 chunk pairs of 512, on the card
+    against the port's CPU run on the same inputs: f32 within 1e-5 x max|out|
+    (another summation order), r2f2_16 by rel-L2 under 1e-4 (a per-chunk
+    quantizer rounding may flip after a last-ulp difference)."""
+    _need_card()
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.models import attention
+
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(1, 2048, 32, 128, generator=g) for _ in range(3))
+    prec = PRESETS[mode]
+    want = attention._chunked_attention(q, k, v, causal, window, prec, cq=512, ck=512)
+    got = attention._chunked_attention(q.cuda(), k.cuda(), v.cuda(), causal, window, prec, cq=512, ck=512).cpu()
+    assert bool(torch.isfinite(got).all())
+    if mode == "f32":
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert float((got.double() - want.double()).norm() / want.double().norm()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_reduced_jamba_on_the_card_runs_k7():
+    """reduced jamba (8 layers: mamba, attention, 4 MoE layers) served on the
+    card under r2f2_16 with use_kernels: K7 at the 4 routers once a forward,
+    no plain version, and the CPU run's tokens (K7's plain version there)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import PRESETS
+    from repro_torch.kernels.r2f2_matmul import R2F2_MATMUL
+    from repro_torch.models import model_init
+    from repro_torch.serve import generate
+
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    params = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    prec = dataclasses.replace(PRESETS["r2f2_16"], use_kernels=True)
+    want = generate(params, cfg, prec, prompts, max_new_tokens=4, device="cpu")
+    card = {k: v.cuda() for k, v in params.items() if k != "blocks"}
+    card["blocks"] = tuple({k: _to_cuda(v) for k, v in b.items()} for b in params["blocks"])
+    before = (R2F2_MATMUL.launches, R2F2_MATMUL.plain_calls)
+    got = generate(card, cfg, prec, prompts, max_new_tokens=4)
+    assert (R2F2_MATMUL.launches - before[0], R2F2_MATMUL.plain_calls - before[1]) == (4 * 4, 0)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.cuda()

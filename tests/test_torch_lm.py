@@ -118,8 +118,7 @@ def test_config_registry():
     cfg = get_config(ARCH)
     assert isinstance(cfg, ModelConfig) and cfg.d_model == 5120 and cfg.moe_shared_expert
     assert cfg.param_count() == j_get_config(ARCH).param_count()
-    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: the other configs"):
-        get_config("jamba-v0.1-52b")
+    assert get_config("jamba-v0.1-52b").param_count() == j_get_config("jamba-v0.1-52b").param_count()
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

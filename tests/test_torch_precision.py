@@ -139,25 +139,18 @@ def test_rsqrt_engines_close():
 
 def test_lm_path_raises_with_roadmap_item():
     """The parts of the LM path still to port raise, naming their ROADMAP
-    item: the other architectures, mixers and frontends, chunked attention
-    and the einsum MoE dispatch (the contraction path itself runs, in
-    tests/test_torch_contract.py)."""
-    import dataclasses
+    item: lm_loss and training (every architecture, mixer, frontend,
+    chunked attention and the einsum MoE dispatch serve, in
+    tests/test_torch_lm_archs.py and tests/test_torch_lm_mixers.py)."""
+    import repro_torch.models as models
+    import repro_torch.train.step as step
 
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.models import attention, model_init, moe
-
-    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: the other configs"):
-        get_config("xlstm-1.3b")
-    cfg = reduced(get_config("llama4-scout-17b-a16e"))
-    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: models/ssm.py"):
-        model_init(torch.Generator(), dataclasses.replace(cfg, pattern=("mamba+moe",)), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: frontends"):
-        model_init(torch.Generator(), dataclasses.replace(cfg, frontend="audio"), "cpu")
-    q = torch.zeros(1, attention.FLASH_THRESHOLD + 1, 1, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, the LM stack: chunked attention"):
-        attention._chunked_attention(q, q, q, True, None, tprec("rr_tile"))
-    assert moe.DISPATCH_MODE == "scatter"
+    with pytest.raises(AttributeError, match="queue 1, the LM stack: model.py::lm_loss"):
+        models.lm_loss
+    for name in ("make_train_step", "init_train_state", "TrainConfig"):
+        with pytest.raises(AttributeError, match="queue 1, the LM stack: training"):
+            getattr(step, name)
+    assert callable(step.make_serve_step)
 
 
 def test_registry_and_known_modes():

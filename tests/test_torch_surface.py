@@ -13,12 +13,6 @@ PACKAGES = ("core", "pde", "precision", "pack", "alu", "serve", "profile", "mode
 #: (package, name) -> the ROADMAP.md item it waits for
 PENDING = {
     ("models", "lm_loss"): "queue 1, the LM stack: model.py::lm_loss",
-    ("models", "ssm"): "queue 1, the LM stack: the mamba mixer (models/ssm.py)",
-    ("models", "xlstm"): "queue 1, the LM stack: the xLSTM mixer (models/xlstm.py)",
-    ("configs", "SHAPES"): "queue 1, the LM stack: configs/shapes.py",
-    ("configs", "ShapeConfig"): "queue 1, the LM stack: configs/shapes.py",
-    ("configs", "applicability"): "queue 1, the LM stack: configs/shapes.py",
-    ("configs", "cell_window"): "queue 1, the LM stack: configs/shapes.py",
 }
 
 
