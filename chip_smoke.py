@@ -6,6 +6,7 @@
     python3 chip_smoke.py --heat1d-sizes   # build + heat1d's K2/K4 times by rod size and its ladder rows
     python3 chip_smoke.py --swe2d-times    # build + K4 swe2d's times by shape
     python3 chip_smoke.py --lm             # build + phase 6's LM paths and K6/K7's times
+    python3 chip_smoke.py --generic        # build + phase 7: registered bodies on K8 and K9
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -147,7 +148,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cuBLAS SGEMM, both by replayed CUDA graphs (and by CUDA events around
    the wrapper's calls): K6 also on its two-pass shape (its kernel before the cluster shape),
    K7 split and unsplit, with its launch shape (the K blocks split S over
-   CTAs, the CTA count), also at jamba's and qwen3's router shapes.
+   CTAs, the CTA count), also at jamba's and qwen3's router shapes;
+7. any registered body on the card (:func:`run_generic_phase`): kernel
+   K1's add and rsqrt (``__frsqrt_rn`` against ``core/rsqrt.py`` on every
+   f32 in [1, 4) and the specials; ``family_add``/``family_rsqrt`` in the
+   four families at every split against FusedOps on the CPU under flush);
+   the five builtin bodies through the generic kernels K8 (sweep) and K9
+   (megakernel) at the main path's shapes, bit for bit against the
+   hand-written kernels and the plain versions (evidence, trackers,
+   snapshots, counts, packed payloads, members); registered copies of the
+   builtins whose hooks pass no ``kernel=`` and the add/rsqrt test stepper
+   (:func:`nl_update`) through ``Simulation.run`` on the fused, megakernel
+   and ``auto`` planes in the six modes against the CPU under flush, K8 and
+   K9 counted from 0 before each run; and K8/K9 timed beside K2, K3 and K4
+   on the same bodies (K8 and K9 in the kernels line).
 
 ``--heat1d-sizes`` times heat1d's K2 and K4 as phase 5 does and runs
 heat1d's ladder rows, nothing else; ``--swe2d-times`` times K4 swe2d as
@@ -179,6 +193,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -4977,6 +4992,644 @@ def time_contract_kernels(device, launches, errs, card):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 7: any registered body on the card (kernels K8 and K9, a traced
+# body's tape) and kernel K1's add and rsqrt
+# ---------------------------------------------------------------------------
+
+#: the builtins phase 7 registers copies of whose hooks pass no kernel=, so
+#: that their bodies run on K8 and K9 (``generic_<name>``), and the add/rsqrt
+#: test stepper with rsqrt (``nl``) and without (``nl_add``)
+GENERIC_BUILTINS = ("heat1d", "swe2d", "heat2d", "advection1d", "burgers1d")
+GENERIC_TEST = ("nl", "nl_add")
+#: phase 7's depths: Simulation.run steps (a snapshot every third of them,
+#: and a remainder) and the hooks' substeps
+GENERIC_STEPS = {"heat1d": 400, "swe2d": 60, "heat2d": 150, "advection1d": 256, "burgers1d": 300, "nl": 120,
+                 "nl_add": 120}
+#: the hooks' (substeps, every): swe2d's plain version on the CPU takes ~0.1 s a substep at 128x128
+GENERIC_HOOK_STEPS = {"swe2d": (8, 3)}
+#: the modes phase 7's hook checks run in (its registered runs: the six)
+GENERIC_HOOK_MODES = ("f32", "bf16", "e5m10", "r2f2_16", "rr_tracked")
+
+
+@dataclasses.dataclass(frozen=True)
+class NLConfig:
+    """The add/rsqrt test stepper's configuration: ``nx`` cells, the
+    laplacian's coefficient (a power of two: its product is exact) and the
+    initial sine's amplitude."""
+
+    nx: int = 128
+    coef: float = 0.125
+    amplitude: float = 0.9
+
+
+def nl_sites(rsqrt: bool):
+    """The test stepper's sites and their ops."""
+    if rsqrt:
+        return ("nl.uu", "nl.s", "nl.d", "nl.flux", "nl.update"), ("mul", "add", "rsqrt", "mul", "add")
+    return ("nl.uu", "nl.s", "nl.flux", "nl.update"), ("mul", "add", "mul", "add")
+
+
+def nl_update(u, cfg, ops, rsqrt: bool):
+    """One substep of the nonlinear diffusion ``u' = u + d * coef * lap(u)``,
+    ``d = rsqrt(1 + u*u)`` (or ``1 + u*u``), the ends pinned: ``u*u`` on the
+    policy's multiplier, ``1 + uu`` on its adder, ``d`` on its rsqrt, heat1d's
+    laplacian in f32, ``d * lap`` on the multiplier and the update on the
+    adder. In the f32 mode the compiled reference fuses the product into the
+    update: ``fma(d, lap, u)`` (``tests/test_torch_generic.py`` holds both
+    variants to ``repro``)."""
+    import torch
+
+    from repro_torch._device import f32_scalar
+    from repro_torch.core.fma import fma
+
+    uu = ops.mul(u, u, "nl.uu")
+    s = ops.add(uu, f32_scalar(1.0, u.device), "nl.s")
+    d = ops.rsqrt(s, "nl.d") if rsqrt else s
+    lap = (u[..., :-2] - 2.0 * u[..., 1:-1] + u[..., 2:]) * f32_scalar(cfg.coef, u.device)
+    flux = ops.mul(d[..., 1:-1], lap, "nl.flux")
+    inner = ops.add(u[..., 1:-1], flux, "nl.update")
+    if ops.prec.mode == "f32":
+        inner = fma(d[..., 1:-1], lap, u[..., 1:-1])
+    return torch.cat([u[..., :1], inner, u[..., -1:]], dim=-1)
+
+
+def nl_initial(cfg, device):
+    """The test stepper's initial state: a sine of three half waves, ends 0."""
+    import numpy as np
+    import torch
+
+    x = np.linspace(0.0, 1.0, cfg.nx, dtype=np.float32)
+    u = (np.sin(3.0 * np.pi * x) * cfg.amplitude).astype(np.float32)
+    u[0] = u[-1] = 0.0
+    return torch.tensor(u, device=device)
+
+
+def _rod_hooks(body_of):
+    """fused_step and mega_step hooks that run ``body_of(self, cfg)`` on one
+    ``(1, n)`` rod a member (the field flattened) through fused_sweep and
+    mega_sweep with no kernel=, as the builtins' rod wrappers lay it out."""
+    from repro_torch.kernels.fused import fused_sweep
+    from repro_torch.kernels.generic import GENERIC_MEGA, GENERIC_SWEEP
+    from repro_torch.kernels.mega import _lead, _snaps, mega_sweep
+    from repro_torch.pack import PackedArray
+
+    def rod_len(u, members):
+        """A member's cells (a PackedArray's shape is a member's)."""
+        return math.prod(u.shape if isinstance(u, PackedArray) or not members else u.shape[1:])
+
+    def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False, storage="f32", capture=None,
+                   members=False):
+        packed, n = isinstance(u, PackedArray), rod_len(u, members)
+        lead = (u.payload.shape[0],) if packed and members else (u.shape[0],) if members else ()
+        x = u.with_view((1, n)) if packed else u.reshape(lead + (1, n))
+        (out,), *rest = fused_sweep(
+            body_of(self, cfg), (x,), prec=prec, sites=self.sites, site_ops=self.site_ops or None, steps=steps,
+            block=(1, n), k_floor=k_floor, collect_evidence=collect_evidence, counter=GENERIC_SWEEP, capture=capture,
+            storage=storage, members=members,
+        )
+        return ((out.with_view(u.shape) if packed else out.reshape(u.shape)), *rest)
+
+    def mega_step(self, u, cfg, prec, steps, every, *, tracker=None, storage="f32", capture=None, members=False):
+        lead, unwrap, shape = _lead(u, (1, rod_len(u, members)), members)
+        res = mega_sweep(
+            body_of(self, cfg), (lead,), prec=prec, sites=self.sites, site_ops=self.site_ops or None, steps=steps,
+            every=every, tracker=tracker, counter=GENERIC_MEGA, capture=capture, storage=storage, members=members,
+        )
+        (out,), (snaps,) = res.state, res.snaps
+        return res._replace(state=unwrap(out), snaps=_snaps(snaps, shape, members))
+
+    return fused_step, mega_step
+
+
+def generic_stepper(name):
+    """A Stepper class for phase 7: a builtin's registered copy (``name`` in
+    :data:`GENERIC_BUILTINS`), whose hooks run the builtin's own bodies
+    through fused_sweep and mega_sweep with no kernel= (on the card: K8 and
+    K9), or the add/rsqrt test stepper (``"nl"``, ``"nl_add"``)."""
+    import torch
+
+    from repro_torch.kernels.fused import fused_sweep
+    from repro_torch.kernels.generic import GENERIC_MEGA, GENERIC_SWEEP
+    from repro_torch.kernels.heat_stencil import _heat1d_body
+    from repro_torch.kernels.mega import _swe2d_body, mega_sweep
+    from repro_torch.kernels.pde_steps import _advection1d_body, _burgers1d_body, _heat2d_body
+    from repro_torch.kernels.swe_flux import _swe_flux_body
+    from repro_torch.pack import PackedArray, unpack_array, unpack_members
+    from repro_torch.pde import Stepper, get_stepper
+
+    if name in GENERIC_TEST:
+        rsqrt = name == "nl"
+        sites, ops = nl_sites(rsqrt)
+
+        def nl_body(self, cfg):
+            def body(state, ops):
+                return (nl_update(state[0], cfg, ops, rsqrt),)
+            return body
+
+        fused_step, mega_step = _rod_hooks(nl_body)
+
+        class NLStepper(Stepper):
+            """The add/rsqrt test stepper (a 1-D nonlinear diffusion)."""
+
+            ensemble_hooks = True
+
+            def default_config(self):
+                return NLConfig()
+
+            def init_state(self, cfg, *, device):
+                return nl_initial(cfg, device)
+
+            def step(self, u, cfg, ops):
+                return nl_update(u, cfg, ops, rsqrt)
+
+            def raw_cells(self, cfg, device):
+                keep = torch.zeros(cfg.nx, dtype=torch.bool, device=device)
+                keep[0] = keep[-1] = True
+                return keep
+
+        NLStepper.sites, NLStepper.site_ops = sites, ops
+        NLStepper.fused_step, NLStepper.mega_step = fused_step, mega_step
+        return NLStepper
+
+    base = type(get_stepper(name))
+    bodies = {
+        "heat1d": lambda self, cfg: _heat1d_body(float(cfg.alpha), float(cfg.dtodx2), self.sites),
+        "heat2d": lambda self, cfg: _heat2d_body(cfg.nx, cfg.ny, float(cfg.alpha), float(cfg.dtodx2), self.sites),
+        "advection1d": lambda self, cfg: _advection1d_body(float(cfg.speed), float(cfg.dtodx), self.sites),
+        "burgers1d": lambda self, cfg: _burgers1d_body(float(cfg.dt), float(cfg.dx), self.sites),
+    }
+    if name != "swe2d":
+        fused_step, mega_step = _rod_hooks(bodies[name])
+        return type(f"Generic{base.__name__}", (base,), {"fused_step": fused_step, "mega_step": mega_step})
+
+    def swe_flux(self, q1, q3, prec, **kw):
+        """The fused chunk's momentum flux on K8: swe_flux_fused's call without its kernel."""
+        (flux,), *rest = fused_sweep(
+            _swe_flux_body(self.sites), (q1, q3), prec=prec, sites=self.sites, site_ops=self.site_ops, steps=1,
+            block=tuple(prec.kernel_blocks[:2]), n_out=1, pad_values=(0.0, 1.0), counter=GENERIC_SWEEP, **kw,
+        )
+        return (flux, *rest)
+
+    def swe_mega_step(self, U, cfg, prec, steps, every, *, tracker=None, storage="f32", capture=None, members=False):
+        """swe2d's whole horizon, the Lax-Wendroff update included, on K9."""
+        if isinstance(U, PackedArray):
+            U = unpack_members(U) if members else unpack_array(U)
+        res = mega_sweep(
+            _swe2d_body(cfg, self.sites), (U,), prec=prec, sites=self.sites, site_ops=self.site_ops, steps=steps,
+            every=every, tracker=tracker, counter=GENERIC_MEGA, capture=capture, storage=storage, members=members,
+        )
+        (out,), (snaps,) = res.state, res.snaps
+        return res._replace(state=out, snaps=snaps)
+
+    return type(f"Generic{base.__name__}", (base,), {"momentum_flux": swe_flux, "mega_step": swe_mega_step})
+
+
+def register_generic(names=GENERIC_BUILTINS + GENERIC_TEST):
+    """Register phase 7's steppers (``generic_<builtin>``, ``nl``, ``nl_add``);
+    returns the registered names, which :func:`unregister` takes back."""
+    from repro_torch.pde import register_stepper
+
+    out = []
+    for name in names:
+        reg = name if name in GENERIC_TEST else f"generic_{name}"
+        register_stepper(reg, generic_stepper(name))
+        out.append(reg)
+    return out
+
+
+def unregister(names):
+    from repro_torch.pde.registry import _STEPPERS
+
+    for name in names:
+        _STEPPERS.pop(name, None)
+
+
+def generic_config(name):
+    """The configuration phase 7 runs a stepper at: a builtin's main-path
+    configuration (configs/), the test stepper's default."""
+    if name in GENERIC_TEST:
+        return NLConfig()
+    return workload_config(name)[0]
+
+
+def check_k1_rsqrt(device):
+    """(a) ``__frsqrt_rn`` against the CPU route ``core/rsqrt.py`` over every
+    f32 in [1, 4) (every normal input: rsqrt(4x) = rsqrt(x)/2 exactly) and the
+    specials: zeros, subnormals, negatives, infinities, NaNs and the normal
+    range's ends. Returns the record."""
+    import torch
+
+    from repro_torch.core.rsqrt import rsqrt
+    from repro_torch.kernels.generic import family_op
+
+    specials = torch.tensor([
+        0, 0x80000000, 1, 0x007FFFFF, 0x80000001, 0x807FFFFF, 0x00400000, 0xBF800000, 0xC0800000, 0x80800000,
+        0xFF7FFFFF, 0xFF800000, 0x7F800000, 0x7FC00000, 0xFFC00000, 0x7F800001, 0x00800000, 0x00800001, 0x7F7FFFFF,
+        0x7F7FFFFE, 0x3F800000, 0x40800000,
+    ], dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x = torch.cat([torch.arange(0x3F800000, 0x40800000, dtype=torch.int32).view(torch.float32), specials])
+    got = family_op("rsqrt_rn", x.to(device)).cpu()
+    with cpu_flushed():
+        want = rsqrt(x)
+    bad = (canon_bits(got) != canon_bits(want)).nonzero().flatten()
+    line = (f"K1 rsqrt: __frsqrt_rn against core/rsqrt.py on {x.numel() - specials.numel()} f32 in [1, 4) and "
+            f"{specials.numel()} specials: {'bit-exact' if len(bad) == 0 else f'{len(bad)} MISMATCHES'}")
+    log(line)
+    require(len(bad) == 0, line + f", first {[hex(int(x.view(torch.int32)[i]) & 0xFFFFFFFF) for i in bad[:4]]}")
+    return dict(kernel="family_op", label="rsqrt [1,4) + specials", ok=True, values=int(x.numel()))
+
+
+def k1_operands(n=1 << 15, seed=0):
+    """Operand pairs over f32's exponents, with zeros, subnormals (from bits),
+    infinities, NaN and values near each format's top."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def spread():
+        return torch.randn(n, generator=g) * torch.exp2(torch.randint(-40, 40, (n,), generator=g).float())
+
+    a, b = spread(), spread()
+    edge = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 65504.0, 65520.0, 3.0e38, 1.0, -2.0])
+    a[:edge.numel()] = edge
+    b[:edge.numel()] = edge.flip(0)
+    sub = torch.tensor(SUBNORMAL_BITS, dtype=torch.int64).to(torch.int32).view(torch.float32)
+    a[-sub.numel():] = sub
+    b[-2 * sub.numel():-sub.numel()] = sub
+    return a, b
+
+
+def check_k1_family(device):
+    """(a) ``family_add`` and ``family_rsqrt`` in the four families (f32,
+    bf16, fixed E5M10, rr at (3,9,3) and (3,8,4)) at every split, against
+    FusedOps.add/.rsqrt pinned at that split on the CPU under flush."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.kernels.fused import FusedOps
+    from repro_torch.kernels.generic import family_op
+
+    L = ladder()
+    a, b = k1_operands()
+    ad, bd = a.to(device), b.to(device)
+    n, bad = 0, []
+    for mode in ("f32", "bf16", "e5m10", "r2f2_16", "r2f2_16_384"):
+        prec = dc.replace(L[mode], pinned=True)
+        for k in range(prec.fmt.fx + 1 if mode.startswith("r2f2") else 1):
+            ops = FusedOps(prec, ("s",), k_floor=torch.tensor([k], dtype=torch.int32))
+            with cpu_flushed():
+                want = {"add": ops.add(a, b, "s"), "rsqrt": ops.rsqrt(a, "s")}
+            for op in ("add", "rsqrt"):
+                got = family_op(op, ad, bd, prec=prec, k=k).cpu()
+                n += 1
+                if not same_bits(got, want[op]):
+                    bad.append((mode, k, op, int((canon_bits(got) != canon_bits(want[op])).sum())))
+    line = (f"K1 family_add/family_rsqrt: {n} (family, split, op) cases of {a.numel()} operand pairs against FusedOps "
+            f"on the CPU under flush: {'bit-exact' if not bad else f'MISMATCHES {bad}'}")
+    log(line)
+    require(not bad, line)
+    return dict(kernel="family_op", label="family add/rsqrt", ok=True, cases=n)
+
+
+def _hook_result_equal(a, b):
+    """Two hook results (a fused chunk's tuple, a MegaResult) bit for bit,
+    PackedArray payloads (NaN signs cleared, :func:`same_packed`) and splits
+    included."""
+    from repro_torch.pack import PackedArray
+
+    def leaf(x, y):
+        if isinstance(x, PackedArray) or isinstance(y, PackedArray):
+            return isinstance(x, PackedArray) and isinstance(y, PackedArray) and same_packed(x, y)
+        if x is None or y is None:
+            return x is None and y is None
+        if hasattr(x, "_fields") and not hasattr(x, "shape"):
+            return all(leaf(p, q) for p, q in zip(x, y))
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(leaf(p, q) for p, q in zip(x, y))
+        if not x.dtype.is_floating_point:
+            return torch_equal(x, y)
+        return same_bits(x, y)
+
+    return leaf(a, b)
+
+
+def torch_equal(x, y):
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x.cpu(), y.cpu()))
+
+
+def hook_cases(name, device):
+    """(label, call(stepper)) for phase 7's hook checks of one builtin at its
+    main-path configuration: fused chunks with floors, evidence and capture,
+    packed, and with three members; megakernel horizons tracked, pinned,
+    captured, quantized and packed."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.core.policy import tracker_init
+    from repro_torch.pack import pack_state
+    from repro_torch.profile import CaptureSpec
+
+    L = ladder()
+    cfg = generic_config(name)
+    st = generic_stepper(name)()
+    s0 = st.init_state(cfg, device="cpu").to(device)
+    steps, every = GENERIC_HOOK_STEPS.get(name, (24, 10))
+    n_sites = len(st.sites)
+    floor = torch.tensor([1, 2, 0, 3, 1][:n_sites], dtype=torch.int32, device=device)
+    spec = CaptureSpec()
+    cases = []
+    for mode in GENERIC_HOOK_MODES:
+        prec = L[mode]
+        kf = floor if mode in ("r2f2_16", "rr_tracked") else None
+        cases.append((f"fused {mode} floor+evidence+capture",
+                      lambda s, p=prec, kf=kf: s.fused_step(s0, cfg, p, steps, k_floor=kf, collect_evidence=True,
+                                                            capture=spec)))
+    members = torch.stack([s0 * f for f in (0.5, 1.0, 2.0)])
+    mfloor = torch.stack([floor, floor.flip(0), floor])
+    cases.append(("fused r2f2_16 3 members", lambda s: s.fused_step(members, cfg, L["r2f2_16"], steps, k_floor=mfloor,
+                                                                   collect_evidence=True, members=True)))
+    if getattr(st, "fused_packed", False):
+        packed = pack_state(s0, L["r2f2_16"].fmt)
+        cases.append(("fused r2f2_16 packed", lambda s: s.fused_step(packed, cfg, L["r2f2_16"], steps, k_floor=floor,
+                                                                    collect_evidence=True, storage="packed")))
+    tracked = L["rr_tracked"]
+    pinned = dc.replace(tracked, pinned=True)
+    pin_k = K5_PINNED_K.get(name, 3)
+    for label, prec, trk in (("rr_tracked tracker", tracked, lambda: tracker_init(n_sites, tracked.fmt, k0=0, device=device)),
+                             ("rr_tracked pinned", pinned, lambda: tracker_init(n_sites, tracked.fmt, k0=pin_k, device=device)),
+                             ("e5m10", L["e5m10"], lambda: None)):
+        for storage in ("f32", "quantized", "packed"):
+            cases.append((f"mega {label} capture {storage}",
+                          lambda s, p=prec, t=trk, so=storage: s.mega_step(s0, cfg, p, steps, every, tracker=t(),
+                                                                           capture=spec, storage=so)))
+    cases.append(("mega rr_tracked 3 members", lambda s: s.mega_step(
+        members, cfg, tracked, steps, every, members=True,
+        tracker=tracker_stack_of(n_sites, tracked.fmt, 3, device))))
+    return cases
+
+
+def tracker_stack_of(n_sites, fmt, members, device):
+    """Stacked fresh trackers of ``members`` members, starting at splits 0, 1, ..."""
+    from repro_torch.core.policy import tracker_init, tracker_stack
+
+    return tracker_stack([tracker_init(n_sites, fmt, k0=m % (fmt.fx + 1), device=device) for m in range(members)])
+
+
+def check_generic_hooks(device, name):
+    """(b) A builtin's bodies through K8 and K9 (its registered copy's hooks,
+    which pass no kernel=) at the main path's shapes: bit for bit against
+    the builtin's hand-written kernels (K2-K5) on the card and against the
+    plain version on the CPU under flush, evidence, trackers, snapshots,
+    counts and packed payloads included. Returns (errs, records)."""
+    from repro_torch.kernels.generic import GENERIC_MEGA, GENERIC_SWEEP
+    from repro_torch.pde import get_stepper
+
+    builtin, generic = get_stepper(name), generic_stepper(name)()
+    records = []
+    for label, call in hook_cases(name, device):
+        before = (GENERIC_SWEEP.launches, GENERIC_MEGA.launches)
+        got = call(generic)
+        launched = (GENERIC_SWEEP.launches - before[0]) + (GENERIC_MEGA.launches - before[1])
+        hand = call(builtin)
+        with cpu_flushed():
+            plain = to_device(call_on_cpu(call, generic), device)
+        ok_hand = _hook_result_equal(got, hand)
+        ok_plain = _hook_result_equal(got, plain)
+        line = (f"K8/K9 {name} {label}: generic kernel vs hand-written {'bit-exact' if ok_hand else 'MISMATCH'}, "
+                f"vs plain on the CPU under flush {'bit-exact' if ok_plain else 'MISMATCH'} ({launched} launches)")
+        log(line)
+        require(ok_hand and ok_plain and launched > 0, line)
+        records.append(dict(kernel="generic", label=f"{name} {label}", ok=True))
+    return {"generic_sweep": 0.0, "generic_mega": 0.0}, records  # every check bit for bit
+
+
+def call_on_cpu(call, stepper):
+    """A hook case of :func:`hook_cases` (whose closures hold card tensors)
+    on the CPU: the stepper's hooks get CPU copies of their arguments."""
+    return call(_CpuStepper(stepper))
+
+
+class _CpuStepper:
+    """A stepper whose hooks move their tensor arguments to the CPU first."""
+
+    def __init__(self, stepper):
+        self._s = stepper
+
+    def __getattr__(self, attr):
+        fn = getattr(self._s, attr)
+        if attr not in ("fused_step", "mega_step"):
+            return fn
+
+        def on_cpu(*args, **kw):
+            return fn(*to_device(args, "cpu"), **to_device(kw, "cpu"))
+
+        return on_cpu
+
+
+def check_generic_runs(device, name):
+    """(c) A registered stepper (a builtin's copy with no kernel=, or the
+    add/rsqrt test stepper) through ``Simulation.run(execution="fused" |
+    "megakernel" | "auto")`` on the card at full width in the six modes,
+    against the CPU's run under flush from the same initial state; each
+    plane on the card launches only K8 or K9, never a plain version.
+    Returns (records, launches)."""
+    import torch
+
+    from repro_torch.kernels.generic import GENERIC_MEGA, GENERIC_SWEEP
+    from repro_torch.pde import Simulation
+
+    L = ladder()
+    reg = register_generic((name,))[0]
+    cfg = generic_config(name)
+    steps = GENERIC_STEPS[name]
+    every = max(1, steps // 3 - 1)
+    counts = {"generic_sweep": 0, "generic_mega": 0}
+    records = []
+    try:
+        st = Simulation(reg, cfg, L["f32"], device="cpu").stepper
+        s0 = st.init_state(cfg, device="cpu")
+        for mode in SIX:
+            want = {}
+            with cpu_flushed():
+                for plane in ("fused", "megakernel"):
+                    want[plane] = Simulation(reg, cfg, L[mode], device="cpu").run(
+                        steps, snapshot_every=every, state0=s0, execution=plane)
+            sim = Simulation(reg, cfg, L[mode], device=device)
+            require(sim._resolve_execution("auto") == "megakernel", f"auto on the card does not take {reg}'s megakernel")
+            for plane in ("fused", "megakernel", "auto"):
+                GENERIC_SWEEP.reset()
+                GENERIC_MEGA.reset()
+                got = sim.run(steps, snapshot_every=every, state0=s0.to(device), execution=plane)
+                torch.cuda.synchronize()
+                ran = {"generic_sweep": GENERIC_SWEEP.launches, "generic_mega": GENERIC_MEGA.launches}
+                plain = GENERIC_SWEEP.plain_calls + GENERIC_MEGA.plain_calls
+                ref = want["fused" if plane == "fused" else "megakernel"]
+                ok = same_bits(got.state.cpu(), ref.state) and same_bits(got.snapshots.cpu(), ref.snapshots)
+                if ref.tracker is not None:
+                    ok = ok and all(same_bits(x.float().cpu(), y.float()) for x, y in zip(got.tracker.state, ref.tracker.state))
+                kernel = "generic_sweep" if plane == "fused" else "generic_mega"
+                ok = ok and ran[kernel] > 0 and plain == 0
+                for k, v in ran.items():
+                    counts[k] += v
+                line = (f"registered {reg} {mode} {plane} {steps} steps: {ran[kernel]} {kernel} launches, "
+                        f"{plain} plain runs; against the CPU under flush: {'bit-exact' if ok else 'MISMATCH'}")
+                log(line)
+                require(ok, line)
+                records.append(dict(kernel=kernel, label=f"{reg} {mode} {plane}", ok=True))
+    finally:
+        unregister([reg])
+    return records, counts
+
+
+def generic_flops(tape, steps):
+    """The f32 operations of ``steps`` substeps of a tape: one for each
+    element of an arithmetic or policy row (a lower bound: a policy op's
+    rounding takes dozens of integer operations more)."""
+    from repro_torch.kernels.tape import I_APPLY, I_ARITH
+
+    code = tape.code
+    rows = code[(code[:, 0] == I_ARITH) | (code[:, 0] == I_APPLY)]
+    return steps * int(rows[:, 3].sum())
+
+
+def time_generic(device, card, launches, errs, plain_ms=None):
+    """(d) K8 and K9 per launch beside the hand-written kernel on the same
+    body and shape (heat1d's (1,128) rod, r2f2_16: K2's chunk of 500
+    substeps, K4's 4000-substep horizon; swe2d's (127,128) flux tile on K3
+    and its 128x128 horizon of 400 substeps on K4), their plain versions on
+    the card and their bounds. The sweeps are timed by replayed CUDA graphs
+    (device time), the horizons by CUDA events. A generic kernel's plain
+    version is the hand-written kernel's (the body under FusedOps, the same
+    call): ``plain_ms`` (name -> ms) passes phase 5's times of it from this
+    run (the horizons' plain versions take ~1 min on the card), else they
+    are timed here. Returns the two kernels' records and the yardstick
+    lines."""
+    import torch
+
+    from repro_torch.configs import heat1d as heat_cfg
+    from repro_torch.configs import swe2d as swe_cfg
+    from repro_torch.kernels.fused import fused_sweep
+    from repro_torch.kernels.heat_stencil import _heat1d_body, heat1d_sweep
+    from repro_torch.kernels.mega import _swe2d_body, heat1d_mega, mega_sweep, swe2d_mega
+    from repro_torch.kernels.swe_flux import SWE_OPS, SWE_SITES, _swe_flux_body, swe_flux_fused
+    from repro_torch.kernels.tape import tape_for
+    from repro_torch.pde.heat1d import initial_condition
+    from repro_torch.pde.swe2d import initial_state
+
+    L = ladder()
+    prec = L["r2f2_16"]
+    cfg, scfg = heat_cfg.CONFIG, swe_cfg.CONFIG
+    sites = ("heat.flux", "heat.update")
+    u = initial_condition(cfg, device=device)[None, :]
+    U = initial_state(scfg, device=device)
+    g = torch.Generator().manual_seed(1)
+    q3 = (500.0 + 100.0 * torch.rand(127, 128, generator=g)).to(device)
+    q1 = (40.0 * torch.randn(127, 128, generator=g)).to(device)
+    body = _heat1d_body(float(cfg.alpha), float(cfg.dtodx2), sites)
+    flux_body, swe_body = _swe_flux_body(SWE_SITES), _swe2d_body(scfg, SWE_SITES)
+    hk = dict(prec=prec, sites=sites, steps=HEAT_CHUNK, block=(1, cfg.nx))
+    mk = dict(prec=prec, sites=sites, steps=4000, every=HEAT_CHUNK)
+    fk = dict(prec=prec, sites=SWE_SITES, site_ops=SWE_OPS, steps=1, block=(128, 128), n_out=1, pad_values=(0.0, 1.0))
+    sk = dict(prec=prec, sites=SWE_SITES, site_ops=SWE_OPS, steps=400, every=SWE_EVERY)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    heat_tape = tape_for(body, [(1, cfg.nx)], prec=prec, sites=sites, out_shapes=[(1, cfg.nx)], device=device)
+    swe_tape = tape_for(swe_body, [tuple(U.shape)], prec=prec, sites=SWE_SITES, site_ops=SWE_OPS,
+                        out_shapes=[tuple(U.shape)], device=device)
+    flux_tape = tape_for(flux_body, [(128, 128)] * 2, prec=prec, sites=SWE_SITES, site_ops=SWE_OPS,
+                         out_shapes=[(128, 128)], device=device)
+    # (kernel, shape, call, the hand-written call, plain call, bound, the
+    # hand-written kernel, by graphs)
+    runs = [
+        ("generic_sweep", "heat1d (1,128) r2f2_16, 500 substeps a launch",
+         lambda: fused_sweep(body, (u,), **hk), lambda: heat1d_sweep(u, alpha=cfg.alpha, dtodx2=cfg.dtodx2, prec=prec,
+                                                                       steps=HEAT_CHUNK, block_rows=1),
+         lambda: fused_sweep(body, (u,), plain=True, **hk), bound(2 * u.numel() * 4, generic_flops(heat_tape, HEAT_CHUNK)),
+         "heat1d_sweep", True),
+        ("generic_sweep", "swe2d flux (127,128) tile r2f2_16, one substep a launch",
+         lambda: fused_sweep(flux_body, (q1, q3), **fk), lambda: swe_flux_fused(q1, q3, prec=prec),
+         lambda: fused_sweep(flux_body, (q1, q3), plain=True, **fk), bound(3 * q1.numel() * 4, generic_flops(flux_tape, 1)),
+         "swe_flux_fused", True),
+        ("generic_mega", "heat1d (128,) r2f2_16, one 4000-substep horizon a launch",
+         lambda: mega_sweep(body, (u,), **mk), lambda: heat1d_mega(u[0], alpha=cfg.alpha, dtodx2=cfg.dtodx2, **mk),
+         lambda: mega_sweep(body, (u,), plain=True, **mk),
+         bound((2 + 4000 // HEAT_CHUNK) * u.numel() * 4, generic_flops(heat_tape, 4000)), "heat1d_mega", False),
+        ("generic_mega", "swe2d (3,128,128) r2f2_16, one 400-substep horizon a launch",
+         lambda: mega_sweep(swe_body, (U,), **sk), lambda: swe2d_mega(U, cfg=scfg, **sk),
+         lambda: mega_sweep(swe_body, (U,), plain=True, **sk),
+         bound((2 + 400 // SWE_EVERY) * U.numel() * 4, generic_flops(swe_tape, 400)), "swe2d_mega", False),
+    ]
+    recs, lines = {}, []
+    for name, shape, kern, hand, plain, (bound_ms, bound_by), yard, graphs in runs:
+        ms, got = cuda_time_ms(kern, 3)
+        hand_ms, want = cuda_time_ms(hand, 3)
+        if graphs:  # microseconds a launch: the device time, not the wrappers'
+            ms, hand_ms = graph_time_ms(kern, 20), graph_time_ms(hand, 20)
+        plain_t = (plain_ms or {}).get(yard)
+        if plain_t is None:
+            plain_t, _ = cuda_time_ms(plain, 1, warmup=0)
+        a = got.state if hasattr(got, "state") else got[0]
+        b = want.state if hasattr(want, "state") else want[0]
+        a = a[0] if isinstance(a, tuple) else a
+        b = b[0] if isinstance(b, tuple) else b
+        ok = same_bits(a.reshape(-1), b.reshape(-1))
+        how = "device time, CUDA graphs" if graphs else "CUDA events"
+        line = (f"time {name} {shape}: kernel {ms:.4f} ms, the hand-written {yard} {hand_ms:.4f} ms "
+                f"({ms / hand_ms:.1f}x; {how}), plain {plain_t:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), library "
+                f"call: none; kernel vs hand-written {'bit-exact' if ok else 'MISMATCH'} [{card}]")
+        log(line)
+        require(ok, line)
+        lines.append(dict(name=name, shape=shape, ms=ms, hand_ms=hand_ms, hand=yard, plain_ms=plain_t, bound_ms=bound_ms,
+                          bound_by=bound_by, timed_by=how))
+        if name not in recs:  # the heat1d shapes are the records: the main path's rod
+            recs[name] = dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/generic_body.cu",
+                replaces="src/repro/kernels/fused.py:250" if name == "generic_sweep" else "src/repro/kernels/mega.py:88",
+                launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_t, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+            )
+    return [recs["generic_sweep"], recs["generic_mega"]], lines
+
+
+def run_generic_phase(device, card, plain_ms=None):
+    """Phase 7: K1's add and rsqrt (a), the five builtin bodies through K8
+    and K9 (b) and the registered steppers' planes (c) in worker processes
+    that share the card, each run's K8 and K9 launches counted from 0 right
+    before it; then the times (d) on the main process. Returns the report,
+    the kernels' records and the launches."""
+    tasks = [("K1 rsqrt", "check_k1_rsqrt", (device,), {}), ("K1 family ops", "check_k1_family", (device,), {})]
+    tasks += [("registered runs", "check_generic_runs", (device, name), {}) for name in ("swe2d",) + GENERIC_TEST]
+    tasks += [("K8/K9 hooks", "check_generic_hooks", (device, name), {}) for name in GENERIC_BUILTINS]
+    tasks += [("registered runs", "check_generic_runs", (device, name), {}) for name in GENERIC_BUILTINS if name != "swe2d"]
+    results, seconds, _ = run_checks_in_workers(tasks)
+    launches = {"generic_sweep": 0, "generic_mega": 0}
+    errs = {"generic_sweep": 0.0, "generic_mega": 0.0}
+    records = []
+    for (label, fn, *_), out in zip(tasks, results):
+        if fn == "check_generic_runs":
+            records += out[0]
+            for k, v in out[1].items():
+                launches[k] += v
+        elif fn == "check_generic_hooks":
+            records += out[1]
+            for k, v in out[0].items():
+                errs[k] = max(errs[k], v)
+        else:
+            records.append(out)
+    require(all(v > 0 for v in launches.values()), f"K8 or K9 never launched on the registered steppers' path: {launches}")
+    log(f"registered steppers' path launches (counted from 0 before each run): {launches}; plain-version runs: 0")
+    recs, times = time_generic(device, card, launches, errs, plain_ms)
+    return dict(checks=records, seconds=seconds, launches=launches, times=times), recs
+
+
 def main(argv) -> int:
     import torch
 
@@ -5027,6 +5680,16 @@ def main(argv) -> int:
             json.dump(lm, f, indent=1, default=str)
         log(card)
         print(json.dumps({"lm_seconds": lm["families"]["seconds"]}))
+        return 0
+
+    if "--generic" in argv:  # phase 7 alone: its last line is its two kernels' records
+        report["generic"], recs = run_generic_phase(device, card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_generic.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log(f"phase 7 alone: {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        print(json.dumps({"kernels": recs}))
         return 0
 
     if "--heat1d-sizes" in argv:  # timings only: its last line is the times, not a verdict
@@ -5219,6 +5882,11 @@ def main(argv) -> int:
     phase_done(5)
     contract_recs, report["contract_times"] = time_contract_kernels(device, main_launches, errs, card)
     recs += contract_recs
+    plain_of = {r["name"]: r["plain_ms"] for r in recs}  # phase 5's plain versions, the generic kernels' too
+    report["generic"], generic_recs = timed("phase 7 (registered bodies on K8 and K9)", run_generic_phase, device, card,
+                                            plain_of)
+    recs += generic_recs
+    phase_done(7)
     report["kernels"] = recs
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start

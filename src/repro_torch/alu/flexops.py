@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.flexformat import FlexFormat, quantize_em_with_flags
+from repro_torch.core.rsqrt import rsqrt
 from repro_torch.core.r2f2 import R2F2Stats, _tile_max_exp, select_k_op
 
 __all__ = ["flex_add", "flex_sub", "flex_div", "flex_rsqrt", "flex_op"]
@@ -22,7 +23,7 @@ _SUBSTRATE = {
     "add": lambda a, b: a + b,
     "sub": lambda a, b: a - b,
     "div": lambda a, b: a / b,
-    "rsqrt": lambda a, _b: torch.rsqrt(a),
+    "rsqrt": lambda a, _b: rsqrt(a),
 }
 
 #: substrate op -> the envelope law that governs it (sub shares add's)

@@ -19,9 +19,15 @@ import torch
 
 __all__ = ["fma"]
 
+#: set while ``kernels/tape.py`` traces a fused body: fma is then one
+#: operation of the tape (``__fmaf_rn`` in kernels K8 and K9)
+_TRACE = None
+
 
 def fma(a, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once to f32 (all arguments f32 tensors)."""
+    if _TRACE is not None:
+        return _TRACE(a, b, c)
     p = a.to(torch.float64) * b.to(torch.float64)  # exact: 24 + 24 bits
     c = torch.as_tensor(c).to(torch.float64)
     s = p + c

@@ -7,6 +7,7 @@
 //   block_max_u32      kernels/blockops.py::block_max_exp (as a CTA reduction)
 //   family_mul/div     kernels/fused.py::FusedOps.mul / .div (ConstMul, PairMul:
 //                      a pass's formats built once, branch-free by kind)
+//   family_add/rsqrt   FusedOps.add / .rsqrt (select_k_add, select_k_rsqrt)
 //   grid_barrier, cluster_publish/collect: barriers over a cooperative grid
 //                      and maxima over a thread-block cluster
 //   adjust_tick        core/policy.py::adjust_step (one site's tick)
@@ -196,6 +197,19 @@ __device__ __forceinline__ int select_k_div(int ae, int be, const Policy& p) {
   return k_cover(max(max(ae, be), ae - be + 1), min(min(ae, be), ae - be - 1), p);
 }
 
+// Minimal split for a sum (the alignment-shift envelope).
+__device__ __forceinline__ int select_k_add(int ae, int be, const Policy& p) {
+  return k_cover(max(ae, be) + 1, min(ae, be), p);
+}
+
+// Minimal split for a reciprocal square root of a cluster topped at ae: the
+// result's exponents ceil(-ae/2) and floor(-(ae+1)/2) as arithmetic shifts
+// (a shift floors), never through a float ceil of a log2.
+__device__ __forceinline__ int select_k_rsqrt(int ae, const Policy& p) {
+  const int r_hi = -(ae >> 1), r_lo = (-(ae + 1)) >> 1;
+  return k_cover(max(ae, r_hi), min(ae, r_lo), p);
+}
+
 // The split one site runs at: the block's selection, floored at the carried
 // split or, when pinned, the carried split itself.
 __device__ __forceinline__ int site_k(int k_select, const int* k_floor, int site, const Policy& p) {
@@ -261,6 +275,40 @@ __device__ __forceinline__ float family_div(float a, float b, int k, const Polic
     default: {
       const int e = p.eb + k, m = p.mb + p.fx - k;
       return quantize_em(__fdiv_rn(quantize_em(a, e, m, -1), quantize_em(b, e, m, -1)), e, m, -1);
+    }
+  }
+}
+
+// One policy sum (FusedOps.add) at split k: operands and result rounded to
+// the split's format, no tail truncation.
+__device__ __forceinline__ float family_add(float a, float b, int k, const Policy& p) {
+  switch (p.family) {
+    case kF32:
+      return __fadd_rn(a, b);
+    case kBF16:
+      return __fadd_rn(bf16_round(a), bf16_round(b));
+    case kFixed:
+      return quantize_em(__fadd_rn(quantize_em(a, p.fe, p.fm, -1), quantize_em(b, p.fe, p.fm, -1)), p.fe, p.fm, -1);
+    default: {
+      const int e = p.eb + k, m = p.mb + p.fx - k;
+      return quantize_em(__fadd_rn(quantize_em(a, e, m, -1), quantize_em(b, e, m, -1)), e, m, -1);
+    }
+  }
+}
+
+// One policy reciprocal square root (FusedOps.rsqrt) at split k, on the
+// correctly rounded f32 rsqrt (core/rsqrt.py::rsqrt is its CPU route).
+__device__ __forceinline__ float family_rsqrt(float x, int k, const Policy& p) {
+  switch (p.family) {
+    case kF32:
+      return __frsqrt_rn(x);
+    case kBF16:
+      return __frsqrt_rn(bf16_round(x));
+    case kFixed:
+      return quantize_em(__frsqrt_rn(quantize_em(x, p.fe, p.fm, -1)), p.fe, p.fm, -1);
+    default: {
+      const int e = p.eb + k, m = p.mb + p.fx - k;
+      return quantize_em(__frsqrt_rn(quantize_em(x, e, m, -1)), e, m, -1);
     }
   }
 }
@@ -655,7 +703,7 @@ inline int member_wave(int members, int ctas, int capacity) {
 // The adjust unit (core/policy.py::adjust_step), one site's tick in f32 and
 // integer logic, as the megakernels run it once per site per substep.
 
-enum AdjustOp : int { kOpMul = 0, kOpDiv = 1 };
+enum AdjustOp : int { kOpMul = 0, kOpDiv = 1, kOpAdd = 2, kOpRsqrt = 3 };
 
 // One site's carried tracker row.
 struct SiteState {
@@ -683,6 +731,12 @@ __device__ __forceinline__ void op_bounds(int op, float ae, float be, float& hi,
     const float q = __fsub_rn(ae, be);
     hi = pick_max(pick_max(ae, be), __fadd_rn(q, 1.0f));
     lo = pick_min(pick_min(ae, be), __fsub_rn(q, 1.0f));
+  } else if (op == kOpAdd) {
+    hi = __fadd_rn(pick_max(ae, be), 1.0f);
+    lo = pick_min(ae, be);
+  } else if (op == kOpRsqrt) {  // exact: ae holds an integer
+    hi = pick_max(ae, ceilf(__fdiv_rn(-ae, 2.0f)));
+    lo = pick_min(ae, floorf(__fdiv_rn(-__fadd_rn(ae, 1.0f), 2.0f)));
   } else {
     const float p = __fadd_rn(ae, be);
     hi = pick_max(pick_max(ae, be), __fadd_rn(p, 1.0f));

@@ -142,7 +142,7 @@ def constrain(x, *names: Optional[str]):
         ext = _axis_extent(rule, mesh)
         if ext > 1 and dim % ext == 0:
             raise NotImplementedError(
-                f"constrain would split a dim of {dim} over mesh axes {rule} ({ext} devices): repro_torch places "
-                "tensors on one device (ROADMAP.md queue 1, dist/: sharding across devices)"
+                f"constrain would split a dim of {dim} over mesh axes {rule} ({ext} devices): splitting across "
+                "devices is outside the port, which runs on one device"
             )
     return x

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = (
     "fused_pde.cu", "mega_pde.cu", "rod_warp.cu", "rod_warp_advection.cu", "rod_warp_burgers.cu", "rod_grid.cu",
     "rod_grid_heat2d.cu", "rod_grid_periodic.cu", "pde_steps.cu", "r2f2_quantize.cu", "r2f2_matmul.cu",
-    "r2f2_storage.cu",
+    "r2f2_storage.cu", "generic_body.cu",
 )
 HEADERS = ("r2f2_device.cuh", "rod.cuh", "rod_warp.cuh", "rod_grid.cuh")
 #: the one target, for the compile and the link
@@ -90,6 +90,22 @@ _SIGNATURES["r2f2_swe2d_mega"] = _SIGNATURES["r2f2_swe2d_mega"][:-1] + _STORAGE 
 # K1's storage harness (csrc/r2f2_storage.cu): mode, x, payload, k_in, k_out, y, rows, width, br,
 # bw, k_min, payload bytes, eb, mb, fx, stream
 _SIGNATURES["r2f2_storage"] = [_I] + [_P] * 5 + [_I] * 9 + [_P]
+
+# K8 and K9, the generic sweep and megakernel (csrc/generic_body.cu): the tape (code, rows, out code, rows,
+# constants), the work buffer, its floats a CTA, the state's and the scratch's floats, then
+# K8: in and out leaf pointers (host arrays), n_state, n_out, k_in, k_out, payload bytes, packed, ev,
+#     k_floor, members, rows, width, br, bw, gi, gj, steps, n_sites, threads, policy(8), capture(5), stream;
+# K9: in, out and snapshot pointers and the leaves' offsets and sizes (host arrays), n_state, k_in, kst,
+#     payload bytes, packed, round, ev, trk k/hi/lo/ov/sh, site_cfg, evolve, has_floor, members, steps, every,
+#     n_sites, threads, ema, 1 - ema, headroom, policy(8), capture(5), stream
+_LL = ctypes.c_longlong
+_TAPE = [_P, _I, _P, _I, _P, _P, _LL, _I, _I]
+_SIGNATURES["r2f2_generic_sweep"] = _TAPE + [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 10 + [_I] * 8 + _CAPTURE + [_P]
+# K1's harness of its add and rsqrt (csrc/generic_body.cu): op, a, b, out, n, k, policy(8), stream
+_SIGNATURES["r2f2_family_op"] = [_I] + [_P] * 3 + [_I] * 2 + [_I] * 8 + [_P]
+_SIGNATURES["r2f2_generic_mega"] = (
+    _TAPE + [_P] * 5 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_F] * 2 + [_I] + [_I] * 8 + _CAPTURE + [_P]
+)
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.flexformat import quantize_em
+from repro_torch.core.rsqrt import rsqrt
 from repro_torch.core.r2f2 import _finite_max_exp, product_guard_bits, select_k, select_k_op
 
 __all__ = ["block_max_exp", "rr_mul_block", "rr_add_block", "rr_div_block", "rr_rsqrt_block"]
@@ -73,4 +74,4 @@ def rr_rsqrt_block(x, fmt, *, exps=None, k_min=None, k_fixed=None):
     if exps is None:
         ex = block_max_exp(x)
         exps = (ex, ex)
-    return _rr_alu_block(x, x, fmt, "rsqrt", lambda v, _w: torch.rsqrt(v), exps=exps, k_min=k_min, k_fixed=k_fixed)
+    return _rr_alu_block(x, x, fmt, "rsqrt", lambda v, _w: rsqrt(v), exps=exps, k_min=k_min, k_fixed=k_fixed)

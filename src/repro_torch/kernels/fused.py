@@ -7,7 +7,8 @@ per-site operand max exponents emitted as evidence for the adjust unit.
 :func:`fused_sweep` owns what every such kernel shares, on the host: it
 pads rows and columns with the per-leaf pad constants, cuts the field into
 ``(br, bw)`` split blocks, runs either the CUDA kernel (CUDA tensors) or the
-plain PyTorch version (CPU tensors, or ``plain=True``), max-reduces the
+plain PyTorch version (CPU tensors, or ``plain=True``; a body without a
+kernel of its own runs on kernel K8, ``kernels/generic.py``), max-reduces the
 per-block evidence across blocks, and crops. The split block is part of the
 numerics: pad lanes keep their pad constants and take part in every block
 max, whatever shape a CUDA block has.
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 import repro_torch.obs as _obs
 from repro_torch.core.fma import fma
 from repro_torch.core.flexformat import quantize_em
+from repro_torch.core.rsqrt import rsqrt
 from repro_torch.kernels.blockops import block_max_exp, rr_add_block, rr_div_block, rr_mul_block, rr_rsqrt_block
 from repro_torch.pack.packed import PackedArray, block_storage_k, pack_block, payload_dtype, unpack_block
 from repro_torch.precision.engines import bf16_round
@@ -167,7 +169,7 @@ class FusedOps:
     def rsqrt(self, x, site: str):
         """Reciprocal square root of one block; evidence is the exponent doubled."""
         return self._alu(
-            x, x, site, "rsqrt", lambda v, _w: torch.rsqrt(v),
+            x, x, site, "rsqrt", lambda v, _w: rsqrt(v),
             lambda a, b, fmt, **kw: rr_rsqrt_block(a, fmt, **kw),
         )
 
@@ -296,7 +298,8 @@ def fused_sweep(
     and width, each None where that axis has no padding) and returns the
     ``(members, n_sites, 2, n_bins)`` counts last. It runs for CUDA tensors
     unless ``plain``; CPU tensors (or ``plain``) take the plain version,
-    counted in ``counter.plain_calls``.
+    counted in ``counter.plain_calls``. Without ``kernel`` a CUDA tensor
+    takes kernel K8, the body traced into a tape (``kernels/generic.py``).
 
     Returns ``(out_leaves, evidence)`` with evidence ``(steps, n_sites, 2)``
     (max over blocks) or None, and the counts under capture.
@@ -348,8 +351,10 @@ def fused_sweep(
 
     k_outs = counts = None
     if leaves[0].is_cuda and not plain:
-        if kernel is None:
-            raise RuntimeError("this fused body has no CUDA kernel; pass CPU tensors to run its plain version")
+        if kernel is None:  # a body without a kernel of its own: its tape on K8
+            from repro_torch.kernels.generic import sweep_kernel
+
+            kernel = sweep_kernel(body, prec=prec, sites=sites, site_ops=site_ops, steps=steps, n_out=n_out)
         if pr or pw:
             leaves = [F.pad(x, (0, pw, 0, pr), value=v) for x, v in zip(leaves, pv)]
         kw = {} if capture is None else {"capture": capture, "extent": extent}

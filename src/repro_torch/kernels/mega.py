@@ -33,8 +33,9 @@ The semantics are those of ``repro/kernels/mega.py``:
   ``"packed"`` come back f32 with ``kst``, and :func:`mega_sweep` packs
   them at it (swe2d's shape: kernel K1 on the card).
 
-:func:`mega_sweep` launches a stepper's CUDA kernel for CUDA tensors and
-runs :func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
+:func:`mega_sweep` launches a stepper's CUDA kernel for CUDA tensors (a
+body without one: kernel K9, ``kernels/generic.py``) and runs
+:func:`mega_sweep_plain` (the same function in plain PyTorch) for CPU
 tensors; a CUDA tensor takes the plain version only with ``plain=True``.
 :data:`HEAT1D_MEGA`, :data:`SWE2D_MEGA`, :data:`HEAT2D_MEGA`,
 :data:`ADVECTION1D_MEGA` and :data:`BURGERS1D_MEGA` count each kernel's
@@ -105,8 +106,8 @@ __all__ = [
 #: per stepper: launches of its CUDA kernel and runs of its plain version
 HEAT1D_MEGA = _cuda.KernelCounter("heat1d_mega")
 SWE2D_MEGA = _cuda.KernelCounter("swe2d_mega")
-#: the adjust unit's op codes in csrc/r2f2_device.cuh
-OP_CODES = {"mul": 0, "div": 1}
+#: the adjust unit's op codes in csrc/r2f2_device.cuh (AdjustOp)
+OP_CODES = {"mul": 0, "div": 1, "add": 2, "rsqrt": 3}
 
 
 class MegaResult(NamedTuple):
@@ -267,6 +268,8 @@ def mega_sweep(
     it is also given ``capture=`` and fills ``exp_time`` and ``exp_total``;
     capture turns the evidence on. CPU tensors (or ``plain``) take
     :func:`mega_sweep_plain`, member by member, counted on ``counter``.
+    Without ``kernel`` a CUDA tensor takes kernel K9, the body traced into a
+    tape (``kernels/generic.py``).
     """
     if storage not in ("f32", "quantized", "packed"):
         raise ValueError(f"unknown mega storage {storage!r}")
@@ -299,8 +302,10 @@ def mega_sweep(
         k_in = [pa.k.reshape(n_members).to(torch.int32) for pa in pas]
     on_card = leaves[0].is_cuda and not plain
     if on_card:
-        if kernel is None:
-            raise RuntimeError("this mega body has no CUDA kernel; pass CPU tensors to run its plain version")
+        if kernel is None:  # a body without a kernel of its own: its tape on K9
+            from repro_torch.kernels.generic import mega_kernel
+
+            kernel = mega_kernel(body, prec=prec, sites=sites, site_ops=site_ops)
         with _obs.span("cuda.mega_sweep", steps=steps, every=every, members=n_members):
             _obs.inc("repro_cuda_dispatch_total", help="CUDA kernel launches entered", kernel="mega_sweep")
             res = kernel(

@@ -161,9 +161,11 @@ class Stepper:
 
     ``kernels_hold(cfg)`` says whether the hooks' CUDA kernels hold the
     config's field; on a CUDA device ``auto`` takes a kernel plane only
-    where it does. A stepper has no kernel by default: its fused body runs
-    the plain version, and on the card it runs the reference plane
-    (ROADMAP.md queue 2). The shape gates ``fused_supported`` and
+    where it does. By default it does: a hook's body without a kernel of
+    its own runs on the generic kernels K8 and K9 (``kernels/generic.py``),
+    which take any field, so ``auto`` picks the megakernel and the fused
+    plane as ``repro`` does. A stepper whose kernels cannot hold a config
+    returns False there. The shape gates ``fused_supported`` and
     ``mega_supported`` are the planes' own limits, on every device. A hook
     that does PyTorch arithmetic of the policy on the card enters
     ``core/ftz.py::card_flush`` itself (swe2d's fused step).
@@ -192,8 +194,9 @@ class Stepper:
         return True
 
     def kernels_hold(self, cfg) -> bool:
-        """Whether the hooks launch CUDA kernels that hold the config's field."""
-        return False
+        """Whether the hooks launch CUDA kernels that hold the config's field
+        (True: a body without a kernel of its own runs on K8 and K9)."""
+        return True
 
     def raw_cells(self, cfg, device):
         """A bool mask over one state of the cells whose bits a step uses as

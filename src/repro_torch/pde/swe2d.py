@@ -159,6 +159,14 @@ class SWE2DStepper(Stepper):
     def step(self, U, cfg: SWEConfig, ops: StepOps):
         return _lw_step(U, cfg, lambda q1, q3: _momentum_flux(q1, q3, ops))
 
+    def momentum_flux(self, q1, q3, prec, **kw):
+        """One substep's momentum flux of the fused chunk, on kernel K3
+        (``swe_flux_fused``'s result; ``kw`` its floor, evidence, capture and
+        member arguments)."""
+        from repro_torch.kernels.swe_flux import swe_flux_fused
+
+        return swe_flux_fused(q1, q3, prec=prec, sites=self.sites, site_ops=self.site_ops, **kw)
+
     def fused_step(self, U, cfg: SWEConfig, prec, steps: int, *, k_floor=None, collect_evidence: bool = False,
                    capture=None, members: bool = False):
         """A fused chunk: each substep's momentum flux is one launch of
@@ -167,14 +175,11 @@ class SWE2DStepper(Stepper):
         over the substeps and returned last. With ``members`` the state is
         ``(members, 3, nx, ny)``: the PyTorch part runs member by member, and
         each substep's K3 launch takes every member's flux at once."""
-        from repro_torch.kernels.swe_flux import swe_flux_fused
-
         evs, counts = [], []
 
         def mom(q1, q3):
-            flux, ev, *cnt = swe_flux_fused(
-                q1, q3, prec=prec, sites=self.sites, site_ops=self.site_ops,
-                k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, members=members,
+            flux, ev, *cnt = self.momentum_flux(
+                q1, q3, prec, k_floor=k_floor, collect_evidence=collect_evidence, capture=capture, members=members,
             )
             evs.append(ev)
             counts.extend(cnt)

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.rsqrt import rsqrt
+
 __all__ = ["PrecisionEngine", "native_bf16", "bf16_round", "bf16_pair", "tile_shape_for", "ste"]
 
 
@@ -121,7 +123,7 @@ class PrecisionEngine:
         return a.to(torch.float32) / b.to(torch.float32), tracker
 
     def rsqrt(self, x, cfg, *, tracker=None, site=None):
-        return torch.rsqrt(x.to(torch.float32)), tracker
+        return rsqrt(x.to(torch.float32)), tracker
 
     def store(self, x, cfg):
         return x.to(torch.float32)

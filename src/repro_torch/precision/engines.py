@@ -37,6 +37,7 @@ from repro_torch.alu import flex_op
 from repro_torch.core.fma import fma
 from repro_torch.core.flexformat import quantize_em
 from repro_torch.core.policy import tracker_k, tracker_update
+from repro_torch.core.rsqrt import rsqrt
 from repro_torch.core.r2f2 import _tile_max_exp, r2f2_multiply, select_k, select_k_op, select_k_operand
 
 from .engine import PrecisionEngine, bf16_pair, bf16_round, ste, tile_shape_for
@@ -156,7 +157,7 @@ class BF16Engine(PrecisionEngine):
         return bf16_round(a) / bf16_round(b), tracker
 
     def rsqrt(self, x, cfg, *, tracker=None, site=None):
-        return torch.rsqrt(bf16_round(x)), tracker
+        return rsqrt(bf16_round(x)), tracker
 
     def store(self, x, cfg):
         return bf16_round(x)
@@ -187,7 +188,7 @@ class FixedEngine(PrecisionEngine):
         return self._q(self._q(a, cfg) / self._q(b, cfg), cfg), tracker
 
     def rsqrt(self, x, cfg, *, tracker=None, site=None):
-        return self._q(torch.rsqrt(self._q(x, cfg)), cfg), tracker
+        return self._q(rsqrt(self._q(x, cfg)), cfg), tracker
 
     def store(self, x, cfg):
         return self._q(x, cfg)

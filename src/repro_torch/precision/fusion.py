@@ -6,9 +6,10 @@
   on the reference plane only.
 * :func:`mega_eligible` is the megakernel plane's gate, built the same way.
   Given a CUDA device, both also ask whether the stepper's CUDA kernels
-  hold the config (``Stepper.kernels_hold``, False for a stepper without
-  kernels): on the card ``auto`` then falls back where the port has no
-  kernel for the field, as ``repro`` runs every plane;
+  hold the config (``Stepper.kernels_hold``; True by default, since a body
+  without a kernel of its own runs on the generic kernels K8 and K9): on
+  the card ``auto`` then falls back where a stepper says its kernel cannot
+  take the field, as ``repro`` runs every plane;
 * :func:`fold_evidence` replays a fused chunk's per-substep site evidence
   (per-site operand max exponents, max-reduced across blocks) through the
   adjust law, so a carried tracker evolves exactly as the stepwise loop's

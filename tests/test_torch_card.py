@@ -85,10 +85,10 @@ def test_builtin_steppers_declare_their_kernels():
 class _GenericHeat(Heat1DStepper):
     """heat1d with its fused and megakernel hooks on the generic drivers, as
     a stepper added with register_stepper writes them: the body has no CUDA
-    kernel and the stepper declares none."""
+    kernel of its own, so on the card it runs on the generic kernels K8 and
+    K9, and the stepper keeps the default gate."""
 
-    def kernels_hold(self, cfg):
-        return False
+    kernels_hold = Stepper.kernels_hold
 
     def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False):
         (out,), ev = fused_sweep(
@@ -113,17 +113,18 @@ def generic_heat():
     _STEPPERS.pop("generic_heat", None)
 
 
-def test_registered_body_without_kernel(generic_heat):
-    """A registered stepper's hooks declare no kernel: its card gates are
-    closed (auto gives the reference plane), its CPU gates open, and on the
-    CPU its planes equal heat1d's bit for bit."""
+def test_registered_body_takes_the_generic_kernels(generic_heat):
+    """A registered stepper whose hooks pass no kernel: its bodies run on the
+    generic kernels K8 and K9 on the card, so its gates are open there as on
+    the CPU (auto gives the megakernel, as repro's does), and on the CPU its
+    planes equal heat1d's bit for bit."""
     st, cfg = get_stepper(generic_heat), HeatConfig(nx=64)
-    assert not st.kernels_hold(cfg) and Stepper().kernels_hold(cfg) is False
+    assert st.kernels_hold(cfg) and Stepper().kernels_hold(cfg) is True
     for mode in ("r2f2_16", "e5m10"):
         prec = PRESETS[mode]
-        assert not fused_eligible(prec, st, cfg, "cuda") and not mega_eligible(prec, st, cfg, "cuda")
+        assert fused_eligible(prec, st, cfg, "cuda") and mega_eligible(prec, st, cfg, "cuda")
         assert fused_eligible(prec, st, cfg, "cpu") and mega_eligible(prec, st, cfg, "cpu")
-        assert Simulation(generic_heat, cfg, prec, device="cuda")._resolve_execution("auto") == "reference"
+        assert Simulation(generic_heat, cfg, prec, device="cuda")._resolve_execution("auto") == "megakernel"
         assert Simulation(generic_heat, cfg, prec, device="cpu")._resolve_execution("auto") == "megakernel"
         want = Simulation("heat1d", cfg, prec, device="cpu").run(40, snapshot_every=16)
         for execution in ("fused", "megakernel", "auto"):

@@ -546,24 +546,24 @@ def test_heat1d_kernels_match_plain_versions(shape):
 
 
 @pytest.mark.cuda
-def test_registered_body_without_kernel_runs_on_the_card():
+def test_registered_body_takes_the_generic_kernels_on_the_card():
     """A stepper added with register_stepper, whose fused and megakernel
-    hooks run a body with no CUDA kernel, declares none: on the card auto
-    gives it the reference plane, and the run equals the CPU's auto run
-    (its megakernel plane's plain version) under flush from the same
-    initial state."""
+    hooks run a body with no CUDA kernel of its own, keeps the default gate:
+    on the card auto gives it the megakernel, whose body runs on kernel K9
+    (the fused plane on K8), no plain version runs, and each run equals the
+    CPU's run of the same plane under flush from the same initial state."""
     _need_card()
     from repro_torch.core.policy import PRESETS
     from repro_torch.kernels.fused import fused_sweep
+    from repro_torch.kernels.generic import GENERIC_MEGA, GENERIC_SWEEP
     from repro_torch.kernels.heat_stencil import _heat1d_body
     from repro_torch.kernels.mega import mega_sweep
-    from repro_torch.pde import HeatConfig, Simulation, register_stepper
+    from repro_torch.pde import HeatConfig, Simulation, Stepper, register_stepper
     from repro_torch.pde.heat1d import Heat1DStepper
     from repro_torch.pde.registry import _STEPPERS
 
     class GenericHeat(Heat1DStepper):
-        def kernels_hold(self, cfg):
-            return False
+        kernels_hold = Stepper.kernels_hold  # the default gate
 
         def fused_step(self, u, cfg, prec, steps, *, k_floor=None, collect_evidence=False):
             (out,), ev = fused_sweep(
@@ -581,15 +581,57 @@ def test_registered_body_without_kernel_runs_on_the_card():
 
     register_stepper("generic_heat_card", GenericHeat)
     cfg = HeatConfig(nx=64)
-    kw = dict(snapshot_every=16, execution="auto", state0=GenericHeat().init_state(cfg, device="cpu"))
+    kw = dict(snapshot_every=16, state0=GenericHeat().init_state(cfg, device="cpu"))
     try:
         for mode in ("r2f2_16", "e5m10"):
-            got = Simulation("generic_heat_card", cfg, PRESETS[mode]).run(40, **kw)
-            assert got.state.is_cuda
-            want = _on_cpu_flushed(lambda: Simulation("generic_heat_card", cfg, PRESETS[mode], device="cpu").run(40, **kw))
-            _assert_runs_equal(got, want)
+            for execution, counter in (("auto", GENERIC_MEGA), ("megakernel", GENERIC_MEGA), ("fused", GENERIC_SWEEP)):
+                counter.reset()
+                got = Simulation("generic_heat_card", cfg, PRESETS[mode]).run(40, execution=execution, **kw)
+                assert got.state.is_cuda and counter.launches > 0 and counter.plain_calls == 0
+                plane = "fused" if execution == "fused" else "megakernel"
+                want = _on_cpu_flushed(lambda: Simulation("generic_heat_card", cfg, PRESETS[mode], device="cpu").run(
+                    40, execution=plane, **kw))
+                _assert_runs_equal(got, want)
     finally:
         _STEPPERS.pop("generic_heat_card", None)
+
+
+@pytest.mark.cuda
+def test_k1_add_and_rsqrt_on_the_card():
+    """Phase 7 (a): __frsqrt_rn equals core/rsqrt.py on every f32 in [1, 4)
+    and the specials; family_add and family_rsqrt equal FusedOps on the CPU
+    under flush in the four families at every split."""
+    _need_card()
+    import chip_smoke
+
+    assert chip_smoke.check_k1_rsqrt("cuda")["ok"]
+    assert chip_smoke.check_k1_family("cuda")["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d"])
+def test_builtin_bodies_on_k8_and_k9(name):
+    """Phase 7 (b): a builtin's bodies through the generic kernels equal its
+    hand-written kernels and its plain version on the CPU under flush, bit
+    for bit (evidence, trackers, snapshots, counts, packed payloads)."""
+    _need_card()
+    import chip_smoke
+
+    _, records = chip_smoke.check_generic_hooks("cuda", name)
+    assert records and all(r["ok"] for r in records)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "swe2d", "heat2d", "advection1d", "burgers1d", "nl", "nl_add"])
+def test_registered_steppers_on_the_card(name):
+    """Phase 7 (c): a registered stepper (a builtin's copy with no kernel=,
+    the add/rsqrt test stepper) on the fused, megakernel and auto planes in
+    the six modes equals the CPU under flush, on K8 and K9 only."""
+    _need_card()
+    import chip_smoke
+
+    records, launches = chip_smoke.check_generic_runs("cuda", name)
+    assert records and launches["generic_sweep"] > 0 and launches["generic_mega"] > 0
 
 
 #: chip_smoke.HEAT2D_CLUSTER_SHAPES: 64x64 at every cluster size, 200x200,
